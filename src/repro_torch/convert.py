@@ -1,0 +1,54 @@
+"""Carry trees between the JAX package's host form and the port's.
+
+The reference registry builds nested containers of numpy arrays and numpy
+scalars, with bf16 leaves as ``ml_dtypes.bfloat16`` arrays.  The port's
+host trees hold torch CPU tensors (0-d tensors for scalars).  Both
+functions keep the containers and the sorted dict key order; bf16 is
+carried bit for bit through its 16-bit pattern.  This module imports
+neither JAX nor ``ml_dtypes``: it reads only a dtype's name and itemsize.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _leaf_to_torch(x: Any) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        # resolved by name: the caller's process has registered bfloat16
+        return t.view(torch.int16).numpy().copy().view(np.dtype("bfloat16"))
+    return t.numpy().copy()
+
+
+def _convert(tree: Any, leaf_fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _convert(tree[k], leaf_fn) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_convert(c, leaf_fn) for c in tree]
+    if isinstance(tree, tuple):
+        return tuple(_convert(c, leaf_fn) for c in tree)
+    if tree is None:
+        return None
+    return leaf_fn(tree)
+
+
+def from_reference_tree(tree: Any) -> Any:
+    """A reference (numpy) host tree as the port's (torch CPU) host tree."""
+    return _convert(tree, _leaf_to_torch)
+
+
+def to_reference_tree(tree: Any) -> Any:
+    """A port host tree as numpy arrays (bf16 as the registered numpy
+    ``bfloat16`` dtype, which the reference's process provides)."""
+    return _convert(tree, lambda t: _leaf_to_numpy(torch.as_tensor(t)))

@@ -1,0 +1,38 @@
+"""repro_torch.core — deep-copy semantics, the pointerchain directive,
+marshalling arenas and the three transfer schemes, on PyTorch.
+
+Counterpart of ``repro.core`` on one device.  Not yet ported: the policy
+programs (``repro.core.policy``), the sanitizer hooks and sharded
+(``@dpK``) execution.
+"""
+from .treepath import (TreeDef, TreePath, leaf_items, leaf_paths,
+                       max_chain_depth, tree_flatten, tree_leaves, tree_map,
+                       tree_structure, tree_unflatten)
+from .chainref import ChainRef, Region, declare, extract, insert, region
+from .arena import (ArenaLayout, LeafSlot, alloc_buffers, datasize_dense,
+                    datasize_linear, dtype_name, pack, pack_into, plan, unpack)
+from .engine import (ArenaEntry, DeltaState, TransferSession, cached_plan,
+                     clear_cache, get_session)
+from .spec import TransferSpec, UnsupportedSpecError
+from .schemes import (LazyLeaf, MarshalScheme, PointerChainScheme,
+                      SCHEME_NAMES, TransferLedger, TransferScheme, UVMScheme,
+                      make_scheme, transfer_scheme)
+from .deepcopy import (ShapeDtype, full_deepcopy, host_skeleton,
+                       selective_deepcopy, tree_bytes)
+
+__all__ = [
+    "TreeDef", "TreePath", "leaf_items", "leaf_paths", "max_chain_depth",
+    "tree_flatten", "tree_leaves", "tree_map", "tree_structure",
+    "tree_unflatten",
+    "ChainRef", "Region", "declare", "extract", "insert", "region",
+    "ArenaLayout", "LeafSlot", "alloc_buffers", "datasize_dense",
+    "datasize_linear", "dtype_name", "pack", "pack_into", "plan", "unpack",
+    "ArenaEntry", "DeltaState", "TransferSession", "cached_plan",
+    "clear_cache", "get_session",
+    "TransferSpec", "UnsupportedSpecError",
+    "LazyLeaf", "MarshalScheme", "PointerChainScheme", "SCHEME_NAMES",
+    "TransferLedger", "TransferScheme", "UVMScheme", "make_scheme",
+    "transfer_scheme",
+    "ShapeDtype", "full_deepcopy", "host_skeleton", "selective_deepcopy",
+    "tree_bytes",
+]

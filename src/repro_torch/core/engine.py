@@ -1,0 +1,336 @@
+"""Arena transfer engine — sessions, persistent layouts, versioned staging.
+
+Counterpart of ``repro/core/engine.py``.  Planning (the requestList) is a
+cached artifact, and the staging contents are versioned so a steady-state
+repeat transfer can skip buckets whose bytes have not changed:
+
+  * :class:`TransferSession` — owns the LRU-bounded layout and entry caches
+    keyed by (treedef, leaf signature, alignment, pinned staging) and the
+    :class:`DeltaState` registry (retained device buckets).  The
+    module-level functions delegate to a default session.
+  * :class:`ArenaEntry` — per-layout persistent state:
+      - TWO host staging tensors per dtype bucket (double buffering),
+        page-locked (``pin_memory``) when the target is a CUDA device so
+        ``non_blocking`` copies really run on the copy engines;
+      - per-bucket monotone version counters: ``pack_host`` compares each
+        leaf's RAW BYTES with the staged copy and bumps a bucket's version
+        only when they differ (bytes, not values: NaN != NaN);
+      - per-buffer fences: CUDA events recorded after the copies that read
+        a staging buffer.  ``pack_host`` waits the target buffer's fence
+        before rewriting it.
+
+The aliasing hazard on the card: a ``non_blocking`` copy from pinned
+memory still reads the staging buffer after the call that issued it has
+returned.  So every path either synchronizes before staging can be
+rewritten (blocking marshal) or fences the buffer with the copy's event
+(``+db`` / ``+delta``).  On the CPU every "device" buffer is a real copy
+(``torch.empty(...).copy_(src)``), so nothing aliases staging there.
+
+Attach (:meth:`ArenaEntry.unpack`) returns VIEWS into the device buckets,
+where the reference's gather produced fresh arrays: a view aliases the
+bucket, and under ``+delta`` the retained bucket outlives the pass.  No
+caller writes into attached leaves in place; the Algorithm-2 kernel
+returns new tensors.
+"""
+from __future__ import annotations
+
+import collections
+import time
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from . import arena as arena_lib
+from .arena import ArenaLayout, as_tensor, dtype_name, flat_leaf
+from .treepath import tree_flatten, tree_leaves
+
+Buffers = arena_lib.Buffers
+
+LAYOUT_CACHE_MAX = 512
+ENTRY_CACHE_MAX = 64
+
+
+def _leaf_signature(leaves) -> Tuple:
+    sig = []
+    for leaf in leaves:
+        t = as_tensor(leaf)
+        sig.append((tuple(t.shape), dtype_name(t.dtype)))
+    return tuple(sig)
+
+
+def _layout_key(tree: Any, align_elems: int) -> Tuple[Any, Tuple, int]:
+    leaves, treedef = tree_flatten(tree)
+    return (treedef, _leaf_signature(leaves), align_elems)
+
+
+class DeltaState:
+    """What a delta executor has already SHIPPED: per entry, the retained
+    device buffer of every bucket keyed by shipped version, plus the
+    memoized fully-clean attach."""
+
+    def __init__(self):
+        # entry -> {bucket: (shipped version, retained device buffer)}
+        self.retained: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        # entry -> (versions snapshot, attached device tree)
+        self.last_unpack: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+    def clear(self) -> None:
+        self.retained.clear()
+        self.last_unpack.clear()
+
+
+class TransferSession:
+    """Owns every artifact that outlives one transfer call: cached layouts
+    and entries (LRU-bounded) and the delta states holding retained device
+    buckets."""
+
+    def __init__(self, layout_max: Optional[int] = None,
+                 entry_max: Optional[int] = None):
+        self.layout_max = LAYOUT_CACHE_MAX if layout_max is None else int(layout_max)
+        self.entry_max = ENTRY_CACHE_MAX if entry_max is None else int(entry_max)
+        self._layouts: "collections.OrderedDict[Tuple, ArenaLayout]" = \
+            collections.OrderedDict()
+        self._entries: "collections.OrderedDict[Tuple, ArenaEntry]" = \
+            collections.OrderedDict()
+        self._stats = {"hits": 0, "misses": 0,
+                       "layout_evictions": 0, "entry_evictions": 0}
+        self._spec_states: Dict[Any, DeltaState] = {}
+        self._delta_states: "weakref.WeakSet[DeltaState]" = weakref.WeakSet()
+
+    # -- plans & entries -----------------------------------------------------
+    def cached_plan(self, tree: Any, align_elems: int = 1) -> ArenaLayout:
+        """``arena.plan`` behind the persistent layout cache."""
+        return self._plan_for_key(_layout_key(tree, align_elems), tree,
+                                  align_elems)
+
+    def _plan_for_key(self, key: Tuple, tree: Any,
+                      align_elems: int) -> ArenaLayout:
+        layout = self._layouts.get(key)
+        if layout is None:
+            self._stats["misses"] += 1
+            layout = arena_lib.plan(tree, align_elems)
+            self._layouts[key] = layout
+            self._trim()
+        else:
+            self._stats["hits"] += 1
+            self._layouts.move_to_end(key)
+        return layout
+
+    def get_entry(self, tree: Any, align_elems: int = 1,
+                  pin_memory: bool = False) -> "ArenaEntry":
+        """Cached :class:`ArenaEntry` for this tree's shape.  ``pin_memory``
+        (a CUDA target) is part of the key: pinned and pageable staging are
+        different entries."""
+        key = _layout_key(tree, align_elems)
+        entry_key = key + (pin_memory,)
+        entry = self._entries.get(entry_key)
+        if entry is None:
+            entry = ArenaEntry(self._plan_for_key(key, tree, align_elems),
+                               pin_memory=pin_memory)
+            self._entries[entry_key] = entry
+            self._trim()
+        else:
+            self._stats["hits"] += 1
+            self._entries.move_to_end(entry_key)
+        return entry
+
+    def _trim(self) -> None:
+        while len(self._layouts) > self.layout_max:
+            self._layouts.popitem(last=False)
+            self._stats["layout_evictions"] += 1
+        while len(self._entries) > self.entry_max:
+            self._entries.popitem(last=False)
+            self._stats["entry_evictions"] += 1
+
+    def cache_stats(self) -> Dict[str, int]:
+        out = dict(self._stats)
+        out["layout_size"] = len(self._layouts)
+        out["entry_size"] = len(self._entries)
+        out["retained_device_buckets"] = sum(
+            len(per_entry) for state in list(self._delta_states)
+            for per_entry in state.retained.values())
+        return out
+
+    # -- delta state ---------------------------------------------------------
+    def delta_state(self, spec: Any = None) -> DeltaState:
+        """Retained-device-state container for a delta executor: shared by
+        every executor of ``spec`` in this session, or private when no spec
+        is given."""
+        if spec is not None:
+            state = self._spec_states.get(spec)
+            if state is None:
+                state = self._spec_states[spec] = DeltaState()
+                self._delta_states.add(state)
+            return state
+        state = DeltaState()
+        self._delta_states.add(state)
+        return state
+
+    def clear(self) -> None:
+        """Drop cached layouts/entries, every retained device bucket and the
+        stats counters.  Live schemes keep working (cold)."""
+        self._layouts.clear()
+        self._entries.clear()
+        self._spec_states.clear()
+        for state in list(self._delta_states):
+            state.clear()
+        for k in self._stats:
+            self._stats[k] = 0
+
+
+_DEFAULT_SESSION = TransferSession()
+
+
+def get_session() -> TransferSession:
+    """The process-default session (what session-less construction uses)."""
+    return _DEFAULT_SESSION
+
+
+def cached_plan(tree: Any, align_elems: int = 1) -> ArenaLayout:
+    return _DEFAULT_SESSION.cached_plan(tree, align_elems)
+
+
+def clear_cache() -> None:
+    _DEFAULT_SESSION.clear()
+
+
+# per-buffer fences are trimmed to this depth: older events are waited so a
+# long clean streak cannot grow the list without bound.
+FENCE_DEPTH = 8
+
+
+class ArenaEntry:
+    """Everything reusable about one (treedef, signature, alignment,
+    pinning) point: the layout, double-buffered host staging per bucket with
+    content version counters, and per-buffer fences."""
+
+    def __init__(self, layout: ArenaLayout, pin_memory: bool = False):
+        self.layout = layout
+        self.pin_memory = pin_memory
+        # zero-initialised: alignment gaps stay zero forever
+        pair = [arena_lib.alloc_buffers(layout, pin_memory=pin_memory)
+                for _ in range(2)]
+        self._bufs: Dict[str, List[torch.Tensor]] = {
+            b: [pair[0][b], pair[1][b]] for b in layout.bucket_sizes}
+        self._active: Dict[str, int] = {b: 0 for b in self._bufs}
+        self._fences: Dict[str, List[List[Any]]] = {
+            b: [[], []] for b in self._bufs}
+        # versions[b] bumps exactly when bucket b's staged bytes change (or
+        # bump_version forces it) — monotone.
+        self.versions: Dict[str, int] = {b: 0 for b in self._bufs}
+        self._slot_vers: List[int] = [0] * layout.num_leaves
+        self._bucket_slots: Dict[str, List[int]] = {b: [] for b in self._bufs}
+        for i, slot in enumerate(layout.slots):
+            if slot.size:
+                self._bucket_slots[slot.bucket].append(i)
+        self._buf_slot_vers: Dict[str, List[List[int]]] = {
+            b: [[-1] * len(idx), [-1] * len(idx)]
+            for b, idx in self._bucket_slots.items()}
+        self._last_leaf: List[Any] = [None] * layout.num_leaves
+        self._recheck: set = set()
+        self.pack_host_calls = 0
+        self.fence_wait_s = 0.0
+
+    @property
+    def staging(self) -> Buffers:
+        """The ACTIVE buffer per bucket (the one holding the newest bytes)."""
+        return {b: bufs[self._active[b]] for b, bufs in self._bufs.items()}
+
+    # -- dirty tracking ------------------------------------------------------
+    def mark_dirty(self, *buckets: str) -> None:
+        """Disable the identity fast path for these buckets (all if none
+        given) until the next ``pack_host``."""
+        self._recheck.update(buckets or self._bufs)
+
+    def bump_version(self, *buckets: str) -> None:
+        """Advance bucket versions (all if none given), forcing the next
+        delta transfer to re-ship them."""
+        for b in (buckets or list(self._bufs)):
+            self.versions[b] += 1
+
+    # -- fences --------------------------------------------------------------
+    def add_fence(self, bucket: str, event: Optional[Any]) -> None:
+        """Register a CUDA event after which the bucket's ACTIVE staging
+        buffer is no longer read.  ``None`` (a CPU target) registers
+        nothing: the CPU copies have already completed."""
+        if event is None:
+            return
+        fence = self._fences[bucket][self._active[bucket]]
+        fence.append(event)
+        while len(fence) > FENCE_DEPTH:
+            fence.pop(0).synchronize()
+
+    def _wait_fence(self, bucket: str, buf_idx: int) -> None:
+        fence = self._fences[bucket][buf_idx]
+        if fence:
+            t0 = time.perf_counter()
+            for event in fence:
+                event.synchronize()
+            self.fence_wait_s += time.perf_counter() - t0
+            fence.clear()
+
+    def take_fence_wait(self) -> float:
+        s, self.fence_wait_s = self.fence_wait_s, 0.0
+        return s
+
+    # -- host side ----------------------------------------------------------
+    def pack_host(self, tree: Any, *, trust_identity: bool = False) -> Buffers:
+        """Marshal into the persistent staging buffers and update the
+        version counters.  Per leaf: skip when the staged bytes already
+        match; with ``trust_identity`` also skip the compare when the
+        identical leaf object was packed last time (in-place mutators must
+        ``mark_dirty``).  A bucket that changes rotates to its spare buffer
+        (after waiting that buffer's fence) and bumps its version."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != self.layout.num_leaves:
+            raise ValueError("tree does not match arena layout")
+        pending: Dict[int, torch.Tensor] = {}
+        for i, (leaf, slot) in enumerate(zip(leaves, self.layout.slots)):
+            if slot.size == 0:
+                continue
+            if (trust_identity and slot.bucket not in self._recheck
+                    and self._last_leaf[i] is leaf):
+                continue
+            arr = flat_leaf(leaf, slot)
+            # a slot never packed is always dirty; otherwise compare raw
+            # bytes with the staged copy
+            if self._last_leaf[i] is not None:
+                act = self._bufs[slot.bucket][self._active[slot.bucket]]
+                staged = act[slot.offset:slot.offset + slot.size]
+                if torch.equal(staged.view(torch.uint8),
+                               arr.view(torch.uint8)):
+                    self._last_leaf[i] = leaf
+                    continue
+            self._slot_vers[i] += 1
+            pending[i] = arr
+            self._last_leaf[i] = leaf
+        for b in {self.layout.slots[i].bucket for i in pending}:
+            tgt = 1 - self._active[b]
+            self._wait_fence(b, tgt)
+            buf = self._bufs[b][tgt]
+            held = self._buf_slot_vers[b][tgt]
+            for lj, si in enumerate(self._bucket_slots[b]):
+                if held[lj] < self._slot_vers[si]:
+                    slot = self.layout.slots[si]
+                    arr = pending.get(si)
+                    if arr is None:
+                        arr = flat_leaf(leaves[si], slot)
+                    buf[slot.offset:slot.offset + slot.size].copy_(arr)
+                    held[lj] = self._slot_vers[si]
+            self._active[b] = tgt
+            self.versions[b] += 1
+        self._recheck.clear()
+        self.pack_host_calls += 1
+        return self.staging
+
+    # -- device side --------------------------------------------------------
+    def unpack(self, buffers: Buffers) -> Any:
+        """acc_attach: every leaf a view into its device bucket."""
+        return arena_lib.unpack(buffers, self.layout)
+
+    def pack_device(self, tree: Any, device: torch.device) -> Buffers:
+        """The device-side direction of Alg. 1: copy every leaf into fresh
+        zeroed buckets on ``device``."""
+        buffers = arena_lib.alloc_buffers(self.layout, device=device)
+        return arena_lib.pack_into(buffers, self.layout, tree)

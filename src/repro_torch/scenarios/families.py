@@ -1,0 +1,340 @@
+"""Scenario families — the paper's two workloads plus four more.
+
+Counterpart of ``repro/scenarios/families.py`` for the families linear,
+dense, ragged, mixed_dtype, sweep and steady_reuse, with the same seeds,
+the same sizes and the same closed forms.  Payloads are drawn with numpy's
+``default_rng`` exactly as the reference draws them, then wrapped with
+``torch.from_numpy``; a bf16 leaf is the float32 array cast with
+``.to(torch.bfloat16)`` (bit-equal to the reference's ``astype``); header
+scalars are 0-d int32 tensors.  Not yet ported: model_state, sharded,
+sharded_delta, mixed_policy and elastic.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from ..core import TransferSpec, TreePath
+from .base import Motion, Scenario, register
+
+LINEAR_LAYOUTS = ("allinit-allused", "allinit-LLused", "LLinit-LLused")
+
+_I32 = 4  # header field bytes (int32)
+_F32 = 4  # payload element bytes (float32)
+
+
+def _i32(v: int) -> torch.Tensor:
+    """A header scalar: the reference's ``np.int32(v)``."""
+    return torch.tensor(v, dtype=torch.int32)
+
+
+def _f32(rng: np.random.Generator, n: int) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+
+
+def _bf16(rng: np.random.Generator, n: int) -> torch.Tensor:
+    return torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+
+
+def chain_access_set(tree: Any, *paths: str,
+                     header_fields=("nA", "nL")) -> List[str]:
+    """The leaves a demand-paging dereference of ``paths`` touches: every
+    node header along each chain, plus the final leaf."""
+    out: List[str] = []
+    seen = set()
+
+    def add(p: str) -> None:
+        if p not in seen:
+            seen.add(p)
+            out.append(p)
+
+    for path in paths:
+        tp = TreePath.parse(path)
+        for i in range(1, tp.depth):
+            prefix = TreePath(tp.steps[:i])
+            for h in header_fields:
+                hp = prefix.child(h)
+                if hp.exists(tree):
+                    add(str(hp))
+        add(str(tp))
+    return out
+
+
+# -- linear (paper Fig. 3) ---------------------------------------------------
+
+def linear_tree(k: int, n: int, layout: str) -> Any:
+    """Fig. 3: L1 -> ... -> Lk, each level with header + payload A[n]."""
+    all_init = layout.startswith("allinit")
+    tree = None
+    for level in range(k, 0, -1):
+        init = all_init or level == k
+        node = {"nA": _i32(n), "nL": _i32(level),
+                "pad": torch.zeros(4, dtype=torch.int32),
+                "A": _f32(np.random.default_rng(level), n if init else 1)}
+        if tree is not None:
+            node["Lnext"] = tree
+        tree = node
+    return {"L1": tree}
+
+
+def linear_chain(k: int) -> str:
+    return "L1" + ".Lnext" * (k - 1) + ".A"
+
+
+def linear_used_paths(k: int, layout: str) -> List[str]:
+    if layout.endswith("allused"):
+        return ["L1" + ".Lnext" * (i - 1) + ".A" for i in range(1, k + 1)]
+    return [linear_chain(k)]
+
+
+def linear_expected(k: int, n: int, layout: str) -> dict:
+    """Paper Eq. 1-2 at this repo's field widths: a 24-byte int32 header
+    per level and a float32 payload of n (initialized) or 1 elements."""
+    header = 6 * _I32
+    all_init = layout.startswith("allinit")
+    payload_elems = n * k if all_init else n + (k - 1)
+    marshal = Motion(header * k + _F32 * payload_elems, 2)
+    used = Motion(_F32 * n * k, k) if layout.endswith("allused") \
+        else Motion(_F32 * n, 1)
+    return {"marshal": marshal, "uvm": used, "pointerchain": used}
+
+
+def linear_case(k: int, n: int, layout: str) -> Scenario:
+    return Scenario(
+        name=f"linear_k{k}_n{n}_{layout}",
+        family="linear",
+        build=functools.partial(linear_tree, k, n, layout),
+        used_paths=tuple(linear_used_paths(k, layout)),
+        expected=linear_expected(k, n, layout),
+        params=dict(k=k, n=n, layout=layout))
+
+
+@register("linear")
+def _linear_family(size: str) -> List[Scenario]:
+    k, n = {"smoke": (4, 64), "quick": (6, 1000), "full": (6, 1000)}[size]
+    return [linear_case(k, n, layout) for layout in LINEAR_LAYOUTS]
+
+
+# -- dense (paper Fig. 4) ----------------------------------------------------
+
+def dense_tree(q: int, n: int, depth: int = 3, seed: int = 0) -> Any:
+    """Fig. 4: each level is an ARRAY of q structures; every node carries
+    A[n] of seeded nonzero randoms."""
+    rng = np.random.default_rng(seed)
+
+    def build(d):
+        node = {"nA": _i32(n), "A": _f32(rng, n)}
+        if d > 0:
+            node["nL"] = _i32(q)
+            node["Lnext"] = [build(d - 1) for _ in range(q)]
+        return node
+
+    return {"a0": build(depth)}
+
+
+def dense_chain(q: int, depth: int = 3) -> str:
+    return "a0" + "".join(f".Lnext[{q - 1}]" for _ in range(depth)) + ".A"
+
+
+def dense_uvm_access_set(q: int, depth: int = 3) -> List[str]:
+    """The headers of every node along the chain, plus the final A."""
+    out = []
+    prefix = "a0"
+    for _ in range(depth):
+        out.append(prefix + ".nA")
+        out.append(prefix + ".nL")
+        prefix += f".Lnext[{q - 1}]"
+    out.append(prefix + ".nA")
+    out.append(prefix + ".A")
+    return out
+
+
+def dense_expected(q: int, n: int, depth: int) -> dict:
+    """Paper Eq. 3 at this repo's field widths: interior nodes carry 8-byte
+    headers (nA + nL), leaf nodes 4 (nA), every node a float32 A[n]."""
+    interior = sum(q ** i for i in range(depth))
+    leaves = q ** depth
+    marshal = Motion(interior * (2 * _I32 + _F32 * n)
+                     + leaves * (_I32 + _F32 * n), 2)
+    uvm = Motion(2 * _I32 * depth + _I32 + _F32 * n, 2 * depth + 2)
+    return {"marshal": marshal, "uvm": uvm, "pointerchain": Motion(_F32 * n, 1)}
+
+
+def dense_case(q: int, n: int, depth: int = 3) -> Scenario:
+    return Scenario(
+        name=f"dense_q{q}_n{n}_d{depth}",
+        family="dense",
+        build=functools.partial(dense_tree, q, n, depth),
+        used_paths=(dense_chain(q, depth),),
+        uvm_access=tuple(dense_uvm_access_set(q, depth)),
+        expected=dense_expected(q, n, depth),
+        params=dict(q=q, n=n, depth=depth))
+
+
+@register("dense")
+def _dense_family(size: str) -> List[Scenario]:
+    if size == "smoke":
+        return [dense_case(2, 64, 2)]
+    if size == "quick":
+        return [dense_case(4, 1000, 3)]
+    return [dense_case(4, 1000, 3), dense_case(8, 1000, 3)]
+
+
+# -- ragged — uneven fanout, uneven payloads ---------------------------------
+
+def ragged_tree(n: int, seed: int = 7) -> Any:
+    """Uneven fanout (3/0/1 children at level 1) and per-branch payload
+    sizes from n//4 to 3n."""
+    rng = np.random.default_rng(seed)
+
+    def node(size: int, kids: Optional[list] = None) -> dict:
+        out = {"nA": _i32(size), "A": _f32(rng, size)}
+        if kids:
+            out["nL"] = _i32(len(kids))
+            out["kids"] = kids
+        return out
+
+    return {"root": node(n, [
+        node(2 * n, [node(n // 4, []), node(3 * n, [])]),
+        node(n // 2, []),
+        node(n, [node(2 * n, [node(n, [])])]),
+    ])}
+
+
+def ragged_case(n: int) -> Scenario:
+    used = ("root.kids[2].kids[0].kids[0].A",   # deepest branch
+            "root.kids[0].kids[1].A",           # biggest payload
+            "root.kids[1].A")                   # shallow small leaf
+    skel = ragged_tree(4)   # access paths depend only on the structure
+    return Scenario(
+        name=f"ragged_n{n}",
+        family="ragged",
+        build=functools.partial(ragged_tree, n),
+        used_paths=used,
+        uvm_access=tuple(chain_access_set(skel, *used)),
+        params=dict(n=n))
+
+
+@register("ragged")
+def _ragged_family(size: str) -> List[Scenario]:
+    return [ragged_case(32 if size == "smoke" else 512)]
+
+
+# -- mixed_dtype — multiple marshalling buckets ------------------------------
+
+def mixed_dtype_tree(n: int, seed: int = 11) -> Any:
+    """f32 / i32 / bf16 leaves: one marshalling bucket per dtype."""
+    rng = np.random.default_rng(seed)
+    return {
+        "meta": {"count": _i32(n),
+                 "ids": torch.arange(2 * n, dtype=torch.int32)},
+        "f32": {"a": _f32(rng, n), "b": _f32(rng, n // 2)},
+        "bf16": {"w": _bf16(rng, n)},
+    }
+
+
+def mixed_dtype_case(n: int) -> Scenario:
+    used = ("f32.a", "bf16.w")
+    return Scenario(
+        name=f"mixed_dtype_n{n}",
+        family="mixed_dtype",
+        build=functools.partial(mixed_dtype_tree, n),
+        used_paths=used,
+        uvm_access=tuple(["meta.count"] + list(used)),
+        params=dict(n=n))
+
+
+@register("mixed_dtype")
+def _mixed_dtype_family(size: str) -> List[Scenario]:
+    return [mixed_dtype_case(48 if size == "smoke" else 1024)]
+
+
+# -- sweep — the depth/width extremes ----------------------------------------
+
+def deep_narrow_tree(depth: int, n: int, seed: int = 3) -> Any:
+    """A depth-k chain of single-child nodes with one payload at the end."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {"nA": _i32(n), "A": _f32(rng, n)}
+    for level in range(depth - 1, 0, -1):
+        tree = {"nA": _i32(level), "next": tree}
+    return {"root": tree}
+
+
+def deep_narrow_chain(depth: int) -> str:
+    return "root" + ".next" * (depth - 1) + ".A"
+
+
+def wide_shallow_tree(width: int, n: int, seed: int = 5) -> Any:
+    """One level, ``width`` siblings: fanout with no nesting."""
+    rng = np.random.default_rng(seed)
+    return {"root": {"nL": _i32(width),
+                     "kids": [{"nA": _i32(n), "A": _f32(rng, n)}
+                              for _ in range(width)]}}
+
+
+def deep_narrow_case(depth: int, n: int) -> Scenario:
+    used = (deep_narrow_chain(depth),)
+    skel = deep_narrow_tree(depth, 1)
+    return Scenario(
+        name=f"deep_narrow_d{depth}_n{n}",
+        family="sweep",
+        build=functools.partial(deep_narrow_tree, depth, n),
+        used_paths=used,
+        uvm_access=tuple(chain_access_set(skel, *used)),
+        params=dict(depth=depth, n=n))
+
+
+def wide_shallow_case(width: int, n: int) -> Scenario:
+    used = tuple(f"root.kids[{i}].A" for i in range(width))
+    skel = wide_shallow_tree(width, 1)
+    return Scenario(
+        name=f"wide_shallow_w{width}_n{n}",
+        family="sweep",
+        build=functools.partial(wide_shallow_tree, width, n),
+        used_paths=used,
+        uvm_access=tuple(chain_access_set(skel, *used)),
+        params=dict(width=width, n=n))
+
+
+@register("sweep")
+def _sweep_family(size: str) -> List[Scenario]:
+    if size == "smoke":
+        return [deep_narrow_case(6, 16), wide_shallow_case(8, 16)]
+    return [deep_narrow_case(24, 64), wide_shallow_case(64, 256)]
+
+
+# -- steady_reuse — the delta transfer steady state --------------------------
+
+def steady_reuse_tree(n: int, seed: int = 17) -> Any:
+    """A hot f32 part that changes every step, frozen bf16 weights and an
+    i32 id table that never do; each dtype is its own bucket."""
+    rng = np.random.default_rng(seed)
+    return {
+        "hot": {"a": _f32(rng, n), "b": _f32(rng, n // 2)},
+        "frozen": {"w": _bf16(rng, 4 * n)},
+        "meta": {"ids": torch.arange(2 * n, dtype=torch.int32)},
+    }
+
+
+def steady_reuse_case(n: int) -> Scenario:
+    used = ("hot.a", "frozen.w")
+    f32_bucket = _F32 * (n + n // 2)      # hot.a + hot.b share the f32 bucket
+    return Scenario(
+        name=f"steady_reuse_n{n}",
+        family="steady_reuse",
+        build=functools.partial(steady_reuse_tree, n),
+        used_paths=used,
+        uvm_access=tuple(["meta.ids"] + list(used)),
+        # mutating hot.a dirties ONLY the f32 bucket: one copy of its bytes
+        steady_expected=Motion(f32_bucket, 1),
+        steady_spec=TransferSpec("marshal", delta=True),
+        params=dict(n=n, mutate_path="hot.a"))
+
+
+@register("steady_reuse")
+def _steady_reuse_family(size: str) -> List[Scenario]:
+    return [steady_reuse_case(64 if size == "smoke" else 2048)]
