@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's main path on one CUDA card and check it.
+"""Drive the PyTorch/H100 port's paths on one CUDA card and check them.
 
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
@@ -8,11 +8,15 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
 Phases, each of which raises on failure:
 
   1. environment — the card's name and power limit (nvidia-smi), torch and
-     CUDA versions;
-  2. build       — the tile-gather kernel, with nvcc, into build/;
+     CUDA versions, the matmul precision flags;
+  2. build       — every CUDA kernel, one nvcc each, all started together,
+     into build/ (each build's time, registers and spills printed);
   3. kernels     — each kernel against its plain PyTorch version on the
-     card, bit for bit, then timed at the main path's largest shape beside
-     its plain version, one library call and its bound;
+     card: gather_tiles bit for bit; rmsnorm, flash_attention and
+     decode_attention in bf16 within tests/test_kernels.py's tolerance
+     (2e-2) at the serve phase's shapes, with ragged lengths.  Each is
+     then timed beside its plain version, one library call and its bound,
+     at a serve-phase shape and at one larger shape;
   4. Algorithm 2 — every scenario of the ported families at the ``full``
      preset under uvm, marshal, marshal+db, marshal+delta and pointerchain:
      line-7 check ok and the ledger equal to the expected motion exactly;
@@ -22,14 +26,31 @@ Phases, each of which raises on failure:
   7. pack        — pack_tree / unpack_tree of the dense tree's f32 payload
      through the tile-gather kernel: the packed buffer and the unpacked
      pool each equal to the plain version on the same pool and maps, and
-     the round trip bit-exact.
+     the round trip bit-exact;
+  8. serve       — llama3.2-1b at full width (bf16, all 16 layers, params
+     drawn on the card from a seeded torch.Generator) behind
+     Server(slots=8, max_seq=2048), 12 requests with prompt lengths drawn
+     from 32-1024 and 32 new tokens each: every request completes with 32
+     tokens, the lifecycle is conserved, the install pass's region ledgers
+     equal the closed forms, the launch counts are exact, and request 0's
+     tokens equal a manual batch-1 prefill + greedy decode loop.  The
+     smoke llama's logits on the card (kernels) are also held against the
+     CPU (plain versions) in f32.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
-reference engine calls none, and the pack path must launch gather_tiles
-exactly twice (pack and unpack).  The last lines are the card's name and power limit, a ``kernels``
-JSON line and ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits with code 2 and prints no result.
+reference engine calls none; the pack path must launch gather_tiles
+exactly twice (pack and unpack) and nothing else; the serve path must
+launch rmsnorm 33 times per forward (prefill request or decode step),
+flash_attention 16 times per prefill request, decode_attention 16 times per
+decode step, and gather_tiles never.  The last lines are the card's name
+and power limit, a ``kernels`` JSON line and ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script exits with code 2 and prints
+no result.
+
+Matmul precision: ``torch.backends.cuda.matmul.allow_tf32`` is set to False
+(the default: f32 products in full f32); the bf16 reduced-precision
+reduction flag is left at its default and printed.
 """
 from __future__ import annotations
 
@@ -45,6 +66,20 @@ sys.path.insert(0, str(ROOT / "src"))
 SPECS = ("uvm", "marshal", "marshal+db", "marshal+delta", "pointerchain")
 GIB_TILES = 262144                       # 262144 f32 tiles of 4 KiB = 1 GiB
 H100_SXM_BANDWIDTH = 3.35e12             # bytes/s, NVIDIA's H100 SXM data sheet
+H100_SXM_BF16_FLOPS = 989e12             # dense bf16 tensor-core FLOP/s, same sheet
+BF16_TOL = 2e-2                          # tests/test_kernels.py's bf16 tolerance
+
+# the serve phase: llama3.2-1b at full width
+SERVE_SLOTS = 8
+SERVE_MAX_SEQ = 2048
+SERVE_REQUESTS = 12
+SERVE_NEW_TOKENS = 32
+SERVE_PROMPT_RANGE = (32, 1024)          # inclusive, numpy default_rng(0)
+# the install pass's region ledgers (bytes, copies), closed forms: 1235814400
+# bf16 params (every leaf a multiple of 128 elements), k and v (16, 8, 2048,
+# 8, 64) bf16 plus pos (8,) int32, and the (8,) int32 slot table's two leaves
+SERVE_LEDGERS = {"params/**": (2471628800, 1), "cache/**": (536870944, 2),
+                 "**": (64, 2)}
 
 
 def say(*parts) -> None:
@@ -64,7 +99,11 @@ def memory_bandwidth(name: str) -> float:
 
 
 def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
-    """Mean time of ``fn`` over ``iters`` calls: CUDA events on the card."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls: CUDA
+    events on the card.  The device is held busy (``torch.cuda._sleep``)
+    while the host queues the timed calls, so a call whose launch costs
+    the host more than the kernel costs the card is timed on the card, not
+    by the host's dispatch rate."""
     import torch
 
     for _ in range(warmup):
@@ -75,8 +114,14 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
             fn()
         return (time.perf_counter() - t0) / iters * 1e3
     torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles a second: hold the card for twice the queueing time
+    torch.cuda._sleep(int(min(2.0, 2 * iters * host_s + 1e-3) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -294,6 +339,473 @@ def pack_roundtrip(device, sc):
     return launches, err
 
 
+# -- phase 2 -----------------------------------------------------------------
+
+def build_kernels(sources) -> None:
+    """Every kernel source, one nvcc each, all started together; each
+    build's time and, per compiled function, its registers and spills."""
+    import re
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    times = _build.build(sources)
+    say(f"[build] {len(times)} of {len(sources)} sources compiled in "
+        f"{time.perf_counter() - t0:.2f} s (the rest were in build/)")
+    for src in sources:
+        src = Path(src)
+        log = _build.library_path(src).with_suffix(".log")
+        regs = spills = []
+        if log.exists():
+            text = log.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = [int(a) + int(b) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+        took = times.get(src)
+        say(f"[build] {src.name}: "
+            + (f"{took:.2f} s" if took is not None else "already built")
+            + f"; {len(regs)} kernel(s), registers {regs}, spill bytes "
+            f"{spills}")
+
+
+# -- phase 3: the model kernels ----------------------------------------------
+
+def _trio(device, fns, iters: int) -> dict:
+    """Kernel, plain and library call timed in turns (plain, kernel,
+    library, library, kernel, plain); the mean of each pair, in ms."""
+    times = {"kernel": [], "plain": [], "library": []}
+    for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        times[name].append(time_ms(fns[name], device, iters=iters))
+    return {"ms": sum(times["kernel"]) / 2, "plain_ms": sum(times["plain"]) / 2,
+            "library_ms": sum(times["library"]) / 2}
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / H100_SXM_BANDWIDTH * 1e3
+    t_ops = flops / H100_SXM_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _close(got, want, what: str) -> float:
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=BF16_TOL,
+                          atol=BF16_TOL):
+        fail(f"{what}: kernel != plain (max |diff| {err})")
+    return err
+
+
+def _causal_pairs(Sq: int, kv_len: int) -> int:
+    """(q, k) pairs a causal pass over Sq queries and kv_len keys scores."""
+    return sum(min(i + 1, kv_len) for i in range(Sq))
+
+
+def check_rmsnorm(device, serve_rows, big_rows: int, D: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel as RK, ref
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    w = torch.randn(D, generator=gen, device=device).to(torch.bfloat16)
+    err = 0.0
+    for rows in sorted(set(serve_rows)):
+        x = torch.randn(rows, D, generator=gen, device=device).to(torch.bfloat16)
+        err = max(err, _close(RK.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                              f"rmsnorm {rows}x{D}"))
+    out = {"max_abs_err": err}
+    for label, rows, iters in (("serve", SERVE_SLOTS, 200),
+                               ("large", big_rows, 50)):
+        x = torch.randn(rows, D, generator=gen, device=device).to(torch.bfloat16)
+        err = max(err, _close(RK.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                              f"rmsnorm {rows}x{D}"))
+        m = _trio(device, {
+            "kernel": lambda: RK.rmsnorm(x, w),
+            "plain": lambda: ref.rmsnorm_ref(x, w),
+            "library": lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6)},
+            iters)
+        m.update(_bound((2 * rows * D + D) * 2, 4.0 * rows * D))
+        m["shape"] = f"({rows}, {D}) bf16"
+        out[label] = m
+    out["max_abs_err"] = err
+    return out
+
+
+def check_flash(device, prompt_lens, big_len: int, H: int, KV: int,
+                hd: int) -> dict:
+    """At every prompt length of the serve phase, q (1, P, H, hd) against
+    the first P rows of a (1, S_max, KV, hd) cache layer, as prefill calls
+    it; then timed at the longest prompt and at big_len."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK, ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def inputs(P, S_max):
+        q = torch.randn(1, P, H, hd, generator=gen, device=device
+                        ).to(torch.bfloat16)
+        ck = torch.randn(1, S_max, KV, hd, generator=gen, device=device
+                         ).to(torch.bfloat16)
+        cv = torch.randn(1, S_max, KV, hd, generator=gen, device=device
+                         ).to(torch.bfloat16)
+        return q, ck[:, :P], cv[:, :P]
+
+    def plain(q, k, v, P):
+        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 kv_len=P).transpose(1, 2)
+
+    err = 0.0
+    for P in sorted(set(prompt_lens)):
+        q, k, v = inputs(P, SERVE_MAX_SEQ)
+        err = max(err, _close(ops.mha(q, k, v, causal=True, kv_len=P),
+                              plain(q, k, v, P), f"flash P={P}"))
+    out = {}
+    for label, P, S_max, iters in (
+            ("serve", max(prompt_lens), SERVE_MAX_SEQ, 10),
+            ("large", big_len, big_len, 3)):
+        q, k, v = inputs(P, S_max)
+        err = max(err, _close(ops.mha(q, k, v, causal=True, kv_len=P),
+                              plain(q, k, v, P), f"flash P={P}"))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        m = _trio(device, {
+            "kernel": lambda: ops.mha(q, k, v, causal=True, kv_len=P),
+            "plain": lambda: plain(q, k, v, P),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}, iters)
+        m.update(_bound((2 * P * H * hd + 2 * P * KV * hd) * 2,
+                        4.0 * H * _causal_pairs(P, P) * hd))
+        m["shape"] = (f"q (1, {P}, {H}, {hd}), k/v (1, {P}, {KV}, {hd}) of a "
+                      f"{S_max}-row cache, bf16, causal")
+        out[label] = m
+    out["max_abs_err"] = err
+    return out
+
+
+def check_decode(device, serve_valid, big_slots: int, big_seq: int, H: int,
+                 KV: int, hd: int) -> dict:
+    """q (B, H, hd) against one cache layer (B, S_max, KV, hd) read in place
+    through a transposed view, as decode_step calls it, with ragged
+    valid lengths; then timed there and at big_slots x big_seq."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as DK, ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    big_valid = np.random.default_rng(3).integers(1, big_seq + 1,
+                                                  size=big_slots)
+    out, err = {}, 0.0
+    for label, valid, S, iters in (
+            ("serve", serve_valid, SERVE_MAX_SEQ, 50),
+            ("large", big_valid, big_seq, 20)):
+        B = len(valid)
+        q = torch.randn(B, 1, H, hd, generator=gen, device=device
+                        ).to(torch.bfloat16)
+        ck = torch.randn(B, S, KV, hd, generator=gen, device=device
+                         ).to(torch.bfloat16)
+        cv = torch.randn(B, S, KV, hd, generator=gen, device=device
+                         ).to(torch.bfloat16)
+        vl = torch.as_tensor(np.asarray(valid, np.int32), device=device)
+        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+        err = max(err, _close(ops.decode_mha(q, ck, cv, vl)[:, 0],
+                              ref.decode_ref(q[:, 0], kt, vt, vl),
+                              f"decode {label}"))
+        mask = (torch.arange(S, device=device)[None, :]
+                < vl[:, None].long())[:, None, None, :]
+        qt = q.transpose(1, 2)
+        m = _trio(device, {
+            "kernel": lambda: ops.decode_mha(q, ck, cv, vl),
+            "plain": lambda: ref.decode_ref(q[:, 0], kt, vt, vl),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)}, iters)
+        keys = int(np.minimum(np.asarray(valid), S).sum())
+        m.update(_bound(keys * KV * hd * 2 * 2 + 2 * B * H * hd * 2 + 4 * B,
+                        4.0 * keys * H * hd))
+        m["shape"] = (f"q ({B}, {H}, {hd}) against a ({B}, {S}, {KV}, {hd}) "
+                      f"bf16 cache layer, valid lengths {list(map(int, valid))}"
+                      if B <= 8 else
+                      f"q ({B}, {H}, {hd}) against a ({B}, {S}, {KV}, {hd}) "
+                      f"bf16 cache layer, {keys} valid keys in all")
+        out[label] = m
+    out["max_abs_err"] = err
+    return out
+
+
+def report_kernel(name: str, m: dict) -> None:
+    for label in ("serve", "large"):
+        r = m[label]
+        say(f"[kernels] {name} {label} {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    say(f"[kernels] {name}: max |kernel - plain| {m['max_abs_err']} "
+        f"(tolerance {BF16_TOL}, bf16)")
+
+
+# -- phase 8: serve ----------------------------------------------------------
+
+def serve_prompts(vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE_PROMPT_RANGE
+    lens = rng.integers(lo, hi + 1, size=SERVE_REQUESTS)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def region_closed_forms(host_state, policy) -> dict:
+    """Each region's (bytes, copies) for one cold pass, from the port's
+    own arena plan (marshal: one copy per dtype bucket; pointerchain: one
+    per leaf)."""
+    from repro_torch.core import arena, partition_tree, tree_leaves
+
+    leaves = tree_leaves(host_state)
+    out = {}
+    for key, region in partition_tree(host_state, policy).items():
+        sub = [leaves[i] for i in region.indices]
+        if region.spec.kind == "marshal":
+            layout = arena.plan(sub, region.spec.align_elems)
+            out[key] = (layout.total_bytes(), len(layout.bucket_sizes))
+        else:
+            out[key] = (sum(t.numel() * t.element_size() for t in sub),
+                        len(sub))
+    return out
+
+
+def small_logits_check(device) -> float:
+    """The smoke llama (f32) on the card, through the kernels, against the
+    same weights on the CPU, through the plain versions: logits of a
+    forward, a prefill and three decode steps within 2e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tree_map
+    from repro_torch.models import registry
+
+    api = registry.get("llama3.2-1b", smoke=True)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    dparams = tree_map(lambda t: t.to(device), params)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, api.cfg.vocab_size, (2, 37)).astype(np.int32))
+    err = 0.0
+
+    def cmp(a, b, what):
+        nonlocal err
+        e = float((a.cpu() - b).abs().max())
+        if not torch.allclose(a.cpu(), b, rtol=2e-4, atol=2e-4):
+            fail(f"smoke llama {what}: card != CPU (max |diff| {e})")
+        err = max(err, e)
+
+    cmp(api.forward(dparams, toks.to(device))[0], api.forward(params, toks)[0],
+        "forward")
+    cc, hc = api.init_cache(2, 64, device=device), api.init_cache(2, 64,
+                                                                  device="cpu")
+    dl, cc = api.prefill(dparams, toks.to(device), cc)
+    hl, hc = api.prefill(params, toks, hc)
+    cmp(dl, hl, "prefill")
+    for _ in range(3):
+        nxt = hl[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        dl, cc = api.decode_step(dparams, nxt.to(device), cc)
+        hl, hc = api.decode_step(params, nxt, hc)
+        cmp(dl, hl, "decode")
+    return err
+
+
+def serve_phase(device, kernels: dict) -> dict:
+    """llama3.2-1b at full width behind Server; returns the run's launch
+    counts.  Raises on any failed check."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.models import registry
+    from repro_torch.runtime import Request, Server
+
+    api = registry.get("llama3.2-1b")
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    synchronize(device)
+    say(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, vocab "
+        f"{cfg.vocab_size}, {cfg.param_dtype}; params drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    times = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*args):
+            synchronize(device)
+            t = time.perf_counter()
+            out = fn(*args)
+            synchronize(device)
+            times[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    class TimedServer(Server):
+        def _stage_state(self, policy):
+            synchronize(device)
+            t = time.perf_counter()
+            out = super()._stage_state(policy)
+            synchronize(device)
+            self.install_s = time.perf_counter() - t
+            return out
+
+    tapi = dataclasses.replace(api, prefill=timed("prefill", api.prefill),
+                               decode_step=timed("decode", api.decode_step))
+    t0 = time.perf_counter()
+    server = TimedServer(tapi, params, slots=SERVE_SLOTS,
+                         max_seq=SERVE_MAX_SEQ, device=device)
+    init_s = time.perf_counter() - t0
+    ledgers = {k: (l.h2d_bytes, l.h2d_calls)
+               for k, l in server.program.ledgers.items()}
+    closed = region_closed_forms(server._host_state, server.policy)
+    if ledgers != closed or ledgers != SERVE_LEDGERS:
+        fail(f"install ledgers {ledgers}; arena plan {closed}; closed forms "
+             f"{SERVE_LEDGERS}")
+    installed = sum(b for b, _ in ledgers.values())
+    say(f"[serve] Server(slots={SERVE_SLOTS}, max_seq={SERVE_MAX_SEQ}) under "
+        f"'{server.policy}': built in {init_s:.2f} s; install pass "
+        f"{server.install_s * 1e3:.1f} ms for {installed} B = "
+        f"{installed / server.install_s / 1e9:.2f} GB/s (compile, host pack "
+        f"into pinned staging, H2D, one synchronize "
+        f"{server.program.last_stats.sync_s * 1e3:.1f} ms); region ledgers "
+        f"{ledgers} == arena plan == closed forms")
+
+    prompts = serve_prompts(cfg.vocab_size)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    done = server.run(max_steps=10000)
+    synchronize(device)
+    run_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+
+    stats = server.stats
+    server.tracker.assert_conserved()
+    bad = [r.rid for r in done
+           if r.state != "completed" or len(r.tokens_out) != SERVE_NEW_TOKENS]
+    if len(done) != SERVE_REQUESTS or bad:
+        fail(f"requests {bad} did not complete with {SERVE_NEW_TOKENS} "
+             f"tokens ({len(done)} terminal of {SERVE_REQUESTS})")
+    L = cfg.num_layers                  # 2 norms a layer + the final one
+    want = {"gather_tiles": 0,
+            "rmsnorm": (2 * L + 1) * (stats.prefill_requests
+                                      + stats.decode_steps),
+            "flash_attention": L * stats.prefill_requests,
+            "decode_attention": L * stats.decode_steps}
+    if counts != want:
+        fail(f"serve launches {counts}, expected {want} "
+             f"({stats.prefill_requests} prefills, {stats.decode_steps} "
+             f"decode steps)")
+    tokens = stats.tokens_generated
+    say(f"[serve] {SERVE_REQUESTS} requests (prompts "
+        f"{[len(p) for p in prompts]}) completed with {SERVE_NEW_TOKENS} "
+        f"tokens each; lifecycle conserved; {stats.prefill_batches} refill "
+        f"batches, {stats.prefill_requests} prefills, {stats.decode_steps} "
+        f"decode steps; launches {counts} == {2 * L + 1} x (prefills + "
+        f"steps), {L} x prefills, {L} x steps")
+    pre, dec = times["prefill"], times["decode"]
+    say(f"[serve] run {run_s:.3f} s, {tokens} tokens = {tokens / run_s:.1f} "
+        f"tokens/s; prefill per request {1e3 * sum(pre) / len(pre):.2f} ms "
+        f"mean, {1e3 * sorted(pre)[len(pre) // 2]:.2f} median "
+        f"({1e3 * min(pre):.2f}-{1e3 * max(pre):.2f}); decode step "
+        f"{1e3 * sum(dec) / len(dec):.2f} ms mean, "
+        f"{1e3 * sorted(dec)[len(dec) // 2]:.2f} median "
+        f"({1e3 * min(dec):.2f}-{1e3 * max(dec):.2f}) for {SERVE_SLOTS} slots")
+
+    # request 0 against a manual batch-1 prefill + greedy decode loop
+    got = next(r for r in done if r.rid == 0).tokens_out
+    cache = api.init_cache(1, SERVE_MAX_SEQ, device=device)
+    logits, cache = api.prefill(params, torch.as_tensor(prompts[0][None],
+                                                        device=device), cache)
+    manual = []
+    for step in range(SERVE_NEW_TOKENS):
+        last = logits[0, -1]
+        if not bool(torch.isfinite(last).all()):
+            fail(f"manual decode step {step}: non-finite logits")
+        manual.append(int(torch.argmax(last)))
+        if manual[-1] != got[step]:
+            top2 = torch.topk(last.float(), 2).values
+            gap = float(top2[0] - top2[1])
+            say(f"[serve] request 0 diverges from the manual loop at step "
+                f"{step}: {got[step]} vs {manual[-1]}, top-2 logit gap {gap}")
+            if gap > BF16_TOL * max(1.0, abs(float(top2[0]))):
+                fail(f"request 0 token {step} differs with a top-2 gap of "
+                     f"{gap}, above the bf16 tolerance")
+            break
+        if step + 1 < SERVE_NEW_TOKENS:
+            logits, cache = api.decode_step(
+                params, torch.tensor([[manual[-1]]], dtype=torch.int32,
+                                     device=device), cache)
+    else:
+        say(f"[serve] request 0 == manual batch-1 prefill + greedy decode, "
+            f"all {SERVE_NEW_TOKENS} tokens")
+    # where a step's time goes: device time under the profiler against the
+    # unprofiled wall of the same call
+    prompt = torch.as_tensor(prompts[-1][None], device=device)
+    step_tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
+                              device=device)
+    for label, fn in (
+            (f"prefill (P={len(prompts[-1])})", lambda: api.prefill(
+                params, prompt, api.init_cache(1, SERVE_MAX_SEQ,
+                                               device=device))),
+            (f"decode step ({SERVE_SLOTS} slots)", lambda: api.decode_step(
+                server.params, step_tokens, server.cache))):
+        prof = profile_device_ms(device, fn)
+        if not prof["device_ms"]:
+            say(f"[serve] profile, {label}: the profiler recorded no device "
+                f"time; device busy share not measured")
+            continue
+        say(f"[serve] profile, {label}: {prof['wall_ms']:.2f} ms of wall "
+            f"(unprofiled), device busy {prof['device_ms']:.2f} ms under the "
+            f"profiler, so the device is idle "
+            f"{100 * max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1f}%"
+            f" of the call; top device ops {prof['top']}")
+    del server, params, cache, logits
+    return counts
+
+
+def profile_device_ms(device, fn, calls: int = 3) -> dict:
+    """Per call of ``fn``: the wall time without the profiler, and the
+    device time under torch.profiler (the sum of the device ops' self
+    time, one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch._device import synchronize
+
+    fn()
+    synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        synchronize(device)
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows) / 1e3 / calls
+    top = [f"{k[:40]} {us / 1e3 / calls:.3f} ms x{n // calls}"
+           for us, k, n in rows[:6]]
+    return {"device_ms": total, "wall_ms": wall * 1e3 / calls, "top": top}
+
+
 def main() -> int:
     import torch
 
@@ -301,9 +813,23 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.marshal_pack import kernel as K
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.models import registry
     from repro_torch.scenarios import dense_case, linear_case
+
+    kernels = {"gather_tiles": K.gather_tiles, "rmsnorm": RK.rmsnorm,
+               "flash_attention": FK.flash_attention,
+               "decode_attention": DK.decode_attention}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -311,23 +837,38 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     say(f"[env] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; matmul allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32} (set), "
+        f"allow_bf16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f" (default)")
+    memory_bandwidth(name)
 
-    t0 = time.perf_counter()
-    _build.load(K.SOURCE)
-    say(f"[build] gather_tiles in {time.perf_counter() - t0:.2f} s")
-    log = _build.library_path(K.SOURCE).with_suffix(".log")
-    if log.exists():        # absent when build/ already held the library
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"[build] gather_tiles: {line.strip()}")
+    build_kernels([K.SOURCE, RK.SOURCE, FK.SOURCE, DK.SOURCE])
 
     gather = check_gather_tiles(device, GIB_TILES)
+    cfg = registry.get("llama3.2-1b").cfg
+    hd = cfg.resolved_head_dim
+    prompts = serve_prompts(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    rms = check_rmsnorm(device, lens + [SERVE_SLOTS], 4096, cfg.d_model)
+    report_kernel("rmsnorm", rms)
+    flash = check_flash(device, lens, 4096, cfg.num_heads, cfg.num_kv_heads,
+                        hd)
+    report_kernel("flash_attention", flash)
+    dec = check_decode(device, [n + SERVE_NEW_TOKENS // 2
+                                for n in lens[:SERVE_SLOTS]],
+                       32, 8192, cfg.num_heads, cfg.num_kv_heads, hd)
+    report_kernel("decode_attention", dec)
+    say(f"[kernels] smoke llama (f32) logits on the card == CPU within 2e-4: "
+        f"max |diff| {small_logits_check(device)}")
+    torch.cuda.empty_cache()
 
     # Algorithm 2 (phases 4-6): the engine attaches with views and calls
     # no kernel, so none may be launched here
-    K.gather_tiles.launches = 0
+    reset()
     t0 = time.perf_counter()
     cells = algorithm2_matrix(device, "full")
     say(f"[algorithm2] {cells} cells ok in {time.perf_counter() - t0:.2f} s")
@@ -339,24 +880,44 @@ def main() -> int:
                  "pointerchain": (2097152, 1)}),
         (linear, {"marshal": (805306512, 2), "uvm": (805306368, 6),
                   "pointerchain": (805306368, 6)})])
-    if K.gather_tiles.launches:
-        fail(f"Algorithm 2 launched gather_tiles {K.gather_tiles.launches} "
-             f"time(s); its engine calls no kernel")
+    if any(counts().values()):
+        fail(f"Algorithm 2 launched {counts()}; its engine calls no kernel")
 
     # the pack path (phase 7): one launch to pack, one to unpack
-    K.gather_tiles.launches = 0
+    reset()
     launches, pack_err = pack_roundtrip(device, dense)
-    if launches != 2:
+    others = {k: n for k, n in counts().items() if k != "gather_tiles"}
+    if launches != 2 or any(others.values()):
         fail(f"pack_tree/unpack_tree launched gather_tiles {launches} "
-             f"time(s), not 2")
+             f"time(s) (not 2) and {others}")
     gather["max_abs_err"] = max(gather["max_abs_err"], pack_err)
+    torch.cuda.empty_cache()
 
-    kernels = [dict(name="gather_tiles", route="cuda",
-                    source="src/repro_torch/kernels/marshal_pack/csrc/gather_tiles.cu",
-                    replaces="src/repro/kernels/marshal_pack/kernel.py:32",
-                    launches=launches, **gather)]
+    # the serve path (phase 8): serve_phase resets the counters just before
+    # driving it and reads them just after
+    served_counts = serve_phase(device, kernels)
+
+    src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
+    rows = [dict(name="gather_tiles", route="cuda",
+                 source=src.format("marshal_pack", "gather_tiles"),
+                 replaces="src/repro/kernels/marshal_pack/kernel.py:32",
+                 launches=launches, **gather)]
+    for kname, m, line in (("rmsnorm", rms, "rmsnorm/kernel.py:24"),
+                           ("flash_attention", flash,
+                            "flash_attention/kernel.py:69"),
+                           ("decode_attention", dec,
+                            "decode_attention/kernel.py:65")):
+        serve_m = m["serve"]
+        rows.append(dict(
+            name=kname, route="cuda", source=src.format(kname, kname),
+            replaces=f"src/repro/kernels/{line}",
+            launches=served_counts[kname], max_abs_err=m["max_abs_err"],
+            ms=serve_m["ms"], plain_ms=serve_m["plain_ms"],
+            bound_ms=serve_m["bound_ms"], bound_by=serve_m["bound_by"],
+            library_ms=serve_m["library_ms"], shape=serve_m["shape"],
+            large=m["large"]))
     say(smi)
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -14,6 +14,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ._device import DeviceLike, resolve_device
+
 
 def _leaf_to_torch(x: Any) -> torch.Tensor:
     a = np.asarray(x)
@@ -52,3 +54,11 @@ def to_reference_tree(tree: Any) -> Any:
     """A port host tree as numpy arrays (bf16 as the registered numpy
     ``bfloat16`` dtype, which the reference's process provides)."""
     return _convert(tree, lambda t: _leaf_to_numpy(torch.as_tensor(t)))
+
+
+def params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
+    """The reference's parameter tree as numpy arrays (``jax.device_get``)
+    as the port's tree on ``device`` (the card unless ``"cpu"``): the same
+    paths, and the same values, bf16 bit for bit."""
+    dev = resolve_device(device)
+    return _convert(from_reference_tree(tree), lambda t: t.to(dev))

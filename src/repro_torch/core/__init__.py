@@ -1,9 +1,10 @@
 """repro_torch.core — deep-copy semantics, the pointerchain directive,
 marshalling arenas and the three transfer schemes, on PyTorch.
 
-Counterpart of ``repro.core`` on one device.  Not yet ported: the policy
-programs (``repro.core.policy``), the sanitizer hooks and sharded
-(``@dpK``) execution.
+Counterpart of ``repro.core`` on one device, with path-scoped policies
+compiled into one-synchronize programs (``policy``).  Not yet ported: the
+sanitizer hooks, sharded (``@dpK``, K > 1) execution and the autotuner's
+policy helpers.
 """
 from .treepath import (TreeDef, TreePath, leaf_items, leaf_paths,
                        max_chain_depth, tree_flatten, tree_leaves, tree_map,
@@ -17,6 +18,9 @@ from .spec import TransferSpec, UnsupportedSpecError
 from .schemes import (LazyLeaf, MarshalScheme, PointerChainScheme,
                       SCHEME_NAMES, TransferLedger, TransferScheme, UVMScheme,
                       make_scheme, transfer_scheme)
+from .policy import (PolicyRule, ProgramFuture, ProgramStats,
+                     TransferPolicy, TransferProgram, TransferTimeout,
+                     UnsupportedPolicyError, compile_program, partition_tree)
 from .deepcopy import (ShapeDtype, full_deepcopy, host_skeleton,
                        selective_deepcopy, tree_bytes)
 
@@ -33,6 +37,9 @@ __all__ = [
     "LazyLeaf", "MarshalScheme", "PointerChainScheme", "SCHEME_NAMES",
     "TransferLedger", "TransferScheme", "UVMScheme", "make_scheme",
     "transfer_scheme",
+    "PolicyRule", "ProgramFuture", "ProgramStats", "TransferPolicy",
+    "TransferProgram", "TransferTimeout", "UnsupportedPolicyError",
+    "compile_program", "partition_tree",
     "ShapeDtype", "full_deepcopy", "host_skeleton", "selective_deepcopy",
     "tree_bytes",
 ]

@@ -167,6 +167,18 @@ class TransferSession:
         self._delta_states.add(state)
         return state
 
+    # -- compiled programs ---------------------------------------------------
+    def compile(self, tree: Any, policy: Any, device: Any = None) -> Any:
+        """Compile a :class:`~repro_torch.core.policy.TransferPolicy` against
+        ``tree``'s structure into a
+        :class:`~repro_torch.core.policy.TransferProgram` over THIS
+        session's caches, on ``device`` (the card unless ``"cpu"``): one
+        executor per region, every region's copies enqueued before one
+        synchronize per pass."""
+        from .policy import compile_program
+
+        return compile_program(tree, policy, session=self, device=device)
+
     def clear(self) -> None:
         """Drop cached layouts/entries, every retained device bucket and the
         stats counters.  Live schemes keep working (cold)."""

@@ -51,10 +51,10 @@ class TransferLedger:
     """Counts H2D/D2H traffic: the paper's implicit metric made explicit.
 
     ``wall_s`` is the caller-visible transfer time, split into
-    ``enqueue_s`` (issuing the copies) and ``sync_s`` (blocked in a barrier
-    or fence wait); ``wall_s == enqueue_s + sync_s`` by construction.
-    ``finish_s`` and ``overlap_s`` keep the reference's fields; they stay 0
-    until its program executor is ported.
+    ``enqueue_s`` (issuing the copies), ``sync_s`` (blocked in a barrier
+    or fence wait) and ``finish_s`` (a program pass's bookkeeping after its
+    barrier).  ``overlap_s`` is barrier time the caller did not wait for
+    (an async program pass); it is not part of ``wall_s``.
 
     ``h2d_bytes`` / ``h2d_calls`` record only bytes that actually moved;
     ``skipped_bytes`` records bytes a delta transfer proved unchanged, so
@@ -110,6 +110,33 @@ class TransferLedger:
         self.sync_s += sync_s
         self.wall_s += enqueue_s + sync_s
 
+    def record_overlap(self, overlap_s: float) -> None:
+        self.overlap_s += overlap_s
+
+    def record_finish(self, finish_s: float) -> None:
+        self.finish_s += finish_s
+        self.wall_s += finish_s
+
+    def merge(self, *others: "TransferLedger") -> "TransferLedger":
+        """Add other ledgers into this one (the per-device maps union-add);
+        returns self, so ``TransferLedger().merge(a, b)`` is their sum."""
+        for o in others:
+            self.h2d_bytes += o.h2d_bytes
+            self.d2h_bytes += o.d2h_bytes
+            self.h2d_calls += o.h2d_calls
+            self.d2h_calls += o.d2h_calls
+            self.skipped_bytes += o.skipped_bytes
+            self.delta_calls += o.delta_calls
+            self.record_wall(o.enqueue_s, o.sync_s)
+            self.record_overlap(o.overlap_s)
+            self.record_finish(o.finish_s)
+            for field in ("h2d_bytes_by_device", "h2d_calls_by_device",
+                          "skipped_bytes_by_device"):
+                mine = getattr(self, field)
+                for k, v in getattr(o, field).items():
+                    mine[k] = mine.get(k, 0) + v
+        return self
+
     def per_device(self) -> Dict[str, Tuple[int, int]]:
         """{device index: (h2d_bytes, h2d_calls)}."""
         return {d: (self.h2d_bytes_by_device[d],
@@ -150,10 +177,11 @@ class TransferScheme:
             raise UnsupportedSpecError(
                 f"{type(self).__name__} executes kind={self.kind!r} specs, "
                 f"got {spec}")
-        if spec.sharding is not None:
+        if spec.num_shards > 1:
             raise NotImplementedError(
-                f"spec {spec}: sharded execution (@dpK) is not yet ported "
-                f"to the PyTorch package")
+                f"spec {spec}: sharded execution (@dpK, K > 1) is not yet "
+                f"ported to the PyTorch package")
+        # @dp1 runs on one device, unsharded, as in the reference
         self.spec = spec
         self.session = session if session is not None \
             else engine_lib.get_session()
@@ -171,6 +199,21 @@ class TransferScheme:
 
     def to_device(self, tree: Any,
                   paths: Optional[Sequence[Union[str, TreePath]]] = None) -> Any:
+        raise NotImplementedError
+
+    def begin_pass(self, tree: Any,
+                   paths: Optional[Sequence[Union[str, TreePath]]] = None
+                   ) -> Tuple[List[Any], Callable[[], Any]]:
+        """Enqueue this scheme's H2D copies for ``tree`` WITHOUT a
+        synchronize: the enqueue-only half of ``to_device`` that lets a
+        :class:`~repro_torch.core.policy.TransferProgram` enqueue every
+        region before its one barrier.
+
+        Returns ``(pending, finish)``: ``pending`` are the device tensors
+        being copied (one per copy), ``finish()`` — called after the
+        caller's barrier — books the rest of the ledger and returns the
+        device tree.  Staging buffers are fenced with their copies' event
+        here, at enqueue, not in ``finish``."""
         raise NotImplementedError
 
     def from_device(self, device_tree: Any, host_tree: Any,
@@ -297,6 +340,10 @@ class UVMScheme(TransferScheme):
     def to_device(self, tree, paths=None):
         return tree_map(lambda leaf: LazyLeaf(leaf, self), tree)
 
+    def begin_pass(self, tree, paths=None):
+        # demand paging moves data at access time: nothing is enqueued here
+        return [], lambda: self.to_device(tree)
+
     def _fault_batch(self, subtree: Any) -> None:
         pending, seen = [], set()
         for l in tree_leaves(subtree):
@@ -418,7 +465,15 @@ class MarshalScheme(TransferScheme):
         if fence_s:
             self.ledger.record_wall(0.0, fence_s)
 
-    def _to_device_pipelined(self, tree):
+    def begin_pass(self, tree, paths=None):
+        """Enqueue-only half of :meth:`to_device`: every mode fences its
+        staging with its copies' event, so the program's barrier is not
+        what keeps staging safe."""
+        if self.delta:
+            return self._begin_delta(tree)
+        return self._begin_pipelined(tree)
+
+    def _begin_pipelined(self, tree):
         entry = self._entry_for(tree)
         buffers = entry.pack_host(tree)
         self._record_fence_wait(entry)
@@ -426,36 +481,57 @@ class MarshalScheme(TransferScheme):
         dev, event = self._put_batch([buffers[b] for b in names], sync=False)
         for b in names:
             entry.add_fence(b, event)
-        return entry.unpack(dict(zip(names, dev)))
+        return dev, lambda: entry.unpack(dict(zip(names, dev)))
 
-    def _to_device_delta(self, tree):
+    def _to_device_pipelined(self, tree):
+        return self._begin_pipelined(tree)[1]()
+
+    def _begin_delta(self, tree):
         entry = self._entry_for(tree)
         buffers = entry.pack_host(tree, trust_identity=True)
         self._record_fence_wait(entry)
         retained = self._delta_state.retained.setdefault(entry, {})
         names = list(buffers)
+        versions = dict(entry.versions)
         bucket_bytes = entry.layout.bucket_bytes()
         dirty = [b for b in names
-                 if retained.get(b, (None, None))[0] != entry.versions[b]]
+                 if retained.get(b, (None, None))[0] != versions[b]]
         clean = [b for b in names if b not in dirty]
-        for b in clean:
-            self.ledger.record_skip(bucket_bytes[b], device=self.device)
-        if clean:
-            self.ledger.delta_calls += 1
+
+        def book_clean():
+            for b in clean:
+                self.ledger.record_skip(bucket_bytes[b], device=self.device)
+            if clean:
+                self.ledger.delta_calls += 1
+
         if not dirty:
             memo = self._delta_state.last_unpack.get(entry)
-            if memo is not None and memo[0] == entry.versions:
-                # fully clean repeat: the attached tree is still bit-identical
-                return memo[1]
+            if memo is not None and memo[0] == versions:
+                def finish_memo():
+                    # fully clean repeat: the attached tree is still
+                    # bit-identical
+                    book_clean()
+                    return memo[1]
+
+                return [], finish_memo
         dev, event = self._put_batch([buffers[b] for b in dirty], sync=False)
-        for b, arr in zip(dirty, dev):
-            retained[b] = (entry.versions[b], arr)
+        for b in dirty:
             # the only reader of staging is the copy; device buckets never
             # alias host memory, so the copy's event is the whole fence
             entry.add_fence(b, event)
-        out = entry.unpack({b: retained[b][1] for b in names})
-        self._delta_state.last_unpack[entry] = (dict(entry.versions), out)
-        return out
+
+        def finish():
+            for b, arr in zip(dirty, dev):
+                retained[b] = (versions[b], arr)
+            book_clean()
+            out = entry.unpack({b: retained[b][1] for b in names})
+            self._delta_state.last_unpack[entry] = (versions, out)
+            return out
+
+        return dev, finish
+
+    def _to_device_delta(self, tree):
+        return self._begin_delta(tree)[1]()
 
     def from_device(self, device_tree, host_tree, paths=None):
         # demarshal: slice copies into fresh device buckets, one D2H per
@@ -494,6 +570,16 @@ class PointerChainScheme(TransferScheme):
     def stage(self, tree, used_paths, uvm_access=None, declare_refs=True):
         dev = self.to_device(tree, paths=list(used_paths))
         return dev, self.refs
+
+    def begin_pass(self, tree, paths=None):
+        # one copy per declared chain (every leaf when no chains are
+        # named), no synchronize: the caller's barrier covers them
+        if paths is None:
+            paths = [str(p) for p, _ in leaf_items(tree)]
+        refs = self.refs = declare(tree, *paths)
+        leaves = [arena_lib.as_tensor(l) for l in extract(tree, refs)]
+        dev, _ = self._put_batch(leaves, sync=False)
+        return dev, lambda: insert(tree, refs, dev)
 
     def from_device(self, device_tree, host_tree, paths=None):
         host_leaves = self._get_batch(extract(device_tree, self.refs))

@@ -1,0 +1,3 @@
+"""decode_attention: kernel.py (the CUDA decode attention and its wrapper),
+ops.py (the model-layout adapter), ref.py (the plain PyTorch version)."""
+from . import kernel, ops, ref  # noqa

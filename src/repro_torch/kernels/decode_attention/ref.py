@@ -1,0 +1,45 @@
+"""Plain PyTorch version of the single-token attention against a cache.
+
+The semantics of ``repro/kernels/decode_attention/kernel.py`` (not of its
+``ref.py``, which masks with -inf): f32 scores, keys at or past
+``min(valid_len[b], S)`` masked with the finite ``NEG_INF = -1e30``, output
+``sum(p v) / max(sum(p), 1e-30)``.  With ``valid_len[b] == 0`` every score
+is -1e30 and every probability 1, and the Pallas kernel divides
+``sum(V[:S])`` by the keys of its padded blocks, ``ceil(S / bk) * bk`` with
+``bk = min(block_k, S)``; this version does the same.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def empty_denominator(S: int, block_k: int = 512) -> int:
+    """What the Pallas kernel divides by when no key is valid."""
+    bk = min(block_k, S)
+    return -(-S // bk) * bk
+
+
+def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid_len: torch.Tensor, *, scale: Optional[float] = None,
+               block_k: int = 512) -> torch.Tensor:
+    """q: (B, H, hd), k/v: (B, KV, S, hd), valid_len: (B,) -> (B, H, hd)."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, KV, g, hd),
+                     k.float()) * scale
+    valid = valid_len.to(device=q.device, dtype=torch.long)
+    mask = torch.arange(S, device=q.device)[None, :] < valid[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    den = torch.where((valid <= 0)[:, None, None, None],
+                      float(empty_denominator(S, block_k)), den)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.float()) / den
+    return out.reshape(B, H, hd).to(q.dtype)

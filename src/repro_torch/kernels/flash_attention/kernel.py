@@ -1,0 +1,102 @@
+"""flash_attention — blocked causal GQA attention as a hand-written CUDA
+kernel.
+
+Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention`` (a
+Pallas kernel for the TPU): per (b, h), an f32 online softmax over k tiles,
+keys at or past ``kv_len`` masked, ``k_pos <= q_pos`` when causal, the KV
+head ``h // (H / KV)``.  At the serving shapes its bound is the products,
+``4 * B * H * Sq * Sk * hd`` operations (half under causal masking) at the
+tensor cores' rate; this first kernel (``csrc/flash_attention.cu``) runs
+them as f32 FMAs from shared memory, one block per (b, h, 64-row q tile);
+see the source for the design.
+
+:func:`flash_attention` launches the kernel for CUDA tensors (or raises)
+and runs the plain version (:func:`~.ref.attention_ref`) only for CPU
+tensors.  ``flash_attention.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from .. import _build
+from . import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+_FN = None
+
+
+def _entry_point():
+    global _FN
+    if _FN is None:
+        fn = _build.load(SOURCE).flash_attention
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, Sq, hd), k/v: (B, KV, Sk, hd) with H % KV == 0, in any
+    strides with the head dim contiguous.  Keys at or past ``kv_len``
+    (default Sk, at least 1) are masked.  Returns (B, H, Sq, hd): on the
+    card a view of a contiguous (B, Sq, H, hd) tensor, the model's layout."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B, H, Sq, hd) and k, v (B, KV, Sk, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"form a GQA attention")
+    kv_len = Sk if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= Sk:
+        raise ValueError(f"kv_len must lie in [1, {Sk}], got {kv_len}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale,
+                                 kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA (or the CPU), got "
+                         f"{q.device}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
+                         f"got {hd}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the head dim of q, k and v must be contiguous")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0:
+        return out          # a grid of 0 blocks is a launch error
+    err = _build.launch(
+        _entry_point(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, H, KV, Sq, Sk, hd, kv_len, int(causal),
+        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], _DTYPES[q.dtype])
+    if err:
+        raise RuntimeError(f"flash_attention launch failed with CUDA error "
+                           f"{err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,208 @@
+"""Transformer layers of the dense decoder, as pure functions over param
+dicts.
+
+The port's counterpart of ``repro/models/layers.py``, for the path the
+dense llama family takes.  Where the reference attends through its
+blockwise jnp softmax and normalises in jnp, the port calls the kernels of
+:mod:`repro_torch.kernels` — on the card the hand-written CUDA kernels, on
+the CPU their plain versions:
+
+  * every norm goes through ``kernels.rmsnorm``;
+  * a one-token query against a cache goes through
+    ``kernels.decode_attention`` (``valid_len = kv_valid_len``);
+  * every other attention goes through ``kernels.flash_attention``, causal,
+    with ``kv_len`` the number of valid keys.
+
+The flash kernel counts positions from 0 (it has no ``q_offset``), so a
+multi-token call at a nonzero cache position is not yet ported and raises.
+The matmuls stay ``torch.matmul``: they are products outside any kernel of
+the reference.  Layernorm, GeLU MLPs, cross-attention and biases, which the
+dense llama path never reaches, are not yet ported either.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels.decode_attention.ops import decode_mha
+from ..kernels.flash_attention.ops import mha
+from ..kernels.rmsnorm.ops import rmsnorm
+from .specs import ParamSpec, torch_dtype
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.compute_dtype)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to the PyTorch "
+                               f"package (the dense llama path never "
+                               f"reaches it)")
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_specs(cfg: ModelConfig, d: Optional[int] = None) -> Dict[str, ParamSpec]:
+    if cfg.norm != "rmsnorm":
+        raise _not_ported(f"norm {cfg.norm!r}")
+    return {"scale": ParamSpec((d or cfg.d_model,), ("embed",), init="ones")}
+
+
+def apply_norm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm != "rmsnorm":
+        raise _not_ported(f"norm {cfg.norm!r}")
+    return rmsnorm(x, p["scale"].to(x.dtype), eps=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freqs        # (...,S,half)
+    sin = torch.sin(angles)[..., None, :]                           # (...,S,1,half)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional KV cache)
+# ---------------------------------------------------------------------------
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    if cfg.qkv_bias:
+        raise _not_ported("qkv_bias")
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+            "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+            "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"))}
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) x (D, N, hd) -> (B, S, N, hd)."""
+    D, n, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(D, n * hd)).unflatten(-1, (n, hd))
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """In place: row b of ``new`` (B, S, KV, hd) goes to cache[b, pos[b] +
+    s] (B, S_max, KV, hd).  One token per row goes to its own position and
+    a row at or past S_max writes nothing, as the reference's blend leaves
+    it; several tokens fill a fresh cache from position 0."""
+    B, S = new.shape[:2]
+    new = new.to(cache.dtype)
+    if S > 1:
+        cache[:, :S] = new
+        return
+    S_max = cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    at = pos.to(torch.long).clamp(max=S_max - 1)
+    keep = (pos < S_max)[:, None, None]
+    cache[rows, at] = torch.where(keep, new[:, 0], cache[rows, at])
+
+
+def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
+                        positions: torch.Tensor,
+                        kv_cache: Optional[Dict[str, Any]] = None,
+                        causal: bool = True,
+                        kv_valid_len: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """GQA attention.
+
+    x: (B, S, D); positions: broadcastable to (B, S).  ``kv_cache``
+    {"k": (B, S_max, KV, hd), "v": ...} is written IN PLACE at
+    ``positions`` (index writes, where the reference blends a new cache
+    with ``where`` over all of S_max); the values equal the reference's.
+    The returned cache holds the same tensors.
+    """
+    B, S, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    pos_b = positions.expand(B, S)
+
+    q = rope(_project(x, p["wq"]), positions, cfg.rope_theta)
+    k = rope(_project(x, p["wk"]), positions, cfg.rope_theta)
+    v = _project(x, p["wv"])
+
+    new_cache = None
+    if kv_cache is None:
+        if kv_valid_len is not None:
+            raise _not_ported("attention without a cache under kv_valid_len")
+        ctx = mha(q, k, v, causal=causal)
+    else:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if S > 1 and bool((pos_b[:, 0] != 0).any()):
+            raise NotImplementedError(
+                "a multi-token call at a nonzero cache position (prefill "
+                "after decode, chunked prefill) is not yet ported: the "
+                "flash kernel counts query positions from 0")
+        if S > ck.shape[1]:
+            raise ValueError(f"{S} tokens do not fit a {ck.shape[1]}-token "
+                             f"cache")
+        _write_cache(ck, k, pos_b[:, 0])
+        _write_cache(cv, v, pos_b[:, 0])
+        new_cache = {"k": ck, "v": cv}
+        if S == 1:
+            valid = kv_valid_len if kv_valid_len is not None \
+                else pos_b[:, 0] + 1
+            ctx = decode_mha(q, ck, cv, valid)
+        else:
+            # a fresh cache from position 0: the valid keys are its first S
+            ctx = mha(q, ck[:, :S], cv[:, :S], causal=causal, kv_len=S)
+
+    out = ctx.reshape(B, S, h * hd) @ p["wo"].to(x.dtype).reshape(h * hd, -1)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    if not cfg.gated_mlp:
+        raise _not_ported("the LayerNorm+GeLU MLP")
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": ParamSpec((d, f), ("embed", "mlp")),
+            "w_up": ParamSpec((d, f), ("embed", "mlp")),
+            "w_down": ParamSpec((f, d), ("mlp", "embed"))}
+
+
+def apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    if not cfg.gated_mlp:
+        raise _not_ported("the LayerNorm+GeLU MLP")
+    gate = F.silu(x @ p["w_gate"].to(x.dtype))
+    up = x @ p["w_up"].to(x.dtype)
+    return (gate * up) @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    s = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          scale=0.02)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return s
+
+
+def embed_tokens(cfg: ModelConfig, p: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens.to(torch.long)].to(dtype_of(cfg))
+
+
+def unembed(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
+    return (x @ w.to(x.dtype)).to(torch.float32)
