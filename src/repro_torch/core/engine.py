@@ -143,6 +143,13 @@ class TransferSession:
             self._entries.popitem(last=False)
             self._stats["entry_evictions"] += 1
 
+    def pinned_bytes(self) -> int:
+        """Bytes of page-locked host staging held by this session's cached
+        entries (both buffers of every bucket)."""
+        return sum(buf.numel() * buf.element_size()
+                   for entry in self._entries.values() if entry.pin_memory
+                   for bufs in entry._bufs.values() for buf in bufs)
+
     def cache_stats(self) -> Dict[str, int]:
         out = dict(self._stats)
         out["layout_size"] = len(self._layouts)

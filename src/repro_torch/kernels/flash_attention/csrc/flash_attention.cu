@@ -3,9 +3,11 @@
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention
 // (Pallas/TPU): per (b, h), softmax(Q K^T * scale) V with an f32 online
-// softmax (running max, sum and accumulator), keys at or past kv_len
-// masked, k_pos <= q_pos when causal (positions counted from 0, no
-// q_offset), masked scores NEG_INF = -1e30 and output acc / max(l, 1e-30).
+// softmax (running max, sum and accumulator), keys at or past kv_len[b]
+// masked, k_pos <= q_offset[b] + i for query row i when causal, masked
+// scores NEG_INF = -1e30 and output acc / max(l, 1e-30).  The per-batch
+// query offset lets a multi-token call at a nonzero cache position (prefill
+// after decode, chunked prefill) attend to the cache it continues.
 //
 // Bound: at the serving shapes (Sq = Sk up to a few thousand, hd = 64) the
 // products dominate: 4 * B * H * Sq * Sk * hd operations (half of them
@@ -27,10 +29,12 @@
 //     hd) layout needs no transposed copy and no padding: the ragged last
 //     q and k tiles are masked here (out-of-range rows load as zeros and
 //     are not stored).
-//   * Under causal masking the k tiles wholly above the diagonal are
-//     skipped, and so are tiles wholly at or past kv_len.  That is exact:
-//     with kv_len >= 1 every row has key 0 valid in the first tile, so a
-//     skipped tile would only have contributed exp(-1e30 - m) = 0.
+//   * Under causal masking the k tiles wholly above the block's last row
+//     position (q_offset[b] + q0 + 63) are skipped, and so are tiles wholly
+//     at or past kv_len[b].  That is exact: kv_len[b] is clamped into
+//     [1, Sk] and q_offset[b] to >= 0, so every row has key 0 valid in the
+//     first tile, and a skipped tile would only have contributed
+//     exp(-1e30 - m) = 0.
 //   * Thread (tr, tc) of 16 x 16 owns rows tr + 16 i and score columns
 //     tc + 16 j (i, j < 4) and output dims tc + 16 u; shared rows are
 //     padded by one float so these reads are free of bank conflicts.
@@ -70,9 +74,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-             int Sq, int Sk, int kv_len, int causal, float scale, Strides qs,
-             Strides ks, Strides vs, Strides os) {
+             const T* __restrict__ v, T* __restrict__ o,
+             const int* __restrict__ q_offset, const int* __restrict__ kv_lens,
+             int H, int KV, int Sq, int Sk, int causal, float scale,
+             Strides qs, Strides ks, Strides vs, Strides os) {
   constexpr int U = HD / 16;             // output dims per thread
   extern __shared__ float smem[];
   float* sQ = smem;                      // kBQ x (HD + 1)
@@ -87,6 +92,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tr = tid >> 4;
   const int tc = tid & 15;
+  // row r of this batch sits at position qoff + r; keys at or past kvl are
+  // masked (see the tile-skip note above for the clamps)
+  const int qoff = q_offset != nullptr ? max(q_offset[b], 0) : 0;
+  const int kvl = kv_lens != nullptr ? min(max(kv_lens[b], 1), Sk) : Sk;
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + kvh * ks.h;
@@ -108,8 +117,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < U; ++u) acc[i][u] = 0.f;
   }
 
-  int k_end = kv_len;                    // keys past kv_len: masked tiles
-  if (causal) k_end = min(k_end, q0 + kBQ);
+  int k_end = kvl;                       // keys past kv_len: masked tiles
+  if (causal) k_end = min(k_end, qoff + q0 + kBQ);
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();                     // the previous tile is consumed
     for (int i = tid; i < kBK * HD; i += kThreads) {
@@ -149,7 +158,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tc + 16 * j;
-        const bool ok = key < kv_len && (!causal || key <= row);
+        const bool ok = key < kvl && (!causal || key <= qoff + row);
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
         tmax = fmaxf(tmax, s[i][j]);
       }
@@ -201,10 +210,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Sk, int kv_len, int causal, float scale,
-           Strides qs, Strides ks, Strides vs, Strides os,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* q_offset, const int* kv_lens, int B, int H, int KV,
+           int Sq, int Sk, int causal, float scale, Strides qs, Strides ks,
+           Strides vs, Strides os, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -215,21 +224,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Sk, kv_len,
-      causal, scale, qs, ks, vs, os);
+      static_cast<const T*>(v), static_cast<T*>(o), q_offset, kv_lens, H, KV,
+      Sq, Sk, causal, scale, qs, ks, vs, os);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int KV, int Sq, int Sk, int kv_len, int causal,
-             float scale, Strides qs, Strides ks, Strides vs, Strides os,
-             cudaStream_t s) {
+             const int* qo, const int* kl, int B, int H, int KV, int Sq,
+             int Sk, int causal, float scale, Strides qs, Strides ks,
+             Strides vs, Strides os, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KV, Sq, Sk, kv_len, causal, scale, qs, ks, vs, os, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, kv_len, causal, scale, qs, ks, vs, os, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, kv_len, causal, scale, qs, ks, vs, os, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, kv_len, causal, scale, qs, ks, vs, os, s);
+    case 16: return launch<T, 16>(q, k, v, o, qo, kl, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
+    case 32: return launch<T, 32>(q, k, v, o, qo, kl, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
+    case 64: return launch<T, 64>(q, k, v, o, qo, kl, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
+    case 80: return launch<T, 80>(q, k, v, o, qo, kl, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
+    case 128: return launch<T, 128>(q, k, v, o, qo, kl, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -239,11 +249,15 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
 // Launches on `stream`, does not synchronize, returns cudaGetLastError().
 // q (B, H, Sq, hd), k/v (B, KV, Sk, hd) and o (B, H, Sq, hd), each given by
 // its strides in elements (batch, head, seq; the head dim contiguous).
-// dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}; H % KV == 0;
-// 1 <= kv_len <= Sk; B, H, Sq > 0.
+// dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 80, 128}; H % KV == 0;
+// B, H, Sq > 0.  q_offset and kv_lens are (B,) int32 on the device, or null
+// for an offset of 0 and every key valid; a length is clamped into [1, Sk]
+// and an offset to >= 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int KV, int Sq, int Sk,
-                               int hd, int kv_len, int causal, float scale,
+                               void* o, const int* q_offset,
+                               const int* kv_lens, int B, int H, int KV,
+                               int Sq, int Sk, int hd, int causal,
+                               float scale,
                                long long qsb, long long qsh, long long qss,
                                long long ksb, long long ksh, long long kss,
                                long long vsb, long long vsh, long long vss,
@@ -253,10 +267,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       os{osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(hd, q, k, v, o, B, H, KV, Sq, Sk, kv_len, causal,
-                           scale, qs, ks, vs, os, s);
+    return dispatch<float>(hd, q, k, v, o, q_offset, kv_lens, B, H, KV, Sq,
+                           Sk, causal, scale, qs, ks, vs, os, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, Sq, Sk, kv_len,
-                                   causal, scale, qs, ks, vs, os, s);
+    return dispatch<__nv_bfloat16>(hd, q, k, v, o, q_offset, kv_lens, B, H,
+                                   KV, Sq, Sk, causal, scale, qs, ks, vs, os,
+                                   s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,12 +3,14 @@ kernel.
 
 Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention`` (a
 Pallas kernel for the TPU): per (b, h), an f32 online softmax over k tiles,
-keys at or past ``kv_len`` masked, ``k_pos <= q_pos`` when causal, the KV
-head ``h // (H / KV)``.  At the serving shapes its bound is the products,
-``4 * B * H * Sq * Sk * hd`` operations (half under causal masking) at the
-tensor cores' rate; this first kernel (``csrc/flash_attention.cu``) runs
-them as f32 FMAs from shared memory, one block per (b, h, 64-row q tile);
-see the source for the design.
+keys at or past ``kv_len[b]`` masked, ``k_pos <= q_offset[b] + i`` for
+query row ``i`` when causal, the KV head ``h // (H / KV)``.  The query
+offset is what the model's attention needs at a nonzero cache position
+(the reference masks with the real positions).  At the serving shapes its
+bound is the products, ``4 * B * H * Sq * Sk * hd`` operations (half
+under causal masking) at the tensor cores' rate; this first kernel
+(``csrc/flash_attention.cu``) runs them as f32 FMAs from shared memory,
+one block per (b, h, 64-row q tile); see the source for the design.
 
 :func:`flash_attention` launches the kernel for CUDA tensors (or raises)
 and runs the plain version (:func:`~.ref.attention_ref`) only for CPU
@@ -29,7 +31,7 @@ from . import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 _FN = None
@@ -39,7 +41,7 @@ def _entry_point():
     global _FN
     if _FN is None:
         fn = _build.load(SOURCE).flash_attention
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float] + [ctypes.c_longlong] * 12
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -47,13 +49,35 @@ def _entry_point():
     return _FN
 
 
+def _per_batch(t: Optional[torch.Tensor], B: int, device: torch.device,
+               what: str) -> Optional[torch.Tensor]:
+    """A (B,) int32 tensor on ``device`` (converted if it is another
+    integer type), or None."""
+    if t is None:
+        return None
+    if not isinstance(t, torch.Tensor) or t.shape != (B,) \
+            or t.device != device or t.is_floating_point():
+        got = (f"{tuple(t.shape)} {t.dtype} on {t.device}"
+               if isinstance(t, torch.Tensor) else repr(t))
+        raise ValueError(f"{what} must be a ({B},) integer tensor on "
+                         f"{device}, got {got}")
+    return t.to(torch.int32).contiguous()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, Sq, hd), k/v: (B, KV, Sk, hd) with H % KV == 0, in any
-    strides with the head dim contiguous.  Keys at or past ``kv_len``
-    (default Sk, at least 1) are masked.  Returns (B, H, Sq, hd): on the
-    card a view of a contiguous (B, Sq, H, hd) tensor, the model's layout."""
+    strides with the head dim contiguous.  Keys at or past ``kv_len[b]``
+    are masked (a (B,) integer tensor on q's device, clamped into [1, Sk];
+    default: every key valid).  Row ``i`` of batch ``b`` sits at position
+    ``q_offset[b] + i`` for the causal mask (a (B,) integer tensor on q's
+    device, clamped to >= 0; default 0).  The clamps keep key 0 valid for
+    every row, which the kernel's causal tile skip needs; they are applied
+    on the device, so nothing here waits for it.  Returns (B, H, Sq, hd):
+    on the card a view of a contiguous (B, Sq, H, hd) tensor, the model's
+    layout."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, H, Sq, hd) and k, v (B, KV, Sk, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -63,15 +87,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"form a GQA attention")
-    kv_len = Sk if kv_len is None else int(kv_len)
-    if not 1 <= kv_len <= Sk:
-        raise ValueError(f"kv_len must lie in [1, {Sk}], got {kv_len}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    kv_len = _per_batch(kv_len, B, q.device, "kv_len")
+    q_offset = _per_batch(q_offset, B, q.device, "q_offset")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale,
-                                 kv_len=kv_len)
+                                 kv_len=kv_len, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA (or the CPU), got "
                          f"{q.device}")
@@ -89,9 +112,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out          # a grid of 0 blocks is a launch error
     err = _build.launch(
         _entry_point(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, H, KV, Sq, Sk, hd, kv_len, int(causal),
-        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], _DTYPES[q.dtype])
+        out.data_ptr(), 0 if q_offset is None else q_offset.data_ptr(),
+        0 if kv_len is None else kv_len.data_ptr(), B, H, KV, Sq, Sk, hd,
+        int(causal), float(scale), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], _DTYPES[q.dtype])
     if err:
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")

@@ -16,8 +16,11 @@ from .kernel import flash_attention
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, kv_len: Optional[int] = None) -> torch.Tensor:
-    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+        causal: bool = True, kv_len: Optional[torch.Tensor] = None,
+        q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd); ``kv_len``
+    and ``q_offset`` as :func:`~.kernel.flash_attention` takes them."""
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, kv_len=kv_len)
+                          v.transpose(1, 2), causal=causal, kv_len=kv_len,
+                          q_offset=q_offset)
     return out.transpose(1, 2)

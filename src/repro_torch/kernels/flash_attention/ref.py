@@ -2,9 +2,11 @@
 
 The semantics of ``repro/kernels/flash_attention/kernel.py`` (not of its
 ``ref.py``, which masks with -inf and knows no ``kv_len``): f32 scores,
-keys at or past ``kv_len`` masked, ``k_pos <= q_pos`` when causal with
-positions counted from 0, masked scores the finite ``NEG_INF = -1e30``,
-and the output ``sum(p v) / max(sum(p), 1e-30)``.  The CPU path of
+keys at or past ``kv_len[b]`` masked, ``k_pos <= q_offset[b] + i`` for
+query row ``i`` when causal, masked scores the finite ``NEG_INF = -1e30``,
+and the output ``sum(p v) / max(sum(p), 1e-30)``.  Per-batch lengths are
+clamped into [1, Sk] and offsets to >= 0, as the kernel clamps them.  The
+CPU path of
 :func:`~repro_torch.kernels.flash_attention.kernel.flash_attention` runs
 it; ``chip_smoke.py`` holds the CUDA kernel against it on the card.
 """
@@ -20,21 +22,27 @@ NEG_INF = -1e30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: Optional[float] = None,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Sq, hd), k/v: (B, KV, Sk, hd) -> (B, H, Sq, hd)."""
+                  kv_len: Optional[torch.Tensor] = None,
+                  q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, Sq, hd), k/v: (B, KV, Sk, hd) -> (B, H, Sq, hd).
+    ``kv_len`` and ``q_offset``: (B,) tensors, or None for Sk and 0."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     g = H // KV
+    dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    kv_len = Sk if kv_len is None else kv_len
+    kv_len = torch.full((B,), Sk, device=dev) if kv_len is None \
+        else kv_len.to(dev, torch.long).clamp(1, Sk)
+    off = torch.zeros(B, dtype=torch.long, device=dev) if q_offset is None \
+        else q_offset.to(dev, torch.long).clamp_min(0)
     qf = q.float().reshape(B, KV, g, Sq, hd)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
-    k_pos = torch.arange(Sk, device=q.device)
-    valid = (k_pos < kv_len)[None, :]
+    k_pos = torch.arange(Sk, device=dev)
+    valid = (k_pos[None, None, :] < kv_len[:, None, None])          # (B,1,Sk)
     if causal:
-        valid = valid & (k_pos[None, :]
-                         <= torch.arange(Sq, device=q.device)[:, None])
-    s = torch.where(valid, s, NEG_INF)
+        q_pos = off[:, None] + torch.arange(Sq, device=dev)          # (B,Sq)
+        valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
+    s = torch.where(valid[:, None, None], s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)

@@ -1,0 +1,112 @@
+"""ssd_chunks — the Mamba2 SSD intra-chunk term as a hand-written CUDA
+kernel.
+
+Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_chunks`` (a Pallas kernel
+for the TPU): for every (batch, chunk, head) tile, ``cum = cumsum(dtA)``,
+``y_diag = ((C Bᵀ) ∘ tril(exp(cum_i - cum_j))) (dt·x)`` and the chunk state
+``(dt·x)ᵀ (B ∘ exp(cum_last - cum))``, with B and C shared across heads.
+Its bound on the H100 is the products (the scores once per chunk, y_diag
+and the state per head) at the tensor cores' rate; this first kernel
+(``csrc/ssd_chunks.cu``) runs them as f32 FMAs from shared memory, one
+block per (b, chunk, 64-row query tile, head) for y_diag and cum and one
+per (b, chunk, 64 columns of N, head) for the state; see the source for
+the design.
+
+:func:`ssd_chunks` launches the kernel for CUDA tensors (or raises) and
+runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU tensors.
+``ssd_chunks.launches`` counts the wrapper's launches (one per call, which
+runs both of the source's kernels).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from . import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_chunks.cu"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_Q, MAX_HD, MAX_N = 1024, 128, 256
+
+_FN = None
+
+
+def _entry_point():
+    global _FN
+    if _FN is None:
+        fn = _build.load(SOURCE).ssd_chunks
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, nc, nh, Q, hd), dt/dtA: (B, nc, nh, 1, Q), Bm/Cm: (B, nc, Q,
+    N), in any strides with the last dim of x, Bm and Cm contiguous.
+    Returns y_diag (B, nc, nh, Q, hd) in x's dtype (on the card a view of a
+    contiguous (B, nc, Q, nh, hd) tensor, the model's layout), states (B,
+    nc, nh, hd, N) f32 and cum (B, nc, nh, 1, Q) f32."""
+    if x.dim() != 5 or Bm.dim() != 4 or Cm.shape != Bm.shape:
+        raise ValueError(f"want x (B, nc, nh, Q, hd) and Bm, Cm (B, nc, Q, "
+                         f"N), got {tuple(x.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    B, nc, nh, Q, hd = x.shape
+    N = Bm.shape[-1]
+    if Bm.shape[:3] != (B, nc, Q) or dt.shape != (B, nc, nh, 1, Q) \
+            or dtA.shape != dt.shape:
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, dtA "
+                         f"{tuple(dtA.shape)} and Bm {tuple(Bm.shape)} do not "
+                         f"form one chunked scan")
+    if not all(t.device == x.device for t in (dt, dtA, Bm, Cm)):
+        raise ValueError("x, dt, dtA, Bm and Cm must be on one device")
+    if x.device.type == "cpu":
+        return ref.ssd_chunks_ref(x, dt, dtA, Bm, Cm)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunks runs on CUDA (or the CPU), got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPES or not (x.dtype == Bm.dtype == Cm.dtype):
+        raise ValueError(f"ssd_chunks takes float32 or bfloat16 x, Bm, Cm of "
+                         f"one dtype, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or dtA.dtype != torch.float32:
+        raise ValueError(f"ssd_chunks takes float32 dt and dtA, got "
+                         f"{dt.dtype}, {dtA.dtype}")
+    if not (1 <= Q <= MAX_Q and 1 <= hd <= MAX_HD and 1 <= N <= MAX_N):
+        raise ValueError(f"ssd_chunks takes Q <= {MAX_Q}, hd <= {MAX_HD} and "
+                         f"N <= {MAX_N}, got Q {Q}, hd {hd}, N {N}")
+    if x.stride(4) != 1 or Bm.stride(3) != 1 or Cm.stride(3) != 1:
+        raise ValueError("the last dim of x, Bm and Cm must be contiguous")
+    dev = x.device
+    y = torch.empty((B, nc, Q, nh, hd), dtype=x.dtype,
+                    device=dev).transpose(2, 3)
+    states = torch.empty((B, nc, nh, hd, N), dtype=torch.float32, device=dev)
+    cum = torch.empty((B, nc, nh, 1, Q), dtype=torch.float32, device=dev)
+    if B == 0 or nc == 0 or nh == 0:
+        return y, states, cum   # a grid of 0 blocks is a launch error
+
+    def s4(t):
+        return t.stride(0), t.stride(1), t.stride(2), t.stride(-1)
+
+    strides = (*s4(x.transpose(3, 4)), *s4(dt), *s4(dtA),
+               *Bm.stride()[:3], *Cm.stride()[:3], *s4(y.transpose(3, 4)))
+    err = _build.launch(
+        _entry_point(), dev, x.data_ptr(), dt.data_ptr(), dtA.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
+        cum.data_ptr(), B, nc, nh, Q, hd, N,
+        (ctypes.c_longlong * len(strides))(*strides), _DTYPES[x.dtype])
+    if err:
+        raise RuntimeError(f"ssd_chunks launch failed with CUDA error {err}")
+    ssd_chunks.launches += 1
+    return y, states, cum
+
+
+ssd_chunks.launches = 0

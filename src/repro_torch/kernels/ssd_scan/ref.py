@@ -1,0 +1,44 @@
+"""Plain PyTorch version of the SSD chunk kernel.
+
+The math of ``repro/kernels/ssd_scan/ref.py::ssd_chunk_ref`` (and of the
+Pallas kernel's ``_ssd_kernel``) over the whole (B, nc, nh) grid at once:
+
+  * ``cum = cumsum(dtA)`` per (b, chunk, head), in f32;
+  * ``y_diag = ((C Bᵀ) ∘ L) (dt·x)`` with ``L = tril(exp(cum_i - cum_j))``;
+  * ``state = (dt·x)ᵀ (B ∘ exp(cum_last - cum))``.
+
+It is two batched matmuls plus the masked ``exp``: ``C Bᵀ`` is formed once
+per chunk (B and C are shared across heads) and broadcast over the heads,
+so the largest temporary is one (B, nc, nh, Q, Q) f32 tensor (about 1 GB
+at B = 1, S = 16384, nh = 64, Q = 256); a three-way einsum would build a
+(Q, Q, hd) product per tile instead.  The entries above the diagonal are
+set to -inf before the ``exp``, so they are 0 and never overflow.  The CPU
+path of :func:`~repro_torch.kernels.ssd_scan.kernel.ssd_chunks` runs it;
+``chip_smoke.py`` holds the CUDA kernel against it on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def ssd_chunks_ref(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, nc, nh, Q, hd), dt/dtA: (B, nc, nh, 1, Q), Bm/Cm: (B, nc, Q,
+    N).  Returns y_diag (B, nc, nh, Q, hd) in x's dtype, states (B, nc, nh,
+    hd, N) f32 and cum (B, nc, nh, 1, Q) f32."""
+    Q = x.shape[3]
+    cum = torch.cumsum(dtA[:, :, :, 0].float(), dim=-1)            # B,nc,nh,Q
+    upper = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
+    L = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper,
+                                                             float("-inf"))
+    Bf, Cf = Bm.float(), Cm.float()
+    L.exp_().mul_((Cf @ Bf.transpose(-1, -2))[:, :, None])        # (C Bᵀ) ∘ L
+    dtx = x.float() * dt[:, :, :, 0, :, None].float()              # B,nc,nh,Q,hd
+    y = L @ dtx
+    del L
+    decay = torch.exp(cum[..., -1:] - cum)                         # B,nc,nh,Q
+    states = (dtx * decay[..., None]).transpose(-1, -2) @ Bf[:, :, None]
+    return y.to(x.dtype), states, cum[:, :, :, None, :]

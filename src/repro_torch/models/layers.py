@@ -1,23 +1,22 @@
-"""Transformer layers of the dense decoder, as pure functions over param
-dicts.
+"""Transformer layers, as pure functions over param dicts.
 
-The port's counterpart of ``repro/models/layers.py``, for the path the
-dense llama family takes.  Where the reference attends through its
-blockwise jnp softmax and normalises in jnp, the port calls the kernels of
-:mod:`repro_torch.kernels` — on the card the hand-written CUDA kernels, on
-the CPU their plain versions:
+The port's counterpart of ``repro/models/layers.py``, for the paths the
+dense llama and the hybrid zamba2's shared block take.  Where the
+reference attends through its blockwise jnp softmax and normalises in
+jnp, the port calls the kernels of :mod:`repro_torch.kernels` — on the
+card the hand-written CUDA kernels, on the CPU their plain versions:
 
   * every norm goes through ``kernels.rmsnorm``;
   * a one-token query against a cache goes through
     ``kernels.decode_attention`` (``valid_len = kv_valid_len``);
   * every other attention goes through ``kernels.flash_attention``, causal,
-    with ``kv_len`` the number of valid keys.
+    with the query rows at ``q_offset = positions[:, 0]`` onwards and
+    ``kv_len`` the number of valid keys, both per batch on the device, so
+    a multi-token call at any cache position masks as the reference does.
 
-The flash kernel counts positions from 0 (it has no ``q_offset``), so a
-multi-token call at a nonzero cache position is not yet ported and raises.
 The matmuls stay ``torch.matmul``: they are products outside any kernel of
-the reference.  Layernorm, GeLU MLPs, cross-attention and biases, which the
-dense llama path never reaches, are not yet ported either.
+the reference.  Layernorm, GeLU MLPs, cross-attention and biases, which no
+ported model reaches, are not yet ported either.
 """
 from __future__ import annotations
 
@@ -39,8 +38,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to the PyTorch "
-                               f"package (the dense llama path never "
-                               f"reaches it)")
+                               f"package (no ported model reaches it)")
 
 
 # ---------------------------------------------------------------------------
@@ -98,20 +96,29 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor,
                  pos: torch.Tensor) -> None:
-    """In place: row b of ``new`` (B, S, KV, hd) goes to cache[b, pos[b] +
-    s] (B, S_max, KV, hd).  One token per row goes to its own position and
-    a row at or past S_max writes nothing, as the reference's blend leaves
-    it; several tokens fill a fresh cache from position 0."""
+    """In place: token s of row b of ``new`` (B, S, KV, hd) goes to
+    cache[b, pos[b] + s] (B, S_max, KV, hd); a token at or past S_max
+    writes nothing, as the reference's blend leaves it.  Nothing here reads
+    ``pos`` on the host."""
     B, S = new.shape[:2]
-    new = new.to(cache.dtype)
-    if S > 1:
-        cache[:, :S] = new
-        return
     S_max = cache.shape[1]
+    new = new.to(cache.dtype)
     rows = torch.arange(B, device=cache.device)
-    at = pos.to(torch.long).clamp(max=S_max - 1)
-    keep = (pos < S_max)[:, None, None]
-    cache[rows, at] = torch.where(keep, new[:, 0], cache[rows, at])
+    pos = pos.to(torch.long)
+    if S == 1:
+        at = pos.clamp(max=S_max - 1)
+        keep = (pos < S_max)[:, None, None]
+        cache[rows, at] = torch.where(keep, new[:, 0], cache[rows, at])
+        return
+    idx = pos[:, None] + torch.arange(S, device=cache.device)       # (B, S)
+    # every token past the end is sent to the last row, carrying the value
+    # that row ends with, so the colliding writes all agree
+    t_last = (S_max - 1 - pos).clamp(0, S - 1)
+    covers = (pos <= S_max - 1) & (idx[:, -1] >= S_max - 1)
+    last = torch.where(covers[:, None, None], new[rows, t_last],
+                       cache[:, S_max - 1])
+    vals = torch.where((idx < S_max)[:, :, None, None], new, last[:, None])
+    cache[rows[:, None], idx.clamp(max=S_max - 1)] = vals
 
 
 def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
@@ -130,7 +137,7 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     """
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    pos_b = positions.expand(B, S)
+    offset = positions.expand(B, S)[:, 0]       # positions run offset + s
 
     q = rope(_project(x, p["wq"]), positions, cfg.rope_theta)
     k = rope(_project(x, p["wk"]), positions, cfg.rope_theta)
@@ -138,29 +145,24 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
 
     new_cache = None
     if kv_cache is None:
-        if kv_valid_len is not None:
-            raise _not_ported("attention without a cache under kv_valid_len")
-        ctx = mha(q, k, v, causal=causal)
+        ctx = mha(q, k, v, causal=causal, kv_len=kv_valid_len,
+                  q_offset=offset)
     else:
         ck, cv = kv_cache["k"], kv_cache["v"]
-        if S > 1 and bool((pos_b[:, 0] != 0).any()):
-            raise NotImplementedError(
-                "a multi-token call at a nonzero cache position (prefill "
-                "after decode, chunked prefill) is not yet ported: the "
-                "flash kernel counts query positions from 0")
         if S > ck.shape[1]:
             raise ValueError(f"{S} tokens do not fit a {ck.shape[1]}-token "
                              f"cache")
-        _write_cache(ck, k, pos_b[:, 0])
-        _write_cache(cv, v, pos_b[:, 0])
+        _write_cache(ck, k, offset)
+        _write_cache(cv, v, offset)
         new_cache = {"k": ck, "v": cv}
+        valid = kv_valid_len if kv_valid_len is not None else offset + S
         if S == 1:
-            valid = kv_valid_len if kv_valid_len is not None \
-                else pos_b[:, 0] + 1
             ctx = decode_mha(q, ck, cv, valid)
         else:
-            # a fresh cache from position 0: the valid keys are its first S
-            ctx = mha(q, ck[:, :S], cv[:, :S], causal=causal, kv_len=S)
+            # the whole cache, masked per batch: the causal tile skip stops
+            # each query tile at its last position
+            ctx = mha(q, ck, cv, causal=causal, kv_len=valid,
+                      q_offset=offset)
 
     out = ctx.reshape(B, S, h * hd) @ p["wo"].to(x.dtype).reshape(h * hd, -1)
     return out, new_cache

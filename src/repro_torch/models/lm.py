@@ -1,16 +1,26 @@
-"""The decoder-only language model, family ``dense``.
+"""Decoder-only language models, families ``dense``, ``ssm`` and
+``hybrid``.
 
-The port's counterpart of ``repro/models/lm.py`` for ``[norm, GQA attn,
-norm, SwiGLU MLP] x L``: the same parameter tree paths (layers stacked on a
-leading axis under ``blocks``) and the same ``(L, B, S_max, KV, hd)`` cache
-layout, so the transfer ledgers of a serve state equal the reference's.
-The layer stack is a Python loop over the stacked axis where the reference
-scans.  The moe, ssm, hybrid and vision families are not yet ported, and
-``loss_fn`` waits for training.
+The port's counterpart of ``repro/models/lm.py``:
 
-``prefill`` and ``decode_step`` write the KV cache they are given in place
-(see :func:`~repro_torch.models.layers.multihead_attention`) and return it
-with a new ``pos``.
+  dense   — [norm, GQA attn, norm, SwiGLU MLP] x L         (llama)
+  ssm     — [norm, Mamba2 SSD] x L                         (mamba2)
+  hybrid  — the Mamba2 stack plus one weight-SHARED attention block that
+            runs before every ``attn_every``-th Mamba2 layer      (zamba2)
+
+The same parameter tree paths (layers stacked on a leading axis under
+``blocks``, the hybrid's ``shared_attn``) and the same cache layouts
+(``(L, B, S_max, KV, hd)`` KV, ``(L, B, nh, hd, N)`` SSM states, ``(L, B,
+W-1, di)`` conv tails, the hybrid's ``(napps, B, S_max, KV, hd)`` KV), so
+the transfer ledgers of a serve state equal the reference's.  The layer
+stack is a Python loop over the stacked axis where the reference scans.
+The moe and vision families are not yet ported, and ``loss_fn`` waits for
+training.
+
+``prefill`` and ``decode_step`` write the KV caches they are given in
+place (see :func:`~repro_torch.models.layers.multihead_attention`; a
+write at a fixed position repeats identically), and return new ``state``
+and ``conv`` tensors, computed out of place, with a new ``pos``.
 """
 from __future__ import annotations
 
@@ -22,14 +32,18 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
 from ..core.treepath import tree_map
 from . import layers as L
+from . import ssm as SSM
 from .specs import ParamSpec, init_params, torch_dtype
+
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none" or cfg.is_encdec:
+    if cfg.family not in FAMILIES or cfg.frontend != "none" \
+            or cfg.is_encdec:
         raise NotImplementedError(
             f"model family {cfg.family!r} (frontend {cfg.frontend!r}) is not "
-            f"yet ported to the PyTorch package; only 'dense' is")
+            f"yet ported to the PyTorch package; ported: {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -41,12 +55,25 @@ def _stack(spec_tree: Any, n: int) -> Any:
                                         s.init, s.scale, s.dtype), spec_tree)
 
 
+def _attn_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def _ssm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln1": L.norm_specs(cfg), "ssm": SSM.ssm_specs(cfg)}
+
+
 def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     _check_family(cfg)
-    block = {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
-             "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
-    return {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg),
-            "blocks": _stack(block, cfg.num_layers)}
+    tree = {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg)}
+    if cfg.family == "dense":
+        tree["blocks"] = _stack(_attn_block_specs(cfg), cfg.num_layers)
+    else:
+        tree["blocks"] = _stack(_ssm_block_specs(cfg), cfg.num_layers)
+    if cfg.family == "hybrid":
+        tree["shared_attn"] = _attn_block_specs(cfg)
+    return tree
 
 
 def init(cfg: ModelConfig, generator: torch.Generator,
@@ -58,17 +85,56 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # caches
 # ---------------------------------------------------------------------------
 
+def _n_shared_apps(cfg: ModelConfig) -> int:
+    return -(-cfg.num_layers // cfg.attn_every) if cfg.attn_every else 0
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Serve-state tree: the pointer-chain tree the decode step touches."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
     kv_dtype = torch_dtype(cfg.compute_dtype)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=kv_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}
+
+    def zeros(*shape, dtype=kv_dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    kvhd = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {"pos": zeros(batch, dtype=torch.int32)}
+    if cfg.family == "dense":
+        cache["k"] = zeros(cfg.num_layers, batch, max_seq, *kvhd)
+        cache["v"] = zeros(cfg.num_layers, batch, max_seq, *kvhd)
+        return cache
+    cache["state"] = zeros(cfg.num_layers, batch, cfg.ssm_heads,
+                           cfg.ssm_head_dim, cfg.ssm_state,
+                           dtype=torch.float32)
+    cache["conv"] = zeros(cfg.num_layers, batch, cfg.ssm_conv_width - 1,
+                          cfg.d_inner)
+    if cfg.family == "hybrid":
+        napps = _n_shared_apps(cfg)
+        cache["k"] = zeros(napps, batch, max_seq, *kvhd)
+        cache["v"] = zeros(napps, batch, max_seq, *kvhd)
+    return cache
+
+
+def kernel_launches(cfg: ModelConfig, prefills: int,
+                    steps: int) -> Dict[str, int]:
+    """Launches of each model kernel on the card for ``prefills`` prefill
+    requests and ``steps`` decode steps: one rmsnorm per block norm plus
+    the final one per forward; per attention block (every layer of a dense
+    model, each application of the hybrid's shared block) one flash call
+    per prefill and one decode call per step; one ssd_chunks call per
+    Mamba2 layer per prefill (a decode step takes the recurrence)."""
+    _check_family(cfg)
+    L = cfg.num_layers
+    if cfg.family == "dense":
+        attn, norms, ssd = L, 2 * L + 1, 0
+    else:
+        attn = _n_shared_apps(cfg) if cfg.family == "hybrid" else 0
+        norms, ssd = L + 2 * attn + 1, L
+    return {"rmsnorm": norms * (prefills + steps),
+            "flash_attention": attn * prefills,
+            "decode_attention": attn * steps, "ssd_chunks": ssd * prefills}
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +151,55 @@ def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
 
+def _ssm_block(cfg, p, x, *, cache):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    out, new_cache = SSM.apply_ssm(cfg, p["ssm"], h, cache=cache)
+    return x + out, new_cache
+
+
+def _kv_slot(cache, i):
+    return None if cache is None else {"k": cache["k"][i],
+                                       "v": cache["v"][i]}
+
+
+def _run_attn_stack(cfg, params, x, *, positions, cache, kv_valid_len):
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda t: t[i], params["blocks"])
+        x = _attn_block(cfg, p, x, positions=positions,
+                        cache=_kv_slot(cache, i), kv_valid_len=kv_valid_len)
+    if cache is None:
+        return x, None
+    return x, {"k": cache["k"], "v": cache["v"]}
+
+
+def _run_ssm_stack(cfg, params, x, *, positions, cache, kv_valid_len):
+    """The Mamba2 blocks in order; for hybrid, the shared attention block
+    runs before layer ``i`` when ``i % attn_every == 0``, on KV slot ``i //
+    attn_every``.  The new states and conv tails are stacked out of
+    place."""
+    hybrid = cfg.family == "hybrid"
+    states, convs = [], []
+    for i in range(cfg.num_layers):
+        if hybrid and i % cfg.attn_every == 0:
+            x = _attn_block(cfg, params["shared_attn"], x,
+                            positions=positions,
+                            cache=_kv_slot(cache, i // cfg.attn_every),
+                            kv_valid_len=kv_valid_len)
+        p = tree_map(lambda t: t[i], params["blocks"])
+        c = None if cache is None else {"state": cache["state"][i],
+                                        "conv": cache["conv"][i]}
+        x, new_c = _ssm_block(cfg, p, x, cache=c)
+        if new_c is not None:
+            states.append(new_c["state"])
+            convs.append(new_c["conv"])
+    if cache is None:
+        return x, None
+    new_cache = {"state": torch.stack(states), "conv": torch.stack(convs)}
+    if hybrid:
+        new_cache.update(k=cache["k"], v=cache["v"])
+    return x, new_cache
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -96,25 +211,21 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     x = L.embed_tokens(cfg, params["embed"], tokens)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    blocks = params["blocks"]
-    for i in range(cfg.num_layers):
-        p = tree_map(lambda t: t[i], blocks)
-        layer_cache = None if cache is None else \
-            {"k": cache["k"][i], "v": cache["v"][i]}
-        x = _attn_block(cfg, p, x, positions=positions, cache=layer_cache,
-                        kv_valid_len=kv_valid_len)
+    run = _run_attn_stack if cfg.family == "dense" else _run_ssm_stack
+    x, new_cache = run(cfg, params, x, positions=positions, cache=cache,
+                       kv_valid_len=kv_valid_len)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
-    new_cache = None
-    if cache is not None:
-        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + S}
+    if new_cache is not None:
+        new_cache["pos"] = cache["pos"] + S
     return logits, new_cache, torch.zeros((), dtype=torch.float32,
                                           device=x.device)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             cache: Dict[str, torch.Tensor]):
-    """Fill the KV cache from a prompt; returns last-token logits."""
+    """Fill the KV/SSM caches from a prompt, at any cache position;
+    returns last-token logits."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)[None, :] \
         + cache["pos"][:, None]

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``repro/models/registry.py``.  ``get_model(cfg)``
 returns a :class:`ModelApi` whose methods close over the config.  Every id
-of the reference's registry is known here; ``llama3.2-1b`` is the one
-whose configuration and family are ported, and the others raise
+of the reference's registry is known here; ``llama3.2-1b`` (dense),
+``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid) are the ones whose
+configurations and families are ported, and the others raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ ARCH_IDS = (
     "zamba2-2.7b",
     "mamba2-1.3b",
 )
-PORTED = ("llama3.2-1b",)
+PORTED = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b")
 
 
 def load_config(arch_id: str) -> ModelConfig:

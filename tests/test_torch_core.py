@@ -274,3 +274,16 @@ def test_datasize_model_matches_reference():
         assert p_arena.datasize_linear(*args) == r_arena.datasize_linear(*args)
     for args in ((4, 1000, 3), (8, 1000, 3), (2, 5, 0)):
         assert p_arena.datasize_dense(*args) == r_arena.datasize_dense(*args)
+
+
+def test_session_counts_no_pinned_staging_for_a_cpu_target():
+    """``pinned_bytes`` counts page-locked staging only; a CPU target's
+    entries stage in pageable memory."""
+    from repro_torch.core import TransferSession
+
+    session = TransferSession()
+    tree = {"a": torch.ones(300), "b": torch.zeros(7, dtype=torch.int32)}
+    program = session.compile(tree, "**=marshal", device="cpu")
+    program.to_device(tree)
+    assert session.cache_stats()["entry_size"] == 1
+    assert session.pinned_bytes() == 0

@@ -20,6 +20,8 @@ from repro_torch.kernels.decode_attention import kernel as DK, ref as DR
 from repro_torch.kernels.flash_attention import kernel as FK, ops as FO
 from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.rmsnorm import kernel as RK, ref as RR
+from repro_torch.kernels.ssd_scan import kernel as SK, ops as SO
+from repro_torch.kernels.ssd_scan import ref as SR
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +104,20 @@ def test_fences_keep_in_flight_copies_intact(cuda, spec):
             assert a.device == cuda and torch.equal(a.cpu(), b)
 
 
+def test_session_counts_its_pinned_staging(cuda):
+    """A CUDA target's marshal entry holds two pinned buffers per dtype
+    bucket; clearing the session lets them go."""
+    session = TransferSession()
+    tree = {"a": torch.ones(300), "b": torch.zeros(7, dtype=torch.int32)}
+    program = session.compile(tree, "**=marshal", device=cuda)
+    program.to_device(tree)
+    torch.cuda.synchronize(cuda)
+    assert session.pinned_bytes() == 2 * (300 * 4 + 7 * 4)
+    program.clear()
+    session.clear()
+    assert session.pinned_bytes() == 0
+
+
 # -- the model kernels against their plain versions, at the shapes of
 # tests/test_kernels.py with its tolerances (bf16 2e-2, f32 2e-5) -----------
 
@@ -147,7 +163,8 @@ def test_flash_kernel_equals_plain_version(cuda, B, H, KV, Sq, Sk, hd, causal,
     q = _randn(rng, (B, Sq, H, hd), dtype, cuda)      # the model's layout
     k = _randn(rng, (B, Sk, KV, hd), dtype, cuda)
     v = _randn(rng, (B, Sk, KV, hd), dtype, cuda)
-    for kv_len in (Sk, max(1, Sk - 37)):
+    short = torch.full((B,), max(1, Sk - 37), dtype=torch.int32, device=cuda)
+    for kv_len in (None, short):        # every key, and a per-batch length
         before = FK.flash_attention.launches
         got = FO.mha(q, k, v, causal=causal, kv_len=kv_len)
         torch.cuda.synchronize(cuda)
@@ -200,33 +217,148 @@ def test_decode_kernel_keeps_the_empty_row_value(cuda):
                                rtol=2e-5, atol=2e-5)
 
 
-# -- the smoke llama and its Server on the card -------------------------------
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,offsets,lens", [
+    (2, 4, 2, 7, 32, 16, (0, 9), (7, 16)),
+    (3, 8, 2, 70, 300, 64, (3, 64, 230), (73, 134, 300)),
+    (2, 32, 32, 200, 2048, 80, (0, 900), (200, 1100)),
+    (1, 4, 4, 33, 33, 80, (0,), (33,)),
+    (2, 4, 1, 5, 130, 128, (125, 2), (130, 1)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_with_q_offset_equals_plain_version(
+        cuda, B, H, KV, Sq, Sk, hd, offsets, lens, dtype):
+    """Per-batch query offsets and key lengths (as a prefill at a nonzero
+    cache position passes them), and head dim 80 (zamba2's)."""
+    rng = np.random.default_rng(Sq)
+    q = _randn(rng, (B, Sq, H, hd), dtype, cuda)
+    k = _randn(rng, (B, Sk, KV, hd), dtype, cuda)
+    v = _randn(rng, (B, Sk, KV, hd), dtype, cuda)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = FK.flash_attention.launches
+    got = FO.mha(q, k, v, causal=True, kv_len=kl, q_offset=off)
+    torch.cuda.synchronize(cuda)
+    assert FK.flash_attention.launches == before + 1
+    want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, kv_len=kl,
+                            q_offset=off).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
-def test_smoke_server_on_the_card_matches_the_cpu(cuda):
-    """The smoke llama (f32) served on the card through the kernels gives
-    the CPU's tokens (plain versions), with exact launch counts: 2L+1
-    rmsnorm per forward, L flash per prefill, L decode per step."""
-    from repro_torch.models import registry
+
+def test_flash_kernel_offset_row_zero_still_sees_key_zero(cuda):
+    """kv_len 1 at a nonzero offset, and a length below 1 or an offset
+    below 0 (clamped): each row attends to key 0 alone."""
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (2, 3, 2, 16), torch.float32, cuda)
+    k = _randn(rng, (2, 70, 2, 16), torch.float32, cuda)
+    v = _randn(rng, (2, 70, 2, 16), torch.float32, cuda)
+    got = FO.mha(q, k, v, causal=True,
+                 kv_len=torch.tensor([1, 0], dtype=torch.int32, device=cuda),
+                 q_offset=torch.tensor([65, -4], dtype=torch.int32,
+                                       device=cuda))
+    for b in range(2):
+        torch.testing.assert_close(got[b], v[b, :1].expand(3, 2, 16),
+                                   rtol=1e-6, atol=1e-6)
+
+
+# -- the SSD chunk kernel: y within the kernel tolerances (bf16 2e-2, f32
+# 1e-4, test_kernels.py's SSD tolerance), the f32 states and cum within
+# 1e-3 in bf16 and 1e-4 in f32 ----------------------------------------------
+
+def _ssd_inputs(rng, B, S, nh, hd, N, dtype, device):
+    """Model-layout x (B, S, nh, hd), dt > 0 and A < 0 as
+    tests/test_kernels.py draws them, Bm/Cm (B, S, N)."""
+    x = _randn(rng, (B, S, nh, hd), dtype, device)
+    dt = torch.from_numpy((np.abs(rng.standard_normal((B, S, nh))) * 0.1
+                           + 0.01).astype(np.float32)).to(device)
+    A = torch.from_numpy((-np.abs(rng.standard_normal(nh)) - 0.1
+                          ).astype(np.float32)).to(device)
+    return (x, dt, A, _randn(rng, (B, S, N), dtype, device),
+            _randn(rng, (B, S, N), dtype, device))
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", [
+    (2, 64, 3, 8, 4, 16),
+    (1, 128, 2, 16, 8, 32),
+    (2, 32, 1, 8, 16, 8),
+    (1, 37, 2, 8, 4, 256),            # one chunk of 37 steps
+    (1, 1, 3, 16, 8, 256),            # one step
+    (1, 512, 8, 64, 128, 256),        # mamba2's widths
+    (2, 300, 5, 64, 64, 100),         # zamba2's state width, a ragged tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_equals_plain_version(cuda, B, S, nh, hd, N, chunk, dtype):
+    """The chunk kernel on the strided views ops.ssd_chunked_kernel passes
+    it, against the plain version on the same views."""
+    x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(S), B, S, nh, hd,
+                                   N, dtype, cuda)
+    Q = min(chunk, S)
+    nc = S // Q
+    xc = x.reshape(B, nc, Q, nh, hd).transpose(2, 3)
+    dtc = dt.reshape(B, nc, Q, nh).transpose(2, 3)[:, :, :, None, :]
+    dtA = (dt * A).reshape(B, nc, Q, nh).transpose(2, 3)[:, :, :, None, :]
+    Bc, Cc = Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N)
+    before = SK.ssd_chunks.launches
+    got = SK.ssd_chunks(xc, dtc, dtA, Bc, Cc)
+    torch.cuda.synchronize(cuda)
+    assert SK.ssd_chunks.launches == before + 1
+    want = SR.ssd_chunks_ref(xc, dtc, dtA, Bc, Cc)
+    y_tol = _tol(dtype) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    f32_tol = dict(rtol=1e-3, atol=1e-3) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    assert got[0].dtype == dtype and got[0].shape == want[0].shape
+    torch.testing.assert_close(got[0].float(), want[0].float(), **y_tol)
+    torch.testing.assert_close(got[1], want[1], **f32_tol)
+    torch.testing.assert_close(got[2], want[2], **f32_tol)
+    # and the whole scan on the card against the CPU's
+    y, st = SO.ssd_chunked_kernel(x, dt, A, Bm, Cm, chunk)
+    cy, cst = SO.ssd_chunked_kernel(*(t.cpu() for t in (x, dt, A, Bm, Cm)),
+                                    chunk)
+    torch.testing.assert_close(y.cpu().float(), cy.float(), **y_tol)
+    torch.testing.assert_close(st.cpu(), cst, **f32_tol)
+
+
+def test_ssd_kernel_never_overflows_above_the_diagonal(cuda):
+    rng = np.random.default_rng(11)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 64, 2, 8, 4, torch.float32, cuda)
+    dt = dt * 400.0                    # exp(cum_i - cum_j) overflows for i < j
+    y, st = SO.ssd_chunked_kernel(x, dt, A, Bm, Cm, 64)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    cy, cst = SO.ssd_chunked_kernel(*(t.cpu() for t in (x, dt, A, Bm, Cm)),
+                                    64)
+    torch.testing.assert_close(y.cpu(), cy, rtol=1e-4, atol=1e-4)
+
+
+# -- the smoke models and their Server on the card ---------------------------
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
+def test_smoke_server_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model (f32) served on the card through the kernels gives
+    the CPU's tokens (plain versions), with exact launch counts."""
+    from repro_torch.models import lm, registry
     from repro_torch.runtime import Request, Server
     from repro_torch.core import tree_map
 
-    api = registry.get("llama3.2-1b", smoke=True)
+    api = registry.get(arch, smoke=True)
     params = api.init(torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 257, n).astype(np.int32) for n in (9, 5, 17)]
+    kernels = {"rmsnorm": RK.rmsnorm, "flash_attention": FK.flash_attention,
+               "decode_attention": DK.decode_attention,
+               "ssd_chunks": SK.ssd_chunks}
     done = {}
     for dev, p in (("cpu", params), (cuda, tree_map(lambda t: t.to(cuda),
                                                     params))):
         server = Server(api, p, slots=2, max_seq=64, device=dev)
-        for k in (RK.rmsnorm, FK.flash_attention, DK.decode_attention):
+        for k in kernels.values():
             k.launches = 0
         for i, prompt in enumerate(prompts):
             server.submit(Request(rid=i, prompt=prompt, max_new_tokens=6))
         done[str(dev)] = {r.rid: r.tokens_out for r in server.run(100)}
         server.tracker.assert_conserved()
-    L, st = api.cfg.num_layers, server.stats
-    assert RK.rmsnorm.launches == (2 * L + 1) * (st.prefill_requests
-                                                 + st.decode_steps)
-    assert FK.flash_attention.launches == L * st.prefill_requests
-    assert DK.decode_attention.launches == L * st.decode_steps
+    st = server.stats
+    assert {n: k.launches for n, k in kernels.items()} == lm.kernel_launches(
+        api.cfg, st.prefill_requests, st.decode_steps)
     assert done["cuda:0"] == done["cpu"]

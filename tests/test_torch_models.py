@@ -13,8 +13,12 @@ package on the CPU.
     against the Pallas kernel in interpret mode and against the
     reference's ``ref.py`` oracle, at ``tests/test_kernels.py``'s shapes and
     tolerances (bf16 2e-2, f32 2e-5);
-  * the decode kernel's ``valid_len == 0`` value, and the multi-token call
-    at a nonzero cache position raising.
+  * the decode kernel's ``valid_len == 0`` value;
+  * a multi-token call at a nonzero cache position (prefill after prefill
+    or decode, per-batch offsets) against the reference's logits and
+    caches, for llama, mamba2 and zamba2, and the flash plain version's
+    per-batch ``q_offset`` and ``kv_len`` against the reference's masked
+    softmax over the real positions.
 """
 import dataclasses
 
@@ -30,6 +34,7 @@ from repro.core import leaf_paths as r_leaf_paths
 from repro.kernels.decode_attention import kernel as r_da, ref as r_da_ref
 from repro.kernels.flash_attention import ops as r_fa, ref as r_fa_ref
 from repro.kernels.rmsnorm import kernel as r_rn, ref as r_rn_ref
+from repro.models import layers as r_layers
 from repro.models import lm as r_lm
 from repro.models import registry as r_registry
 
@@ -109,9 +114,64 @@ def test_init_is_seeded_and_placed():
 
 def test_other_architectures_are_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        p_registry.get("mamba2-1.3b")
+        p_registry.get("arctic-480b")
     with pytest.raises(KeyError):
         p_registry.get("no-such-model")
+
+
+@pytest.mark.parametrize("arch,layers,per_forward,per_prefill", [
+    ("llama3.2-1b", None, {"rmsnorm": 33},
+     {"flash_attention": 16, "decode_attention": 16}),
+    ("mamba2-1.3b", None, {"rmsnorm": 49}, {"ssd_chunks": 48}),
+    ("zamba2-2.7b", 12, {"rmsnorm": 17},
+     {"flash_attention": 2, "decode_attention": 2, "ssd_chunks": 12}),
+    ("zamba2-2.7b", None, {"rmsnorm": 73},
+     {"flash_attention": 9, "decode_attention": 9, "ssd_chunks": 54}),
+])
+def test_kernel_launches_closed_forms(arch, layers, per_forward, per_prefill):
+    """At full width: rmsnorm per forward, flash and ssd_chunks per prefill
+    request, decode_attention per decode step (``per_prefill`` holds both
+    per-block counts)."""
+    cfg = p_registry.get(arch).cfg
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    per_block = {k: per_prefill.get(k, 0) for k in
+                 ("flash_attention", "decode_attention", "ssd_chunks")}
+    assert p_lm.kernel_launches(cfg, 3, 5) == {
+        "rmsnorm": per_forward["rmsnorm"] * 8,
+        "flash_attention": per_block["flash_attention"] * 3,
+        "decode_attention": per_block["decode_attention"] * 5,
+        "ssd_chunks": per_block["ssd_chunks"] * 3}
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
+def test_kernel_launches_counts_the_model_call_sites(arch, monkeypatch):
+    """The formula against the calls the smoke model makes into each kernel
+    wrapper's entry point on the CPU, over one prefill and three decode
+    steps."""
+    from repro_torch.models import layers as p_layers, ssm as p_ssm
+
+    calls = dict.fromkeys(("rmsnorm", "flash_attention", "decode_attention",
+                           "ssd_chunks"), 0)
+    for mod, attr, name in ((p_layers, "rmsnorm", "rmsnorm"),
+                            (p_layers, "mha", "flash_attention"),
+                            (p_layers, "decode_mha", "decode_attention"),
+                            (p_ssm, "ssd_chunked_kernel", "ssd_chunks")):
+        def counted(*a, _fn=getattr(mod, attr), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, attr, counted)
+    api = p_registry.get(arch, smoke=True)
+    params = api.init(torch.Generator().manual_seed(0), device=CPU)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, api.cfg.vocab_size, (2, 11)).astype(np.int32))
+    logits, cache = api.prefill(params, toks, api.init_cache(2, 32,
+                                                             device=CPU))
+    for _ in range(3):
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, cache = api.decode_step(params, nxt, cache)
+    assert calls == p_lm.kernel_launches(api.cfg, 1, 3)
 
 
 # ------------------------------------------------------- the model vs JAX
@@ -170,15 +230,95 @@ def test_prefill_and_decode_equal_the_reference(llama, reference_run):
                                        **MODEL_TOL, err_msg=f"step {i} {key}")
 
 
-def test_prefill_at_a_nonzero_position_is_not_yet_ported(llama):
+@pytest.fixture(scope="module", params=["llama3.2-1b", "mamba2-1.3b",
+                                        "zamba2-2.7b"])
+def any_model(request):
+    api = r_registry.get(request.param, smoke=True)
+    params = api.init(jax.random.PRNGKey(0))
+    port = p_registry.get(request.param, smoke=True)
+    return api, params, port, params_from_reference(jax.device_get(params),
+                                                    CPU)
+
+
+def _same_step(got, want, what):
+    (gl, gc), (wl, wc) = got, want
+    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **MODEL_TOL,
+                               err_msg=what)
+    assert sorted(gc) == sorted(wc)
+    for key in wc:
+        np.testing.assert_allclose(gc[key].float().numpy(),
+                                   np.asarray(wc[key], np.float32),
+                                   **MODEL_TOL, err_msg=f"{what} {key}")
+
+
+def test_prefill_at_a_nonzero_position_equals_the_reference(any_model):
+    """Prefill a first part, then the rest as one multi-token call at pos
+    > 0, then once more after a decode step: the reference's logits and
+    caches each time (its attention masks with the real positions; its
+    Mamba2 scan starts from the cached state)."""
+    api, params, port, pp = any_model
+    toks = np.random.default_rng(8).integers(
+        0, api.cfg.vocab_size, (2, 30)).astype(np.int32)
+    rc, pc = api.init_cache(2, 40), port.init_cache(2, 40, device=CPU)
+    for i, (a, b) in enumerate(((0, 11), (11, 23), (23, 24), (24, 30))):
+        chunk = toks[:, a:b]
+        if b - a == 1:
+            want = api.decode_step(params, jnp.asarray(chunk), rc)
+            got = port.decode_step(pp, torch.from_numpy(chunk), pc)
+        else:
+            want = api.prefill(params, jnp.asarray(chunk), rc)
+            got = port.prefill(pp, torch.from_numpy(chunk), pc)
+        _same_step(got, want, f"call {i} at pos {a}")
+        rc, pc = want[1], got[1]
+    assert pc["pos"].tolist() == [30, 30]
+
+
+def test_prefill_at_per_batch_offsets_equals_the_reference(any_model):
+    """Rows at different cache positions in one multi-token call, one of
+    them running past the end of the cache (the reference writes only the
+    rows that fit)."""
+    api, params, port, pp = any_model
+    toks = np.random.default_rng(9).integers(
+        0, api.cfg.vocab_size, (3, 9)).astype(np.int32)
+    pos = np.array([0, 5, 20], np.int32)
+    rc = dict(api.init_cache(3, 24), pos=jnp.asarray(pos))
+    pc = dict(port.init_cache(3, 24, device=CPU), pos=torch.from_numpy(pos))
+    want = api.prefill(params, jnp.asarray(toks), rc)
+    got = port.prefill(pp, torch.from_numpy(toks), pc)
+    _same_step(got, want, "per-batch offsets")
+    nxt = np.asarray(jnp.argmax(want[0][:, -1], -1))[:, None].astype(np.int32)
+    _same_step(port.decode_step(pp, torch.from_numpy(nxt), got[1]),
+               api.decode_step(params, jnp.asarray(nxt), want[1]),
+               "decode after it")
+
+
+def test_a_multi_token_call_makes_no_host_synchronize(llama, monkeypatch):
+    """multihead_attention reads no position on the host: the cache
+    position is a meta tensor, which has no values to read, and the call
+    still runs as far as the flash kernel's wrapper."""
+    from repro_torch.models import layers as p_layers
+
     _, _, port, pp = llama
-    cache = port.init_cache(1, 32, device=CPU)
-    _, cache = port.prefill(pp, torch.tensor([[1, 2, 3]]), cache)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port.prefill(pp, torch.tensor([[4, 5]]), cache)
-    # one token at a nonzero position is a decode step, which is ported
-    logits, cache = port.prefill(pp, torch.tensor([[4]]), cache)
-    assert int(cache["pos"][0]) == 4 and torch.isfinite(logits).all()
+    cfg = port.cfg
+    seen = {}
+
+    def fake_mha(q, k, v, *, causal, kv_len, q_offset):
+        seen.update(kv_len=kv_len, q_offset=q_offset)
+        return torch.zeros(q.shape, device="meta")
+
+    monkeypatch.setattr(p_layers, "mha", fake_mha)
+    x = torch.zeros(2, 5, cfg.d_model, device="meta")
+    p = {k: v[0].to("meta") for k, v in pp["blocks"]["attn"].items()}
+    cache = {"k": torch.zeros(2, 16, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, device="meta")}
+    cache["v"] = torch.zeros_like(cache["k"])
+    pos = torch.zeros(2, dtype=torch.int32, device="meta")
+    positions = torch.arange(5, device="meta")[None, :] + pos[:, None]
+    out, _ = p_layers.multihead_attention(cfg, p, x, positions=positions,
+                                          kv_cache=cache,
+                                          kv_valid_len=pos + 5)
+    assert out.shape == (2, 5, cfg.d_model)
+    assert seen["q_offset"].shape == (2,) and seen["kv_len"].shape == (2,)
 
 
 def test_cpu_wrappers_run_the_plain_versions_without_launching(llama):
@@ -283,3 +423,58 @@ def test_flash_rejects_an_empty_key_range():
     q = torch.zeros(1, 2, 4, 16)
     with pytest.raises(ValueError, match="kv_len"):
         FK.flash_attention(q, q[:, :1], q[:, :1], kv_len=0)
+
+
+def _reference_masked_attention(q, k, v, q_offset, kv_len):
+    """The reference model's attention over real positions: its
+    ``_masked_softmax`` with ``k_pos <= q_offset + i`` and ``k_pos <
+    kv_len`` per batch (q (B, Sq, H, hd), k/v (B, Sk, KV, hd), numpy)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qpos = q_offset[:, None] + np.arange(Sq)[None]
+    scores = r_layers._gqa_scores_block(
+        jnp.asarray(q).reshape(B, Sq, KV, H // KV, hd), jnp.asarray(k),
+        1.0 / np.sqrt(hd))
+    k_pos = np.arange(Sk)
+    mask = (k_pos[None, None, :] <= qpos[:, :, None]) \
+        & (k_pos[None, None, :] < kv_len[:, None, None])
+    probs = r_layers._masked_softmax(scores, jnp.asarray(mask)[:, None, None])
+    out = jnp.einsum("bkgqs,bskh->bqkgh", probs, jnp.asarray(v))
+    return np.asarray(out).reshape(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,offsets,lens", [
+    (2, 4, 2, 7, 32, 16, (0, 9), (7, 16)),
+    (3, 4, 4, 70, 200, 64, (3, 64, 130), (73, 134, 200)),
+    (2, 4, 1, 5, 24, 80, (19, 2), (24, 7)),
+    (1, 2, 2, 130, 130, 32, (0,), (130,)),
+])
+def test_flash_plain_version_with_q_offset_equals_the_reference(
+        B, H, KV, Sq, Sk, hd, offsets, lens):
+    rng = np.random.default_rng(Sq)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    off, kl = np.array(offsets, np.int32), np.array(lens, np.int32)
+    got = FO.mha(*map(torch.from_numpy, (q, k, v)), causal=True,
+                 kv_len=torch.from_numpy(kl), q_offset=torch.from_numpy(off))
+    want = _reference_masked_attention(q, k, v, off, kl)
+    np.testing.assert_allclose(got.numpy(), want, **_tol("float32"))
+
+
+def test_flash_offset_row_zero_still_sees_key_zero():
+    """The causal tile skip relies on every row having key 0 valid: a row
+    at a nonzero offset with kv_len 1 attends to key 0 alone, and a length
+    below 1 is clamped to 1 (an offset below 0 to 0), on the device as in
+    the plain version."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 3, 2, 16), (2, 70, 2, 16), (2, 70, 2, 16)))
+    got = FO.mha(q, k, v, causal=True,
+                 kv_len=torch.tensor([1, 0], dtype=torch.int32),
+                 q_offset=torch.tensor([65, -4], dtype=torch.int32))
+    for b in range(2):
+        torch.testing.assert_close(got[b], v[b, :1].expand(3, 2, 16),
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="q_offset"):
+        FO.mha(q, k, v, q_offset=torch.zeros(3, dtype=torch.int32))

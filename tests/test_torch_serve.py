@@ -7,7 +7,10 @@ tests/test_serve.py is held to the reference's outcome: the same
 ``tokens_out`` per rid, the same terminal states and error types, equal
 ``stats.as_dict()``, and the install program's region ledgers
 (313088 B / 1 copy for the params, 65544 / 2 for the cache, 16 / 2 for the
-slot table).
+slot table).  The smoke mamba2 and zamba2 (f32) are served the same way,
+under the same requests and the ``serve.decode_step`` / prefill fault
+retries: a retried decode step starts from the cache it was given, so the
+SSM state and conv tail of a step are never half applied.
 """
 import jax
 import jax.numpy as jnp
@@ -251,3 +254,88 @@ def test_server_defaults_to_the_card(models):
         pytest.skip("a card is present: the default device is used")
     with pytest.raises(NoCudaDeviceError):
         Server(port_api, pp, slots=1, max_seq=16)
+
+
+# -- the Mamba2 models (ssm, hybrid) -----------------------------------------
+
+SSM_LEDGERS = {
+    "mamba2-1.3b": {"params/**": (357632, 1), "cache/**": (38920, 2),
+                    "**": (16, 2)},
+    "zamba2-2.7b": {"params/**": (481792, 1), "cache/**": (71688, 2),
+                    "**": (16, 2)},
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SSM_LEDGERS))
+def ssm_models(request):
+    api = r_registry.get(request.param, smoke=True)
+    params = api.init(jax.random.PRNGKey(0))
+    port = p_registry.get(request.param, smoke=True)
+    return api, params, port, params_from_reference(jax.device_get(params),
+                                                    CPU)
+
+
+def test_ssm_models_serve_like_the_reference(ssm_models):
+    ref, port = _servers(ssm_models, slots=2, max_seq=64)
+    assert _ledgers(port) == _ledgers(ref) \
+        == SSM_LEDGERS[port.api.cfg.name.replace("-smoke", "")]
+    for r in _reqs(RRequest, 5):
+        ref.submit(r)
+    for r in _reqs(Request, 5):
+        port.submit(r)
+    _same(ref, port, ref.run(max_steps=200), port.run(max_steps=200))
+    assert port.stats.completed == 5 and port.stats.prefill_batches >= 2
+
+
+@pytest.mark.parametrize("point,at", [("serve.decode_step", 2),
+                                      ("serve.decode_step", 5),
+                                      ("serve.prefill_pack", 2)])
+def test_ssm_fault_retries_are_idempotent_like_the_reference(ssm_models,
+                                                             point, at):
+    """A retried decode step (or refill) recomputes from the same cache:
+    the same tokens, stats and terminal states as the reference."""
+    results = []
+    for which, (inject, cls) in enumerate(((r_injected, RRequest),
+                                           (injected, Request))):
+        with inject(point, at=at) as inj:
+            srv = _servers(ssm_models, slots=2, max_seq=64)[which]
+            for r in _reqs(cls, 5):
+                srv.submit(r)
+            done = srv.run(max_steps=200)
+        assert inj.fired == [(point, at)]
+        results.append((srv, done))
+    (ref, ref_done), (port, port_done) = results
+    _same(ref, port, ref_done, port_done)
+    assert port.stats.retries.get(point) == 1
+    assert port.stats.completed == 5 and port.stats.failed == 0
+
+
+def test_ssm_swap_policy_mid_serving_equals_the_reference(ssm_models):
+    ref, port = _servers(ssm_models, slots=2, max_seq=64)
+    for srv, cls in ((ref, RRequest), (port, Request)):
+        for r in _reqs(cls, 4, max_new=6):
+            srv.submit(r)
+        for _ in range(3):
+            srv.tick()
+        assert str(srv.swap_policy("marshal")) == "**=marshal"
+    _same(ref, port, ref.run(max_steps=200), port.run(max_steps=200))
+    assert _ledgers(port) == _ledgers(ref)
+
+
+def test_ssm_server_matches_manual_greedy_decode(ssm_models):
+    _, _, port_api, pp = ssm_models
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, 257, 11).astype(np.int32)
+    cache = port_api.init_cache(1, 64, device=CPU)
+    logits, cache = port_api.prefill(pp, torch.from_numpy(prompt)[None], cache)
+    want = [int(torch.argmax(logits[0, -1]))]
+    for _ in range(4):
+        logits, cache = port_api.decode_step(
+            pp, torch.tensor([[want[-1]]], dtype=torch.int32), cache)
+        want.append(int(torch.argmax(logits[0, -1])))
+    server = Server(port_api, pp, slots=2, max_seq=64, device=CPU)
+    server.submit(Request(rid=0, prompt=prompt, max_new_tokens=5))
+    server.submit(Request(rid=1, prompt=rng.integers(0, 257, 3).astype(
+        np.int32), max_new_tokens=5))
+    got = next(r for r in server.run(max_steps=50) if r.rid == 0).tokens_out
+    assert got == want
