@@ -21,8 +21,11 @@ Phases, each of which raises on failure:
      widths and at S = 16384 (y within 2e-2, the f32 states and cum within
      1e-3).  Each is then timed beside its plain version, one library call
      (none for ssd_chunks) and its bound, at a serve-phase shape and at one
-     larger shape.  The smoke llama's, mamba2's and zamba2's f32 logits on
-     the card (kernels) are held against the CPU (plain versions);
+     larger shape; flash and decode also at zamba2's serve shapes (head
+     dim 80, one query head a KV head: flash at the longest prompt, decode
+     over the 8 slots), so the hd-80 tiles and the g = 1 split are timed
+     too.  The smoke llama's, mamba2's and zamba2's f32 logits on the card
+     (kernels) are held against the CPU (plain versions);
   4. Algorithm 2 — every scenario of the ported families at the ``full``
      preset under uvm, marshal, marshal+db, marshal+delta and pointerchain:
      line-7 check ok and the ledger equal to the expected motion exactly;
@@ -471,67 +474,118 @@ def check_rmsnorm(device, serve_rows, big_rows: int, D: int) -> dict:
     return out
 
 
+def _bf16_randn(gen, device, *shape):
+    import torch
+
+    return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+
+def time_flash(device, gen, P: int, S_max: int, H: int, KV: int, hd: int,
+               iters: int):
+    """q (1, P, H, hd) against the first P rows of a (1, S_max, KV, hd)
+    cache layer, causal, as prefill calls it: checked against the plain
+    version, then timed beside it and SDPA.  Returns (row, max error)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q = _bf16_randn(gen, device, 1, P, H, hd)
+    k = _bf16_randn(gen, device, 1, S_max, KV, hd)[:, :P]
+    v = _bf16_randn(gen, device, 1, S_max, KV, hd)[:, :P]
+
+    def plain():
+        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True
+                                 ).transpose(1, 2)
+
+    err = _close(ops.mha(q, k, v, causal=True), plain(),
+                 f"flash P={P} hd {hd}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    m = _trio(device, {
+        "kernel": lambda: ops.mha(q, k, v, causal=True),
+        "plain": plain,
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}, iters)
+    m.update(_bound((2 * P * H * hd + 2 * P * KV * hd) * 2,
+                    4.0 * H * _causal_pairs(P, P) * hd))
+    m["shape"] = (f"q (1, {P}, {H}, {hd}), k/v (1, {P}, {KV}, {hd}) of a "
+                  f"{S_max}-row cache, bf16, causal")
+    return m, err
+
+
 def check_flash(device, prompt_lens, big_len: int, H: int, KV: int,
                 hd: int) -> dict:
     """At every prompt length of the serve phase, q (1, P, H, hd) against
     the first P rows of a (1, S_max, KV, hd) cache layer, as prefill calls
     it; then timed at the longest prompt and at big_len."""
+    from repro_torch.kernels.flash_attention import ops, ref
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import kernel as FK, ops, ref
 
     gen = torch.Generator(device=device).manual_seed(2)
-
-    def inputs(P, S_max):
-        q = torch.randn(1, P, H, hd, generator=gen, device=device
-                        ).to(torch.bfloat16)
-        ck = torch.randn(1, S_max, KV, hd, generator=gen, device=device
-                         ).to(torch.bfloat16)
-        cv = torch.randn(1, S_max, KV, hd, generator=gen, device=device
-                         ).to(torch.bfloat16)
-        return q, ck[:, :P], cv[:, :P]
-
-    def plain(q, k, v):
-        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True
-                                 ).transpose(1, 2)
-
     err = 0.0
     for P in sorted(set(prompt_lens)):
-        q, k, v = inputs(P, SERVE_MAX_SEQ)
-        err = max(err, _close(ops.mha(q, k, v, causal=True),
-                              plain(q, k, v), f"flash P={P}"))
+        q = _bf16_randn(gen, device, 1, P, H, hd)
+        k = _bf16_randn(gen, device, 1, SERVE_MAX_SEQ, KV, hd)[:, :P]
+        v = _bf16_randn(gen, device, 1, SERVE_MAX_SEQ, KV, hd)[:, :P]
+        want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True
+                                 ).transpose(1, 2)
+        err = max(err, _close(ops.mha(q, k, v, causal=True), want,
+                              f"flash P={P}"))
     out = {}
     for label, P, S_max, iters in (
             ("serve", max(prompt_lens), SERVE_MAX_SEQ, 10),
             ("large", big_len, big_len, 3)):
-        q, k, v = inputs(P, S_max)
-        err = max(err, _close(ops.mha(q, k, v, causal=True),
-                              plain(q, k, v), f"flash P={P}"))
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        m = _trio(device, {
-            "kernel": lambda: ops.mha(q, k, v, causal=True),
-            "plain": lambda: plain(q, k, v),
-            "library": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)}, iters)
-        m.update(_bound((2 * P * H * hd + 2 * P * KV * hd) * 2,
-                        4.0 * H * _causal_pairs(P, P) * hd))
-        m["shape"] = (f"q (1, {P}, {H}, {hd}), k/v (1, {P}, {KV}, {hd}) of a "
-                      f"{S_max}-row cache, bf16, causal")
-        out[label] = m
+        out[label], e = time_flash(device, gen, P, S_max, H, KV, hd, iters)
+        err = max(err, e)
     out["max_abs_err"] = err
     return out
 
 
-def check_decode(device, serve_valid, big_slots: int, big_seq: int, H: int,
-                 KV: int, hd: int) -> dict:
-    """q (B, H, hd) against one cache layer (B, S_max, KV, hd) read in place
-    through a transposed view, as decode_step calls it, with ragged
-    valid lengths; then timed there and at big_slots x big_seq."""
+def time_decode(device, gen, valid, S: int, H: int, KV: int, hd: int,
+                iters: int):
+    """q (B, H, hd) against one cache layer (B, S, KV, hd) read in place
+    through a transposed view, as decode_step calls it, with the valid
+    lengths ``valid``: checked against the plain version, then timed
+    beside it and SDPA with a mask.  Returns (row, max error)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import kernel as DK, ops, ref
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B = len(valid)
+    q = _bf16_randn(gen, device, B, 1, H, hd)
+    ck = _bf16_randn(gen, device, B, S, KV, hd)
+    cv = _bf16_randn(gen, device, B, S, KV, hd)
+    vl = torch.as_tensor(np.asarray(valid, np.int32), device=device)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    err = _close(ops.decode_mha(q, ck, cv, vl)[:, 0],
+                 ref.decode_ref(q[:, 0], kt, vt, vl),
+                 f"decode {B} x {S}, hd {hd}, {H // KV} heads a KV head")
+    mask = (torch.arange(S, device=device)[None, :]
+            < vl[:, None].long())[:, None, None, :]
+    qt = q.transpose(1, 2)
+    m = _trio(device, {
+        "kernel": lambda: ops.decode_mha(q, ck, cv, vl),
+        "plain": lambda: ref.decode_ref(q[:, 0], kt, vt, vl),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)}, iters)
+    keys = int(np.minimum(np.asarray(valid), S).sum())
+    m.update(_bound(keys * KV * hd * 2 * 2 + 2 * B * H * hd * 2 + 4 * B,
+                    4.0 * keys * H * hd))
+    m["shape"] = (f"q ({B}, {H}, {hd}) against a ({B}, {S}, {KV}, {hd}) "
+                  f"bf16 cache layer, valid lengths {list(map(int, valid))}"
+                  if B <= 8 else
+                  f"q ({B}, {H}, {hd}) against a ({B}, {S}, {KV}, {hd}) "
+                  f"bf16 cache layer, {keys} valid keys in all")
+    return m, err
+
+
+def check_decode(device, serve_valid, big_slots: int, big_seq: int, H: int,
+                 KV: int, hd: int) -> dict:
+    """Decode as decode_step calls it with ragged valid lengths, timed at
+    the serve phase's lengths and at big_slots x big_seq."""
+    import numpy as np
+    import torch
 
     gen = torch.Generator(device=device).manual_seed(3)
     big_valid = np.random.default_rng(3).integers(1, big_seq + 1,
@@ -540,37 +594,24 @@ def check_decode(device, serve_valid, big_slots: int, big_seq: int, H: int,
     for label, valid, S, iters in (
             ("serve", serve_valid, SERVE_MAX_SEQ, 50),
             ("large", big_valid, big_seq, 20)):
-        B = len(valid)
-        q = torch.randn(B, 1, H, hd, generator=gen, device=device
-                        ).to(torch.bfloat16)
-        ck = torch.randn(B, S, KV, hd, generator=gen, device=device
-                         ).to(torch.bfloat16)
-        cv = torch.randn(B, S, KV, hd, generator=gen, device=device
-                         ).to(torch.bfloat16)
-        vl = torch.as_tensor(np.asarray(valid, np.int32), device=device)
-        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-        err = max(err, _close(ops.decode_mha(q, ck, cv, vl)[:, 0],
-                              ref.decode_ref(q[:, 0], kt, vt, vl),
-                              f"decode {label}"))
-        mask = (torch.arange(S, device=device)[None, :]
-                < vl[:, None].long())[:, None, None, :]
-        qt = q.transpose(1, 2)
-        m = _trio(device, {
-            "kernel": lambda: ops.decode_mha(q, ck, cv, vl),
-            "plain": lambda: ref.decode_ref(q[:, 0], kt, vt, vl),
-            "library": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)}, iters)
-        keys = int(np.minimum(np.asarray(valid), S).sum())
-        m.update(_bound(keys * KV * hd * 2 * 2 + 2 * B * H * hd * 2 + 4 * B,
-                        4.0 * keys * H * hd))
-        m["shape"] = (f"q ({B}, {H}, {hd}) against a ({B}, {S}, {KV}, {hd}) "
-                      f"bf16 cache layer, valid lengths {list(map(int, valid))}"
-                      if B <= 8 else
-                      f"q ({B}, {H}, {hd}) against a ({B}, {S}, {KV}, {hd}) "
-                      f"bf16 cache layer, {keys} valid keys in all")
-        out[label] = m
+        out[label], e = time_decode(device, gen, valid, S, H, KV, hd, iters)
+        err = max(err, e)
     out["max_abs_err"] = err
     return out
+
+
+def time_zamba_attention(device, P: int, serve_valid, H: int, KV: int,
+                         hd: int):
+    """zamba2's attention timed at its serve shapes (head dim 80, one query
+    head a KV head): flash at a P-token prompt, decode over the serve
+    run's 8 slots.  Returns (flash row, decode row, max error)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    flash, e1 = time_flash(device, gen, P, SERVE_MAX_SEQ, H, KV, hd, 10)
+    dec, e2 = time_decode(device, gen, serve_valid, SERVE_MAX_SEQ, H, KV, hd,
+                          50)
+    return flash, dec, max(e1, e2)
 
 
 def check_flash_offsets(device, prompt_lens, H: int, KV: int,
@@ -738,8 +779,10 @@ def check_ssd(device, prompt_lens, chunk: int, widths, big_len: int) -> dict:
 
 
 def report_kernel(name: str, m: dict) -> None:
-    for label in ("serve", "large"):
-        r = m[label]
+    for label in ("serve", "large", "zamba2"):
+        r = m.get(label)
+        if r is None:
+            continue
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
         say(f"[kernels] {name} {label} {r['shape']}: kernel {r['ms']:.4f} ms, "
@@ -1135,11 +1178,9 @@ def main() -> int:
                         hd)
     flash["max_abs_err"] = max(flash["max_abs_err"], check_flash_offsets(
         device, lens, cfg.num_heads, cfg.num_kv_heads, hd))
-    report_kernel("flash_attention", flash)
     serve_valid = [n + SERVE_NEW_TOKENS // 2 for n in lens[:SERVE_SLOTS]]
     dec = check_decode(device, serve_valid, 32, 8192, cfg.num_heads,
                        cfg.num_kv_heads, hd)
-    report_kernel("decode_attention", dec)
     mamba = registry.get("mamba2-1.3b").cfg
     zamba = dataclasses.replace(registry.get("zamba2-2.7b").cfg,
                                 num_layers=ZAMBA_LAYERS)
@@ -1150,12 +1191,18 @@ def main() -> int:
         f"{sorted(set(lens + [SERVE_SLOTS]))}: == plain within {BF16_TOL} "
         f"(max |diff| {rerr})")
     rms["max_abs_err"] = max(rms["max_abs_err"], rerr)
+    flash["zamba2"], dec["zamba2"], terr = time_zamba_attention(
+        device, max(lens), serve_valid, zamba.num_heads, zamba.num_kv_heads,
+        zamba.resolved_head_dim)
+    zerr = max(zerr, terr)
     say(f"[kernels] flash_attention at per-batch offsets (llama) and at head "
         f"dim {zamba.resolved_head_dim} (zamba2), decode_attention at head "
         f"dim {zamba.resolved_head_dim}: == plain within {BF16_TOL} (max "
         f"|diff| {max(flash['max_abs_err'], zerr)})")
     flash["max_abs_err"] = max(flash["max_abs_err"], zerr)
     dec["max_abs_err"] = max(dec["max_abs_err"], zerr)
+    report_kernel("flash_attention", flash)
+    report_kernel("decode_attention", dec)
     ssd = check_ssd(device, lens, mamba.ssm_chunk, [
         ("mamba2", mamba.ssm_heads, mamba.ssm_head_dim, mamba.ssm_state),
         ("zamba2", zamba.ssm_heads, zamba.ssm_head_dim, zamba.ssm_state)],
@@ -1229,7 +1276,8 @@ def main() -> int:
             ms=serve_m["ms"], plain_ms=serve_m["plain_ms"],
             bound_ms=serve_m["bound_ms"], bound_by=serve_m["bound_by"],
             library_ms=serve_m["library_ms"], shape=serve_m["shape"],
-            large=m["large"],
+            large=m["large"], **({"zamba2": m["zamba2"]} if "zamba2" in m
+                                 else {}),
             launches_by_phase={t: c[kname] for t, c in served.items()}))
     say(smi)
     say(json.dumps({"kernels": rows}))

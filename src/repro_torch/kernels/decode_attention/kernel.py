@@ -5,14 +5,22 @@ Replaces ``repro/kernels/decode_attention/kernel.py::decode_attention`` (a
 Pallas kernel for the TPU): for each (b, h) an f32 online softmax over the
 keys below ``valid_len[b]``.  On the H100 it is bound by memory: every
 valid K and V row is read once, ``B * KV * valid * hd * 2 * itemsize``
-bytes at the card's bandwidth.  The kernel (``csrc/decode_attention.cu``)
-runs one block per (b, KV head) that serves all H/KV query heads of the
-group, reads the cache through its strides and stops at the valid prefix;
-see the source for the design.
+bytes at the card's bandwidth, and what keeps a kernel from that is too
+little parallelism.  ``csrc/decode_attention.cu`` is split-KV
+flash-decoding: a first kernel runs one block per (split of
+:func:`split_keys` keys, b, KV head), serving all H/KV query heads of the
+group from 16-byte loads of the cache read in place through its strides,
+and writes an f32 partial (max, sum, accumulator) per (b, h, split) into
+scratch this wrapper allocates; a second kernel combines the live splits.
+The split and the number of splits come from the cache's capacity S,
+not from its valid lengths, so nothing is read back from the card;
+blocks past ``valid_len[b]`` return at once.  See the source for the
+design.
 
-:func:`decode_attention` launches the kernel for CUDA tensors (or raises)
+:func:`decode_attention` launches the kernels for CUDA tensors (or raises)
 and runs the plain version (:func:`~.ref.decode_ref`) only for CPU
-tensors.  ``decode_attention.launches`` counts the kernel's launches.
+tensors.  ``decode_attention.launches`` counts the wrapper's launches (one
+per call, for the two kernels).
 """
 from __future__ import annotations
 
@@ -29,6 +37,22 @@ from . import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 80, 128)
+SPLITS = (64, 128, 256, 512)   # the keys a first-pass block may take
+
+
+def split_keys(S: int) -> int:
+    """Keys per block of the first pass, from the cache's capacity alone
+    (never from ``valid_len``, which lives on the card): the largest of
+    :data:`SPLITS` at most S / 16, so a full row is spread over about 16
+    blocks: 128 at the serve phases' 2048 rows, 512 at 8192.
+    ``scripts/torch_decode_splits.py`` times every split at
+    ``chip_smoke.py``'s decode shapes (PERF.md)."""
+    split = SPLITS[0]
+    for s in SPLITS[1:]:
+        if 16 * s <= S:
+            split = s
+    return split
 
 
 _FN = None
@@ -38,7 +62,7 @@ def _entry_point():
     global _FN
     if _FN is None:
         fn = _build.load(SOURCE).decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 10 + [ctypes.c_float] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -78,20 +102,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention takes float32 or bfloat16 q, k, "
                          f"v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention takes head dims {HEAD_DIMS}, "
+                         f"got {hd}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
     valid = valid_len.to(torch.int32).contiguous()
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if B == 0:
         return out          # a grid of 0 blocks is a launch error
+    split = split_keys(S)
+    nsplit = -(-S // split)
+    scratch = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     item = k.element_size()
-    vec = int(hd * item % 16 == 0 and all(
+    vec = int(all(                        # every hd above is 16-byte rows
         t.data_ptr() % 16 == 0 and all(s * item % 16 == 0
                                        for s in t.stride()[:3])
         for t in (k, v)))
     err = _build.launch(
         _entry_point(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), B, H, KV, S, hd,
+        valid.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, KV, S,
+        hd, split,
         q.stride(0), q.stride(1), k.stride(0), k.stride(2), k.stride(1),
         v.stride(0), v.stride(2), v.stride(1), out.stride(0), out.stride(1),
         float(scale), float(ref.empty_denominator(S, block_k)),

@@ -43,3 +43,49 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       float(empty_denominator(S, block_k)), den)
     out = torch.einsum("bkgs,bksd->bkgd", p, v.float()) / den
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: torch.Tensor, *,
+                     scale: Optional[float] = None, block_k: int = 512,
+                     split: int = 256) -> torch.Tensor:
+    """The CUDA kernel's split-KV algorithm, in plain PyTorch: the keys
+    cut into ``split``-key splits; each split below ``min(valid_len[b],
+    S)`` (every split when ``valid_len[b] == 0``, whose keys score the
+    finite -1e30) gives an f32 partial (max, sum, accumulator) over its
+    keys, keys past its end scoring -inf; the combine rescales the live
+    partials to their common max, sums them and divides by the sum, or by
+    ``empty_denominator`` for an empty row.  Same arguments as
+    :func:`decode_ref`; used by the tests."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    nsplit = -(-S // split)
+    pad = nsplit * split - S
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, KV, g, hd),
+                     kf) * scale
+    valid = valid_len.to(device=q.device, dtype=torch.long)
+    empty = valid <= 0
+    n_keys = torch.where(empty, S, valid.clamp(max=S))                # (B,)
+    keys = torch.arange(nsplit * split, device=q.device)
+    s = torch.where(empty[:, None, None, None], NEG_INF, s)
+    s = torch.where((keys[None, :] < n_keys[:, None])[:, None, None, :], s,
+                    -math.inf)
+    s = s.reshape(B, KV, g, nsplit, split)
+    live = (torch.arange(nsplit, device=q.device)[None, :] * split
+            < n_keys[:, None])[:, None, None, :]                    # (B,1,1,n)
+    m = torch.where(live, s.amax(dim=-1), 0.0)                       # partials
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgns,bknsd->bkgnd", p,
+                       vf.reshape(B, KV, nsplit, split, hd))
+    mx = torch.where(live, m, -math.inf).amax(dim=-1, keepdim=True)  # combine
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    den = (l * w).sum(dim=-1).clamp_min(1e-30)
+    den = torch.where(empty[:, None, None],
+                      float(empty_denominator(S, block_k)), den)
+    out = (acc * w[..., None]).sum(dim=-2) / den[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -8,9 +8,18 @@ query row ``i`` when causal, the KV head ``h // (H / KV)``.  The query
 offset is what the model's attention needs at a nonzero cache position
 (the reference masks with the real positions).  At the serving shapes its
 bound is the products, ``4 * B * H * Sq * Sk * hd`` operations (half
-under causal masking) at the tensor cores' rate; this first kernel
-(``csrc/flash_attention.cu``) runs them as f32 FMAs from shared memory,
-one block per (b, h, 64-row q tile); see the source for the design.
+under causal masking) at the tensor cores' rate.
+
+``csrc/flash_attention.cu`` holds two kernels, chosen by dtype.  bf16, what
+serving runs, goes to the tensor cores: one block of two warpgroups per
+(b, h, 128 query rows), Q K^T and P V as ``wgmma`` with f32 accumulation,
+P kept in registers as the A operand, K/V tiles of 64 keys through a
+three- or four-stage ``cp.async`` ring, masks only on the diagonal and
+``kv_len`` tiles.  It needs 16-byte aligned q, k, v with row, head and
+batch strides a multiple of 8 elements (the model's tensors always are)
+and raises ``ValueError`` otherwise.  float32, what the card tests and the smoke
+models' logits checks run, keeps the f32 FMA kernel: tensor cores in f32
+are TF32.  See the source for both designs.
 
 :func:`flash_attention` launches the kernel for CUDA tensors (or raises)
 and runs the plain version (:func:`~.ref.attention_ref`) only for CPU
@@ -106,6 +115,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {hd}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0 and all(
+                s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
+                if n > 1)
+            for t in (q, k, v)):
+        raise ValueError("the bf16 kernel copies 16-byte rows: q, k and v "
+                         "need 16-byte aligned data and batch, head and row "
+                         "strides that are multiples of 8 elements")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B == 0 or Sq == 0:

@@ -47,3 +47,52 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def attention_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, scale: Optional[float] = None,
+                        kv_len: Optional[torch.Tensor] = None,
+                        q_offset: Optional[torch.Tensor] = None,
+                        block_k: int = 64) -> torch.Tensor:
+    """The CUDA kernels' numerics, tile by tile: an online softmax over
+    ``block_k``-key tiles (running max, sum and accumulator in f32, the
+    accumulator rescaled per tile), with P rounded to bf16 before P V when
+    the inputs are bf16 (the tensor-core kernel's A operand; the sum takes
+    P before rounding) and kept in f32 otherwise (the FMA kernel).  Same
+    arguments and masks as :func:`attention_ref`; used by the tests, to
+    hold the kernels' algorithm against the plain version and the Pallas
+    kernel."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g = H // KV
+    dev = q.device
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kv_len = torch.full((B,), Sk, device=dev) if kv_len is None \
+        else kv_len.to(dev, torch.long).clamp(1, Sk)
+    off = torch.zeros(B, dtype=torch.long, device=dev) if q_offset is None \
+        else q_offset.to(dev, torch.long).clamp_min(0)
+    round_p = q.dtype == torch.bfloat16
+    qf = q.float().reshape(B, KV, g, Sq, hd)
+    q_pos = off[:, None] + torch.arange(Sq, device=dev)              # (B,Sq)
+    m = torch.full((B, KV, g, Sq, 1), NEG_INF, device=dev)
+    l = torch.zeros((B, KV, g, Sq, 1), device=dev)
+    acc = torch.zeros((B, KV, g, Sq, hd), device=dev)
+    for k0 in range(0, Sk, block_k):
+        kt = k[:, :, k0:k0 + block_k].float()
+        vt = v[:, :, k0:k0 + block_k].float()
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kt) * scale
+        k_pos = torch.arange(k0, k0 + kt.shape[2], device=dev)
+        valid = k_pos[None, None, :] < kv_len[:, None, None]         # (B,1,n)
+        if causal:
+            valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if round_p:
+            p = p.to(torch.bfloat16).float()
+        acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", p, vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(B, H, Sq, hd).to(q.dtype)

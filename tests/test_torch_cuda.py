@@ -261,6 +261,120 @@ def test_flash_kernel_offset_row_zero_still_sees_key_zero(cuda):
                                    rtol=1e-6, atol=1e-6)
 
 
+# -- the tensor-core flash kernel (bf16) and the split-KV decode kernel at
+# their edges: lengths that are not multiples of 64, every head dim, GQA
+# groups of 1, 4 and 8, valid lengths on both sides of a split -------------
+
+@pytest.mark.parametrize("hd", FK.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (63, 63), (65, 65), (938, 938),
+                                   (65, 938)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_at_ragged_lengths(cuda, hd, Sq, Sk, causal):
+    rng = np.random.default_rng(hd + Sq + Sk)
+    for H, KV in ((4, 4), (8, 2), (8, 1)):                 # g = 1, 4, 8
+        q = _randn(rng, (2, Sq, H, hd), torch.bfloat16, cuda)
+        k = _randn(rng, (2, Sk, KV, hd), torch.bfloat16, cuda)
+        v = _randn(rng, (2, Sk, KV, hd), torch.bfloat16, cuda)
+        before = FK.flash_attention.launches
+        got = FO.mha(q, k, v, causal=causal)
+        torch.cuda.synchronize(cuda)
+        assert FK.flash_attention.launches == before + 1
+        want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal
+                                ).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", FK.HEAD_DIMS)
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (8, 1)])
+def test_flash_bf16_kernel_at_offsets(cuda, hd, H, KV):
+    """Per-batch offsets and lengths; batch 2's row 0 sits at offset 65
+    with one valid key and batch 3's offset and length are clamped: both
+    attend to key 0 alone."""
+    rng = np.random.default_rng(hd * H)
+    q = _randn(rng, (4, 70, H, hd), torch.bfloat16, cuda)
+    k = _randn(rng, (4, 938, KV, hd), torch.bfloat16, cuda)
+    v = _randn(rng, (4, 938, KV, hd), torch.bfloat16, cuda)
+    off = torch.tensor([3, 868, 65, -4], dtype=torch.int32, device=cuda)
+    kl = torch.tensor([73, 938, 1, 0], dtype=torch.int32, device=cuda)
+    got = FO.mha(q, k, v, causal=True, kv_len=kl, q_offset=off)
+    want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, kv_len=kl,
+                            q_offset=off).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    key0 = v[2:, :1].repeat_interleave(H // KV, dim=2).expand(2, 70, H, hd)
+    torch.testing.assert_close(got[2:], key0, rtol=0, atol=0)
+
+
+def test_flash_bf16_kernel_refuses_misaligned_input(cuda):
+    """The bf16 kernel copies 16-byte rows: an odd base pointer or a row
+    stride that is not a multiple of 8 elements raises, before any launch
+    and without running the FMA kernel or the plain version."""
+    q = torch.randn(1, 2, 70, 64, device=cuda).to(torch.bfloat16)
+    flat = torch.randn(2 * 70 * 64 + 1, device=cuda).to(torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 70, 64)                  # 2 bytes off
+    padded = torch.randn(1, 2, 70, 68, device=cuda).to(torch.bfloat16)[..., :64]
+    before = FK.flash_attention.launches
+    for k in (shifted, padded):
+        with pytest.raises(ValueError, match="16-byte"):
+            FK.flash_attention(q, k, k)
+    assert FK.flash_attention.launches == before
+    # the f32 kernel reads elements one by one and takes such strides
+    FK.flash_attention(q.float(), padded.float(), padded.float())
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])              # g = 1, 4
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_across_split_boundaries(cuda, hd, H, KV, dtype):
+    """valid_len in {0, 1, split - 1, split, split + 1, S, S + 5}, the split
+    being the one the wrapper takes at this shape."""
+    B, S = 7, 600
+    split = DK.split_keys(S)
+    rng = np.random.default_rng(hd + H)
+    valid = torch.tensor([0, 1, split - 1, split, split + 1, S, S + 5],
+                         dtype=torch.int32, device=cuda)
+    q = _randn(rng, (B, H, hd), dtype, cuda)
+    cache_k = _randn(rng, (B, S, KV, hd), dtype, cuda)
+    cache_v = _randn(rng, (B, S, KV, hd), dtype, cuda)
+    k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    before = DK.decode_attention.launches
+    got = DK.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize(cuda)
+    assert DK.decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               DR.decode_ref(q, k, v, valid).float(),
+                               **_tol(dtype))
+    empty = v[0].float().sum(dim=1) / DR.empty_denominator(S)
+    torch.testing.assert_close(got[0].float(),
+                               empty.repeat_interleave(H // KV, dim=0),
+                               **_tol(dtype))
+
+
+def test_attention_wrappers_read_nothing_back(cuda):
+    """Under sync_debug_mode "error" a host read of a device tensor
+    (valid_len, kv_len, q_offset) raises: neither wrapper makes one."""
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (2, 70, 8, 64), torch.bfloat16, cuda)
+    kv = _randn(rng, (2, 300, 2, 64), torch.bfloat16, cuda)
+    lens = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
+    FO.mha(q, kv, kv, causal=True, kv_len=lens, q_offset=lens)   # built
+    DK.decode_attention(q[:, 0], kv.transpose(1, 2), kv.transpose(1, 2), lens)
+    torch.cuda.synchronize(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            FO.mha(q, kv, kv, causal=True, kv_len=lens, q_offset=lens)
+            DK.decode_attention(q[:, 0], kv.transpose(1, 2),
+                                kv.transpose(1, 2), lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda)
+
+
 # -- the SSD chunk kernel: y within the kernel tolerances (bf16 2e-2, f32
 # 1e-4, test_kernels.py's SSD tolerance), the f32 states and cum within
 # 1e-3 in bf16 and 1e-4 in f32 ----------------------------------------------
