@@ -12,20 +12,25 @@ Phases, each of which raises on failure:
   2. build       — every CUDA kernel, one nvcc each, all started together,
      into build/ (each build's time, registers and spills printed);
   3. kernels     — each kernel against its plain PyTorch version on the
-     card: gather_tiles bit for bit; rmsnorm, flash_attention and
+     card: gather_tiles bit for bit (tile counts around its persistent
+     grid up to 2^18 + 7, 4 KiB and 2 KiB tiles, maps with repeated and
+     with out-of-range entries); rmsnorm, flash_attention and
      decode_attention in bf16 within tests/test_kernels.py's tolerance
      (2e-2) at the serve phases' shapes, with ragged lengths, flash also
      at per-batch query offsets (a prefill at a nonzero cache position)
      and at zamba2's head dim 80; ssd_chunks at every prompt length of
      the serve run padded as apply_ssm pads it, at mamba2's and zamba2's
      widths and at S = 16384 (y within 2e-2, the f32 states and cum within
-     1e-3).  Each is then timed beside its plain version, one library call
-     (none for ssd_chunks) and its bound, at a serve-phase shape and at one
-     larger shape; flash and decode also at zamba2's serve shapes (head
-     dim 80, one query head a KV head: flash at the longest prompt, decode
-     over the 8 slots), so the hd-80 tiles and the g = 1 split are timed
-     too.  The smoke llama's, mamba2's and zamba2's f32 logits on the card
-     (kernels) are held against the CPU (plain versions);
+     1e-3), against the plain version and against ssd_chunks_split_ref,
+     the model of its bf16 arithmetic.  Each is then timed beside its plain
+     version, one library call (none for ssd_chunks) and its bound, at a
+     serve-phase shape and at one larger shape; flash, decode and
+     ssd_chunks also at zamba2's serve shapes (head dim 80, one query head
+     a KV head: flash at the longest prompt, decode over the 8 slots;
+     ssd_chunks at 80 heads and state 64), so the hd-80 tiles, the g = 1
+     split and a partial head group are timed too.  The smoke llama's,
+     mamba2's and zamba2's f32 logits on the card (kernels) are held
+     against the CPU (plain versions);
   4. Algorithm 2 — every scenario of the ported families at the ``full``
      preset under uvm, marshal, marshal+db, marshal+delta and pointerchain:
      line-7 check ok and the ledger equal to the expected motion exactly;
@@ -162,26 +167,58 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
 
 # -- phase 3 -----------------------------------------------------------------
 
+# tile counts around the kernel's persistent grid (a few blocks per SM):
+# below, at and just past one block per SM, several blocks per SM, 2^18 + 7
+GRID_TILES = (1, 131, 132, 133, 4 * 132 + 5, 2 ** 18 + 7)
+
+
 def check_gather_tiles(device, big_tiles: int) -> dict:
-    """gather_tiles vs its plain version: f32/bf16/int32 at 1, 4 and 17
-    tiles with random permutation maps, then f32 at ``big_tiles``, timed."""
+    """gather_tiles vs its plain version, bit for bit: f32/bf16/int32 at 1,
+    4 and 17 tiles and f32/bf16 (4 KiB / 2 KiB tiles) at GRID_TILES, by
+    random permutation maps; a map with repeated entries; a map with
+    out-of-range entries (those tiles are not written, every other one
+    must equal the plain version); then f32 at ``big_tiles``, timed."""
+    import numpy as np
     import torch
     from repro_torch.kernels.marshal_pack import kernel as K, ref
 
     tile = K.TILE
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
+
+    def same(got, want, what):
+        nonlocal max_err
+        if not torch.equal(got, want):
+            fail(f"gather_tiles != plain for {what}")
+        max_err = max(max_err, float((got.double() - want.double())
+                                     .abs().max()))
+
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
-        for n in (1, 4, 17):
+        counts = (1, 4, 17) + (GRID_TILES if dtype != torch.int32 else ())
+        for n in counts:
             src = (torch.randn(n * K.SUBLANE, K.LANE, generator=gen) * 10
                    ).to(dtype).to(device)
             tmap = torch.randperm(n, generator=gen).to(torch.int32).to(device)
             got = K.gather_tiles(src, tmap)
             want = ref.pack_ref(src.reshape(-1), tmap, tile).reshape(-1, K.LANE)
-            if not torch.equal(got, want):
-                fail(f"gather_tiles != plain for {dtype} x {n} tiles")
-            max_err = max(max_err, float((got.double() - want.double())
-                                         .abs().max()))
+            same(got, want, f"{dtype} x {n} tiles")
+    rng = np.random.default_rng(0)
+    src = torch.randn(97 * K.SUBLANE, K.LANE, generator=gen).to(device)
+    tmap = torch.from_numpy(rng.integers(0, 97, 1500).astype(np.int32)
+                            ).to(device)
+    same(K.gather_tiles(src, tmap), ref.pack_ref(src.reshape(-1), tmap, tile)
+         .reshape(-1, K.LANE), "1500 tiles from 97 by a map with repeats")
+    if device.type != "cuda":
+        return {"max_abs_err": max_err}      # the plain version raises there
+    m = rng.integers(0, 97, 700).astype(np.int32)
+    bad = rng.random(700) < 0.2
+    m[bad] = rng.choice(np.array([-1, 97, 2 ** 31 - 1], np.int32), bad.sum())
+    tmap = torch.from_numpy(m).to(device)
+    ok = torch.from_numpy(~bad).to(device)
+    got = K.gather_tiles(src, tmap).view(700, -1)[ok]
+    want = ref.pack_ref(src.reshape(-1), tmap.clamp(0, 96), tile
+                        ).view(700, -1)[ok]
+    same(got, want, "the in-range tiles of a map with out-of-range entries")
     src = torch.randn(big_tiles * K.SUBLANE, K.LANE, generator=gen
                       ).to(device)
     tmap = torch.randperm(big_tiles, generator=gen).to(torch.int32).to(device)
@@ -215,8 +252,10 @@ def check_gather_tiles(device, big_tiles: int) -> dict:
            "bound_ms": moved / bw * 1e3, "bound_by": "bytes",
            "max_abs_err": max_err}
     say(f"[kernels] gather_tiles: bit-exact vs plain (f32/bf16/int32 x 1,4,17 "
-        f"tiles; f32 x {big_tiles} tiles = {big_tiles * tile_bytes / 2**30:.3f} "
-        f"GiB); kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+        f"tiles; f32/bf16 x {GRID_TILES} tiles; a map with repeats; the "
+        f"in-range tiles of a map with out-of-range entries; f32 x "
+        f"{big_tiles} tiles = {big_tiles * tile_bytes / 2**30:.3f} GiB; "
+        f"{K.BLOCKS_PER_SM} blocks per SM); kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
         f"index_select {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
         f"ms ({moved} B at {bw / 1e12} TB/s); runs {times}")
     return out
@@ -712,9 +751,13 @@ def check_ssd(device, prompt_lens, chunk: int, widths, big_len: int) -> dict:
     each of ``widths`` ((label, nh, hd, N): mamba2's and zamba2's), and at
     B = 1, S = big_len at mamba2's widths.  x, B, C in bf16, dt in f32 from
     a softplus as the model computes it, A = -exp(A_log).  y within 2e-2,
-    the f32 states and cum within 1e-3.  Then timed beside the plain
-    version at the longest prompt and at big_len; no single PyTorch call
-    computes this function, so there is no library time."""
+    the f32 states and cum within 1e-3; the same checks also against
+    ``ssd_chunks_split_ref`` (the kernel's own arithmetic, bf16 hi + lo
+    operands, on the card), whose largest difference is returned as
+    ``max_abs_err_vs_split``.  Then timed beside the plain version at the
+    longest prompt at each width ("serve" mamba2, "zamba2") and at big_len
+    ("large"); no single PyTorch call computes this function, so there is
+    no library time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import kernel as SK, ref
@@ -737,16 +780,25 @@ def check_ssd(device, prompt_lens, chunk: int, widths, big_len: int) -> dict:
                     :, :, :, None, :],
                 Bm.reshape(1, nc, Q, N), Cm.reshape(1, nc, Q, N))
 
-    def compare(args, what):
-        got, want = SK.ssd_chunks(*args), ref.ssd_chunks_ref(*args)
-        e = _close(got[0], want[0], f"ssd_chunks y, {what}")
+    split_err = 0.0
+
+    def held(got, want, what, against):
+        e = _close(got[0], want[0], f"ssd_chunks y, {what} ({against})")
         for g, w, name in ((got[1], want[1], "states"),
                            (got[2], want[2], "cum")):
             d = float((g - w).abs().max())
             if not torch.allclose(g, w, rtol=SSD_F32_TOL, atol=SSD_F32_TOL):
-                fail(f"ssd_chunks {name}, {what}: kernel != plain (max "
+                fail(f"ssd_chunks {name}, {what}: kernel != {against} (max "
                      f"|diff| {d}, tolerance {SSD_F32_TOL})")
             e = max(e, d)
+        return e
+
+    def compare(args, what):
+        nonlocal split_err
+        got = SK.ssd_chunks(*args)
+        e = held(got, ref.ssd_chunks_ref(*args), what, "plain")
+        split_err = max(split_err, held(got, ref.ssd_chunks_split_ref(*args),
+                                        what, "split model"))
         return e
 
     err = 0.0
@@ -756,9 +808,11 @@ def check_ssd(device, prompt_lens, chunk: int, widths, big_len: int) -> dict:
             err = max(err, compare(inputs(S, P, nh, hd, N),
                                    f"{label} P={P} (S={S})"))
     out = {}
-    _, nh, hd, N = widths[0]
-    for label, P, iters in (("serve", max(prompt_lens), 10),
-                            ("large", big_len, 3)):
+    (_, nh, hd, N), (_, znh, zhd, zN) = widths[0], widths[1]
+    for label, P, iters, (nh, hd, N) in (
+            ("serve", max(prompt_lens), 10, (nh, hd, N)),
+            ("zamba2", max(prompt_lens), 10, (znh, zhd, zN)),
+            ("large", big_len, 3, (nh, hd, N))):
         S = ssd_padded_len(P, chunk)
         args = inputs(S, P, nh, hd, N)
         err = max(err, compare(args, f"{label} S={S}"))
@@ -775,6 +829,10 @@ def check_ssd(device, prompt_lens, chunk: int, widths, big_len: int) -> dict:
                       f"B/C N = {N}, dt f32")
         out[label] = m
     out["max_abs_err"] = err
+    out["max_abs_err_vs_split"] = split_err
+    say(f"[kernels] ssd_chunks against ssd_chunks_split_ref (the kernel's "
+        f"bf16 hi + lo arithmetic on the card): within {BF16_TOL} (y) and "
+        f"{SSD_F32_TOL} (states, cum) at every shape; max |diff| {split_err}")
     return out
 
 
@@ -1269,6 +1327,7 @@ def main() -> int:
              "decode_attention/kernel.py:65"),
             ("ssd_chunks", ssd, "ssd_scan", "ssd_scan/kernel.py:56")):
         serve_m = m["serve"]
+        extra = {k: m[k] for k in ("zamba2", "max_abs_err_vs_split") if k in m}
         rows.append(dict(
             name=kname, route="cuda", source=src.format(pkg, kname),
             replaces=f"src/repro/kernels/{line}",
@@ -1276,8 +1335,7 @@ def main() -> int:
             ms=serve_m["ms"], plain_ms=serve_m["plain_ms"],
             bound_ms=serve_m["bound_ms"], bound_by=serve_m["bound_by"],
             library_ms=serve_m["library_ms"], shape=serve_m["shape"],
-            large=m["large"], **({"zamba2": m["zamba2"]} if "zamba2" in m
-                                 else {}),
+            large=m["large"], **extra,
             launches_by_phase={t: c[kname] for t, c in served.items()}))
     say(smi)
     say(json.dumps({"kernels": rows}))

@@ -8,10 +8,11 @@ and unpacks (gather by the inverse map).
 On the H100 it is pure data movement: every packed byte is read once and
 written once, so its bound is 2 bytes moved per byte packed at the card's
 memory bandwidth (plus 4 bytes of map per tile).  The kernel
-(``csrc/gather_tiles.cu``) copies each tile as 16-byte words, one block per
-destination tile, independent of the element type; see the source for the
-design.  It is built with ``nvcc`` at first use and bound with ``ctypes``
-(:mod:`repro_torch.kernels._build`).
+(``csrc/gather_tiles.cu``) moves each tile, whatever its element type, as
+one TMA bulk copy into shared memory and one back out, on a persistent grid
+of ``BLOCKS_PER_SM`` one-warp blocks per SM, each keeping a ring of tiles in
+flight; see the source for the design.  It is built with ``nvcc`` at first
+use and bound with ``ctypes`` (:mod:`repro_torch.kernels._build`).
 
 :func:`gather_tiles` launches the kernel for a CUDA tensor (or raises) and
 runs the plain version (:func:`~.ref.pack_ref`) only for a CPU tensor.
@@ -35,6 +36,18 @@ TILE = SUBLANE * LANE  # 1024 elements
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gather_tiles.cu"
 
 _ITEMSIZES = (2, 4)
+BLOCKS_PER_SM = 4           # persistent blocks per SM, each 8 tiles in flight
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def _entry_point():
@@ -44,7 +57,7 @@ def _entry_point():
         # would pass a Python int as a 32-bit int and cut the pointer
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -87,6 +100,7 @@ def gather_tiles(src: torch.Tensor, tile_map: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(src.device):
         err = fn(src.data_ptr(), out.data_ptr(), tile_map.data_ptr(),
                  n_src, n_dst, TILE * src.element_size(),
+                 BLOCKS_PER_SM * _sm_count(src.device),
                  torch.cuda.current_stream(src.device).cuda_stream)
     if err:
         raise RuntimeError(f"gather_tiles launch failed with CUDA error {err}")

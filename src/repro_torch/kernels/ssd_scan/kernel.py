@@ -5,17 +5,20 @@ Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_chunks`` (a Pallas kernel
 for the TPU): for every (batch, chunk, head) tile, ``cum = cumsum(dtA)``,
 ``y_diag = ((C Bᵀ) ∘ tril(exp(cum_i - cum_j))) (dt·x)`` and the chunk state
 ``(dt·x)ᵀ (B ∘ exp(cum_last - cum))``, with B and C shared across heads.
-Its bound on the H100 is the products (the scores once per chunk, y_diag
-and the state per head) at the tensor cores' rate; this first kernel
-(``csrc/ssd_chunks.cu``) runs them as f32 FMAs from shared memory, one
-block per (b, chunk, 64-row query tile, head) for y_diag and cum and one
-per (b, chunk, 64 columns of N, head) for the state; see the source for
-the design.
+Its bound on the H100 is bytes at every shape the models run (about 85
+operations a byte at mamba2's widths, under the card's ~295).  For bf16
+(``csrc/ssd_chunks.cu``, one launch) every product runs on the tensor cores
+(``wgmma``): a block per (b, chunk, 64-row query tile, group of G heads)
+forms each key tile's scores C Bᵀ once for its G heads (G = 4 up to head
+dim 64, 2 above) and adds P x per head with P split into two bf16 parts, and
+a block per (b, chunk, head group, 128 columns of N; 64 above head dim 64)
+forms the chunk states from x·w split the same way; float32 keeps f32 FMA
+kernels on the CUDA cores.  See the source for the design.
 
 :func:`ssd_chunks` launches the kernel for CUDA tensors (or raises) and
 runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU tensors.
-``ssd_chunks.launches`` counts the wrapper's launches (one per call, which
-runs both of the source's kernels).
+``ssd_chunks.launches`` counts the wrapper's launches (one per call,
+whichever of the source's kernels it runs).
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ def _entry_point():
         fn = _build.load(SOURCE).ssd_chunks
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -98,11 +101,17 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
 
     strides = (*s4(x.transpose(3, 4)), *s4(dt), *s4(dtA),
                *Bm.stride()[:3], *Cm.stride()[:3], *s4(y.transpose(3, 4)))
+    # 16-byte rows: the bf16 kernel stages them with cp.async, else element
+    # by element (a choice by layout, made here, never on failure)
+    vec = (hd % 8 == 0 and N % 8 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm, y))
+           and all(v % 8 == 0 for v in (*strides[:4], *strides[12:])))
     err = _build.launch(
         _entry_point(), dev, x.data_ptr(), dt.data_ptr(), dtA.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
         cum.data_ptr(), B, nc, nh, Q, hd, N,
-        (ctypes.c_longlong * len(strides))(*strides), _DTYPES[x.dtype])
+        (ctypes.c_longlong * len(strides))(*strides), _DTYPES[x.dtype],
+        int(vec))
     if err:
         raise RuntimeError(f"ssd_chunks launch failed with CUDA error {err}")
     ssd_chunks.launches += 1

@@ -15,6 +15,12 @@ at B = 1, S = 16384, nh = 64, Q = 256); a three-way einsum would build a
 set to -inf before the ``exp``, so they are 0 and never overflow.  The CPU
 path of :func:`~repro_torch.kernels.ssd_scan.kernel.ssd_chunks` runs it;
 ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+
+:func:`ssd_chunks_split_ref` is a CPU model of the bf16 tensor-core
+kernel's arithmetic, for the tests and ``chip_smoke.py`` only (no path
+runs it): the products take bf16 operands, so the f32 weighted scores P and
+the state operand x·w are each split into ``hi = bf16(v)`` and ``lo =
+bf16(v - hi)`` and both products summed, as the kernel does.
 """
 from __future__ import annotations
 
@@ -41,4 +47,49 @@ def ssd_chunks_ref(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
     del L
     decay = torch.exp(cum[..., -1:] - cum)                         # B,nc,nh,Q
     states = (dtx * decay[..., None]).transpose(-1, -2) @ Bf[:, :, None]
+    return y.to(x.dtype), states, cum[:, :, :, None, :]
+
+
+def _split_bf16(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 v -> (hi, lo), both bf16 values held in f32, hi + lo ~ v to
+    ~16 significant bits."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_chunks_split_ref(x: torch.Tensor, dt: torch.Tensor,
+                         dtA: torch.Tensor, Bm: torch.Tensor,
+                         Cm: torch.Tensor, split_p: bool = True,
+                         split_xw: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's arithmetic on :func:`ssd_chunks_ref`'s inputs and
+    outputs: scores C Bᵀ in f32 from the inputs as they are; P = (C Bᵀ) ∘
+    tril(exp(cum_i - cum_j)) ∘ dt_j and x·w with w = dt·exp(cum_last - cum)
+    in f32; y = P_hi x + P_lo x and states = (x·w)_hiᵀ B + (x·w)_loᵀ B.
+    ``split_p`` / ``split_xw`` False rounds that operand to one bf16
+    instead, the design the kernel does not use (the tests show it fails
+    the checks)."""
+    Q = x.shape[3]
+    cum = torch.cumsum(dtA[:, :, :, 0].float(), dim=-1)            # B,nc,nh,Q
+    upper = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
+    P = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper,
+                                                             float("-inf"))
+    Bf, Cf = Bm.float(), Cm.float()
+    P.exp_().mul_((Cf @ Bf.transpose(-1, -2))[:, :, None])
+    P.mul_(dt[:, :, :, 0, None, :].float())                       # · dt_j
+    xf = x.float()
+    if split_p:
+        hi, lo = _split_bf16(P)
+        y = hi @ xf + lo @ xf
+    else:
+        y = P.to(torch.bfloat16).float() @ xf
+    del P
+    w = dt[:, :, :, 0].float() * torch.exp(cum[..., -1:] - cum)   # B,nc,nh,Q
+    xw = xf * w[..., None]
+    Bh = Bf[:, :, None]
+    if split_xw:
+        hi, lo = _split_bf16(xw)
+        states = hi.transpose(-1, -2) @ Bh + lo.transpose(-1, -2) @ Bh
+    else:
+        states = xw.to(torch.bfloat16).float().transpose(-1, -2) @ Bh
     return y.to(x.dtype), states, cum[:, :, :, None, :]

@@ -52,6 +52,57 @@ def test_kernel_equals_plain_version(cuda, dtype):
                            .reshape(-1, K.LANE))
 
 
+@pytest.mark.parametrize("n", [1, 131, 132, 133, 4 * 132 + 5, 2 ** 18 + 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_around_the_persistent_grid(cuda, n, dtype):
+    """Tile counts below, at and just past one and several blocks per SM
+    (4 KiB f32 and 2 KiB bf16 tiles), up to 2^18 + 7 tiles, by a random
+    permutation: bit-exact against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    src = torch.randn(n * K.SUBLANE, K.LANE, generator=gen,
+                      device=cuda).to(dtype)
+    tmap = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
+    before = K.gather_tiles.launches
+    got = K.gather_tiles(src, tmap)
+    torch.cuda.synchronize(cuda)
+    assert K.gather_tiles.launches == before + 1
+    assert torch.equal(got, ref.pack_ref(src.reshape(-1), tmap, TILE)
+                       .reshape(-1, K.LANE))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_kernel_with_repeated_entries(cuda, dtype):
+    """A map that names some source tiles many times and others never."""
+    rng = np.random.default_rng(3)
+    n_src, n_dst = 97, 1500
+    src = _randn(rng, (n_src * K.SUBLANE, K.LANE), torch.float32, cuda)
+    src = (src * 100).to(dtype)
+    tmap = torch.from_numpy(rng.integers(0, n_src, n_dst).astype(np.int32)
+                            ).to(cuda)
+    got = K.gather_tiles(src, tmap)
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(got, ref.pack_ref(src.reshape(-1), tmap, TILE)
+                       .reshape(-1, K.LANE))
+
+
+def test_kernel_skips_out_of_range_entries(cuda):
+    """Entries outside [0, n_src) write nothing and fault nothing; every
+    in-range tile still equals the plain version."""
+    rng = np.random.default_rng(4)
+    n_src, n_dst = 300, 700
+    src = _randn(rng, (n_src * K.SUBLANE, K.LANE), torch.float32, cuda)
+    m = rng.integers(0, n_src, n_dst).astype(np.int32)
+    bad = rng.random(n_dst) < 0.2
+    m[bad] = rng.choice(np.array([-1, -7, n_src, n_src + 5, 2 ** 31 - 1],
+                                 np.int32), bad.sum())
+    tmap = torch.from_numpy(m).to(cuda)
+    got = K.gather_tiles(src, tmap)
+    torch.cuda.synchronize(cuda)
+    ok = torch.from_numpy(~bad).to(cuda)
+    want = ref.pack_ref(src.reshape(-1), tmap.clamp(0, n_src - 1), TILE)
+    assert torch.equal(got.view(n_dst, -1)[ok], want.view(n_dst, -1)[ok])
+
+
 def test_empty_map_does_not_launch(cuda):
     before = K.gather_tiles.launches
     out = K.gather_tiles(torch.zeros(K.SUBLANE, K.LANE, device=cuda),
@@ -399,6 +450,14 @@ def _ssd_inputs(rng, B, S, nh, hd, N, dtype, device):
     (1, 1, 3, 16, 8, 256),            # one step
     (1, 512, 8, 64, 128, 256),        # mamba2's widths
     (2, 300, 5, 64, 64, 100),         # zamba2's state width, a ragged tile
+    (1, 128, 4, 64, 128, 64),         # Q = 64: one query tile a chunk
+    (1, 130, 4, 64, 128, 65),         # Q = 65: a one-row second tile
+    (1, 510, 3, 64, 64, 255),         # Q = 255
+    (1, 2048, 4, 64, 128, 1024),      # Q = 1024, the largest chunk
+    (1, 512, 3, 80, 64, 256),         # hd 80 (zamba2's attention width)
+    (1, 512, 2, 128, 128, 256),       # hd 128
+    (1, 512, 2, 64, 256, 256),        # N 256, the largest state
+    (1, 512, 80, 64, 64, 256),        # zamba2's 80 heads: a partial group
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_equals_plain_version(cuda, B, S, nh, hd, N, chunk, dtype):
