@@ -28,9 +28,12 @@ Phases, each of which raises on failure:
      ssd_chunks also at zamba2's serve shapes (head dim 80, one query head
      a KV head: flash at the longest prompt, decode over the 8 slots;
      ssd_chunks at 80 heads and state 64), so the hd-80 tiles, the g = 1
-     split and a partial head group are timed too.  The smoke llama's,
-     mamba2's and zamba2's f32 logits on the card (kernels) are held
-     against the CPU (plain versions);
+     split and a partial head group are timed too; flash and decode also
+     at head dim 128 with the GQA groups of starcoder2-3b (12 query heads a
+     KV head), granite-3-8b (4), qwen1.5-110b (8), moonshot-v1-16b-a3b (1)
+     and arctic-480b (7), held at every serve length and timed at the
+     serve shapes.  The smoke models' f32 logits on the card (kernels) are
+     held against the CPU (plain versions) for all eight ported models;
   4. Algorithm 2 — every scenario of the ported families at the ``full``
      preset under uvm, marshal, marshal+db, marshal+delta and pointerchain:
      line-7 check ok and the ledger equal to the expected motion exactly;
@@ -53,7 +56,15 @@ Phases, each of which raises on failure:
      1446652928 params) behind the same server, traffic and checks;
  10. serve-zamba2 — zamba2-2.7b at full width (d_model 2560, 32 heads of
      80, state 64), cut to 12 of its 54 layers (2 applications of the
-     shared attention block), the same server, traffic and checks.
+     shared attention block), the same server, traffic and checks;
+ 11. serve-starcoder2 — starcoder2-3b at full width and depth (bf16, 30
+     layers, 3181274112 params: LayerNorm, the tanh-GeLU MLP, qkv biases,
+     24 query heads on 2 KV heads of 128, so no rmsnorm), the same server,
+     traffic and checks;
+ 12. serve-moonshot — moonshot-v1-16b-a3b at full width (64 experts, top
+     6 of d_ff 1408, vocab 163840, 16 heads of 128 on 16 KV heads), cut to
+     4 of its 48 layers (2953332736 params), the same server, traffic and
+     checks.
      Each serve phase has its own TransferSession; its server, programs
      and pinned staging are released (and the pinned bytes printed)
      before the next.
@@ -67,9 +78,12 @@ and decode-step counts, exactly: llama rmsnorm 33 per forward (prefill
 request or decode step), flash 16 per prefill request, decode 16 per
 step; mamba2 rmsnorm 49 per forward and
 ssd_chunks 48 per prefill request; zamba2 rmsnorm 17 per forward, flash 2
-and ssd_chunks 12 per prefill request, decode 2 per step; gather_tiles
-never.  The last lines are the card's name and power limit, a ``kernels``
-JSON line (launches summed over the three serve phases) and ``{"ok": true,
+and ssd_chunks 12 per prefill request, decode 2 per step; starcoder2 no
+rmsnorm, flash 30 per prefill request, decode 30 per step; moonshot (4
+layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
+step; gather_tiles never.  The last lines are the card's name and power
+limit, a ``kernels`` JSON line (launches summed over the five serve
+phases) and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device the script exits with code 2
 and prints no result.
 
@@ -115,6 +129,25 @@ SERVE_LEDGERS = {"params/**": (2471628800, 1), "cache/**": (536870944, 2),
 SSM_CACHE_LEDGERS = {"mamba2-1.3b": (814743584, 3),
                      "zamba2-2.7b": (464322592, 3)}
 ZAMBA_LAYERS = 12                        # of 54: 2 shared-block applications
+# the attention variants (phases 11, 12): the install pass's region ledgers
+# (bytes, copies), closed forms.  starcoder2-3b at full width and depth:
+# 3181274112 bf16 params (every leaf a multiple of 128 elements); k and v
+# (30, 8, 2048, 2, 128) bf16 plus pos.  moonshot-v1-16b-a3b at full width
+# cut to 4 of its 48 layers: 2953332736 bf16 params; k and v (4, 8, 2048,
+# 16, 128) bf16 plus pos.  The slot table is SERVE_LEDGERS'.
+VARIANT_LEDGERS = {
+    "starcoder2-3b": {"params/**": (6362548224, 1),
+                      "cache/**": (503316512, 2),
+                      "**": SERVE_LEDGERS["**"]},
+    "moonshot-v1-16b-a3b": {"params/**": (5906665472, 1),
+                            "cache/**": (536870944, 2),
+                            "**": SERVE_LEDGERS["**"]},
+}
+MOONSHOT_LAYERS = 4                      # of 48: staging near the others'
+# the head-dim-128 attention shapes phase 3 holds and times: 12, 4, 8, 1
+# and 7 query heads a KV head
+HD128_ARCHS = ("starcoder2-3b", "granite-3-8b", "qwen1.5-110b",
+               "moonshot-v1-16b-a3b", "arctic-480b")
 
 
 def say(*parts) -> None:
@@ -639,10 +672,11 @@ def check_decode(device, serve_valid, big_slots: int, big_seq: int, H: int,
     return out
 
 
-def time_zamba_attention(device, P: int, serve_valid, H: int, KV: int,
+def time_serve_attention(device, P: int, serve_valid, H: int, KV: int,
                          hd: int):
-    """zamba2's attention timed at its serve shapes (head dim 80, one query
-    head a KV head): flash at a P-token prompt, decode over the serve
+    """A model's attention timed at its serve shapes (zamba2's head dim 80
+    with one query head a KV head, the head-dim-128 groups of the
+    attention variants): flash at a P-token prompt, decode over the serve
     run's 8 slots.  Returns (flash row, decode row, max error)."""
     import torch
 
@@ -686,12 +720,13 @@ def check_flash_offsets(device, prompt_lens, H: int, KV: int,
     return err
 
 
-def check_zamba_attention(device, prompt_lens, serve_valid, H: int, KV: int,
+def check_serve_attention(device, prompt_lens, serve_valid, H: int, KV: int,
                           hd: int) -> float:
-    """zamba2's shared block at its serve shapes (head dim 80): flash for
-    every prompt length as prefill calls it (the whole cache layer as
-    keys, per-batch length and offset tensors), decode over 8 slots with
-    the run's ragged lengths.  Returns the largest |kernel - plain|."""
+    """A model's attention at its serve shapes (zamba2's shared block at
+    head dim 80, the attention variants at head dim 128): flash for every
+    prompt length as prefill calls it (the whole cache layer as keys,
+    per-batch length and offset tensors), decode over 8 slots with the
+    run's ragged lengths.  Returns the largest |kernel - plain|."""
     import numpy as np
     import torch
     from repro_torch.kernels.decode_attention import ops as dops, ref as dref
@@ -836,9 +871,27 @@ def check_ssd(device, prompt_lens, chunk: int, widths, big_len: int) -> dict:
     return out
 
 
+def check_hd128_attention(device, prompt_lens, serve_valid, cfgs):
+    """Flash and decode at each attention variant's head dim 128 and GQA
+    group (12, 4, 8, 1 and 7 query heads a KV head), held against the plain
+    versions at every serve length, then timed at the longest prompt and
+    over the serve run's 8 slots.  Returns (flash rows, decode rows, the
+    largest |kernel - plain|), the rows keyed by model."""
+    flash, dec, err = {}, {}, 0.0
+    for cfg in cfgs:
+        shape = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+        err = max(err, check_serve_attention(device, prompt_lens, serve_valid,
+                                             *shape))
+        flash[cfg.name], dec[cfg.name], e = time_serve_attention(
+            device, max(prompt_lens), serve_valid, *shape)
+        err = max(err, e)
+    return flash, dec, err
+
+
 def report_kernel(name: str, m: dict) -> None:
-    for label in ("serve", "large", "zamba2"):
-        r = m.get(label)
+    rows = [(label, m.get(label)) for label in ("serve", "large", "zamba2")]
+    rows += sorted(m.get("hd128", {}).items())
+    for label, r in rows:
         if r is None:
             continue
         lib = "none" if r["library_ms"] is None \
@@ -966,10 +1019,12 @@ def serve_phase(device, kernels: dict, api, tag: str,
     from repro_torch._device import synchronize
     from repro_torch.core import TransferSession
     from repro_torch.models.specs import param_count
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
     from repro_torch.runtime import Request, Server
 
     cfg = api.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    longest = max(len(p) for p in prompts)
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device=device).manual_seed(0),
                       device=device)
@@ -980,7 +1035,12 @@ def serve_phase(device, kernels: dict, api, tag: str,
            f"{cfg.resolved_head_dim}, " if cfg.family != "ssm" else "")
         + (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
            f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
-           if cfg.family != "dense" else "")
+           if cfg.family in ("ssm", "hybrid") else "")
+        + (f"{cfg.num_experts} experts top {cfg.experts_per_token} of d_ff "
+           f"{cfg.d_ff} (capacity {moe.capacity(cfg, SERVE_SLOTS)} at a "
+           f"decode step, {moe.capacity(cfg, longest)} at a {longest}-token "
+           f"prefill), " if cfg.family == "moe" else "")
+        + f"{cfg.norm}, "
         + f"vocab {cfg.vocab_size}, {cfg.param_dtype}, "
         f"{param_count(lm.spec_tree(cfg))} params; drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1031,7 +1091,6 @@ def serve_phase(device, kernels: dict, api, tag: str,
         f"{server.program.last_stats.sync_s * 1e3:.1f} ms); region ledgers "
         f"{ledgers} == arena plan == closed forms")
 
-    prompts = serve_prompts(cfg.vocab_size)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
             for i, p in enumerate(prompts)]
     for k in kernels.values():
@@ -1242,14 +1301,14 @@ def main() -> int:
     mamba = registry.get("mamba2-1.3b").cfg
     zamba = dataclasses.replace(registry.get("zamba2-2.7b").cfg,
                                 num_layers=ZAMBA_LAYERS)
-    zerr = check_zamba_attention(device, lens, serve_valid, zamba.num_heads,
+    zerr = check_serve_attention(device, lens, serve_valid, zamba.num_heads,
                                  zamba.num_kv_heads, zamba.resolved_head_dim)
     rerr = rmsnorm_err(device, lens + [SERVE_SLOTS], zamba.d_model)
     say(f"[kernels] rmsnorm at zamba2's width {zamba.d_model}, rows "
         f"{sorted(set(lens + [SERVE_SLOTS]))}: == plain within {BF16_TOL} "
         f"(max |diff| {rerr})")
     rms["max_abs_err"] = max(rms["max_abs_err"], rerr)
-    flash["zamba2"], dec["zamba2"], terr = time_zamba_attention(
+    flash["zamba2"], dec["zamba2"], terr = time_serve_attention(
         device, max(lens), serve_valid, zamba.num_heads, zamba.num_kv_heads,
         zamba.resolved_head_dim)
     zerr = max(zerr, terr)
@@ -1259,6 +1318,15 @@ def main() -> int:
         f"|diff| {max(flash['max_abs_err'], zerr)})")
     flash["max_abs_err"] = max(flash["max_abs_err"], zerr)
     dec["max_abs_err"] = max(dec["max_abs_err"], zerr)
+    variants = [registry.get(a).cfg for a in HD128_ARCHS]
+    flash["hd128"], dec["hd128"], herr = check_hd128_attention(
+        device, lens, serve_valid, variants)
+    say(f"[kernels] flash_attention and decode_attention at head dim 128, "
+        + ", ".join(f"{c.name} {c.num_heads}/{c.num_kv_heads} heads"
+                    for c in variants)
+        + f": == plain within {BF16_TOL} (max |diff| {herr})")
+    flash["max_abs_err"] = max(flash["max_abs_err"], herr)
+    dec["max_abs_err"] = max(dec["max_abs_err"], herr)
     report_kernel("flash_attention", flash)
     report_kernel("decode_attention", dec)
     ssd = check_ssd(device, lens, mamba.ssm_chunk, [
@@ -1266,7 +1334,7 @@ def main() -> int:
         ("zamba2", zamba.ssm_heads, zamba.ssm_head_dim, zamba.ssm_state)],
         16384)
     report_kernel("ssd_chunks", ssd)
-    for arch in ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b"):
+    for arch in ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b") + HD128_ARCHS:
         say(f"[kernels] smoke {arch} (f32) logits on the card == CPU within "
             f"2e-4: max |diff| {small_logits_check(device, arch)}")
     torch.cuda.empty_cache()
@@ -1300,13 +1368,19 @@ def main() -> int:
     get_session().clear()
     release_host_cache()
 
-    # the serve paths (phases 8-10): serve_phase resets the counters just
+    # the serve paths (phases 8-12): serve_phase resets the counters just
     # before driving each and reads them just after
+    moonshot = dataclasses.replace(registry.get("moonshot-v1-16b-a3b").cfg,
+                                   num_layers=MOONSHOT_LAYERS)
     served = {}
     for tag, api, want in (
             ("serve", registry.get("llama3.2-1b"), SERVE_LEDGERS),
             ("serve-mamba2", registry.get("mamba2-1.3b"), None),
-            ("serve-zamba2", registry.get_model(zamba), None)):
+            ("serve-zamba2", registry.get_model(zamba), None),
+            ("serve-starcoder2", registry.get("starcoder2-3b"),
+             VARIANT_LEDGERS["starcoder2-3b"]),
+            ("serve-moonshot", registry.get_model(moonshot),
+             VARIANT_LEDGERS["moonshot-v1-16b-a3b"])):
         if want is None:
             want = {"params/**": None,
                     "cache/**": SSM_CACHE_LEDGERS[api.cfg.name],
@@ -1327,7 +1401,8 @@ def main() -> int:
              "decode_attention/kernel.py:65"),
             ("ssd_chunks", ssd, "ssd_scan", "ssd_scan/kernel.py:56")):
         serve_m = m["serve"]
-        extra = {k: m[k] for k in ("zamba2", "max_abs_err_vs_split") if k in m}
+        extra = {k: m[k] for k in ("zamba2", "hd128", "max_abs_err_vs_split")
+                 if k in m}
         rows.append(dict(
             name=kname, route="cuda", source=src.format(pkg, kname),
             replaces=f"src/repro/kernels/{line}",

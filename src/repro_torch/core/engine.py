@@ -70,7 +70,8 @@ class DeltaState:
     memoized fully-clean attach."""
 
     def __init__(self):
-        # entry -> {bucket: (shipped version, retained device buffer)}
+        # entry -> {bucket: (shipped version, retained device buffer, its
+        # write count when retained)}
         self.retained: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         # entry -> (versions snapshot, attached device tree)
         self.last_unpack: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()

@@ -399,6 +399,12 @@ class UVMScheme(TransferScheme):
 # Marshalling — Algorithm 1
 # ---------------------------------------------------------------------------
 
+def _write_count(t: torch.Tensor) -> Optional[int]:
+    """torch's count of in-place writes to ``t`` and its views; ``None``
+    for an inference tensor, which keeps no count."""
+    return None if t.is_inference() else t._version
+
+
 class MarshalScheme(TransferScheme):
     """Algorithm 1 on the persistent arena engine.
 
@@ -409,7 +415,8 @@ class MarshalScheme(TransferScheme):
                         ``pack_host`` overlaps this call's copies.
     * ``delta``       — the executor's :class:`~repro_torch.core.engine.DeltaState`
                         retains every bucket on the device and re-ships only
-                        buckets whose staging version moved; clean buckets
+                        buckets whose staging version moved or whose
+                        retained tensor was written in place; clean buckets
                         are ``skipped_bytes``.
     """
 
@@ -487,15 +494,41 @@ class MarshalScheme(TransferScheme):
         return self._begin_pipelined(tree)[1]()
 
     def _begin_delta(self, tree):
+        """Ship only the dirty buckets; attach every bucket from what is
+        retained on the device.
+
+        A bucket is dirty when its staging version moved (the host changed
+        it) or when its retained device tensor was written since it was
+        shipped: the tree this returns is views of the retained buckets, so
+        a caller's in-place write to a leaf (``mul_``, ``index_copy_``)
+        lands in them.  The second test reads torch's version counter, which
+        a bucket shares with all its views, against the one recorded when
+        the bucket was retained.  A dirty bucket is re-shipped from staging
+        and booked as H2D; the memoized attach is returned only when no
+        bucket is dirty by either test.
+
+        What the counter cannot see: a write through ``.data`` or
+        ``.detach()``, a write by a kernel through ``data_ptr()``, and
+        anything done to a tensor made under ``torch.inference_mode``, which
+        has no counter (such a bucket is treated as dirty on every pass).
+        No path of this package writes a staged leaf in any of these ways.
+        """
         entry = self._entry_for(tree)
         buffers = entry.pack_host(tree, trust_identity=True)
         self._record_fence_wait(entry)
+        # bucket -> (staging version, retained device tensor, its counter)
         retained = self._delta_state.retained.setdefault(entry, {})
         names = list(buffers)
         versions = dict(entry.versions)
         bucket_bytes = entry.layout.bucket_bytes()
-        dirty = [b for b in names
-                 if retained.get(b, (None, None))[0] != versions[b]]
+
+        def is_clean(b):
+            held = retained.get(b)
+            return (held is not None and held[0] == versions[b]
+                    and held[2] is not None
+                    and _write_count(held[1]) == held[2])
+
+        dirty = [b for b in names if not is_clean(b)]
         clean = [b for b in names if b not in dirty]
 
         def book_clean():
@@ -508,8 +541,9 @@ class MarshalScheme(TransferScheme):
             memo = self._delta_state.last_unpack.get(entry)
             if memo is not None and memo[0] == versions:
                 def finish_memo():
-                    # fully clean repeat: the attached tree is still
-                    # bit-identical
+                    # fully clean repeat: no staging version moved and no
+                    # retained bucket was written, so the attached tree
+                    # still holds the host's bytes
                     book_clean()
                     return memo[1]
 
@@ -522,7 +556,7 @@ class MarshalScheme(TransferScheme):
 
         def finish():
             for b, arr in zip(dirty, dev):
-                retained[b] = (versions[b], arr)
+                retained[b] = (versions[b], arr, _write_count(arr))
             book_clean()
             out = entry.unpack({b: retained[b][1] for b in names})
             self._delta_state.last_unpack[entry] = (versions, out)

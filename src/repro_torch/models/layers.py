@@ -1,12 +1,13 @@
 """Transformer layers, as pure functions over param dicts.
 
 The port's counterpart of ``repro/models/layers.py``, for the paths the
-dense llama and the hybrid zamba2's shared block take.  Where the
-reference attends through its blockwise jnp softmax and normalises in
-jnp, the port calls the kernels of :mod:`repro_torch.kernels` — on the
-card the hand-written CUDA kernels, on the CPU their plain versions:
+decoder-only attention models take (dense, moe and the hybrid's shared
+block).  Where the reference attends through its blockwise jnp softmax and
+normalises in jnp, the port calls the kernels of :mod:`repro_torch.kernels`
+— on the card the hand-written CUDA kernels, on the CPU their plain
+versions:
 
-  * every norm goes through ``kernels.rmsnorm``;
+  * every RMS norm goes through ``kernels.rmsnorm``;
   * a one-token query against a cache goes through
     ``kernels.decode_attention`` (``valid_len = kv_valid_len``);
   * every other attention goes through ``kernels.flash_attention``, causal,
@@ -15,8 +16,10 @@ card the hand-written CUDA kernels, on the CPU their plain versions:
     a multi-token call at any cache position masks as the reference does.
 
 The matmuls stay ``torch.matmul``: they are products outside any kernel of
-the reference.  Layernorm, GeLU MLPs, cross-attention and biases, which no
-ported model reaches, are not yet ported either.
+the reference.  So do LayerNorm (f32, biased variance, eps 1e-5), the qkv
+biases (added before rope) and the non-gated MLP, whose GeLU is the tanh
+approximation, ``jax.nn.gelu``'s default: no Pallas kernel of the
+reference computes them.  Cross-attention waits for the encdec family.
 """
 from __future__ import annotations
 
@@ -36,24 +39,24 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to the PyTorch "
-                               f"package (no ported model reaches it)")
-
-
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def norm_specs(cfg: ModelConfig, d: Optional[int] = None) -> Dict[str, ParamSpec]:
-    if cfg.norm != "rmsnorm":
-        raise _not_ported(f"norm {cfg.norm!r}")
-    return {"scale": ParamSpec((d or cfg.d_model,), ("embed",), init="ones")}
+    d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+                "bias": ParamSpec((d,), ("embed",), init="zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
 
 
 def apply_norm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise _not_ported(f"norm {cfg.norm!r}")
+    if cfg.norm == "layernorm":
+        y = F.layer_norm(x.to(torch.float32), x.shape[-1:],
+                         p["scale"].to(torch.float32),
+                         p["bias"].to(torch.float32), eps=1e-5)
+        return y.to(x.dtype)
     return rmsnorm(x, p["scale"].to(x.dtype), eps=1e-6)
 
 
@@ -79,19 +82,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.qkv_bias:
-        raise _not_ported("qkv_bias")
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
-            "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-            "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-            "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"))}
+    s = {"wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+         "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+         "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+         "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"))}
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), init="zeros")
+        s["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+    return s
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) x (D, N, hd) -> (B, S, N, hd)."""
+def _project(x: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, S, D) x (D, N, hd) [+ b (N, hd)] -> (B, S, N, hd)."""
     D, n, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(D, n * hd)).unflatten(-1, (n, hd))
+    y = (x @ w.to(x.dtype).reshape(D, n * hd)).unflatten(-1, (n, hd))
+    return y if b is None else y + b.to(x.dtype)
 
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor,
@@ -139,9 +147,9 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     offset = positions.expand(B, S)[:, 0]       # positions run offset + s
 
-    q = rope(_project(x, p["wq"]), positions, cfg.rope_theta)
-    k = rope(_project(x, p["wk"]), positions, cfg.rope_theta)
-    v = _project(x, p["wv"])
+    q = rope(_project(x, p["wq"], p.get("bq")), positions, cfg.rope_theta)
+    k = rope(_project(x, p["wk"], p.get("bk")), positions, cfg.rope_theta)
+    v = _project(x, p["wv"], p.get("bv"))
 
     new_cache = None
     if kv_cache is None:
@@ -173,20 +181,26 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if not cfg.gated_mlp:
-        raise _not_ported("the LayerNorm+GeLU MLP")
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": ParamSpec((d, f), ("embed", "mlp")),
-            "w_up": ParamSpec((d, f), ("embed", "mlp")),
-            "w_down": ParamSpec((f, d), ("mlp", "embed"))}
+    if cfg.gated_mlp:
+        return {"w_gate": ParamSpec((d, f), ("embed", "mlp")),
+                "w_up": ParamSpec((d, f), ("embed", "mlp")),
+                "w_down": ParamSpec((f, d), ("mlp", "embed"))}
+    return {"w_up": ParamSpec((d, f), ("embed", "mlp")),
+            "b_up": ParamSpec((f,), ("mlp",), init="zeros"),
+            "w_down": ParamSpec((f, d), ("mlp", "embed")),
+            "b_down": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 def apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    if not cfg.gated_mlp:
-        raise _not_ported("the LayerNorm+GeLU MLP")
-    gate = F.silu(x @ p["w_gate"].to(x.dtype))
-    up = x @ p["w_up"].to(x.dtype)
-    return (gate * up) @ p["w_down"].to(x.dtype)
+    if cfg.gated_mlp:
+        gate = F.silu(x @ p["w_gate"].to(x.dtype))
+        up = x @ p["w_up"].to(x.dtype)
+        return (gate * up) @ p["w_down"].to(x.dtype)
+    h = x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype)
+    # jax.nn.gelu's default is the tanh approximation, not the erf form
+    h = F.gelu(h, approximate="tanh")
+    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Decoder-only language models, families ``dense``, ``ssm`` and
+"""Decoder-only language models, families ``dense``, ``moe``, ``ssm`` and
 ``hybrid``.
 
 The port's counterpart of ``repro/models/lm.py``:
 
-  dense   — [norm, GQA attn, norm, SwiGLU MLP] x L         (llama)
+  dense   — [norm, GQA attn, norm, (Swi)GLU MLP] x L   (llama, granite,
+            qwen, starcoder2)
+  moe     — the MLP replaced by the top-k expert layer, with a dense MLP
+            beside it where ``moe_dense_residual``   (moonshot, arctic)
   ssm     — [norm, Mamba2 SSD] x L                         (mamba2)
   hybrid  — the Mamba2 stack plus one weight-SHARED attention block that
             runs before every ``attn_every``-th Mamba2 layer      (zamba2)
@@ -14,8 +17,9 @@ The same parameter tree paths (layers stacked on a leading axis under
 W-1, di)`` conv tails, the hybrid's ``(napps, B, S_max, KV, hd)`` KV), so
 the transfer ledgers of a serve state equal the reference's.  The layer
 stack is a Python loop over the stacked axis where the reference scans.
-The moe and vision families are not yet ported, and ``loss_fn`` waits for
-training.
+``forward``'s aux loss is the MoE layers' load-balance losses summed (zero
+for the other families).  The vision and encoder-decoder families are not
+yet ported, and ``loss_fn`` waits for training.
 
 ``prefill`` and ``decode_step`` write the KV caches they are given in
 place (see :func:`~repro_torch.models.layers.multihead_attention`; a
@@ -32,10 +36,12 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
 from ..core.treepath import tree_map
 from . import layers as L
+from . import moe as MOE
 from . import ssm as SSM
 from .specs import ParamSpec, init_params, torch_dtype
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+ATTN_STACKS = ("dense", "moe")      # the families of _run_attn_stack
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -56,8 +62,15 @@ def _stack(spec_tree: Any, n: int) -> Any:
 
 
 def _attn_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    return {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
-            "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    block = {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+             "ln2": L.norm_specs(cfg)}
+    if cfg.family == "moe":
+        block["moe"] = MOE.moe_specs(cfg)
+        if cfg.moe_dense_residual:
+            block["mlp"] = L.mlp_specs(cfg)
+    else:
+        block["mlp"] = L.mlp_specs(cfg)
+    return block
 
 
 def _ssm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -67,7 +80,7 @@ def _ssm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     _check_family(cfg)
     tree = {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg)}
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACKS:
         tree["blocks"] = _stack(_attn_block_specs(cfg), cfg.num_layers)
     else:
         tree["blocks"] = _stack(_ssm_block_specs(cfg), cfg.num_layers)
@@ -101,7 +114,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
     kvhd = (cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {"pos": zeros(batch, dtype=torch.int32)}
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACKS:
         cache["k"] = zeros(cfg.num_layers, batch, max_seq, *kvhd)
         cache["v"] = zeros(cfg.num_layers, batch, max_seq, *kvhd)
         return cache
@@ -121,17 +134,21 @@ def kernel_launches(cfg: ModelConfig, prefills: int,
                     steps: int) -> Dict[str, int]:
     """Launches of each model kernel on the card for ``prefills`` prefill
     requests and ``steps`` decode steps: one rmsnorm per block norm plus
-    the final one per forward; per attention block (every layer of a dense
+    the final one per forward (none for a LayerNorm model: LayerNorm is
+    plain PyTorch); per attention block (every layer of a dense or MoE
     model, each application of the hybrid's shared block) one flash call
     per prefill and one decode call per step; one ssd_chunks call per
-    Mamba2 layer per prefill (a decode step takes the recurrence)."""
+    Mamba2 layer per prefill (a decode step takes the recurrence).  The
+    MoE layer launches no kernel of its own."""
     _check_family(cfg)
     L = cfg.num_layers
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACKS:
         attn, norms, ssd = L, 2 * L + 1, 0
     else:
         attn = _n_shared_apps(cfg) if cfg.family == "hybrid" else 0
         norms, ssd = L + 2 * attn + 1, L
+    if cfg.norm != "rmsnorm":
+        norms = 0
     return {"rmsnorm": norms * (prefills + steps),
             "flash_attention": attn * prefills,
             "decode_attention": attn * steps, "ssd_chunks": ssd * prefills}
@@ -142,13 +159,20 @@ def kernel_launches(cfg: ModelConfig, prefills: int,
 # ---------------------------------------------------------------------------
 
 def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
+    """One attention block; returns (x, the block's MoE aux loss, or None
+    for a block without experts)."""
     h = L.apply_norm(cfg, p["ln1"], x)
     attn_out, _ = L.multihead_attention(cfg, p["attn"], h, positions=positions,
                                         kv_cache=cache,
                                         kv_valid_len=kv_valid_len)
     x = x + attn_out
     h = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h)
+    if cfg.family != "moe":
+        return x + L.apply_mlp(cfg, p["mlp"], h), None
+    out, aux = MOE.apply_moe(cfg, p["moe"], h)
+    if cfg.moe_dense_residual:
+        out = out + L.apply_mlp(cfg, p["mlp"], h)
+    return x + out, aux["moe_aux_loss"]
 
 
 def _ssm_block(cfg, p, x, *, cache):
@@ -163,13 +187,19 @@ def _kv_slot(cache, i):
 
 
 def _run_attn_stack(cfg, params, x, *, positions, cache, kv_valid_len):
+    """The attention blocks in order (dense, moe); returns (x, cache, the
+    MoE aux losses summed over layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         p = tree_map(lambda t: t[i], params["blocks"])
-        x = _attn_block(cfg, p, x, positions=positions,
-                        cache=_kv_slot(cache, i), kv_valid_len=kv_valid_len)
+        x, block_aux = _attn_block(cfg, p, x, positions=positions,
+                                   cache=_kv_slot(cache, i),
+                                   kv_valid_len=kv_valid_len)
+        if block_aux is not None:
+            aux = aux + block_aux
     if cache is None:
-        return x, None
-    return x, {"k": cache["k"], "v": cache["v"]}
+        return x, None, aux
+    return x, {"k": cache["k"], "v": cache["v"]}, aux
 
 
 def _run_ssm_stack(cfg, params, x, *, positions, cache, kv_valid_len):
@@ -181,10 +211,10 @@ def _run_ssm_stack(cfg, params, x, *, positions, cache, kv_valid_len):
     states, convs = [], []
     for i in range(cfg.num_layers):
         if hybrid and i % cfg.attn_every == 0:
-            x = _attn_block(cfg, params["shared_attn"], x,
-                            positions=positions,
-                            cache=_kv_slot(cache, i // cfg.attn_every),
-                            kv_valid_len=kv_valid_len)
+            x, _ = _attn_block(cfg, params["shared_attn"], x,
+                               positions=positions,
+                               cache=_kv_slot(cache, i // cfg.attn_every),
+                               kv_valid_len=kv_valid_len)
         p = tree_map(lambda t: t[i], params["blocks"])
         c = None if cache is None else {"state": cache["state"][i],
                                         "conv": cache["conv"][i]}
@@ -211,15 +241,19 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     x = L.embed_tokens(cfg, params["embed"], tokens)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    run = _run_attn_stack if cfg.family == "dense" else _run_ssm_stack
-    x, new_cache = run(cfg, params, x, positions=positions, cache=cache,
-                       kv_valid_len=kv_valid_len)
+    if cfg.family in ATTN_STACKS:
+        x, new_cache, aux = _run_attn_stack(
+            cfg, params, x, positions=positions, cache=cache,
+            kv_valid_len=kv_valid_len)
+    else:
+        x, new_cache = _run_ssm_stack(cfg, params, x, positions=positions,
+                                      cache=cache, kv_valid_len=kv_valid_len)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)
     if new_cache is not None:
         new_cache["pos"] = cache["pos"] + S
-    return logits, new_cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+    return logits, new_cache, aux
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,

@@ -2,10 +2,10 @@
 
 The port's counterpart of ``repro/models/registry.py``.  ``get_model(cfg)``
 returns a :class:`ModelApi` whose methods close over the config.  Every id
-of the reference's registry is known here; ``llama3.2-1b`` (dense),
-``mamba2-1.3b`` (ssm) and ``zamba2-2.7b`` (hybrid) are the ones whose
-configurations and families are ported, and the others raise
-``NotImplementedError``.
+of the reference's registry is known here; the ids in :data:`PORTED` are
+the ones whose configurations and families are ported (dense, moe, ssm
+and hybrid), and the vlm ``phi-3-vision-4.2b`` and the encdec
+``seamless-m4t-medium`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,7 +28,9 @@ ARCH_IDS = (
     "zamba2-2.7b",
     "mamba2-1.3b",
 )
-PORTED = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b")
+PORTED = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "starcoder2-3b",
+          "granite-3-8b", "qwen1.5-110b", "moonshot-v1-16b-a3b",
+          "arctic-480b")
 
 
 def load_config(arch_id: str) -> ModelConfig:

@@ -17,6 +17,7 @@ from repro_torch.kernels.marshal_pack import kernel as K
 from repro_torch.kernels.marshal_pack import ops, ref
 from repro_torch import scenarios as PS
 from repro_torch.kernels.decode_attention import kernel as DK, ref as DR
+from repro_torch.kernels.decode_attention import ops as DO
 from repro_torch.kernels.flash_attention import kernel as FK, ops as FO
 from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.rmsnorm import kernel as RK, ref as RR
@@ -506,7 +507,9 @@ def test_ssd_kernel_never_overflows_above_the_diagonal(cuda):
 # -- the smoke models and their Server on the card ---------------------------
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "starcoder2-3b",
+                                  "granite-3-8b", "qwen1.5-110b",
+                                  "moonshot-v1-16b-a3b", "arctic-480b"])
 def test_smoke_server_on_the_card_matches_the_cpu(cuda, arch):
     """The smoke model (f32) served on the card through the kernels gives
     the CPU's tokens (plain versions), with exact launch counts."""
@@ -535,3 +538,210 @@ def test_smoke_server_on_the_card_matches_the_cpu(cuda, arch):
     assert {n: k.launches for n, k in kernels.items()} == lm.kernel_launches(
         api.cfg, st.prefill_requests, st.decode_steps)
     assert done["cuda:0"] == done["cpu"]
+
+
+# -- head dim 128 at the GQA groups of the attention variants: 12 query
+# heads a KV head (starcoder2: the decode kernel's second head group is
+# part-filled), 8 (qwen), 7 (arctic: a part-filled group of 8), 4
+# (granite), 1 (moonshot) ----------------------------------------------------
+
+HD128_GROUPS = [(24, 2), (64, 8), (56, 8), (32, 8), (16, 16)]
+
+
+@pytest.mark.parametrize("H,KV", HD128_GROUPS)
+def test_flash_bf16_kernel_at_head_dim_128(cuda, H, KV):
+    """As prefill calls it: a 938-token prompt against the first rows of a
+    2048-row cache layer, and two rows at per-batch offsets (one a
+    continuation at 300) with ragged valid lengths."""
+    rng = np.random.default_rng(H * 100 + KV)
+    hd = 128
+    for B, Sq, off, kl in ((1, 938, [0], [938]),
+                           (2, 65, [0, 300], [65, 365])):
+        q = _randn(rng, (B, Sq, H, hd), torch.bfloat16, cuda)
+        ck = _randn(rng, (B, 2048, KV, hd), torch.bfloat16, cuda)
+        cv = _randn(rng, (B, 2048, KV, hd), torch.bfloat16, cuda)
+        off = torch.tensor(off, dtype=torch.int32, device=cuda)
+        kl = torch.tensor(kl, dtype=torch.int32, device=cuda)
+        before = FK.flash_attention.launches
+        got = FO.mha(q, ck, cv, causal=True, kv_len=kl, q_offset=off)
+        torch.cuda.synchronize(cuda)
+        assert FK.flash_attention.launches == before + 1
+        want = FR.attention_ref(q.transpose(1, 2), ck.transpose(1, 2),
+                                cv.transpose(1, 2), causal=True, kv_len=kl,
+                                q_offset=off).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("H,KV", HD128_GROUPS)
+def test_decode_bf16_kernel_at_head_dim_128(cuda, H, KV):
+    """Eight slots of a 2048-row cache layer read in place, valid lengths
+    0, 1, on both sides of a split, the whole layer and past it."""
+    rng = np.random.default_rng(H + KV)
+    B, S, hd = 8, 2048, 128
+    split = DK.split_keys(S)
+    valid = torch.tensor([0, 1, split - 1, split + 1, 938, 1000, S, S + 5],
+                         dtype=torch.int32, device=cuda)
+    q = _randn(rng, (B, 1, H, hd), torch.bfloat16, cuda)
+    ck = _randn(rng, (B, S, KV, hd), torch.bfloat16, cuda)
+    cv = _randn(rng, (B, S, KV, hd), torch.bfloat16, cuda)
+    before = DK.decode_attention.launches
+    got = DO.decode_mha(q, ck, cv, valid)[:, 0]
+    torch.cuda.synchronize(cuda)
+    assert DK.decode_attention.launches == before + 1
+    want = DR.decode_ref(q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2),
+                         valid)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+# -- the kernel wrappers write only into what they allocate -----------------
+
+def test_kernel_wrappers_leave_their_inputs_unchanged(cuda):
+    """Each wrapper's inputs, as the model passes them (strided cache
+    views included), keep their bytes and their version counter: no
+    kernel writes through an input's data_ptr(), a write the counter
+    could not see (so a marshal+delta pass could not either)."""
+    rng = np.random.default_rng(21)
+    bf = torch.bfloat16
+    ck = _randn(rng, (2, 256, 2, 128), bf, cuda)
+    cv = _randn(rng, (2, 256, 2, 128), bf, cuda)
+    lens = torch.tensor([40, 200], dtype=torch.int32, device=cuda)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 512, 4, 64, 128, bf, cuda)
+    xc = x.reshape(1, 2, 256, 4, 64).transpose(2, 3)
+    dtc = dt.reshape(1, 2, 256, 4).transpose(2, 3)[:, :, :, None, :]
+    dtA = (dt * A).reshape(1, 2, 256, 4).transpose(2, 3)[:, :, :, None, :]
+    src = _randn(rng, (64 * K.SUBLANE, K.LANE), torch.float32, cuda)
+    tmap = torch.from_numpy(rng.permutation(64).astype(np.int32)).to(cuda)
+    cases = {
+        "gather_tiles": (K.gather_tiles, (src, tmap), {}),
+        "rmsnorm": (RK.rmsnorm, (_randn(rng, (8, 2048), bf, cuda),
+                                 _randn(rng, (2048,), bf, cuda)), {}),
+        "flash_attention": (FO.mha, (_randn(rng, (2, 37, 24, 128), bf, cuda),
+                                     ck, cv),
+                            dict(causal=True, kv_len=lens, q_offset=lens - 37)),
+        "decode_attention": (DK.decode_attention,
+                             (_randn(rng, (2, 24, 128), bf, cuda),
+                              ck.transpose(1, 2), cv.transpose(1, 2), lens),
+                             {}),
+        "ssd_chunks": (SK.ssd_chunks,
+                       (xc, dtc, dtA, Bm.reshape(1, 2, 256, 128),
+                        Cm.reshape(1, 2, 256, 128)), {}),
+    }
+    for name, (fn, args, kw) in cases.items():
+        ins = [t for t in (*args, *kw.values())
+               if isinstance(t, torch.Tensor)]
+        saved = [(t.clone(), t._version) for t in ins]
+        fn(*args, **kw)
+        torch.cuda.synchronize(cuda)
+        for i, (t, (copy, version)) in enumerate(zip(ins, saved)):
+            assert t._version == version, f"{name} input {i}: version moved"
+            assert torch.equal(t, copy), f"{name} input {i}: bytes changed"
+
+
+# -- marshal+delta after an in-place write on the card -----------------------
+
+def test_delta_pass_after_an_in_place_write_returns_the_host_values(cuda):
+    """The returned leaves are views of the retained device buckets: after
+    a write to one (a kernel's output would be another tensor; this is the
+    caller's own in-place op), the next pass re-ships that bucket alone,
+    the pass after it none, and a program's delta region does the same on
+    a pass where the host changed another bucket."""
+    from repro_torch.core import TransferPolicy
+
+    rng = np.random.default_rng(2)
+    tree = {"a": torch.from_numpy(rng.standard_normal(300).astype(
+                np.float32)),
+            "b": torch.arange(40, dtype=torch.int32),
+            "c": torch.from_numpy(rng.standard_normal(64).astype(
+                np.float32)).to(torch.bfloat16)}
+    s = transfer_scheme("marshal+delta", TransferSession(), device=cuda)
+    dev = s.to_device(tree)
+    bb = s.layout.bucket_bytes()
+    dev["a"].mul_(1.5)
+    s.ledger.reset()
+    again = s.to_device(tree)
+    for key in tree:
+        assert torch.equal(again[key].cpu(), tree[key]), key
+    assert (s.ledger.h2d_bytes, s.ledger.h2d_calls) == (bb["float32"], 1)
+    s.ledger.reset()
+    s.to_device(tree)
+    assert (s.ledger.h2d_bytes, s.ledger.h2d_calls) == (0, 0)
+
+    host = {"cache": tree, "params": {"w": torch.ones(16)}}
+    prog = TransferSession().compile(
+        host, TransferPolicy.parse("cache/**=marshal+delta; **=marshal"),
+        device=cuda)
+    dev = prog.to_device(host)
+    dev["cache"]["b"].index_fill_(0, torch.tensor([3], device=cuda), -1)
+    host["cache"] = dict(tree, c=tree["c"] + 1)
+    before = prog.ledgers["cache/**"].h2d_bytes
+    got = prog.to_device(host)
+    for key in tree:
+        assert torch.equal(got["cache"][key].cpu(), host["cache"][key]), key
+    assert prog.ledgers["cache/**"].h2d_bytes - before \
+        == bb["int32"] + bb["bfloat16"]
+
+
+# -- the MoE layer and the attention variants' steps on the card -------------
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """The smoke moonshot's MoE layer (f32) on the card against the CPU,
+    at a decode step's and a prefill's token counts."""
+    from repro_torch.models import moe, registry
+
+    api = registry.get("moonshot-v1-16b-a3b", smoke=True)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    p = tree_map(lambda t: t[0], params["blocks"]["moe"])
+    dp = tree_map(lambda t: t.to(cuda), p)
+    rng = np.random.default_rng(4)
+    for shape in ((8, 1, 64), (1, 40, 64)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        out, aux = moe.apply_moe(api.cfg, p, x)
+        dout, daux = moe.apply_moe(api.cfg, dp, x.to(cuda))
+        torch.testing.assert_close(dout.cpu(), out, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(daux["moe_aux_loss"].cpu(),
+                                   aux["moe_aux_loss"], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "starcoder2-3b"])
+def test_model_steps_read_nothing_back(cuda, arch):
+    """One layer at full width (bf16): a prefill of 8 sequences and a
+    decode step, and moonshot's MoE layer alone at a decode step's and a
+    938-token prefill's token counts, under sync_debug_mode "error", where
+    any host read of a device tensor raises."""
+    import dataclasses
+    from repro_torch.models import moe, registry
+
+    cfg = dataclasses.replace(registry.get(arch).cfg, num_layers=1)
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (8, 37), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    xs = [torch.randn(8, 1, cfg.d_model, generator=gen, device=cuda
+                      ).to(torch.bfloat16),
+          torch.randn(1, 938, cfg.d_model, generator=gen, device=cuda
+                      ).to(torch.bfloat16)]
+    block = tree_map(lambda t: t[0], params["blocks"])
+
+    def run():
+        cache = api.init_cache(8, 256, device=cuda)
+        logits, cache = api.prefill(params, toks, cache)
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, cache = api.decode_step(params, nxt, cache)
+        if cfg.family == "moe":
+            for x in xs:
+                moe.apply_moe(cfg, block["moe"], x)
+        return logits
+
+    run()                                    # builds the kernels
+    torch.cuda.synchronize(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda)
+    assert bool(torch.isfinite(logits).all())

@@ -1,14 +1,20 @@
-"""The port's dense llama and its model kernels, held against the JAX
+"""The port's attention models (dense llama, starcoder2, granite, qwen; the
+MoE moonshot and arctic) and their model kernels, held against the JAX
 package on the CPU.
 
   * the configuration copies equal the reference's field for field (less
     ``use_pallas``), and the parameter tree has the reference's paths and
     shapes;
-  * ``forward``, ``prefill`` and ``decode_step`` of the smoke llama (f32),
+  * ``forward``, ``prefill`` and ``decode_step`` of the smoke models (f32),
     with the reference's weights carried across by
-    ``params_from_reference``, give the reference's logits and caches within
-    2e-4 (the tolerance of
-    ``test_kernels.py::test_flash_matches_model_attention_blockwise``);
+    ``params_from_reference``, give the reference's logits, caches and MoE
+    aux loss within 2e-4 (the tolerance of
+    ``test_kernels.py::test_flash_matches_model_attention_blockwise``); for
+    the five variants every constant-initialised leaf (LayerNorm's scale
+    and bias, the qkv and MLP biases, the RMS norm scales) is redrawn first,
+    so each takes part;
+  * LayerNorm and the tanh GeLU against the reference's, and the erf GeLU
+    shown to miss it;
   * each kernel's plain version — what its wrapper runs for a CPU tensor —
     against the Pallas kernel in interpret mode and against the
     reference's ``ref.py`` oracle, at ``tests/test_kernels.py``'s shapes and
@@ -21,6 +27,8 @@ package on the CPU.
     softmax over the real positions.
 """
 import dataclasses
+import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -45,12 +53,20 @@ from repro_torch.core import leaf_paths, tree_leaves
 from repro_torch.kernels.decode_attention import kernel as DK, ref as DR
 from repro_torch.kernels.flash_attention import kernel as FK, ops as FO
 from repro_torch.kernels.rmsnorm import kernel as RK
+from repro_torch.models import layers as p_layers
 from repro_torch.models import lm as p_lm
 from repro_torch.models import registry as p_registry
 from repro_torch.models.specs import param_count
 
 CPU = "cpu"
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+# the dense variants and the MoE family, ported together
+VARIANTS = ("starcoder2-3b", "granite-3-8b", "qwen1.5-110b",
+            "moonshot-v1-16b-a3b", "arctic-480b")
+FULL_PARAMS = {"llama3.2-1b": 1235814400, "starcoder2-3b": 3181274112,
+               "granite-3-8b": 8372187136, "qwen1.5-110b": 111209914368,
+               "moonshot-v1-16b-a3b": 28057995264,
+               "arctic-480b": 476850275328}
 
 
 def _tol(dtype):
@@ -73,20 +89,30 @@ def _np(t):
 
 # ------------------------------------------------------------ configs/specs
 
-def test_config_copies_equal_the_reference():
-    ref = dataclasses.asdict(r_llama.CONFIG)
+def _configs(arch):
+    mod = arch.replace("-", "_").replace(".", "_")
+    return tuple(importlib.import_module(f"{pkg}.configs.{mod}").CONFIG
+                 for pkg in ("repro", "repro_torch"))
+
+
+@pytest.mark.parametrize("arch", ("llama3.2-1b",) + VARIANTS)
+def test_config_copies_equal_the_reference(arch):
+    r_cfg, p_cfg = _configs(arch)
+    ref = dataclasses.asdict(r_cfg)
     assert ref.pop("use_pallas") is False
-    assert dataclasses.asdict(p_llama.CONFIG) == ref
-    ref_smoke = dataclasses.asdict(r_llama.CONFIG.smoke())
+    assert dataclasses.asdict(p_cfg) == ref
+    ref_smoke = dataclasses.asdict(r_cfg.smoke())
     ref_smoke.pop("use_pallas")
-    assert dataclasses.asdict(p_llama.CONFIG.smoke()) == ref_smoke
-    assert not hasattr(p_llama.CONFIG, "use_pallas")
+    assert dataclasses.asdict(p_cfg.smoke()) == ref_smoke
+    assert not hasattr(p_cfg, "use_pallas")
+    assert p_registry.load_config(arch) is p_cfg
 
 
+@pytest.mark.parametrize("arch", ("llama3.2-1b",) + VARIANTS)
 @pytest.mark.parametrize("smoke", [True, False])
-def test_spec_tree_equals_the_reference(smoke):
-    r_cfg = r_registry.get("llama3.2-1b", smoke=smoke).cfg
-    p_cfg = p_registry.get("llama3.2-1b", smoke=smoke).cfg
+def test_spec_tree_equals_the_reference(arch, smoke):
+    r_cfg = r_registry.get(arch, smoke=smoke).cfg
+    p_cfg = p_registry.get(arch, smoke=smoke).cfg
     r_tree = r_lm.spec_tree(r_cfg)
     p_tree = p_lm.spec_tree(p_cfg)
     r_leaves = jax.tree_util.tree_leaves(r_tree)
@@ -97,7 +123,7 @@ def test_spec_tree_equals_the_reference(smoke):
             (b.shape, b.axes, b.init, b.scale)
     assert param_count(p_tree) == sum(int(np.prod(s.shape)) for s in r_leaves)
     if not smoke:
-        assert param_count(p_tree) == 1235814400
+        assert param_count(p_tree) == FULL_PARAMS[arch]
 
 
 def test_init_is_seeded_and_placed():
@@ -112,9 +138,10 @@ def test_init_is_seeded_and_placed():
             api.init(torch.Generator().manual_seed(0))
 
 
-def test_other_architectures_are_not_yet_ported():
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
+def test_other_architectures_are_not_yet_ported(arch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        p_registry.get("arctic-480b")
+        p_registry.get(arch)
     with pytest.raises(KeyError):
         p_registry.get("no-such-model")
 
@@ -127,6 +154,20 @@ def test_other_architectures_are_not_yet_ported():
      {"flash_attention": 2, "decode_attention": 2, "ssd_chunks": 12}),
     ("zamba2-2.7b", None, {"rmsnorm": 73},
      {"flash_attention": 9, "decode_attention": 9, "ssd_chunks": 54}),
+    # LayerNorm is plain PyTorch: starcoder2 launches no rmsnorm
+    ("starcoder2-3b", None, {"rmsnorm": 0},
+     {"flash_attention": 30, "decode_attention": 30}),
+    ("granite-3-8b", None, {"rmsnorm": 81},
+     {"flash_attention": 40, "decode_attention": 40}),
+    ("qwen1.5-110b", 1, {"rmsnorm": 3},
+     {"flash_attention": 1, "decode_attention": 1}),
+    # an MoE block launches what a dense block does
+    ("moonshot-v1-16b-a3b", 4, {"rmsnorm": 9},
+     {"flash_attention": 4, "decode_attention": 4}),
+    ("moonshot-v1-16b-a3b", None, {"rmsnorm": 97},
+     {"flash_attention": 48, "decode_attention": 48}),
+    ("arctic-480b", None, {"rmsnorm": 71},
+     {"flash_attention": 35, "decode_attention": 35}),
 ])
 def test_kernel_launches_closed_forms(arch, layers, per_forward, per_prefill):
     """At full width: rmsnorm per forward, flash and ssd_chunks per prefill
@@ -144,8 +185,8 @@ def test_kernel_launches_closed_forms(arch, layers, per_forward, per_prefill):
         "ssd_chunks": per_block["ssd_chunks"] * 3}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
-                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ("llama3.2-1b", "mamba2-1.3b",
+                                  "zamba2-2.7b") + VARIANTS)
 def test_kernel_launches_counts_the_model_call_sites(arch, monkeypatch):
     """The formula against the calls the smoke model makes into each kernel
     wrapper's entry point on the CPU, over one prefill and three decode
@@ -230,14 +271,76 @@ def test_prefill_and_decode_equal_the_reference(llama, reference_run):
                                        **MODEL_TOL, err_msg=f"step {i} {key}")
 
 
-@pytest.fixture(scope="module", params=["llama3.2-1b", "mamba2-1.3b",
-                                        "zamba2-2.7b"])
-def any_model(request):
-    api = r_registry.get(request.param, smoke=True)
+def _redrawn(params, seed=11):
+    """The reference's init with every constant-initialised leaf (norm
+    scales, LayerNorm and MLP biases, qkv biases) redrawn around its value,
+    so each takes part in the comparison."""
+    rng = np.random.default_rng(seed)
+
+    def redraw(a):
+        a = np.asarray(a)
+        if a.size > 1 and np.all(a == a.reshape(-1)[0]):
+            a = a + 0.1 * rng.standard_normal(a.shape).astype(a.dtype)
+        return jnp.asarray(a)
+
+    return jax.tree_util.tree_map(redraw, jax.device_get(params))
+
+
+@functools.lru_cache(maxsize=None)
+def _model(arch):
+    """Built once per arch: pytest tears a parametrized module fixture
+    down and up again when tests of other params come between."""
+    api = r_registry.get(arch, smoke=True)
     params = api.init(jax.random.PRNGKey(0))
-    port = p_registry.get(request.param, smoke=True)
+    if arch in VARIANTS:
+        params = _redrawn(params)
+    port = p_registry.get(arch, smoke=True)
     return api, params, port, params_from_reference(jax.device_get(params),
                                                     CPU)
+
+
+@pytest.fixture(scope="module", params=("llama3.2-1b", "mamba2-1.3b",
+                                        "zamba2-2.7b") + VARIANTS)
+def any_model(request):
+    return _model(request.param)
+
+
+@pytest.fixture(scope="module", params=VARIANTS)
+def variant(request):
+    return _model(request.param)
+
+
+def test_forward_prefill_and_decode_equal_the_reference(variant):
+    """forward (logits and aux loss), a prefill and three greedy decode
+    steps, each as ``forward`` with the cache so its aux loss is compared
+    too (nonzero for the MoE models, zero for the dense variants)."""
+    api, params, port, pp = variant
+    toks = np.random.default_rng(4).integers(
+        0, api.cfg.vocab_size, (2, 13)).astype(np.int32)
+    want, _, want_aux = r_lm.forward(api.cfg, params, jnp.asarray(toks))
+    got, cache, aux = port.forward(pp, torch.from_numpy(toks))
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **MODEL_TOL)
+    assert (float(aux) > 0) == (api.cfg.family == "moe")
+    rc, pc = api.init_cache(2, 24), port.init_cache(2, 24, device=CPU)
+    chunk = toks
+    for step in range(4):
+        rpos, ppos = rc["pos"], pc["pos"]
+        S = chunk.shape[1]
+        positions = np.arange(S)[None, :] + np.asarray(rpos)[:, None]
+        rl, rc, raux = r_lm.forward(
+            api.cfg, params, jnp.asarray(chunk), positions=jnp.asarray(
+                positions), cache=rc, kv_valid_len=rpos + S)
+        pl, pc, paux = p_lm.forward(
+            port.cfg, pp, torch.from_numpy(chunk),
+            positions=torch.from_numpy(positions), cache=pc,
+            kv_valid_len=ppos + S)
+        _same_step((pl, pc), (rl, rc), f"step {step}")
+        np.testing.assert_allclose(float(paux), float(raux), **MODEL_TOL,
+                                   err_msg=f"step {step} aux")
+        chunk = np.asarray(jnp.argmax(rl[:, -1], -1))[:, None].astype(
+            np.int32)
 
 
 def _same_step(got, want, what):
@@ -478,3 +581,58 @@ def test_flash_offset_row_zero_still_sees_key_zero():
                                    rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="q_offset"):
         FO.mha(q, k, v, q_offset=torch.zeros(3, dtype=torch.int32))
+
+
+# ----------------------------------- LayerNorm and the non-gated GeLU MLP
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_equals_the_reference(dtype):
+    """f32 statistics with the biased variance and eps 1e-5, the affine in
+    f32, cast back to x's dtype."""
+    cfg = r_registry.get("starcoder2-3b", smoke=True).cfg
+    rng = np.random.default_rng(12)
+    xj, xt = _pair(3.0 * rng.standard_normal((2, 7, cfg.d_model)) + 0.5,
+                   dtype)
+    p = {"scale": rng.standard_normal(cfg.d_model).astype(np.float32),
+         "bias": rng.standard_normal(cfg.d_model).astype(np.float32)}
+    want = r_layers.apply_norm(cfg, {k: jnp.asarray(v) for k, v in p.items()},
+                               xj)
+    got = p_layers.apply_norm(p_registry.get("starcoder2-3b", smoke=True).cfg,
+                              {k: torch.from_numpy(v) for k, v in p.items()},
+                              xt)
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol(dtype))
+
+
+def _gelu_mlp_case():
+    """starcoder2's smoke MLP with redrawn biases on inputs wide enough that
+    the hidden units reach |h| ~ 3, where the two GeLU forms part."""
+    api = r_registry.get("starcoder2-3b", smoke=True)
+    params = _redrawn(api.init(jax.random.PRNGKey(1)))
+    p = jax.tree_util.tree_map(lambda t: t[0], params["blocks"]["mlp"])
+    x = 2.0 * np.random.default_rng(13).standard_normal(
+        (2, 9, api.cfg.d_model)).astype(np.float32)
+    want = np.asarray(r_layers.apply_mlp(api.cfg, p, jnp.asarray(x)))
+    pp = params_from_reference(jax.device_get(p), CPU)
+    cfg = p_registry.get("starcoder2-3b", smoke=True).cfg
+    return cfg, pp, torch.from_numpy(x), want
+
+
+def test_gelu_mlp_equals_the_reference():
+    cfg, pp, x, want = _gelu_mlp_case()
+    np.testing.assert_allclose(p_layers.apply_mlp(cfg, pp, x).numpy(), want,
+                               **MODEL_TOL)
+
+
+def test_erf_gelu_would_miss_the_reference(monkeypatch):
+    """jax.nn.gelu defaults to the tanh approximation; the erf form
+    (torch's default) misses the reference by more than MODEL_TOL."""
+    import torch.nn.functional as F
+
+    cfg, pp, x, want = _gelu_mlp_case()
+    erf = F.gelu
+    monkeypatch.setattr(p_layers.F, "gelu",
+                        lambda h, approximate="none": erf(h))
+    got = p_layers.apply_mlp(cfg, pp, x).numpy()
+    assert not np.allclose(got, want, **MODEL_TOL)

@@ -198,6 +198,86 @@ def test_in_place_mutation_needs_mark_dirty():
     assert torch.equal(dev["f32"]["a"], torch.full((64,), -7.0))
 
 
+# -- in-place writes to a delta pass's leaves (the returned tree is views of
+# the retained device buckets) ---------------------------------------------
+
+def test_write_to_a_returned_leaf_is_not_served_again():
+    """The memo path: nothing changed on the host, but the caller scaled a
+    leaf of the returned tree in place.  The next pass re-ships that
+    bucket alone (booked as H2D) and returns the host's values; the pass
+    after it is clean again and ships nothing."""
+    tree = _tree()
+    s = transfer_scheme("marshal+delta", TransferSession(), device=CPU)
+    dev = s.to_device(tree)
+    bb = s.layout.bucket_bytes()
+    dev["f32"]["a"].mul_(1.5)
+    s.ledger.reset()
+    again = s.to_device(tree)
+    _leaves_equal(again, tree)
+    assert (s.ledger.h2d_bytes, s.ledger.h2d_calls) == (bb["float32"], 1)
+    assert s.ledger.skipped_bytes == sum(bb.values()) - bb["float32"]
+    s.ledger.reset()
+    _leaves_equal(s.to_device(tree), tree)
+    assert (s.ledger.h2d_bytes, s.ledger.h2d_calls) == (0, 0)
+    assert s.ledger.skipped_bytes == sum(bb.values())
+
+
+def test_write_on_a_partly_dirty_pass_is_not_served_again():
+    """The host changed the bf16 bucket and the caller wrote into the i32
+    bucket through ``index_copy_``: the pass re-ships both, skips only the
+    untouched f32 bucket, and returns the new host tree."""
+    tree = _tree()
+    s = transfer_scheme("marshal+delta", TransferSession(), device=CPU)
+    dev = s.to_device(tree)
+    bb = s.layout.bucket_bytes()
+    dev["i32"].index_copy_(0, torch.tensor([0, 5]),
+                           torch.tensor([-9, -9], dtype=torch.int32))
+    t2 = dict(tree, bf16=tree["bf16"] + torch.ones((), dtype=torch.bfloat16))
+    s.ledger.reset()
+    _leaves_equal(s.to_device(t2), t2)
+    assert (s.ledger.h2d_bytes, s.ledger.h2d_calls) == \
+        (bb["bfloat16"] + bb["int32"], 2)
+    assert s.ledger.skipped_bytes == bb["float32"]
+
+
+def test_write_to_a_delta_region_of_a_program_is_not_served_again():
+    """A program whose delta region's leaf was written in place: the next
+    pass returns the host's values and re-ships that region's written
+    bucket alone; with no write, every repeat ships exactly nothing of the
+    region and the other regions' closed forms are unchanged."""
+    from repro_torch.core import TransferPolicy
+
+    host = {"cache": _tree(seed=2), "params": _tree(seed=3, n=32),
+            "slots": {"rid": torch.arange(4, dtype=torch.int32)}}
+    prog = TransferSession().compile(
+        host, TransferPolicy.parse("params/**=marshal; "
+                                   "cache/**=marshal+delta; **=pointerchain"),
+        device=CPU)
+    dev = prog.to_device(host)
+    cache = prog.ledgers["cache/**"]
+    full = (cache.h2d_bytes, cache.h2d_calls)
+    bb = prog._schemes["cache/**"].layout.bucket_bytes()
+    assert full == (sum(bb.values()), len(bb))
+
+    def shipped():
+        return {k: (l.h2d_bytes, l.h2d_calls)
+                for k, l in prog.ledgers.items()}
+
+    before = shipped()
+    _leaves_equal(prog.to_device(host), host)        # no write: steady
+    after = shipped()
+    assert after["cache/**"] == before["cache/**"]
+    for key in ("params/**", "**"):
+        assert after[key][0] == 2 * before[key][0]
+    dev = prog.to_device(host)
+    dev["cache"]["f32"]["b"].mul_(1.5)
+    before = shipped()
+    _leaves_equal(prog.to_device(host), host)
+    got = shipped()["cache/**"]
+    assert (got[0] - before["cache/**"][0], got[1] - before["cache/**"][1]) \
+        == (bb["float32"], 1)
+
+
 def test_bump_version_forces_reship():
     tree = _tree()
     s = transfer_scheme("marshal+delta", TransferSession(), device=CPU)
