@@ -67,7 +67,19 @@ Phases, each of which raises on failure:
      checks.
      Each serve phase has its own TransferSession; its server, programs
      and pinned staging are released (and the pinned bytes printed)
-     before the next.
+     before the next;
+ 13. policy      — run_policy_scenario on mixed_policy and elastic at n =
+     2^25 (1 GiB + 4 B and 805306376 B of host tree), three passes (cold,
+     then two after the scenario's mutation) under the blocking and then
+     the async executor, every region ledger equal to its closed form on
+     every pass, one synchronize a pass, values equal to the host tree;
+     Algorithm 2 over each declared policy (line 7, merged ledger == the
+     cold sum); the region-pipelining walls of
+     benchmarks/transfer_overlap.py over POLICY_ROUNDS interleaved rounds
+     (median, min and max; recorded, not gated); and full-width
+     llama3.2-1b params (2471628800 B of bf16, drawn on the card, moved to
+     the host) as a model_state cell under every spec (real_size).  Each
+     part has its own session, released after it.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -81,7 +93,8 @@ ssd_chunks 48 per prefill request; zamba2 rmsnorm 17 per forward, flash 2
 and ssd_chunks 12 per prefill request, decode 2 per step; starcoder2 no
 rmsnorm, flash 30 per prefill request, decode 30 per step; moonshot (4
 layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
-step; gather_tiles never.  The last lines are the card's name and power
+step; gather_tiles never; the policy phase launches nothing.  The last
+lines are the card's name and power
 limit, a ``kernels`` JSON line (launches summed over the five serve
 phases) and ``{"ok": true,
 "device": {...}}``.  Without a CUDA device the script exits with code 2
@@ -148,6 +161,32 @@ MOONSHOT_LAYERS = 4                      # of 48: staging near the others'
 # and 7 query heads a KV head
 HD128_ARCHS = ("starcoder2-3b", "granite-3-8b", "qwen1.5-110b",
                "moonshot-v1-16b-a3b", "arctic-480b")
+# the policy phase (13): mixed_policy and elastic at n = 2^25 (one device),
+# each region's (bytes, copies) on the cold pass and on a steady pass after
+# the scenario's mutation, closed forms: params w + b, 3n f32; mixed_policy's
+# opt m + v, 2n f32, + t, 4 B; its meta ids 2n i32 + scale n f32, one copy a
+# leaf; elastic's opt mu + nu, 3n f32, + t; its step, 4 B
+POLICY_N = 2 ** 25
+POLICY_PASSES = 3
+POLICY_ROUNDS = 5                        # interleaved region-pipelining rounds
+POLICY_LEDGERS = {
+    "mixed_policy": ({"params/**": (402653184, 1), "opt/**": (268435460, 2),
+                      "**": (402653184, 2)},
+                     {"params/**": (402653184, 1), "opt/**": (268435456, 1),
+                      "**": (402653184, 2)}),
+    "elastic": ({"params/**": (402653184, 1), "opt/**": (402653188, 2),
+                 "**": (4, 1)},
+                {"params/**": (402653184, 1), "opt/**": (402653184, 1),
+                 "**": (4, 1)}),
+}
+# Algorithm 2 over each declared policy: the merged ledger, the cold sum
+POLICY_ALG2 = {"mixed_policy": (1073741828, 5), "elastic": (805306376, 4)}
+# full-width llama3.2-1b params (bf16, 11 leaves) as a model_state cell:
+# marshal ships them all (phase 8's params region), uvm and pointerchain the
+# embedding (525336576 B) and final_norm (4096 B)
+MODEL_STATE_BYTES = 2471628800
+MODEL_STATE_CLOSED = {"marshal": (MODEL_STATE_BYTES, 1),
+                      "uvm": (525340672, 2), "pointerchain": (525340672, 2)}
 
 
 def say(*parts) -> None:
@@ -1238,6 +1277,165 @@ def profile_device_ms(device, fn, calls: int = 3) -> dict:
     return {"device_ms": total, "wall_ms": wall * 1e3 / calls, "top": top}
 
 
+# -- phase 13: the policy scenarios ------------------------------------------
+
+def _spread(xs) -> str:
+    import statistics
+
+    ms = [x * 1e3 for x in xs]
+    return (f"median {statistics.median(ms):.2f} ms (min {min(ms):.2f}, "
+            f"max {max(ms):.2f}, {len(ms)} rounds)")
+
+
+def region_pipelining(device, sc, tree, rounds: int) -> None:
+    """benchmarks/transfer_overlap.py's region-pipelining measurement, at
+    this tree's size: per round, each region staged as its own single-rule
+    blocking program (one barrier each, summed), one warm blocking program
+    pass, one warm async pass materialized at once; all clean warm passes,
+    interleaved.  The region programs and the whole program have a session
+    each, so they share no staging entry.  Recorded, not gated."""
+    from repro_torch._device import synchronize
+    from repro_torch.core import (TransferPolicy, TransferSession,
+                                  partition_tree, tree_leaves)
+
+    policy = sc.policy()
+    leaves = tree_leaves(tree)
+    alone, whole = TransferSession(), TransferSession()
+    regions = []
+    for key, region in partition_tree(tree, policy).items():
+        sub = [leaves[i] for i in region.indices]
+        prog = alone.compile(sub, TransferPolicy.of(region.spec),
+                             device=device)
+        prog.to_device(sub)                                 # warm
+        regions.append((key, prog, sub))
+    program = whole.compile(tree, policy, device=device)
+    program.to_device(tree)                                 # warm
+    synchronize(device)
+    walls = {"regions": [], "program": [], "async": []}
+    offloaded = []
+    for _ in range(rounds):
+        total = 0.0
+        for _, prog, sub in regions:
+            t0 = time.perf_counter()
+            prog.to_device(sub)
+            synchronize(device)
+            total += time.perf_counter() - t0
+        walls["regions"].append(total)
+        t0 = time.perf_counter()
+        program.to_device(tree)
+        synchronize(device)
+        walls["program"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        program.to_device_async(tree).result()
+        synchronize(device)
+        walls["async"].append(time.perf_counter() - t0)
+        offloaded.append(program.last_stats.offloaded_s)
+    say(f"[policy] {sc.name} region pipelining: sum of {len(regions)} "
+        f"single-region programs {_spread(walls['regions'])}; one blocking "
+        f"program pass {_spread(walls['program'])}; one async pass "
+        f"{_spread(walls['async'])}, offloaded "
+        f"{max(offloaded) * 1e3:.3f} ms at most")
+    for prog in [p for _, p, _ in regions] + [program]:
+        prog.clear()
+    alone.clear()
+    whole.clear()
+
+
+def policy_scenarios(device, n: int) -> None:
+    """run_policy_scenario on mixed_policy and elastic at ``n`` (one
+    device), POLICY_PASSES passes under each executor, every region held to
+    its closed form; Algorithm 2 over each declared policy; then the region
+    pipelining.  Each sub-phase has its own session, released after it."""
+    from repro_torch.core import TransferSession
+    from repro_torch.scenarios import (elastic_case, mixed_policy_case,
+                                       run_algorithm2, run_policy_scenario)
+
+    for case in (mixed_policy_case, elastic_case):
+        sc = case(n, 1)
+        cold, steady = POLICY_LEDGERS[sc.family]
+        for declared, want in ((sc.region_expected, cold),
+                               (sc.steady_region_expected, steady)):
+            if {k: v.as_tuple() for k, v in declared.items()} != want:
+                fail(f"{sc.name}: the family's closed forms {declared} are "
+                     f"not this phase's {want}")
+        t0 = time.perf_counter()
+        tree = sc.build()
+        say(f"[policy] {sc.name}: {sc.declared_policy}; built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for executor in ("blocking", "async"):
+            session = TransferSession()
+            ms = run_policy_scenario(sc, tree=tree, passes=POLICY_PASSES,
+                                     executor=executor, session=session,
+                                     device=device)
+            for i, m in enumerate(ms):
+                got = {k: (r["h2d_bytes"], r["h2d_calls"])
+                       for k, r in m.regions.items()}
+                if not (m.ok and m.motion_ok and m.syncs == 1
+                        and got == (cold if i == 0 else steady)):
+                    fail(f"{sc.name} {executor} pass {i}: ok={m.ok} "
+                         f"motion_ok={m.motion_ok} syncs={m.syncs} "
+                         f"regions {got}")
+                say(f"[policy] {sc.name} {executor} pass {i}: regions {got}"
+                    f" == closed forms, skipped {m.skipped_bytes} B, values "
+                    f"== host; wall {m.wall_us / 1e3:.2f} ms = "
+                    f"{m.h2d_bytes / m.wall_us / 1e3:.2f} GB/s H2D; sync "
+                    f"{m.sync_us / 1e3:.3f} ms, overlap "
+                    f"{m.overlap_us / 1e3:.3f} ms, offloaded "
+                    f"{m.offload_us / 1e3:.3f} ms, finish "
+                    f"{m.finish_us / 1e3:.3f} ms")
+            say(f"[policy] {sc.name} {executor}: {pinned_report(session)}")
+            session.clear()
+            release_host_cache()
+        session = TransferSession()
+        program = session.compile(tree, sc.policy(), device=device)
+        m = run_algorithm2(tree, list(sc.used_paths), program=program)
+        if not (m.ok and (m.h2d_bytes, m.h2d_calls) == POLICY_ALG2[sc.family]):
+            fail(f"{sc.name} Algorithm 2 over its policy: ok={m.ok} ledger "
+                 f"{(m.h2d_bytes, m.h2d_calls)}, want "
+                 f"{POLICY_ALG2[sc.family]}")
+        say(f"[policy] {sc.name} Algorithm 2 over {m.spec}: line-7 ok, "
+            f"merged ledger {m.h2d_bytes} B / {m.h2d_calls} copies == the "
+            f"cold sum; wall {m.wall_us / 1e3:.2f} ms")
+        program.clear()
+        session.clear()
+        del program
+        release_host_cache()
+        region_pipelining(device, sc, tree, POLICY_ROUNDS)
+        del tree
+        release_host_cache()
+
+
+def model_state_full(device) -> None:
+    """llama3.2-1b's params at full width, drawn on the card from a seeded
+    generator and moved to the host, as a model_state cell (used paths
+    embed and final_norm) under every spec, each ledger held to its closed
+    form (real_size)."""
+    import torch
+    from repro_torch.core import tree_leaves, tree_map
+    from repro_torch.models import registry
+    from repro_torch.scenarios import Scenario
+
+    api = registry.get("llama3.2-1b")
+    params = api.init(torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    host = tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    leaves = tree_leaves(host)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    if nbytes != MODEL_STATE_BYTES or len(leaves) != 11 or any(
+            t.dtype != torch.bfloat16 for t in leaves):
+        fail(f"full-width llama3.2-1b params: {nbytes} B in {len(leaves)} "
+             f"leaves, want {MODEL_STATE_BYTES} B of bf16 in 11")
+    sc = Scenario(name="model_state_llama3_2_1b_full_width",
+                  family="model_state", build=lambda: host,
+                  used_paths=("embed", "final_norm"),
+                  params=dict(arch="llama3.2-1b"))
+    real_size(device, [(sc, MODEL_STATE_CLOSED)])
+    del host
+    release_host_cache()
+
+
 def main() -> int:
     import dataclasses
     import torch
@@ -1387,6 +1585,16 @@ def main() -> int:
                     "**": SERVE_LEDGERS["**"]}
         served[tag] = serve_phase(device, kernels, api, tag, want)
     served_counts = {k: sum(c[k] for c in served.values()) for k in kernels}
+
+    # the policy scenarios (phase 13): transfers only, so no kernel launches
+    reset()
+    t0 = time.perf_counter()
+    policy_scenarios(device, POLICY_N)
+    model_state_full(device)
+    if any(counts().values()):
+        fail(f"the policy phase launched {counts()}; it runs no kernel")
+    say(f"[policy] phase 13 ok in {time.perf_counter() - t0:.2f} s, no "
+        f"kernel launched")
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = [dict(name="gather_tiles", route="cuda",

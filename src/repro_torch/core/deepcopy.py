@@ -3,7 +3,8 @@
 Counterpart of ``repro/core/deepcopy.py``: the per-leaf oracle the schemes
 are held against — one plain copy per leaf, none of the engine's staging,
 batching or delta machinery.  Both copies take an optional
-:class:`~repro_torch.core.schemes.TransferLedger`.
+:class:`~repro_torch.core.schemes.TransferLedger`; ``full_deepcopy`` also
+places each leaf by a path-scoped policy.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import torch
 from .._device import DeviceLike, resolve_device
 from .arena import as_tensor
 from .chainref import declare, extract, insert
+from .policy import TransferPolicy
 from .schemes import TransferLedger
-from .treepath import TreePath, tree_leaves, tree_map
+from .treepath import (TreePath, leaf_paths, tree_flatten, tree_leaves,
+                       tree_map)
 
 
 def _nbytes(x: Any) -> int:
@@ -34,10 +37,30 @@ def _copy_to(leaf: Any, device: torch.device,
 
 
 def full_deepcopy(tree: Any, device: DeviceLike = None,
-                  ledger: Optional[TransferLedger] = None) -> Any:
-    """Replicate the whole structure on the device (full deep copy)."""
-    dev = resolve_device(device)
-    return tree_map(lambda leaf: _copy_to(leaf, dev, ledger), tree)
+                  ledger: Optional[TransferLedger] = None,
+                  policy: Any = None) -> Any:
+    """Replicate the whole structure on the device (full deep copy).
+
+    ``policy`` (a :class:`~repro_torch.core.policy.TransferPolicy` or policy
+    string) places each leaf on its region's target, one plain copy per
+    leaf: the card (``cuda:N`` for an ``@devN`` rule).  This is the value
+    oracle a compiled program's pass is held against.  With a policy,
+    ``device`` may only be ``"cpu"``, which puts every leaf on the CPU (the
+    port's opt-in for running without a card); any other device raises, as
+    the reference's placement arguments do."""
+    if policy is None:
+        dev = resolve_device(device)
+        return tree_map(lambda leaf: _copy_to(leaf, dev, ledger), tree)
+    if device is not None and torch.device(device).type != "cpu":
+        raise ValueError("policy placement is exclusive with the device "
+                         "argument (only device='cpu' is accepted)")
+    policy = TransferPolicy.parse(policy)
+    leaves, treedef = tree_flatten(tree)
+    out = [_copy_to(leaf, resolve_device(device,
+                                         policy.match(path).spec.device),
+                    ledger)
+           for path, leaf in zip(leaf_paths(tree), leaves)]
+    return treedef.unflatten(out)
 
 
 def selective_deepcopy(tree: Any, paths: Sequence[Union[str, TreePath]],

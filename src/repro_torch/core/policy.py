@@ -304,7 +304,13 @@ class ProgramStats:
     """One ``to_device`` pass: the copies each region enqueued and the one
     synchronize.  ``sync_s`` is what the caller waited for the barrier,
     ``overlap_s`` (async passes) the time from the enqueue to the moment the
-    caller saw the barrier complete, ``finish_s`` the bookkeeping after it."""
+    caller saw the barrier complete, ``finish_s`` the bookkeeping after it.
+
+    The reference runs the barrier on a thread, so its ``overlap_s`` is the
+    barrier's own wall.  Here no thread waits: the future sees completion
+    only when polled (``done``, ``wait``, ``result``), so ``overlap_s`` ends
+    at the first poll that found the copies done, and ``result()`` called
+    at once after the enqueue gives ``overlap_s`` close to ``sync_s``."""
 
     enqueues: Dict[str, int]
     syncs: int
@@ -315,6 +321,13 @@ class ProgramStats:
     @property
     def enqueue_total(self) -> int:
         return sum(self.enqueues.values())
+
+    @property
+    def offloaded_s(self) -> float:
+        """Barrier time the caller did not wait: ``overlap_s - sync_s``,
+        at least 0 (0 for a blocking pass, about 0 for an async pass
+        materialized at once)."""
+        return max(0.0, self.overlap_s - self.sync_s)
 
 
 class ProgramFuture:
@@ -431,6 +444,9 @@ class TransferProgram:
         """Region-keyed ledgers (pattern -> TransferLedger)."""
         return {k: s.ledger for k, s in self._schemes.items()}
 
+    def region_ledger(self, key: str):
+        return self._schemes[key].ledger
+
     def merged_ledger(self):
         """One ledger summing every region's, plus the last pass's barrier
         attribution."""
@@ -443,6 +459,16 @@ class TransferProgram:
             out.record_overlap(self.last_stats.overlap_s)
             out.record_finish(self.last_stats.finish_s)
         return out
+
+    def region_of(self, path: Union[str, TreePath]) -> str:
+        """The pattern of the region that holds the leaf at ``path``."""
+        return self.policy.match(path).pattern
+
+    def reset_ledgers(self) -> None:
+        """Materialize any in-flight pass, then zero every region ledger."""
+        self.drain()
+        for s in self._schemes.values():
+            s.ledger.reset()
 
     # -- execution -----------------------------------------------------------
     def _flatten(self, tree: Any) -> List[Any]:

@@ -5,20 +5,27 @@ Counterpart of ``repro/scenarios/base.py`` on one device.  A
 :class:`Scenario` declares a deterministic tree builder, the pointer chains
 its kernel dereferences (``used_paths``), the leaves a demand-paging walk
 touches (``uvm_access``) and the exact bytes / copy counts each scheme must
-issue (:class:`Motion`).  Not yet ported: the sharded fields and the policy
-derivations.
+issue (:class:`Motion`).  A policy scenario also declares the path-scoped
+policy it is designed for and the exact per-region motion of a cold and a
+steady program pass (:func:`derive_policy_motion`,
+:func:`derive_steady_policy_motion`).  Not yet ported: the sharded fields
+(``@dpK``, K > 1).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
-from ..core import TransferSpec, declare, extract, plan, transfer_scheme
+from ..core import (TransferPolicy, TransferSpec, declare, extract,
+                    partition_tree, plan, transfer_scheme)
 from ..core.arena import as_tensor
 from ..core.treepath import tree_leaves
 
 SIZE_PRESETS = ("smoke", "quick", "full")
 SCHEME_NAMES = ("uvm", "marshal", "marshal_delta", "pointerchain")
+# the paper's own three schemes (marshal_delta re-issues nothing on a
+# repeat pass by design, so the figures' every-repeat cold motion excludes it)
+PAPER_SCHEMES = ("uvm", "marshal", "pointerchain")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +83,64 @@ def derive_steady_motion(tree: Any, mutate_paths: Sequence[str],
     return Motion(sum(bb[b] for b in dirty), len(dirty))
 
 
+def _one_device(spec: TransferSpec) -> None:
+    if spec.num_shards > 1:
+        raise NotImplementedError(
+            f"spec {spec}: sharded motion (@dpK, K > 1) is not yet ported "
+            f"to the PyTorch package")
+
+
+def derive_policy_motion(tree: Any, policy: Any) -> Dict[str, Motion]:
+    """The exact per-region motion of ONE cold program pass, keyed by rule
+    pattern as ``TransferProgram.ledgers`` is: a marshal region (``+db`` and
+    ``+delta`` included) ships every dtype bucket of the region's own arena,
+    a pointerchain region one copy per region leaf, and a uvm region nothing
+    at pass time (it faults at access)."""
+    policy = TransferPolicy.parse(policy)
+    leaves = tree_leaves(tree)
+    out: Dict[str, Motion] = {}
+    for key, region in partition_tree(tree, policy).items():
+        spec = region.spec
+        _one_device(spec)
+        sub = [leaves[i] for i in region.indices]
+        if spec.kind == "uvm":
+            out[key] = Motion(0, 0)
+        elif spec.kind == "pointerchain":
+            out[key] = Motion(sum(_nbytes(l) for l in sub), len(sub))
+        else:
+            out[key] = derive_motion(sub, [], None, spec,
+                                     align_elems=spec.align_elems)
+    return out
+
+
+def derive_steady_policy_motion(tree: Any, policy: Any,
+                                mutate_paths: Sequence[str]
+                                ) -> Dict[str, Motion]:
+    """Per-region motion of one WARM program pass after mutating the leaves
+    at ``mutate_paths``: a delta region ships only the dtype buckets the
+    mutation reaches (nothing when it holds no mutated leaf); every other
+    marshal region (``+db`` included) and every pointerchain region
+    re-ships its cold motion; uvm regions stay at zero."""
+    policy = TransferPolicy.parse(policy)
+    leaves = tree_leaves(tree)
+    mutated = {r.flat_index for r in declare(tree, *mutate_paths)}
+    out: Dict[str, Motion] = {}
+    for key, region in partition_tree(tree, policy).items():
+        spec = region.spec
+        _one_device(spec)
+        sub = [leaves[i] for i in region.indices]
+        if spec.kind == "marshal" and spec.delta:
+            local = [f"[{j}]" for j, i in enumerate(region.indices)
+                     if i in mutated]
+            out[key] = derive_steady_motion(sub, local,
+                                            align_elems=spec.align_elems)
+        elif spec.kind == "uvm":
+            out[key] = Motion(0, 0)
+        else:
+            out[key] = derive_policy_motion(sub, TransferPolicy.of(spec))["**"]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Scenario:
     """One concrete workload cell of the test/benchmark matrix.
@@ -85,7 +150,11 @@ class Scenario:
     ``uvm_access`` covers them (``None``: the kernel's own chains);
     ``expected`` holds optional closed-form per-scheme :class:`Motion`;
     ``steady_expected`` the exact motion of one steady delta pass after
-    mutating ``params['mutate_path(s)']``.
+    mutating ``params['mutate_path(s)']``.  A policy scenario names the
+    policy it is designed for (``declared_policy``, a policy string) and
+    may declare closed-form per-region motion, keyed by rule pattern, for
+    the cold program pass (``region_expected``) and for one steady pass
+    after the mutation (``steady_region_expected``).
     """
 
     name: str
@@ -97,12 +166,25 @@ class Scenario:
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     steady_expected: Optional[Motion] = None
     steady_spec: Optional[TransferSpec] = None
+    declared_policy: Optional[str] = None
+    region_expected: Optional[Mapping[str, Motion]] = None
+    steady_region_expected: Optional[Mapping[str, Motion]] = None
 
     def steady_mutate_paths(self) -> Tuple[str, ...]:
         paths = self.params.get("mutate_paths")
         if paths is None and "mutate_path" in self.params:
             paths = (self.params["mutate_path"],)
         return tuple(paths or ())
+
+    def policy(self, spec: Union[str, TransferSpec, None] = None
+               ) -> Optional[TransferPolicy]:
+        """With ``spec``, the one-rule policy it becomes (``**=<spec>``);
+        otherwise the scenario's declared policy (None when it has none)."""
+        if spec is not None:
+            return TransferPolicy.of(TransferSpec.parse(spec))
+        if self.declared_policy is not None:
+            return TransferPolicy.parse(self.declared_policy)
+        return None
 
     def specs(self) -> Tuple[TransferSpec, ...]:
         """The specs the scenario runs under: the reference's four plus

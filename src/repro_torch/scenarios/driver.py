@@ -1,30 +1,34 @@
 """Scheme-agnostic Algorithm-2 driver.
 
-Counterpart of ``repro/scenarios/driver.py`` (the spec/scheme path; the
-policy-program path is not yet ported).  One straight-line pass for any
-spec:
+Counterpart of ``repro/scenarios/driver.py`` on one device.  One
+straight-line pass for any spec, or for a path-scoped policy compiled into
+one program:
 
-    stage (transfer under the policy) -> extract declared leaves ->
+    stage (transfer under the spec or policy) -> extract declared leaves ->
     kernel (x1.5) -> insert -> from_device -> check (line 7)
 
 :func:`run_scenario` additionally holds the ledger to the scenario's
-analytic :class:`~repro_torch.scenarios.base.Motion`, and
+analytic :class:`~repro_torch.scenarios.base.Motion`,
 :func:`run_steady_scenario` warms a delta executor, mutates, and holds
-every steady pass to its exact dirty motion.
+every steady pass to its exact dirty motion, and
+:func:`run_policy_scenario` holds every region of a program pass to its
+motion (closed form == structural derivation == region ledger).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 
 from .._device import DeviceLike, synchronize
-from ..core import TransferSpec, TreePath, declare, extract, insert, transfer_scheme
+from ..core import (LazyLeaf, TransferPolicy, TransferSpec, TreePath, declare,
+                    extract, get_session, insert, transfer_scheme)
 from ..core.arena import as_tensor
 from ..core.treepath import tree_leaves
-from .base import Motion, Scenario, derive_steady_motion
+from .base import (Motion, Scenario, derive_policy_motion,
+                   derive_steady_motion, derive_steady_policy_motion)
 
 
 @dataclasses.dataclass
@@ -72,14 +76,26 @@ def run_algorithm2(tree: Any, used_paths: Sequence[str],
                    uvm_access: Optional[Sequence[str]] = None,
                    kernel_repeats: int = 1,
                    scheme: Optional[Any] = None,
-                   device: DeviceLike = None) -> Measurement:
+                   device: DeviceLike = None,
+                   policy: Union[str, TransferPolicy, None] = None,
+                   program: Optional[Any] = None) -> Measurement:
     """One full Algorithm-2 pass; returns wall/kernel time + motion stats.
 
     Pass ``scheme`` to reuse an executor (its cached layouts and staging)
     across repeats; otherwise one is built for ``spec`` on ``device`` (the
     CUDA card unless ``device="cpu"``).  The ledger is reset, so the
     Measurement reports per-pass motion.
+
+    With a path-scoped ``policy`` (or a compiled ``program``) instead, the
+    transfer step is ONE program pass (every region enqueued before one
+    synchronize), ``from_device`` runs per region, and the Measurement's
+    motion is the program's merged ledger (``scheme == "policy"``).
     """
+    if policy is not None or program is not None:
+        return _run_algorithm2_program(tree, used_paths, policy=policy,
+                                       program=program,
+                                       kernel_repeats=kernel_repeats,
+                                       device=device)
     if scheme is None:
         if spec is None:
             raise ValueError("need a spec or a scheme instance")
@@ -140,6 +156,38 @@ def _kernel_only_us(tree: Any, refs, kernel_repeats: int,
     for _ in range(reps):
         scale_kernel(leaves)
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def _run_algorithm2_program(tree: Any, used_paths: Sequence[str], *,
+                            policy: Union[str, TransferPolicy, None],
+                            program: Optional[Any], kernel_repeats: int,
+                            device: DeviceLike) -> Measurement:
+    """Algorithm 2 with a compiled TransferProgram as the transfer step."""
+    if program is None:
+        program = get_session().compile(tree, TransferPolicy.parse(policy),
+                                        device=device)
+    program.reset_ledgers()
+    refs = declare(tree, *used_paths)
+
+    t0 = time.perf_counter()
+    dev = program.to_device(tree)
+    # uvm regions stage lazily: the kernel's dereference faults those leaves
+    # (their copies land in the region's ledger here)
+    leaves = [l.get() if isinstance(l, LazyLeaf) else l
+              for l in extract(dev, refs)]
+    dev = insert(dev, refs, scale_kernel(leaves))
+    host = program.from_device(dev, tree)
+    wall = (time.perf_counter() - t0) * 1e6
+
+    ok = _check_line7(tree, host, refs)
+    kernel_us = _kernel_only_us(tree, refs, kernel_repeats, program.device)
+    led = program.merged_ledger()
+    return Measurement("policy", wall, kernel_us, led.h2d_bytes,
+                       led.h2d_calls, ok, skipped_bytes=led.skipped_bytes,
+                       per_device=led.per_device() or None,
+                       spec=str(program.policy),
+                       enqueue_us=led.enqueue_s * 1e6,
+                       sync_us=led.sync_s * 1e6, device=str(program.device))
 
 
 def run_scenario(sc: Scenario, spec: Union[str, TransferSpec, None] = None, *,
@@ -228,4 +276,143 @@ def run_steady_scenario(sc: Scenario, *, passes: int = 3,
         out.append(SteadyMeasurement(led.h2d_bytes, led.h2d_calls,
                                      led.skipped_bytes, wall_us, ok,
                                      motion_ok, spec=str(want_spec)))
+    return out
+
+
+# -- policy programs: the region-aware harness --------------------------------
+
+@dataclasses.dataclass
+class PolicyMeasurement:
+    """One TransferProgram pass: per-region motion + program-level checks."""
+
+    policy: str
+    wall_us: float
+    ok: bool                      # staged values == host tree, leaf for leaf
+    motion_ok: bool               # every region ledger == its expectation
+    h2d_bytes: int                # merged across regions
+    h2d_calls: int
+    skipped_bytes: int
+    enqueues: int                 # H2D copies enqueued this pass ...
+    syncs: int                    # ... behind this many barriers (must be 1)
+    regions: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)     # region pattern -> ledger.as_dict()
+    expected: Optional[Dict[str, Motion]] = None
+    executor: str = "blocking"    # which executor ran the pass
+    sync_us: float = 0.0          # what the caller waited at the barrier
+    overlap_us: float = 0.0       # async: enqueue to the barrier seen done
+    offload_us: float = 0.0       # async: barrier time the caller did not wait
+    finish_us: float = 0.0        # bookkeeping after the barrier
+
+
+def _region_motion_ok(spec: TransferSpec, ledger, expected: Motion,
+                      cold: Motion) -> bool:
+    """Exact region ledger == expectation; for a delta region also the
+    complement ``h2d + skipped == the region's cold bytes``."""
+    ok = (ledger.h2d_bytes, ledger.h2d_calls) == expected.as_tuple()
+    if spec.delta:
+        ok &= ledger.h2d_bytes + ledger.skipped_bytes == cold.h2d_bytes
+    return ok
+
+
+def _materialized_equal(dev: Any, host: Any) -> bool:
+    """Every staged leaf (a uvm leaf's host value, not faulted) equals the
+    host tree's leaf: dtype, shape and values."""
+    dev_leaves, host_leaves = tree_leaves(dev), tree_leaves(host)
+    if len(dev_leaves) != len(host_leaves):
+        return False
+    for a, b in zip(dev_leaves, host_leaves):
+        a = as_tensor(a._host if isinstance(a, LazyLeaf) else a).cpu()
+        b = as_tensor(b)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            return False
+    return True
+
+
+def run_policy_scenario(sc: Scenario,
+                        policy: Union[str, TransferPolicy, None] = None, *,
+                        tree: Any = None, passes: int = 1,
+                        program: Optional[Any] = None,
+                        session: Optional[Any] = None,
+                        executor: str = "blocking",
+                        device: DeviceLike = None
+                        ) -> List[PolicyMeasurement]:
+    """The region-aware harness over a compiled program: pass 0 is cold,
+    each later pass first mutates ``params['mutate_paths']`` (+1, out of
+    place) when the scenario declares them.
+
+    Per pass, every region's ledger must equal the structural derivation
+    (:func:`derive_policy_motion` cold, :func:`derive_steady_policy_motion`
+    warm) exactly, and, where the scenario declares closed forms for its
+    own policy (``region_expected`` / ``steady_region_expected``), those
+    must agree too: closed form == structural == ledger.  Each pass has ONE
+    synchronize, as many enqueues as the merged ledger has H2D copies, and
+    staged values equal to the (mutated) host tree leaf for leaf.
+
+    ``executor="async"`` runs every pass as ``to_device_async(...).result()``
+    under the same checks.  ``policy`` defaults to the declared one; the
+    program is compiled on ``device`` (the card unless ``"cpu"``) over
+    ``session`` unless one is passed.  A sharded rule (``@dpK``, K > 1)
+    raises ``NotImplementedError`` when it is compiled or derived.
+    """
+    if executor not in ("blocking", "async"):
+        raise ValueError(f"executor must be 'blocking' or 'async', "
+                         f"got {executor!r}")
+    if tree is None:
+        tree = sc.build()
+    if policy is None:
+        policy = sc.policy()
+        if policy is None:
+            raise ValueError(f"{sc.name} declares no policy; pass one")
+    policy = TransferPolicy.parse(policy)
+    if program is None:
+        program = (session or get_session()).compile(tree, policy,
+                                                     device=device)
+    declared = sc.declared_policy is not None and \
+        policy == TransferPolicy.parse(sc.declared_policy)
+    mutate = [TreePath.parse(p) for p in sc.steady_mutate_paths()]
+    cold_expected = derive_policy_motion(tree, policy)
+    out: List[PolicyMeasurement] = []
+    cur = tree
+    for i in range(passes):
+        if i:
+            for tp in mutate:
+                leaf = as_tensor(tp.resolve(cur))
+                cur = tp.set(cur, leaf + torch.ones((), dtype=leaf.dtype))
+        program.reset_ledgers()
+        t0 = time.perf_counter()
+        if executor == "async":
+            dev = program.to_device_async(cur).result()
+        else:
+            dev = program.to_device(cur)
+        synchronize(program.device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        stats = program.last_stats
+        if i == 0:
+            expected = cold_expected
+            closed = sc.region_expected if declared else None
+        else:
+            # a delta region ships only what the mutation dirtied (nothing
+            # on a clean repeat); the rest re-ship their cold motion
+            expected = derive_steady_policy_motion(
+                cur, policy, [str(tp) for tp in mutate])
+            closed = sc.steady_region_expected \
+                if declared and mutate else None
+        motion_ok = set(expected) == set(program.ledgers)
+        for key, led in program.ledgers.items():
+            motion_ok &= _region_motion_ok(program.scheme(key).spec, led,
+                                           expected[key], cold_expected[key])
+            if closed is not None and key in closed:
+                motion_ok &= closed[key].as_tuple() == expected[key].as_tuple()
+        merged = program.merged_ledger()
+        motion_ok &= stats.syncs == 1
+        motion_ok &= stats.enqueue_total == merged.h2d_calls
+        out.append(PolicyMeasurement(
+            str(policy), wall_us, _materialized_equal(dev, cur), motion_ok,
+            merged.h2d_bytes, merged.h2d_calls, merged.skipped_bytes,
+            stats.enqueue_total, stats.syncs,
+            regions={k: led.as_dict() for k, led in program.ledgers.items()},
+            expected=expected, executor=executor,
+            sync_us=stats.sync_s * 1e6, overlap_us=stats.overlap_s * 1e6,
+            offload_us=stats.offloaded_s * 1e6,
+            finish_us=stats.finish_s * 1e6))
     return out

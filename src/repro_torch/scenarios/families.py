@@ -1,13 +1,19 @@
-"""Scenario families — the paper's two workloads plus four more.
+"""Scenario families — the paper's two workloads plus seven more.
 
 Counterpart of ``repro/scenarios/families.py`` for the families linear,
-dense, ragged, mixed_dtype, sweep and steady_reuse, with the same seeds,
+dense, ragged, mixed_dtype, sweep, model_state, mixed_policy, elastic and
+steady_reuse, registered in the reference's order, with the same seeds,
 the same sizes and the same closed forms.  Payloads are drawn with numpy's
 ``default_rng`` exactly as the reference draws them, then wrapped with
 ``torch.from_numpy``; a bf16 leaf is the float32 array cast with
 ``.to(torch.bfloat16)`` (bit-equal to the reference's ``astype``); header
-scalars are 0-d int32 tensors.  Not yet ported: model_state, sharded,
-sharded_delta, mixed_policy and elastic.
+scalars are 0-d int32 tensors.
+
+model_state's trees are the port's own smoke params (``torch.Generator``
+seeded with 0): the same paths, shapes and dtypes as the reference's, not
+its values, which ``jax.random`` draws.  Motion depends on structure only.
+mixed_policy and elastic run at one device (``@dp1``) until sharded
+execution is ported.  Not yet ported: sharded and sharded_delta.
 """
 from __future__ import annotations
 
@@ -305,6 +311,149 @@ def _sweep_family(size: str) -> List[Scenario]:
     if size == "smoke":
         return [deep_narrow_case(6, 16), wide_shallow_case(8, 16)]
     return [deep_narrow_case(24, 64), wide_shallow_case(64, 256)]
+
+
+# -- model_state — real parameter trees at smoke scale -----------------------
+
+@functools.lru_cache(maxsize=None)
+def _model_params(arch_id: str) -> Any:
+    """The arch's smoke params on the host, from a generator seeded with 0.
+    Cached per process and read-only: no scheme writes a host leaf."""
+    from ..models import registry as model_registry
+
+    api = model_registry.get(arch_id, smoke=True)
+    return api.init(torch.Generator().manual_seed(0), device="cpu")
+
+
+def model_state_case(arch_id: str) -> Scenario:
+    slug = arch_id.replace("-", "_").replace(".", "_")
+    return Scenario(
+        name=f"model_state_{slug}",
+        family="model_state",
+        build=functools.partial(_model_params, arch_id),
+        # interior chains: declare() expands them to every leaf below
+        used_paths=("embed", "final_norm"),
+        uvm_access=None,
+        params=dict(arch=arch_id))
+
+
+@register("model_state")
+def _model_state_family(size: str) -> List[Scenario]:
+    archs = ["llama3.2-1b"] if size == "smoke" \
+        else ["llama3.2-1b", "mamba2-1.3b"]
+    return [model_state_case(a) for a in archs]
+
+
+# -- mixed_policy — path-scoped policies over model-shaped state -------------
+
+def _one_device_family(k: int) -> None:
+    """The closed forms below are one device's; the reference's per-device
+    split at K > 1 waits for sharded execution."""
+    if k != 1:
+        raise NotImplementedError(
+            f"policy families on {k} devices need sharded execution (@dpK, "
+            f"K > 1), not yet ported to the PyTorch package")
+
+
+def mixed_policy_tree(n: int, seed: int = 23) -> Any:
+    """Sharded params, hot optimizer state, and metadata: three regions no
+    single whole-tree spec serves well."""
+    rng = np.random.default_rng(seed)
+    return {
+        "params": {"w": _f32(rng, 2 * n), "b": _f32(rng, n)},
+        "opt": {"m": _f32(rng, n), "v": _f32(rng, n), "t": _i32(0)},
+        "meta": {"ids": torch.arange(2 * n, dtype=torch.int32),
+                 "scale": _f32(rng, n)},
+    }
+
+
+def mixed_policy_case(n: int, k: int) -> Scenario:
+    """Closed-form per-region Motion for the declared policy
+    ``params/**=marshal@dp{k}; opt/**=marshal+delta; **=pointerchain``:
+
+    * params — one f32 bucket of 3n elements (w + b): 12n bytes, 1 copy.
+    * opt — f32 bucket (m + v, 8n bytes) + i32 bucket (t, 4 bytes): cold
+      8n + 4 bytes in 2 copies; steady after mutating ``opt.m`` the f32
+      bucket ships whole (8n, 1) and the i32 bucket is skipped.
+    * default (meta) — pointerchain, one copy per leaf every pass: ids
+      (8n) + scale (4n) = 12n bytes in 2 copies.
+    """
+    _one_device_family(k)
+    pol = f"params/**=marshal@dp{k}; opt/**=marshal+delta; **=pointerchain"
+    params_cold = Motion(12 * n, 1)
+    meta = Motion(12 * n, 2)
+    return Scenario(
+        name=f"mixed_policy_n{n}_dev{k}",
+        family="mixed_policy",
+        build=functools.partial(mixed_policy_tree, n),
+        used_paths=("params.w", "opt.m", "meta.scale"),
+        uvm_access=None,
+        declared_policy=pol,
+        region_expected={"params/**": params_cold,
+                         "opt/**": Motion(8 * n + 4, 2),
+                         "**": meta},
+        steady_region_expected={"params/**": params_cold,
+                                "opt/**": Motion(8 * n, 1),
+                                "**": meta},
+        params=dict(n=n, devices=k, mutate_paths=("opt.m",)))
+
+
+@register("mixed_policy")
+def _mixed_policy_family(size: str) -> List[Scenario]:
+    # k = 1: the reference's name on one device (it passes
+    # jax.device_count()); @dpK with K > 1 is not ported yet
+    k = 1
+    n = (8 if size == "smoke" else 128) * k
+    return [mixed_policy_case(n, k)]
+
+
+# -- elastic — the restore-onto-a-changed-mesh state shape -------------------
+
+def elastic_tree(n: int, seed: int = 29) -> Any:
+    """The train state an elastic restart restores: dp-sharded params,
+    delta optimizer state and a marshalled step counter."""
+    rng = np.random.default_rng(seed)
+    return {
+        "params": {"w": _f32(rng, 2 * n), "b": _f32(rng, n)},
+        "opt": {"mu": _f32(rng, 2 * n), "nu": _f32(rng, n), "t": _i32(0)},
+        "step": _i32(0),
+    }
+
+
+def elastic_case(n: int, k: int) -> Scenario:
+    """Closed-form per-region Motion for the restore policy
+    ``params/**=marshal@dp{k}; opt/**=marshal+delta; **=marshal``:
+
+    * params — one f32 bucket of 3n elements (w + b): 12n bytes, 1 copy.
+    * opt — f32 bucket (mu + nu, 12n bytes) + i32 bucket (t, 4): cold
+      12n + 4 bytes in 2 copies; steady after mutating ``opt.mu`` the f32
+      bucket ships whole (12n, 1), the i32 bucket is skipped.
+    * default (step) — 4 bytes, 1 copy, every pass.
+    """
+    _one_device_family(k)
+    pol = f"params/**=marshal@dp{k}; opt/**=marshal+delta; **=marshal"
+    params_cold = Motion(12 * n, 1)
+    return Scenario(
+        name=f"elastic_n{n}_dev{k}",
+        family="elastic",
+        build=functools.partial(elastic_tree, n),
+        used_paths=("params.w", "opt.mu"),
+        uvm_access=None,
+        declared_policy=pol,
+        region_expected={"params/**": params_cold,
+                         "opt/**": Motion(12 * n + 4, 2),
+                         "**": Motion(4, 1)},
+        steady_region_expected={"params/**": params_cold,
+                                "opt/**": Motion(12 * n, 1),
+                                "**": Motion(4, 1)},
+        params=dict(n=n, devices=k, mutate_paths=("opt.mu",)))
+
+
+@register("elastic")
+def _elastic_family(size: str) -> List[Scenario]:
+    k = 1                                 # as in mixed_policy
+    n = (8 if size == "smoke" else 128) * k
+    return [elastic_case(n, k)]
 
 
 # -- steady_reuse — the delta transfer steady state --------------------------

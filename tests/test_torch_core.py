@@ -26,8 +26,10 @@ from repro_torch.core import chainref as p_chainref
 from repro_torch.core import spec as p_spec
 from repro_torch.core import treepath as p_treepath
 
+# the port's families in its registration order (the reference's, less
+# sharded and sharded_delta)
 FAMILIES = ("linear", "dense", "ragged", "mixed_dtype", "sweep",
-            "steady_reuse")
+            "model_state", "mixed_policy", "elastic", "steady_reuse")
 _REF = {sc.name: sc for size in ("smoke", "quick")
         for sc in RS.iter_scenarios(size, only=FAMILIES)}
 _PORT = {sc.name: sc for size in ("smoke", "quick")
@@ -52,9 +54,34 @@ def _assert_bit_equal(ref_tree, port_tree):
         np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+def _port_input(name, ref_tree):
+    """The port's tree for the value comparisons: its own build, except for
+    model_state, whose values the reference draws with jax.random; there
+    the same input is the reference's tree carried across."""
+    if _REF[name].family == "model_state":
+        return from_reference_tree(ref_tree)
+    return _PORT[name].build()
+
+
 @pytest.fixture(scope="module")
 def trees():
-    return {name: (_REF[name].build(), _PORT[name].build()) for name in _NAMES}
+    out = {}
+    for name in _NAMES:
+        ref_tree = _REF[name].build()
+        out[name] = (ref_tree, _port_input(name, ref_tree))
+    return out
+
+
+def _assert_same_structure(ref_tree, port_tree):
+    """Leaf for leaf the same paths, shapes and dtypes (not values)."""
+    want = [(str(p), np.asarray(l).shape, np.asarray(l).dtype.name)
+            for p, l in zip(r_treepath.leaf_paths(ref_tree),
+                            jax.tree_util.tree_leaves(ref_tree))]
+    got = [(str(p), l.shape, l.dtype.name)
+           for p, l in zip(p_treepath.leaf_paths(port_tree),
+                           jax.tree_util.tree_leaves(
+                               to_reference_tree(port_tree)))]
+    assert got == want
 
 
 # -- registry and trees ------------------------------------------------------
@@ -72,14 +99,49 @@ def test_registry_names_and_closed_forms_match(size):
                 {k: v.as_tuple() for k, v in r.expected.items()}
         if r.steady_expected:
             assert p.steady_expected.as_tuple() == r.steady_expected.as_tuple()
+        assert p.declared_policy == r.declared_policy
+        for field in ("region_expected", "steady_region_expected"):
+            want, got = getattr(r, field), getattr(p, field)
+            assert (got is None) == (want is None), (r.name, field)
+            if want is not None:
+                assert {k: v.as_tuple() for k, v in got.items()} == \
+                    {k: v.as_tuple() for k, v in want.items()}
+                assert all(v.per_device_tuple() is None
+                           for v in want.values())
 
 
 @pytest.mark.parametrize("name", _NAMES)
 def test_port_trees_equal_reference_trees_bit_for_bit(name, trees):
-    ref_tree, port_tree = trees[name]
-    _assert_bit_equal(ref_tree, port_tree)
+    ref_tree, _ = trees[name]
+    own = _PORT[name].build()
+    if _REF[name].family == "model_state":
+        # the reference draws these values with jax.random; the motion
+        # depends on paths, shapes and dtypes only
+        _assert_same_structure(ref_tree, own)
+    else:
+        _assert_bit_equal(ref_tree, own)
     # and carrying the reference's tree across gives the same host tree
     _assert_bit_equal(ref_tree, from_reference_tree(ref_tree))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+def test_model_state_values_are_the_ports_own(arch):
+    """model_state builds the port's smoke params from a generator seeded
+    with 0, leaf for leaf."""
+    from repro_torch.models import registry
+
+    sc = next(s for s in _PORT.values()
+              if s.family == "model_state" and s.params["arch"] == arch)
+    want = registry.get(arch, smoke=True).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    got = sc.build()
+    assert got is sc.build()                      # cached per process
+    assert [str(p) for p in p_treepath.leaf_paths(got)] == \
+        [str(p) for p in p_treepath.leaf_paths(want)]
+    for a, b in zip(p_treepath.tree_leaves(got),
+                    p_treepath.tree_leaves(want)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b)
 
 
 def test_bf16_from_f32_is_the_reference_cast():

@@ -137,6 +137,90 @@ def test_steady_state_on_the_card(cuda):
         assert (m.h2d_bytes, m.h2d_calls) == sc.steady_expected.as_tuple()
 
 
+# -- the policy scenarios on the card ----------------------------------------
+
+def _region_motion(m):
+    return {k: (r["h2d_bytes"], r["h2d_calls"]) for k, r in m.regions.items()}
+
+
+@pytest.mark.parametrize("executor", ["blocking", "async"])
+@pytest.mark.parametrize("family", ["mixed_policy", "elastic"])
+def test_policy_scenario_on_the_card(cuda, family, executor):
+    """Cold, then two passes after the scenario's mutation: every region
+    ledger equal to its closed form, one synchronize a pass, staged values
+    equal to the host tree."""
+    sc = PS.iter_scenarios("smoke", only=[family])[0]
+    ms = PS.run_policy_scenario(sc, passes=3, executor=executor,
+                                session=TransferSession())
+    assert all(m.ok and m.motion_ok and m.syncs == 1 for m in ms)
+    assert _region_motion(ms[0]) == {k: v.as_tuple() for k, v in
+                                     sc.region_expected.items()}
+    for m in ms[1:]:
+        assert _region_motion(m) == {k: v.as_tuple() for k, v in
+                                     sc.steady_region_expected.items()}
+
+
+def test_algorithm2_over_a_policy_on_the_card(cuda):
+    for family in ("mixed_policy", "elastic"):
+        sc = PS.iter_scenarios("smoke", only=[family])[0]
+        tree = sc.build()
+        for policy in (sc.declared_policy,
+                       "params/**=uvm; opt/**=marshal+delta; **=pointerchain"):
+            m = PS.run_algorithm2(tree, list(sc.used_paths), policy=policy)
+            assert m.ok and m.scheme == "policy" and m.device == "cuda:0"
+        program = TransferSession().compile(tree, sc.policy())
+        m = PS.run_algorithm2(tree, list(sc.used_paths), program=program)
+        assert m.ok and m.h2d_bytes == sum(
+            v.h2d_bytes for v in sc.region_expected.values())
+
+
+def test_full_deepcopy_policy_equals_a_program_pass_on_the_card(cuda):
+    from repro_torch.core import full_deepcopy
+
+    for family in ("mixed_policy", "elastic"):
+        sc = PS.iter_scenarios("smoke", only=[family])[0]
+        tree = sc.build()
+        want = full_deepcopy(tree, policy=sc.policy())
+        got = TransferSession().compile(tree, sc.policy()).to_device(tree)
+        torch.cuda.synchronize(cuda)
+        for a, b, h in zip(tree_leaves(want), tree_leaves(got),
+                           tree_leaves(tree)):
+            assert a.device == b.device == cuda
+            assert a.dtype == b.dtype and torch.equal(a, b)
+            assert torch.equal(a.cpu(), h)
+
+
+def test_policy_pass_enqueues_without_a_sync(cuda):
+    """A warm program pass over pinned staging, a delta region and a
+    pointerchain region: every region packs and enqueues under
+    sync_debug_mode "error" (no host read, no stream synchronize), and the
+    pass's one barrier waits after it."""
+    from repro_torch.core import TreePath
+
+    for case in (PS.mixed_policy_case, PS.elastic_case):
+        sc = case(2 ** 16, 1)
+        tree = sc.build()
+        program = TransferSession().compile(tree, sc.policy())
+        program.to_device(tree)                       # cold: staging made
+        tp = TreePath.parse(sc.steady_mutate_paths()[0])
+        mutated = tp.set(tree, tp.resolve(tree) + 1)
+        program.reset_ledgers()
+        torch.cuda.synchronize(cuda)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fut = program.to_device_async(mutated)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        dev = fut.result()
+        assert program.last_stats.syncs == 1
+        assert {k: (l.h2d_bytes, l.h2d_calls)
+                for k, l in program.ledgers.items()} == \
+            {k: v.as_tuple()
+             for k, v in sc.steady_region_expected.items()}
+        for a, b in zip(tree_leaves(dev), tree_leaves(mutated)):
+            assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("spec", ["marshal+db", "marshal+delta"])
 def test_fences_keep_in_flight_copies_intact(cuda, spec):
     """Three back-to-back non-blocking transfers of a 64 MiB tree: the

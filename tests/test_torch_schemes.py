@@ -1,6 +1,6 @@
 """Algorithm 2 on the port held against the JAX package, scheme by scheme.
 
-Every scenario of the six ported families at the smoke preset runs under
+Every scenario of the nine ported families at the smoke preset runs under
 uvm, marshal, marshal+db, marshal+delta and pointerchain in both packages
 on the same trees (the reference's numpy trees, carried across with
 ``from_reference_tree``).  The port must pass line 7, book a ledger equal
@@ -43,7 +43,7 @@ from repro_torch.kernels.marshal_pack import ops as p_ops
 
 CPU = "cpu"
 FAMILIES = ("linear", "dense", "ragged", "mixed_dtype", "sweep",
-            "steady_reuse")
+            "model_state", "mixed_policy", "elastic", "steady_reuse")
 SPECS = ("uvm", "marshal", "marshal+db", "marshal+delta", "pointerchain")
 _REF = {sc.name: sc for sc in RS.iter_scenarios("smoke", only=FAMILIES)}
 _PORT = {sc.name: sc for sc in PS.iter_scenarios("smoke")}
