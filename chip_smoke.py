@@ -78,8 +78,26 @@ Phases, each of which raises on failure:
      benchmarks/transfer_overlap.py over POLICY_ROUNDS interleaved rounds
      (median, min and max; recorded, not gated); and full-width
      llama3.2-1b params (2471628800 B of bf16, drawn on the card, moved to
-     the host) as a model_state cell under every spec (real_size).  Each
-     part has its own session, released after it.
+     the host) as a model_state cell under every spec (real_size), then
+     priced from their signatures alone: the Algorithm-2 step's derivation
+     equals the closed form the ledger was held to, and ``policy_cost``
+     equals a program pass's region ledgers, cold and steady, under every
+     spec.  Each part has its own session, released after it;
+ 14. analysis    — the static policy analysis: the cost model's wall half
+     calibrated on the card (single pageable host-to-card copies of 64 KiB,
+     1 MiB and 4 MiB, the minimum of 5 each, then the affine fit; printed
+     with the card's name and power limit); check_registry('full') at the
+     live mesh and every declared policy resharded to 8 (no error-severity
+     diagnostic); for every scenario at ``full``, ``policy_cost`` of its
+     signature tree under its declared policy (marshal where it has none)
+     equal to the card's region ledgers from run_policy_scenario, cold and
+     steady; and the autotuner's three stages on phase 13's two trees at n
+     = 2^25: the 27 candidates of enumerate_policies over the declared
+     patterns (plus the declared policy, whose ``marshal@dp1`` is not in
+     the grid), ranked by the calibrated model's objective_us, the declared
+     policy and the best 3 measured (cold + 2 steady passes, a session
+     each), predicted bytes and copies equal to the ledger per region, and
+     the predicted and measured walls printed (recorded, not gated).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -93,12 +111,11 @@ ssd_chunks 48 per prefill request; zamba2 rmsnorm 17 per forward, flash 2
 and ssd_chunks 12 per prefill request, decode 2 per step; starcoder2 no
 rmsnorm, flash 30 per prefill request, decode 30 per step; moonshot (4
 layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
-step; gather_tiles never; the policy phase launches nothing.  The last
-lines are the card's name and power
-limit, a ``kernels`` JSON line (launches summed over the five serve
-phases) and ``{"ok": true,
-"device": {...}}``.  Without a CUDA device the script exits with code 2
-and prints no result.
+step; gather_tiles never; the policy and analysis phases launch
+nothing.  The last lines are the card's name and power limit, a
+``kernels`` JSON line (launches summed over the five serve phases) and
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits with code 2 and prints no result.
 
 Matmul precision: ``torch.backends.cuda.matmul.allow_tf32`` is set to False
 (the default: f32 products in full f32); the bf16 reduced-precision
@@ -187,6 +204,13 @@ POLICY_ALG2 = {"mixed_policy": (1073741828, 5), "elastic": (805306376, 4)}
 MODEL_STATE_BYTES = 2471628800
 MODEL_STATE_CLOSED = {"marshal": (MODEL_STATE_BYTES, 1),
                       "uvm": (525340672, 2), "pointerchain": (525340672, 2)}
+# the analysis phase (14): the autotuner's grid over each declared policy's
+# three patterns on one card (3 candidate specs a pattern), and how many of
+# the calibrated model's best-ranked candidates are measured beside the
+# declared policy, each over a cold and two steady passes
+ANALYSIS_GRID = 27
+ANALYSIS_TOP = 3
+ANALYSIS_PASSES = 3
 
 
 def say(*parts) -> None:
@@ -1432,8 +1456,159 @@ def model_state_full(device) -> None:
                   used_paths=("embed", "final_norm"),
                   params=dict(arch="llama3.2-1b"))
     real_size(device, [(sc, MODEL_STATE_CLOSED)])
+    model_state_static(device, sc, host)
     del host
     release_host_cache()
+
+
+def model_state_static(device, sc, host) -> None:
+    """The static analysis on the full-width params, priced from their
+    signatures alone: under every spec, the Algorithm-2 step's structural
+    derivation equals the closed form real_size held the ledger to, and
+    ``policy_cost`` equals a program pass's region ledger on the card,
+    cold and on a clean steady pass."""
+    from repro_torch.analysis.cost import policy_cost, signature_tree
+    from repro_torch.core import TransferSession
+    from repro_torch.scenarios import derive_motion, run_policy_scenario
+
+    sig = signature_tree(host)
+    for spec in SPECS:
+        alg2 = derive_motion(sig, sc.used_paths, None, spec).as_tuple()
+        if alg2 != MODEL_STATE_CLOSED[spec.split("+")[0]]:
+            fail(f"{sc.name}/{spec}: the signature tree derives {alg2} for "
+                 f"the Algorithm-2 step, the ledger booked "
+                 f"{MODEL_STATE_CLOSED[spec.split('+')[0]]}")
+        cost = policy_cost(sig, spec)
+        session = TransferSession()
+        ms = run_policy_scenario(sc, spec, tree=host, passes=2,
+                                 session=session, device=device)
+        static_equals_ledger(f"{sc.name}/{spec}", cost, ms)
+        say(f"[real] {sc.name}/{spec}: static Alg-2 step {alg2} == ledger; "
+            f"static program pass cold ({cost.cold_bytes}, "
+            f"{cost.cold_calls}) / steady ({cost.steady_bytes}, "
+            f"{cost.steady_calls}) == the card's region ledgers")
+        session.clear()
+        del ms
+        release_host_cache()
+
+
+# -- phase 14: the static analysis -------------------------------------------
+
+def static_equals_ledger(tag: str, cost, ms) -> None:
+    """``cost`` (a PolicyCost) against a run_policy_scenario measurement:
+    every pass ok, and the predicted bytes and copies equal to the ledger,
+    per region and in total, on the cold pass and on every steady one."""
+    for i, m in enumerate(ms):
+        want = {rc.key: (rc.cold if i == 0 else rc.steady).as_tuple()
+                for rc in cost.regions}
+        got = {k: (r["h2d_bytes"], r["h2d_calls"])
+               for k, r in m.regions.items()}
+        total = (cost.cold_bytes, cost.cold_calls) if i == 0 \
+            else (cost.steady_bytes, cost.steady_calls)
+        if not (m.ok and m.motion_ok and got == want
+                and (m.h2d_bytes, m.h2d_calls) == total):
+            fail(f"{tag} pass {i}: ok={m.ok} motion_ok={m.motion_ok}; the "
+                 f"card's regions {got} (total "
+                 f"{(m.h2d_bytes, m.h2d_calls)}), predicted {want} "
+                 f"({total})")
+
+
+def analysis_phase(device, smi: str, n: int) -> None:
+    """(a) calibrate the wall model on the card; (b) the registry's declared
+    policies checked at the live mesh and resharded to 8, no error; (c) the
+    static prediction == the card's ledger for every scenario at ``full``;
+    (d) the autotuner's three stages on mixed_policy and elastic at ``n``:
+    enumerate, rank with the calibrated model, measure the declared policy
+    and the best ANALYSIS_TOP, each held to its prediction."""
+    import torch
+    from repro_torch.analysis import errors
+    from repro_torch.analysis.check import check_policy, check_registry
+    from repro_torch.analysis.cost import (CostModel, policy_cost,
+                                           signature_tree)
+    from repro_torch.core import TransferPolicy, TransferSession
+    from repro_torch.core import enumerate_policies
+    from repro_torch.scenarios import (elastic_case, iter_scenarios,
+                                       mixed_policy_case,
+                                       run_policy_scenario)
+
+    model = CostModel.calibrate(device=device)
+    say(f"[analysis] calibrated on {smi}: latency {model.latency_us} us, "
+        f"bandwidth {model.bandwidth_gbps} GB/s; probes (bytes, us) "
+        f"{list(model.probes)}")
+
+    results = check_registry("full", mesh_size=None)
+    n_diags = sum(len(d) for d in results.values())
+    bad = [str(d) for ds in results.values() for d in errors(ds)]
+    at8 = []
+    for sc in iter_scenarios("full"):
+        if sc.declared_policy is None:
+            continue
+        steady = bool(sc.steady_mutate_paths()) \
+            or sc.steady_region_expected is not None
+        at8 += check_policy(sc.build(), sc.policy().reshard(8), mesh_size=8,
+                            steady_reuse=steady, where=sc.name)
+    bad += [str(d) for d in errors(at8)]
+    if bad or not results:
+        fail(f"the registry check found errors {bad} over {sorted(results)}")
+    say(f"[analysis] check_registry('full') at the live mesh "
+        f"({torch.cuda.device_count()} card): {len(results)} declared "
+        f"policies, "
+        f"{n_diags} diagnostics, 0 errors; resharded to 8: "
+        f"{len(at8)} diagnostics, 0 errors")
+
+    cells = 0
+    for sc in iter_scenarios("full"):
+        policy = sc.policy() or TransferPolicy.of("marshal")
+        tree = sc.build()
+        cost = policy_cost(signature_tree(tree), policy,
+                           sc.steady_mutate_paths())
+        session = TransferSession()
+        ms = run_policy_scenario(sc, policy, tree=tree, passes=2,
+                                 session=session, device=device)
+        static_equals_ledger(sc.name, cost, ms)
+        session.clear()
+        cells += 1
+    say(f"[analysis] static == the card's ledger, cold and steady, per "
+        f"region, for all {cells} scenarios at 'full'")
+
+    for case in (mixed_policy_case, elastic_case):
+        sc = case(n, 1)
+        tree = sc.build()
+        sig = signature_tree(tree)
+        mutate = sc.steady_mutate_paths()
+        declared = sc.policy()
+        grid = enumerate_policies(tuple(r.pattern for r in declared.rules))
+        if len(grid) != ANALYSIS_GRID:
+            fail(f"{sc.name}: {len(grid)} candidates, not {ANALYSIS_GRID}")
+        if declared not in grid:
+            grid.append(declared)                 # marshal@dp1 is not marshal
+        costs = {p: policy_cost(sig, p, mutate) for p in grid}
+        ranked = sorted(grid, key=lambda p: model.objective_us(costs[p]))
+        measured = [declared] + [p for p in ranked
+                                 if p != declared][:ANALYSIS_TOP]
+        say(f"[analysis] {sc.name}: {len(grid)} candidates priced; the "
+            f"declared policy ranks {ranked.index(declared) + 1}")
+        for p in measured:
+            cost = costs[p]
+            session = TransferSession()
+            ms = run_policy_scenario(sc, p, tree=tree,
+                                     passes=ANALYSIS_PASSES,
+                                     session=session, device=device)
+            static_equals_ledger(f"{sc.name} {p}", cost, ms)
+            say(f"[analysis] {sc.name} rank {ranked.index(p) + 1} {p}: "
+                f"motion == ledger, cold ({cost.cold_bytes}, "
+                f"{cost.cold_calls}), steady ({cost.steady_bytes}, "
+                f"{cost.steady_calls}), staging {cost.staging_bytes} B; wall "
+                f"predicted cold {model.cold_wall_us(cost) / 1e3:.3f} ms, "
+                f"steady {model.steady_wall_us(cost) / 1e3:.3f} ms, measured "
+                f"cold {ms[0].wall_us / 1e3:.3f} ms, steady "
+                + " / ".join(f"{m.wall_us / 1e3:.3f}" for m in ms[1:])
+                + " ms")
+            session.clear()
+            del ms
+            release_host_cache()
+        del tree
+        release_host_cache()
 
 
 def main() -> int:
@@ -1594,6 +1769,15 @@ def main() -> int:
     if any(counts().values()):
         fail(f"the policy phase launched {counts()}; it runs no kernel")
     say(f"[policy] phase 13 ok in {time.perf_counter() - t0:.2f} s, no "
+        f"kernel launched")
+
+    # the static analysis (phase 14): host arithmetic and transfers only
+    reset()
+    t0 = time.perf_counter()
+    analysis_phase(device, smi, POLICY_N)
+    if any(counts().values()):
+        fail(f"the analysis phase launched {counts()}; it runs no kernel")
+    say(f"[analysis] phase 14 ok in {time.perf_counter() - t0:.2f} s, no "
         f"kernel launched")
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"

@@ -2,9 +2,9 @@
 marshalling arenas and the three transfer schemes, on PyTorch.
 
 Counterpart of ``repro.core`` on one device, with path-scoped policies
-compiled into one-synchronize programs (``policy``).  Not yet ported: the
-sanitizer hooks, sharded (``@dpK``, K > 1) execution and the autotuner's
-policy helpers.
+compiled into one-synchronize programs (``policy``) and the autotuner's
+candidate grid (``candidate_specs``, ``enumerate_policies``).  Not yet
+ported: the sanitizer hooks and sharded (``@dpK``, K > 1) execution.
 """
 from .treepath import (TreeDef, TreePath, leaf_items, leaf_paths,
                        max_chain_depth, tree_flatten, tree_leaves, tree_map,
@@ -20,7 +20,8 @@ from .schemes import (LazyLeaf, MarshalScheme, PointerChainScheme,
                       make_scheme, transfer_scheme)
 from .policy import (PolicyRule, ProgramFuture, ProgramStats,
                      TransferPolicy, TransferProgram, TransferTimeout,
-                     UnsupportedPolicyError, compile_program, partition_tree)
+                     UnsupportedPolicyError, candidate_specs, compile_program,
+                     enumerate_policies, partition_tree)
 from .deepcopy import (ShapeDtype, full_deepcopy, host_skeleton,
                        selective_deepcopy, tree_bytes)
 
@@ -39,7 +40,8 @@ __all__ = [
     "transfer_scheme",
     "PolicyRule", "ProgramFuture", "ProgramStats", "TransferPolicy",
     "TransferProgram", "TransferTimeout", "UnsupportedPolicyError",
-    "compile_program", "partition_tree",
+    "candidate_specs", "compile_program", "enumerate_policies",
+    "partition_tree",
     "ShapeDtype", "full_deepcopy", "host_skeleton", "selective_deepcopy",
     "tree_bytes",
 ]

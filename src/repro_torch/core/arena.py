@@ -38,8 +38,15 @@ def itemsize(dtype: torch.dtype) -> int:
 
 
 def as_tensor(x: Any) -> torch.Tensor:
-    """A host leaf as a tensor (numpy values and Python scalars convert)."""
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    """A host leaf as a tensor (numpy values and Python scalars convert).
+    A signature leaf — a shape and a torch dtype without data, such as
+    ``analysis.cost.LeafSig`` — becomes a meta tensor, which has no
+    storage, so plans and motion derivations price it without a buffer."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(getattr(x, "dtype", None), torch.dtype):
+        return torch.empty(tuple(x.shape), dtype=x.dtype, device="meta")
+    return torch.as_tensor(np.asarray(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +69,9 @@ class ArenaLayout:
     bucket_sizes: Dict[str, int]      # elements per bucket
     align_elems: int
     bucket_dtypes: Dict[str, torch.dtype] = dataclasses.field(default_factory=dict)
-    # kept for parity with the reference's field; always 1 until sharded
-    # execution is ported
+    # per-device arenas: bucket sizes are padded to a multiple of this, so
+    # each of ``shard_multiple`` devices owns an equal contiguous sub-range
+    # (the static analysis prices this; every execution path plans with 1)
     shard_multiple: int = 1
 
     @property
@@ -87,8 +95,14 @@ def _align(x: int, a: int) -> int:
     return ((x + a - 1) // a) * a
 
 
-def plan(tree: Any, align_elems: int = 1) -> ArenaLayout:
-    """Walk the tree once, assign every leaf an offset in its dtype bucket."""
+def plan(tree: Any, align_elems: int = 1,
+         shard_multiple: int = 1) -> ArenaLayout:
+    """Walk the tree once, assign every leaf an offset in its dtype bucket.
+
+    ``shard_multiple > 1`` pads every bucket's total size up to a multiple of
+    it (tail padding only; slot offsets are unchanged), so the bucket splits
+    into that many equal contiguous per-device sub-ranges.
+    """
     leaves, treedef = tree_flatten(tree)
     cursors: Dict[str, int] = {}
     dtypes: Dict[str, torch.dtype] = {}
@@ -101,8 +115,10 @@ def plan(tree: Any, align_elems: int = 1) -> ArenaLayout:
         size = t.numel()
         slots.append(LeafSlot(bucket, off, size, tuple(t.shape), t.dtype))
         cursors[bucket] = off + size
+    if shard_multiple > 1:
+        cursors = {b: _align(n, shard_multiple) for b, n in cursors.items()}
     return ArenaLayout(treedef, tuple(slots), dict(cursors), align_elems,
-                       dtypes)
+                       dtypes, shard_multiple)
 
 
 Buffers = Dict[str, torch.Tensor]

@@ -36,15 +36,20 @@ is a latency choice, not what keeps staging safe.
 instead of waiting; its ``result(timeout)`` polls the event up to the
 deadline (no thread) and raises :class:`TransferTimeout` when it passes.
 
+The bounded candidate grid of the cost model and the autotuner is the
+reference's: :func:`candidate_specs`, :func:`enumerate_policies`,
+:meth:`TransferPolicy.with_rule` and :meth:`TransferPolicy.neighbors`
+give the same specs and policies in the same order.
+
 ``@dp1`` rules execute on one device, as in the reference; sharded rules
-(``@dpK``, K > 1) are not yet ported.  The autotuner's helpers
-(``with_rule``, ``neighbors``, ``candidate_specs``,
-``enumerate_policies``), ``mark_dirty`` and the sanitizer hooks wait too.
+(``@dpK``, K > 1) parse, partition and price, but executing one is not
+yet ported.  ``mark_dirty`` and the sanitizer hooks wait too.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -152,6 +157,9 @@ class PolicyRule:
             return False
         return all(p == "*" or p == s for p, s in zip(steps, got))
 
+    def matches(self, path: Union[str, TreePath]) -> bool:
+        return self._match_steps(TreePath.parse(path).steps)
+
     def specificity(self) -> Tuple[int, int, int]:
         """(fixed prefix length, literal steps, exactness), larger wins."""
         return self._specificity
@@ -258,6 +266,61 @@ class TransferPolicy:
             for r in self.rules)
         return TransferPolicy(rules)
 
+    def with_rule(self, pattern: str,
+                  spec: Union[str, TransferSpec]) -> "TransferPolicy":
+        """This policy with ``pattern``'s spec replaced; the pattern must
+        already be a rule (the autotuner varies specs, never patterns)."""
+        spec = TransferSpec.parse(spec)
+        if pattern not in {r.pattern for r in self.rules}:
+            raise UnsupportedPolicyError(
+                f"pattern {pattern!r} is not a rule of this policy")
+        return TransferPolicy(tuple(
+            PolicyRule(r.pattern, spec) if r.pattern == pattern else r
+            for r in self.rules))
+
+    def neighbors(self, mesh_size: int = 1) -> Tuple["TransferPolicy", ...]:
+        """Every policy differing from this one in exactly one rule's spec,
+        over :func:`candidate_specs` — the autotuner's local moves."""
+        out: List[TransferPolicy] = []
+        for rule in self.rules:
+            for spec in candidate_specs(mesh_size):
+                if spec != rule.spec:
+                    out.append(self.with_rule(rule.pattern, spec))
+        return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the bounded candidate grid (autotuner / DC111 search space)
+# ---------------------------------------------------------------------------
+
+def candidate_specs(mesh_size: int = 1) -> Tuple[TransferSpec, ...]:
+    """The per-region spec grid the cost-guided search enumerates:
+    tight-packed marshal x {plain, delta} x {unsharded, @dp<mesh>} plus
+    unsharded pointerchain.  Left out, as in the reference: ``uvm`` (zero
+    pass-time bytes would trivially win while changing access semantics),
+    device pins (a correctness decision) and ``align>1`` (it only adds
+    padding)."""
+    mesh_size = int(mesh_size)
+    out = [TransferSpec("marshal"),
+           TransferSpec("marshal", delta=True),
+           TransferSpec("pointerchain")]
+    if mesh_size > 1:
+        out.append(TransferSpec("marshal", sharding=mesh_size))
+        out.append(TransferSpec("marshal", delta=True, sharding=mesh_size))
+    return tuple(out)
+
+
+def enumerate_policies(patterns: Tuple[str, ...], mesh_size: int = 1,
+                       specs: Optional[Tuple[TransferSpec, ...]] = None
+                       ) -> List[TransferPolicy]:
+    """Every assignment of candidate specs to the given rule patterns (which
+    must include the ``**`` default), in ``itertools.product`` order:
+    ``len(specs) ** len(patterns)`` policies."""
+    specs = candidate_specs(mesh_size) if specs is None else tuple(specs)
+    return [TransferPolicy(tuple(PolicyRule(p, s)
+                                 for p, s in zip(patterns, combo)))
+            for combo in itertools.product(specs, repeat=len(patterns))]
+
 
 # ---------------------------------------------------------------------------
 # region partitioning
@@ -271,6 +334,10 @@ class Region:
     rule: PolicyRule
     indices: Tuple[int, ...]
     paths: Tuple[str, ...]
+
+    @property
+    def key(self) -> str:
+        return self.rule.pattern
 
     @property
     def spec(self) -> TransferSpec:

@@ -8,8 +8,9 @@ touches (``uvm_access``) and the exact bytes / copy counts each scheme must
 issue (:class:`Motion`).  A policy scenario also declares the path-scoped
 policy it is designed for and the exact per-region motion of a cold and a
 steady program pass (:func:`derive_policy_motion`,
-:func:`derive_steady_policy_motion`).  Not yet ported: the sharded fields
-(``@dpK``, K > 1).
+:func:`derive_steady_policy_motion`).  The derivations also price sharded
+rules (``@dpK``, K > 1: per-device arenas, :class:`Motion`'s per-device
+fields), as the static analysis needs; executing them is not yet ported.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Seque
 
 from ..core import (TransferPolicy, TransferSpec, declare, extract,
                     partition_tree, plan, transfer_scheme)
-from ..core.arena import as_tensor
+from ..core.arena import as_tensor, itemsize
 from ..core.treepath import tree_leaves
 
 SIZE_PRESETS = ("smoke", "quick", "full")
@@ -30,13 +31,28 @@ PAPER_SCHEMES = ("uvm", "marshal", "pointerchain")
 
 @dataclasses.dataclass(frozen=True)
 class Motion:
-    """Expected H2D data motion of one Algorithm-2 transfer step."""
+    """Expected H2D data motion of one Algorithm-2 transfer step.
+
+    ``per_device_*`` carry a sharded transfer's uniform per-device split
+    (every device of the mesh receives exactly those bytes in those
+    copies); ``None`` means a one-device transfer, checked on its totals.
+    ``by_shard`` is a non-uniform split, (bytes, calls) per shard in shard
+    order, as a per-device delta pass gives (only the shards a mutation
+    overlaps ship)."""
 
     h2d_bytes: int
     h2d_calls: int
+    per_device_bytes: Optional[int] = None
+    per_device_calls: Optional[int] = None
+    by_shard: Optional[Tuple[Tuple[int, int], ...]] = None
 
     def as_tuple(self) -> Tuple[int, int]:
         return (self.h2d_bytes, self.h2d_calls)
+
+    def per_device_tuple(self) -> Optional[Tuple[int, int]]:
+        if self.per_device_bytes is None:
+            return None
+        return (self.per_device_bytes, self.per_device_calls)
 
 
 def _nbytes(x: Any) -> int:
@@ -44,72 +60,107 @@ def _nbytes(x: Any) -> int:
     return t.numel() * t.element_size()
 
 
+def _split(total: int, calls: int, k: int) -> Motion:
+    """One transfer of ``total`` bytes in ``calls`` copies, split evenly
+    over ``k`` devices (unsplit when ``k == 1``)."""
+    if k == 1:
+        return Motion(total, calls)
+    return Motion(total, calls * k, total // k, calls)
+
+
 def derive_motion(tree: Any, used_paths: Sequence[str],
                   uvm_access: Optional[Sequence[str]],
                   scheme_name: Union[str, TransferSpec],
-                  align_elems: int = 1) -> Motion:
+                  align_elems: int = 1, num_shards: int = 1) -> Motion:
     """Structural derivation of the expected data motion (no transfers run).
 
     * marshal / marshal_delta (cold) — every dtype bucket once: bytes = the
       arena plan's bucket bytes, calls = number of buckets.
     * pointerchain — one copy per declared chain (interior chains expand).
     * uvm — one fault per distinct leaf under the access set.
+
+    ``num_shards > 1`` derives the per-device arena motion: marshal buckets
+    are tail-padded to a per-device multiple and every copy is split evenly
+    over the mesh, so the totals multiply the copies by the device count
+    and the per-device fields carry the uniform split.
     """
     scheme_name = TransferSpec.parse(scheme_name).name
+    k = int(num_shards)
     if scheme_name in ("marshal", "marshal_delta"):
-        layout = plan(tree, align_elems)
-        return Motion(sum(layout.bucket_bytes().values()),
-                      len(layout.bucket_sizes))
+        layout = plan(tree, align_elems, shard_multiple=k)
+        return _split(sum(layout.bucket_bytes().values()),
+                      len(layout.bucket_sizes), k)
     if scheme_name == "pointerchain":
         refs = declare(tree, *used_paths)
-        return Motion(sum(_nbytes(l) for l in extract(tree, refs)), len(refs))
+        return _split(sum(_nbytes(l) for l in extract(tree, refs)),
+                      len(refs), k)
     if scheme_name == "uvm":
         refs = declare(tree, *(uvm_access or used_paths))
         leaves = tree_leaves(tree)
         faulted = sorted({r.flat_index for r in refs})
-        return Motion(sum(_nbytes(leaves[i]) for i in faulted), len(faulted))
+        return _split(sum(_nbytes(leaves[i]) for i in faulted),
+                      len(faulted), k)
     raise KeyError(f"unknown scheme {scheme_name!r}; options: {SCHEME_NAMES}")
 
 
 def derive_steady_motion(tree: Any, mutate_paths: Sequence[str],
+                         num_shards: int = 1,
                          align_elems: int = 1) -> Motion:
     """Exact motion of ONE steady-state delta pass after mutating the
-    leaves at ``mutate_paths``: each dtype bucket holding a mutated leaf
-    ships whole (one copy), every other bucket is skipped."""
-    layout = plan(tree, align_elems)
+    leaves at ``mutate_paths``.
+
+    * ``num_shards == 1`` — each dtype bucket holding a mutated leaf ships
+      whole (one copy), every other bucket is skipped.
+    * ``num_shards > 1`` — per (bucket, device): only the shard sub-ranges
+      the mutated slots overlap ship, one copy per dirty (bucket, shard);
+      ``by_shard`` carries the non-uniform per-device split.
+    """
+    k = int(num_shards)
+    layout = plan(tree, align_elems, shard_multiple=k)
     slots = [layout.slots[r.flat_index] for r in declare(tree, *mutate_paths)]
     dirty = {s.bucket for s in slots if s.size}
-    bb = layout.bucket_bytes()
-    return Motion(sum(bb[b] for b in dirty), len(dirty))
-
-
-def _one_device(spec: TransferSpec) -> None:
-    if spec.num_shards > 1:
-        raise NotImplementedError(
-            f"spec {spec}: sharded motion (@dpK, K > 1) is not yet ported "
-            f"to the PyTorch package")
+    if k == 1:
+        bb = layout.bucket_bytes()
+        return Motion(sum(bb[b] for b in dirty), len(dirty))
+    per_shard = [[0, 0] for _ in range(k)]
+    for bucket in sorted(dirty):
+        step = layout.bucket_sizes[bucket] // k
+        size = itemsize(layout.bucket_dtypes[bucket])
+        touched: set = set()
+        for s in slots:
+            if s.bucket == bucket and s.size:
+                touched.update(range(s.offset // step,
+                                     min((s.offset + s.size - 1) // step,
+                                         k - 1) + 1))
+        for i in touched:
+            per_shard[i][0] += step * size
+            per_shard[i][1] += 1
+    return Motion(sum(b for b, _ in per_shard),
+                  sum(c for _, c in per_shard),
+                  by_shard=tuple((b, c) for b, c in per_shard))
 
 
 def derive_policy_motion(tree: Any, policy: Any) -> Dict[str, Motion]:
     """The exact per-region motion of ONE cold program pass, keyed by rule
     pattern as ``TransferProgram.ledgers`` is: a marshal region (``+db`` and
-    ``+delta`` included) ships every dtype bucket of the region's own arena,
-    a pointerchain region one copy per region leaf, and a uvm region nothing
-    at pass time (it faults at access)."""
+    ``+delta`` included) ships every dtype bucket of the region's own arena
+    (per device when sharded), a pointerchain region one copy per region
+    leaf, and a uvm region nothing at pass time (it faults at access)."""
     policy = TransferPolicy.parse(policy)
     leaves = tree_leaves(tree)
     out: Dict[str, Motion] = {}
     for key, region in partition_tree(tree, policy).items():
         spec = region.spec
-        _one_device(spec)
         sub = [leaves[i] for i in region.indices]
         if spec.kind == "uvm":
             out[key] = Motion(0, 0)
         elif spec.kind == "pointerchain":
-            out[key] = Motion(sum(_nbytes(l) for l in sub), len(sub))
+            out[key] = _split(sum(_nbytes(l) for l in sub), len(sub),
+                              spec.num_shards)
         else:
             out[key] = derive_motion(sub, [], None, spec,
-                                     align_elems=spec.align_elems)
+                                     align_elems=spec.align_elems,
+                                     num_shards=spec.num_shards)
     return out
 
 
@@ -117,22 +168,23 @@ def derive_steady_policy_motion(tree: Any, policy: Any,
                                 mutate_paths: Sequence[str]
                                 ) -> Dict[str, Motion]:
     """Per-region motion of one WARM program pass after mutating the leaves
-    at ``mutate_paths``: a delta region ships only the dtype buckets the
-    mutation reaches (nothing when it holds no mutated leaf); every other
-    marshal region (``+db`` included) and every pointerchain region
-    re-ships its cold motion; uvm regions stay at zero."""
+    at ``mutate_paths``: a delta region ships only the dtype buckets (per
+    device: the bucket shards) the mutation reaches (nothing when it holds
+    no mutated leaf); every other marshal region (``+db`` included) and
+    every pointerchain region re-ships its cold motion; uvm regions stay at
+    zero."""
     policy = TransferPolicy.parse(policy)
     leaves = tree_leaves(tree)
     mutated = {r.flat_index for r in declare(tree, *mutate_paths)}
     out: Dict[str, Motion] = {}
     for key, region in partition_tree(tree, policy).items():
         spec = region.spec
-        _one_device(spec)
         sub = [leaves[i] for i in region.indices]
         if spec.kind == "marshal" and spec.delta:
             local = [f"[{j}]" for j, i in enumerate(region.indices)
                      if i in mutated]
             out[key] = derive_steady_motion(sub, local,
+                                            num_shards=spec.num_shards,
                                             align_elems=spec.align_elems)
         elif spec.kind == "uvm":
             out[key] = Motion(0, 0)

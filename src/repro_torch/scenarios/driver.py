@@ -352,7 +352,7 @@ def run_policy_scenario(sc: Scenario,
     under the same checks.  ``policy`` defaults to the declared one; the
     program is compiled on ``device`` (the card unless ``"cpu"``) over
     ``session`` unless one is passed.  A sharded rule (``@dpK``, K > 1)
-    raises ``NotImplementedError`` when it is compiled or derived.
+    raises ``NotImplementedError`` when it is compiled.
     """
     if executor not in ("blocking", "async"):
         raise ValueError(f"executor must be 'blocking' or 'async', "

@@ -190,6 +190,54 @@ def test_full_deepcopy_policy_equals_a_program_pass_on_the_card(cuda):
             assert torch.equal(a.cpu(), h)
 
 
+# -- the static analysis on the card -----------------------------------------
+
+def test_calibration_on_the_card(cuda):
+    from repro_torch.analysis.cost import CostModel
+
+    model = CostModel.calibrate()
+    assert model.calibrated and model.latency_us > 0
+    assert model.bandwidth_gbps > 0
+    assert [b for b, _ in model.probes] == [1 << 16, 1 << 20, 1 << 22]
+    assert all(us > 0 for _, us in model.probes)
+    assert CostModel.calibrate(sizes=(1 << 16, 1 << 18), repeats=1,
+                               device=cuda).calibrated
+
+
+@pytest.mark.parametrize("name", [sc.name for sc in
+                                  PS.iter_scenarios("smoke")])
+def test_static_prediction_equals_the_card_ledger(cuda, name):
+    """policy_cost of the signature tree == the card's region ledgers, cold
+    and steady, under the declared policy (marshal where none)."""
+    from repro_torch.analysis.cost import policy_cost, signature_tree
+    from repro_torch.core import TransferPolicy
+
+    sc = {s.name: s for s in PS.iter_scenarios("smoke")}[name]
+    tree = sc.build()
+    policy = sc.policy() or TransferPolicy.of("marshal")
+    cost = policy_cost(signature_tree(tree), policy,
+                       sc.steady_mutate_paths())
+    ms = PS.run_policy_scenario(sc, policy, tree=tree, passes=2,
+                                session=TransferSession())
+    assert all(m.ok and m.motion_ok for m in ms)
+    assert _region_motion(ms[0]) == {r.key: r.cold.as_tuple()
+                                     for r in cost.regions}
+    assert _region_motion(ms[1]) == {r.key: r.steady.as_tuple()
+                                     for r in cost.regions}
+
+
+def test_the_live_mesh_is_the_card_count(cuda):
+    from repro_torch.analysis import check
+
+    live = check.check_registry("smoke", mesh_size=None)
+    count = torch.cuda.device_count()
+    assert check._live_device_count() == count
+    assert live == check.check_registry("smoke", mesh_size=count)
+    if count == 1:
+        assert live == check.check_registry("smoke", mesh_size=1)
+    assert not [d for ds in live.values() for d in ds if d.is_error]
+
+
 def test_policy_pass_enqueues_without_a_sync(cuda):
     """A warm program pass over pinned staging, a delta region and a
     pointerchain region: every region packs and enqueues under

@@ -239,8 +239,11 @@ def test_run_policy_scenario_rejects_what_it_cannot_check():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         PS.run_policy_scenario(
             sc, "params/**=marshal@dp2; **=marshal", device=CPU)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PS.derive_policy_motion(sc.build(), "**=marshal+delta@dp8")
+    # the derivation is host arithmetic and prices @dpK (per-device
+    # arenas: 48 f32 and 17 -> 24 i32 elements over 8 devices); only
+    # executing a sharded rule raises
+    assert PS.derive_policy_motion(sc.build(), "**=marshal+delta@dp8")[
+        "**"].per_device_tuple() == (36, 2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         PS.mixed_policy_case(16, 2)
 
