@@ -97,7 +97,33 @@ Phases, each of which raises on failure:
      the grid), ranked by the calibrated model's objective_us, the declared
      policy and the best 3 measured (cold + 2 steady passes, a session
      each), predicted bytes and copies equal to the ledger per region, and
-     the predicted and measured walls printed (recorded, not gated).
+     the predicted and measured walls printed (recorded, not gated);
+ 15. train       — training with rmsnorm and flash_attention under
+     autograd (the kernel forward, the plain version's gradient backward):
+     (a) the backward's wiring: each Function's gradients on the card
+     against torch.autograd of the plain version (rmsnorm dx, dscale at
+     (1024, 2048); causal flash dq, dk, dv at batch 8, 32/8 heads, seq 128,
+     hd 64), f32 within 1e-5, bf16 within 2e-2; (b) one step of
+     llama3.2-1b at full width cut to 2 layers in f32 (batch 2 x seq 128,
+     remat "dots"), card against CPU from the same params: the loss within
+     rtol 1e-4, every gradient leaf within 2e-3 of its largest element and
+     nonzero on the card; (c) llama3.2-1b at full size (bf16, 16 layers,
+     AdamW at the CLI's peak lr of 3e-4, batch 8 x seq 128, seeded params
+     drawn on the card) trains 12 steps on one batch repeated through
+     runtime.loop.run: finite losses, each update with a nonzero lr
+     lowering the loss, the last 3 below the first 3 by more than the
+     spread of the initial loss over 8 fresh batches,
+     launches exactly kernel_launches(train_steps=12); one AsyncCheckpointer save of the
+     12.36 GB state, its restore through state_transfer_policy()'s program
+     with a StatePrefetcher (region ledgers == closed forms, the state
+     equal bit for bit) and one OffloadedOptimizer step under marshal
+     (ledger == closed form, params == the resident AdamW's); (d) under
+     deterministic algorithms, 12 steps of the model cut to 3 layers
+     uninterrupted against a run with a checkpoint every 4 steps and a
+     NodeFailure at step 9: trajectory_diff empty, final states equal bit
+     for bit.  Printed: step wall, tokens/s, device time vs wall of one
+     step, peak device memory, checkpoint stall and write rate, the
+     restore's load / reshard / h2d split and rate, pinned bytes.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -112,8 +138,10 @@ and ssd_chunks 12 per prefill request, decode 2 per step; starcoder2 no
 rmsnorm, flash 30 per prefill request, decode 30 per step; moonshot (4
 layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
 step; gather_tiles never; the policy and analysis phases launch
-nothing.  The last lines are the card's name and power limit, a
-``kernels`` JSON line (launches summed over the five serve phases) and
+nothing; a train step launches rmsnorm 2L + 1 and flash L times per
+forward, and under remat the blocks' 2L and L again in the backward
+(llama: 65 and 32 a step).  The last lines are the card's name and power limit, a
+``kernels`` JSON line (launches summed over the serve and train phases) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 2 and prints no result.
 
@@ -124,10 +152,15 @@ reduction flag is left at its default and printed.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# deterministic cuBLAS for phase 15's bit-identical restart: read when the
+# first cuBLAS handle is made, so set before any phase runs a product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -211,6 +244,33 @@ MODEL_STATE_CLOSED = {"marshal": (MODEL_STATE_BYTES, 1),
 ANALYSIS_GRID = 27
 ANALYSIS_TOP = 3
 ANALYSIS_PASSES = 3
+# the train phase (15): llama3.2-1b at launch/train.py's batch 8 x seq 128,
+# AdamW, peak lr and schedule shape (warmup_cosine over the run, 2 warmup
+# steps) for 12 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 12, 3e-4
+# (c) trains on one batch repeated, so the model must learn it: every
+# update with a nonzero lr must lower the loss on that batch, and the mean
+# loss of the last 3 steps must lie below the first 3's by more than the
+# spread (max - min) of the initial model's loss over TRAIN_SPREAD_BATCHES
+# fresh batches
+TRAIN_SPREAD_BATCHES = 8
+TRAIN_NORM_ROWS = 1024                   # (a): rmsnorm on (1024, 2048)
+TRAIN_F32_TOL = 1e-5                     # (a): f32 gradients vs plain
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 2, 2   # (b): full width, f32
+# (b): each gradient leaf, card vs CPU, of the leaf's largest |grad|: two
+# float32 implementations summing in different orders (the port and the
+# reference differ by up to 1.2e-4 on the smoke model)
+TRAIN_STEP_TOL = 2e-3
+# (c): the restore pass's region ledgers (bytes, copies), closed forms:
+# 1235814400 bf16 params (every leaf a multiple of 128 elements) in one
+# bucket; mu and nu, 2 x 1235814400 f32, plus the int32 count; the step.
+# The offloaded optimizer step moves the same opt state under marshal.
+TRAIN_STATE_LEDGERS = {"params/**": (2471628800, 1),
+                       "opt/**": (9886515204, 2), "**": (4, 1)}
+OFFLOAD_LEDGER = (9886515204, 2)
+# (d): full width cut to 3 of 16 layers (4.45 GB a checkpoint, 4 saves:
+# steps 4, 8, 12 and the final one), a NodeFailure at step 9
+RESTART_LAYERS, RESTART_EVERY, RESTART_FAIL = 3, 4, 9
 
 
 def say(*parts) -> None:
@@ -1611,6 +1671,441 @@ def analysis_phase(device, smi: str, n: int) -> None:
         release_host_cache()
 
 
+# -- phase 15: training ------------------------------------------------------
+
+def _grad_check(what: str, got, want, tol: float) -> float:
+    """max |got - want| over the pairs, failing past ``tol`` (absolute
+    plus relative)."""
+    import torch
+
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{what} gradient {i}: {a.dtype} {tuple(a.shape)} != plain "
+                 f"{b.dtype} {tuple(b.shape)}")
+        e = float((a.float() - b.float()).abs().max())
+        if not torch.allclose(a.float(), b.float(), rtol=tol, atol=tol):
+            fail(f"{what} gradient {i}: max |diff| {e} past {tol}")
+        err = max(err, e)
+    return err
+
+
+def train_kernel_grads(device, rows: int, D: int, B: int, H: int, KV: int,
+                       S: int, hd: int) -> dict:
+    """Part (a): each kernel's autograd.Function on the card (the kernel
+    forward, the plain version's gradient backward) against
+    ``torch.autograd`` of the plain version on the same inputs, in f32
+    (within TRAIN_F32_TOL) and bf16 (within BF16_TOL): rmsnorm's dx and
+    dscale at (rows, D), causal flash's dq, dk, dv at B, H/KV heads, S, hd.
+    Returns the max |diff| per kernel."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK, ref as FR
+    from repro_torch.kernels.rmsnorm import kernel as RK, ref as RR
+
+    out = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TRAIN_F32_TOL if dtype == torch.float32 else BF16_TOL
+        gen = torch.Generator(device=device).manual_seed(15)
+        x = torch.randn(rows, D, generator=gen, device=device).to(dtype)
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=device)).to(dtype)
+        g = torch.randn(rows, D, generator=gen, device=device).to(dtype)
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        got = torch.autograd.grad(RK.rmsnorm(xa, wa), (xa, wa), g)
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        want = torch.autograd.grad(RR.rmsnorm_ref(xb, wb), (xb, wb), g)
+        # dscale sums over the rows: its tolerance scales with its size
+        dscale_tol = tol * max(1.0, float(want[1].float().abs().max()))
+        out["rmsnorm"] = max(out["rmsnorm"],
+                             _grad_check(f"rmsnorm {dtype} dx", got[:1],
+                                         want[:1], tol),
+                             _grad_check(f"rmsnorm {dtype} dscale", got[1:],
+                                         want[1:], dscale_tol))
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=device
+                               ).to(dtype).transpose(1, 2)
+                   for n in (H, KV, KV))
+        g = torch.randn(B, H, S, hd, generator=gen, device=device).to(dtype)
+        qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(FK.flash_attention(qa, ka, va, causal=True),
+                                  (qa, ka, va), g)
+        qb, kb, vb = (t.detach().requires_grad_() for t in (q, k, v))
+        want = torch.autograd.grad(FR.attention_ref(qb, kb, vb, causal=True),
+                                   (qb, kb, vb), g)
+        out["flash_attention"] = max(
+            out["flash_attention"],
+            _grad_check(f"flash_attention {dtype} dq/dk/dv", got, want, tol))
+    say(f"[train] (a) the backward's wiring (its gradient is the plain "
+        f"version's; phase 3 checks the forward kernels): autograd on the "
+        f"card == autograd of the plain version: rmsnorm dx, dscale at ({rows}, {D}) max |diff| {out['rmsnorm']}; "
+        f"causal flash_attention dq, dk, dv at B {B}, {H}/{KV} heads, S {S}, "
+        f"hd {hd} max |diff| {out['flash_attention']} (f32 within "
+        f"{TRAIN_F32_TOL}, bf16 within {BF16_TOL})")
+    return out
+
+
+def train_card_vs_cpu(device, cfg, batch: int, seq: int) -> float:
+    """Part (b): one train step's loss and gradients of ``cfg`` (f32) on
+    the card, through the kernels, against the CPU, through the plain
+    versions, from the same params (drawn on the CPU and carried over by
+    ``convert``'s round trip): the loss within rtol 1e-4, every gradient
+    leaf within TRAIN_STEP_TOL of its largest element, and every leaf's
+    gradient on the card nonzero.  Returns the largest relative gap."""
+    import torch
+    from repro_torch.convert import params_from_reference, to_reference_tree
+    from repro_torch.core import leaf_paths, tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.runtime import train
+
+    api = registry.get_model(cfg)
+    t0 = time.perf_counter()
+    host = api.init(torch.Generator().manual_seed(15), device="cpu")
+    params = params_from_reference(to_reference_tree(host), device)
+    b = SyntheticLM(cfg.vocab_size, seq, batch, seed=15).batch(0)
+    loss, _, grads = train.value_and_grad(
+        api.loss_fn, params, {k: torch.as_tensor(v, device=device)
+                              for k, v in b.items()})
+    h_loss, _, h_grads = train.value_and_grad(
+        api.loss_fn, host, {k: torch.as_tensor(v) for k, v in b.items()})
+    if abs(float(loss) - float(h_loss)) > 1e-4 * abs(float(h_loss)):
+        fail(f"train step card vs CPU: loss {float(loss)} != {float(h_loss)}")
+    worst = 0.0
+    for path, g, h in zip(leaf_paths(grads), tree_leaves(grads),
+                          tree_leaves(h_grads)):
+        top = float(h.abs().max())
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0:
+            fail(f"train step on the card: the gradient of {path} is zero "
+                 f"or not finite")
+        gap = float((g.cpu() - h).abs().max()) / max(top, 1e-30)
+        if gap > TRAIN_STEP_TOL:
+            fail(f"train step card vs CPU: {path} differs by {gap} of its "
+                 f"largest |grad| {top} (tolerance {TRAIN_STEP_TOL})")
+        worst = max(worst, gap)
+    say(f"[train] (b) {cfg.name} at full width cut to {cfg.num_layers} "
+        f"layers (f32, remat {cfg.remat}), batch {batch} x seq {seq}: loss "
+        f"{float(loss):.6f} on the card (kernels) vs {float(h_loss):.6f} on "
+        f"the CPU (plain versions); all {len(tree_leaves(grads))} gradient "
+        f"leaves nonzero on the card and within {worst:.3g} of their "
+        f"largest element of the CPU's (tolerance {TRAIN_STEP_TOL}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return worst
+
+
+def _spread_ms(xs) -> str:
+    import statistics
+
+    ms = [x * 1e3 for x in xs]
+    return (f"mean {statistics.mean(ms):.2f} ms, median "
+            f"{statistics.median(ms):.2f} ms ({min(ms):.2f}-{max(ms):.2f})")
+
+
+def train_full(device, kernels: dict, cfg, batch: int, seq: int, steps: int,
+               ckpt_root: Path, ledgers_want=None,
+               offload_want=None) -> dict:
+    """Part (c): ``cfg`` at full size trains ``steps`` steps through
+    ``runtime.loop.run`` from params drawn on the card, on one batch
+    repeated: finite losses, each lower than the one before wherever the
+    update between them had a nonzero lr, whose last-3 mean lies below the
+    first 3's by more than the spread of the initial model's loss over
+    fresh batches, the launches exactly
+    ``kernel_launches(cfg, train_steps=steps)``.  Then one
+    AsyncCheckpointer save of the whole state, a restore of it through
+    ``state_transfer_policy()``'s program with a StatePrefetcher (region
+    ledgers == the arena plan == ``ledgers_want``; the staged state equal
+    to the saved one bit for bit), and one OffloadedOptimizer step under
+    marshal (ledger == ``offload_want``; new params equal to the resident
+    AdamW's on the same gradients, bit for bit).  Returns the run's launch
+    counts and its numbers."""
+    import statistics
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.checkpoint import AsyncCheckpointer, load
+    from repro_torch.core import TransferSession, tree_bytes, tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm, registry
+    from repro_torch.models.specs import param_count
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.optim.quantized import OffloadedOptimizer
+    from repro_torch.runtime import loop, train
+
+    api = registry.get_model(cfg)
+    opt = make_optimizer(cfg.optimizer)
+    lr = warmup_cosine(TRAIN_LR, min(100, steps // 10 + 1), steps)
+    data = SyntheticLM(cfg.vocab_size, seq, batch)
+    step = train.make_train_step(api, opt, lr)
+    say(f"[train] (c) {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}, {param_count(lm.spec_tree(cfg))} {cfg.param_dtype}"
+        f" params, {cfg.optimizer}, remat {cfg.remat}; batch {batch} x seq "
+        f"{seq}, lr warmup_cosine({TRAIN_LR}, {min(100, steps // 10 + 1)}, "
+        f"{steps})")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    held = [train.train_state(api, opt, torch.Generator(
+        device=device).manual_seed(0), device=device)]
+    with torch.no_grad():
+        fresh = [float(api.loss_fn(held[0]["params"], train._batch_on(
+            data.batch(s), device))[1]["loss"])
+            for s in range(1, 1 + TRAIN_SPREAD_BATCHES)]
+    spread = max(fresh) - min(fresh)
+    one = data.batch(0)
+    for k in kernels.values():
+        k.launches = 0
+    # the loop takes the state over (nothing else holds the initial one)
+    res = loop.run(step, held.pop, lambda s: one, steps, device=device)
+    synchronize(device)
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {"gather_tiles": 0, **lm.kernel_launches(cfg, train_steps=steps)}
+    if counts != want:
+        fail(f"{cfg.name} training launched {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+    losses = [m["loss"] for m in res.metrics_history]
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail(f"{cfg.name} training: non-finite loss {losses}")
+    lrs = [float(m["lr"]) for m in res.metrics_history]
+    rises = [s for s in range(1, steps)
+             if lrs[s - 1] > 0 and not losses[s] < losses[s - 1]]
+    if rises:
+        fail(f"{cfg.name} training on one batch: the updates before steps "
+             f"{rises} did not lower the loss ({losses}; lrs {lrs})")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not first - last > spread:
+        fail(f"{cfg.name} training on one batch: the loss fell by "
+             f"{first - last:.4f}, not by more than the batches' spread "
+             f"{spread:.4f} ({losses}; initial loss on fresh batches "
+             f"{fresh})")
+    nbytes = tree_bytes(res.state)
+    walls = [m["wall_s"] for m in res.metrics_history]
+    warm = walls[1:]
+    tps = batch * seq / statistics.median(warm)
+    norms = ["%.3g" % m["grad_norm"] for m in res.metrics_history]
+    say(f"[train] (c) {steps} steps on one batch: losses "
+        f"{[round(x, 4) for x in losses]}, each lower than the one before "
+        f"after an update with a nonzero lr, grad norms {norms}; first 3 "
+        f"mean {first:.4f} - last 3 mean {last:.4f} = {first - last:.4f} = "
+        f"{(first - last) / spread:.2f} x the spread {spread:.4f} of the "
+        f"initial loss over {TRAIN_SPREAD_BATCHES} fresh batches "
+        f"({min(fresh):.4f}-{max(fresh):.4f}); launches "
+        f"{counts} == kernel_launches(train_steps={steps}); step wall: first "
+        f"{walls[0] * 1e3:.2f} ms, then {_spread_ms(warm)}; {tps:.1f} tokens/s"
+        f" at the median; train state {nbytes} B, peak device memory "
+        f"{peak} B")
+    bat = data.batch(steps)
+    prof = profile_device_ms(device, lambda: step(res.state, bat))
+    if prof["device_ms"]:
+        say(f"[train] (c) profile, one step: {prof['wall_ms']:.2f} ms of wall "
+            f"(unprofiled), device busy {prof['device_ms']:.2f} ms under the "
+            f"profiler, so the device is idle "
+            f"{100 * max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1f}% "
+            f"of the step; top device ops {prof['top']}")
+    else:
+        say("[train] (c) profile: the profiler recorded no device time; "
+            "device busy share not measured")
+
+    # one asynchronous save of the whole state, written and committed
+    ckpt_dir = ckpt_root / "full"
+    ac = AsyncCheckpointer(str(ckpt_dir), keep=1)
+    t0 = time.perf_counter()
+    ac.save(res.state, steps)
+    stall = ac.last_stall_s
+    snapshot = ac._snapshot.nbytes()
+    ac.wait()
+    write_s = time.perf_counter() - t0
+    on_disk = sum(f.stat().st_size for f in (ckpt_dir / f"step_{steps:08d}"
+                                             ).iterdir())
+    say(f"[train] (c) AsyncCheckpointer.save: stall {stall * 1e3:.2f} ms on "
+        f"the caller, {on_disk} B written and committed in {write_s:.2f} s = "
+        f"{on_disk / write_s / 1e9:.3f} GB/s (device pack, D2H into "
+        f"{snapshot} B of pinned snapshot buffers, write, fsync, rename)")
+    ac.close()
+    release_host_cache()
+
+    # restore through the state policy's program
+    t0 = time.perf_counter()
+    host = load(str(ckpt_dir))
+    load_s = time.perf_counter() - t0
+    session = TransferSession()
+    t1 = time.perf_counter()
+    program = train.compile_state_program(host, session=session,
+                                          device=device)
+    compile_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    prefetch = train.StatePrefetcher(program)
+    prefetch.schedule(host)
+    restored = prefetch.take()
+    synchronize(device)
+    h2d_s = time.perf_counter() - t2
+    ledgers = {k: (l.h2d_bytes, l.h2d_calls)
+               for k, l in program.ledgers.items()}
+    closed = region_closed_forms(host, program.policy)
+    if ledgers != closed or (ledgers_want is not None
+                             and ledgers != ledgers_want):
+        fail(f"{cfg.name} state restore ledgers {ledgers}; arena plan "
+             f"{closed}; closed forms {ledgers_want}")
+    bad = [i for i, (a, b) in enumerate(zip(tree_leaves(restored),
+                                            tree_leaves(res.state)))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    if bad:
+        fail(f"{cfg.name} restored state differs from the saved one at "
+             f"leaves {bad}")
+    pinned = pinned_report(session)
+    say(f"[train] (c) restore under '{program.policy}': load {load_s:.2f} s "
+        f"({on_disk / load_s / 1e9:.3f} GB/s from disk), compile "
+        f"{compile_s:.2f} s, h2d {h2d_s:.2f} s (host pack into pinned "
+        f"staging + copies: {nbytes / h2d_s / 1e9:.3f} GB/s; one synchronize "
+        f"{program.last_stats.sync_s * 1e3:.1f} ms); region ledgers "
+        f"{ledgers} == arena plan == closed forms; the staged state == the "
+        f"saved one bit for bit; {pinned}")
+    program.clear()
+    session.clear()
+    del host, restored, program, prefetch
+    release_host_cache()
+
+    # one step with the optimizer state offloaded to the host (marshal)
+    params = res.state["params"]
+    grads = train.value_and_grad(api.loss_fn, params, {
+        k: torch.as_tensor(v, device=device) for k, v in bat.items()})[2]
+    rate = lr(res.state["step"])
+    resident, _ = opt.update(grads, opt.init(params), params, rate)
+    off = OffloadedOptimizer(opt, "marshal", device=device)
+    t0 = time.perf_counter()
+    off.init(params)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new = off.step(grads, params, rate)
+    synchronize(device)
+    off_s = time.perf_counter() - t0
+    led = (off.scheme.ledger.h2d_bytes, off.scheme.ledger.h2d_calls)
+    if offload_want is not None and led != offload_want:
+        fail(f"OffloadedOptimizer marshal ledger {led} != {offload_want}")
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(new),
+                                                 tree_leaves(resident))):
+        fail("OffloadedOptimizer's step differs from the resident AdamW's")
+    say(f"[train] (c) OffloadedOptimizer(adamw, 'marshal'): init (state to "
+        f"the host) {init_s:.2f} s; one step {off_s:.2f} s (H2D {led[0]} B in"
+        f" {led[1]} copies == closed form, update, D2H back); new params == "
+        f"the resident AdamW's bit for bit; "
+        f"{pinned_report(off.scheme.session)}")
+    off.scheme.session.clear()
+    del off, new, resident, grads, params, res
+    release_host_cache()
+    return {"counts": counts, "step_ms": statistics.median(warm) * 1e3,
+            "tokens_per_s": tps}
+
+
+def train_restart(device, kernels: dict, cfg, batch: int, seq: int,
+                  steps: int, every: int, fail_at: int,
+                  ckpt_root: Path) -> dict:
+    """Part (d): under deterministic algorithms, ``steps`` steps of ``cfg``
+    uninterrupted, then again with a checkpoint every ``every`` steps and
+    a NodeFailure at step ``fail_at``, restored through the state policy's
+    program: trajectory_diff empty (losses and grad norms) and the final
+    states equal bit for bit; launches exactly kernel_launches over the
+    steps both runs took.  Returns the counts."""
+    import torch
+    from repro_torch.core import get_session, tree_bytes, tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm, registry
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime import (NodeFailure, loop, train,
+                                     trajectory_diff)
+
+    api = registry.get_model(cfg)
+    opt = make_optimizer(cfg.optimizer)
+    step = train.make_train_step(api, opt, warmup_cosine(
+        TRAIN_LR, min(100, steps // 10 + 1), steps))
+    data = SyntheticLM(cfg.vocab_size, seq, batch)
+    init = lambda: train.train_state(api, opt, torch.Generator(
+        device=device).manual_seed(1), device=device)
+    boom = {"armed": True}
+
+    def node_failure(s):
+        if s == fail_at and boom["armed"]:
+            boom["armed"] = False
+            raise NodeFailure(f"simulated node loss at step {s}")
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = loop.run(step, init, data.batch, steps, device=device)
+        b = loop.run(step, init, data.batch, steps,
+                     ckpt_dir=str(ckpt_root / "restart"), ckpt_every=every,
+                     failure_injector=node_failure,
+                     state_policy=train.state_transfer_policy(),
+                     device=device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    taken = steps + fail_at + (steps - (fail_at // every) * every)
+    want = {"gather_tiles": 0, **lm.kernel_launches(cfg, train_steps=taken)}
+    if counts != want:
+        fail(f"restart runs launched {counts}, expected {want} ({taken} "
+             f"steps)")
+    diff = trajectory_diff(a.metrics_history, b.metrics_history,
+                           keys=("loss", "grad_norm"))
+    if b.restarts != 1 or diff:
+        fail(f"crash-and-restore trajectory: {b.restarts} restarts, {diff}")
+    bad = [i for i, (x, y) in enumerate(zip(tree_leaves(a.state),
+                                            tree_leaves(b.state)))
+           if not torch.equal(x, y)]
+    if bad:
+        fail(f"crash-and-restore: final state differs at leaves {bad}")
+    split = b.restore_splits[0]
+    nbytes = tree_bytes(b.state)
+    say(f"[train] (d) {cfg.name} at full width cut to {cfg.num_layers} "
+        f"layers ({nbytes} B of train state, {b.ckpt_saves} saves), "
+        f"deterministic algorithms: {steps} steps uninterrupted vs a "
+        f"NodeFailure at step {fail_at} restored from step {split['step']} "
+        f"under '{split['policy']}': trajectory_diff empty (loss, "
+        f"grad_norm), final states equal bit for bit; launches {counts} over "
+        f"{taken} steps; restore split load {split['load_s']:.2f} s / reshard "
+        f"{split['reshard_s']:.2f} s / h2d {split['h2d_s']:.2f} s "
+        f"({nbytes / split['h2d_s'] / 1e9:.3f} GB/s); checkpoint stall "
+        f"{b.ckpt_stall_s * 1e3:.2f} ms over {b.ckpt_saves} saves; "
+        f"{pinned_report(get_session())}; {wall:.2f} s")
+    get_session().clear()
+    del a, b
+    release_host_cache()
+    return counts
+
+
+def train_phase(device, kernels: dict) -> dict:
+    """Phase 15: parts (a)-(d) at the shapes the constants name; returns
+    the launch counts of (c) and (d).
+    Checkpoints go under build/ (ignored by git) and are removed."""
+    import dataclasses
+    import shutil
+    from repro_torch.models import registry
+
+    cfg = registry.get("llama3.2-1b").cfg
+    t0 = time.perf_counter()
+    train_kernel_grads(device, TRAIN_NORM_ROWS, cfg.d_model,
+                                  TRAIN_BATCH, cfg.num_heads,
+                                  cfg.num_kv_heads, TRAIN_SEQ,
+                                  cfg.resolved_head_dim)
+    f32 = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    train_card_vs_cpu(device, f32, TRAIN_CHECK_BATCH, TRAIN_SEQ)
+    root = ROOT / "build" / "phase15_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        full = train_full(device, kernels, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_STEPS, root, TRAIN_STATE_LEDGERS,
+                          OFFLOAD_LEDGER)
+        cut = dataclasses.replace(cfg, num_layers=RESTART_LAYERS)
+        restart = train_restart(device, kernels, cut, TRAIN_BATCH, TRAIN_SEQ,
+                                TRAIN_STEPS, RESTART_EVERY, RESTART_FAIL,
+                                root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"[train] phase 15 ok in {time.perf_counter() - t0:.2f} s")
+    return {"train": full["counts"], "train-restart": restart}
+
+
 def main() -> int:
     import dataclasses
     import torch
@@ -1779,6 +2274,12 @@ def main() -> int:
         fail(f"the analysis phase launched {counts()}; it runs no kernel")
     say(f"[analysis] phase 14 ok in {time.perf_counter() - t0:.2f} s, no "
         f"kernel launched")
+
+    # training (phase 15): train_phase resets the counters just before
+    # each run of the train path and reads them just after
+    trained = train_phase(device, kernels)
+    for tag in ("train", "train-restart"):
+        served[tag] = trained[tag]
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = [dict(name="gather_tiles", route="cuda",

@@ -8,9 +8,11 @@ imports torch, numpy and the standard library only — never JAX, never
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (see :mod:`repro_torch._device`).  Ported so far: the
 Algorithm-2 main path on one device (``core``, ``scenarios``), policy
-programs, the llama3.2-1b, mamba2-1.3b and zamba2-2.7b models behind the
-continuous-batching ``runtime.Server``, and every TPU kernel of ``repro``
-as a hand-written CUDA kernel (``kernels``).
+programs and their static analysis, eight models behind the
+continuous-batching ``runtime.Server``, training of the dense family
+(``optim``, ``data``, ``checkpoint``, ``runtime.train`` and ``loop``,
+``launch.train``), and every TPU kernel of ``repro`` as a hand-written
+CUDA kernel (``kernels``).
 """
 from ._device import NoCudaDeviceError, resolve_device
 

@@ -62,3 +62,16 @@ def params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
     paths, and the same values, bf16 bit for bit."""
     dev = resolve_device(device)
     return _convert(from_reference_tree(tree), lambda t: t.to(dev))
+
+
+def train_state_from_reference(state: Any, device: DeviceLike = None) -> Any:
+    """The reference's train state ``{"params", "opt", "step"}`` (numpy
+    leaves, ``jax.device_get``) as the port's on ``device`` (the card
+    unless ``"cpu"``): every leaf bit for bit, the step a 0-d tensor."""
+    return params_from_reference(state, device)
+
+
+def train_state_to_reference(state: Any) -> Any:
+    """The port's train state as the reference's host tree (numpy arrays;
+    0-d arrays for the step and the optimizer's count)."""
+    return to_reference_tree(state)

@@ -12,6 +12,9 @@ Counterpart of ``repro/core/arena.py``:
   * ``unpack()`` = acc_attach: every leaf rebuilt as a VIEW of its bucket
                    (``bucket[offset:offset+size].view(shape)``) — metadata
                    only, no copy.
+  * ``repack_into()`` = the reverse direction, functionally: a tree's
+                   leaves scattered over copies of existing buckets (the
+                   gradient-arena update path).
 
 Buckets are per dtype and named by the dtype's numpy name (``float32``,
 ``int32``, ``bfloat16``), as in the reference.
@@ -172,6 +175,22 @@ def pack_into(buffers: Buffers, layout: ArenaLayout, tree: Any) -> Buffers:
             buffers[slot.bucket][slot.offset:slot.offset + slot.size].copy_(
                 flat_leaf(leaf, slot))
     return buffers
+
+
+def repack_into(buffers: Buffers, layout: ArenaLayout, tree: Any) -> Buffers:
+    """Functionally update the arena from a (possibly modified) tree: each
+    bucket is copied once and every leaf written at its offset in the copy,
+    so the given buffers are left as they were.  Alignment gaps keep the
+    given buffers' bytes."""
+    leaves = tree_leaves(tree)
+    if len(leaves) != layout.num_leaves:
+        raise ValueError("tree does not match arena layout")
+    out = {b: buf.clone() for b, buf in buffers.items()}
+    for leaf, slot in zip(leaves, layout.slots):
+        if slot.size:
+            out[slot.bucket][slot.offset:slot.offset + slot.size].copy_(
+                flat_leaf(leaf, slot))
+    return out
 
 
 # -- data-size model (paper Eq. 1–3 hooks) -----------------------------------

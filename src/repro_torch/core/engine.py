@@ -26,6 +26,14 @@ rewritten (blocking marshal) or fences the buffer with the copy's event
 (``+db`` / ``+delta``).  On the CPU every "device" buffer is a real copy
 (``torch.empty(...).copy_(src)``), so nothing aliases staging there.
 
+The device-side direction of Alg. 1 has free functions for tensors that
+already live on the device (the gradient arena of the train step):
+:func:`pack_traced` scatters leaves into fresh zeroed buckets,
+:func:`unpack_traced` attaches views, :func:`repack_traced` scatters a tree
+over copies of existing buckets (``arena.repack_into``).  The reference
+traces these into one fused region under ``jit``; here each leaf is one
+``copy_`` on the device's stream.
+
 Attach (:meth:`ArenaEntry.unpack`) returns VIEWS into the device buckets,
 where the reference's gather produced fresh arrays: a view aliases the
 bucket, and under ``+delta`` the retained bucket outlives the pass.  No
@@ -105,12 +113,26 @@ class TransferSession:
         return self._plan_for_key(_layout_key(tree, align_elems), tree,
                                   align_elems)
 
-    def _plan_for_key(self, key: Tuple, tree: Any,
-                      align_elems: int) -> ArenaLayout:
+    def plan(self, tree: Any, spec: Any) -> ArenaLayout:
+        """``cached_plan`` keyed by a
+        :class:`~repro_torch.core.spec.TransferSpec`: its alignment and its
+        shard count (every bucket padded to a multiple of it) are the plan
+        parameters."""
+        from .spec import TransferSpec
+
+        spec = TransferSpec.parse(spec)
+        key = _layout_key(tree, spec.align_elems)
+        if spec.num_shards > 1:
+            key += (spec.num_shards,)
+        return self._plan_for_key(key, tree, spec.align_elems,
+                                  spec.num_shards)
+
+    def _plan_for_key(self, key: Tuple, tree: Any, align_elems: int,
+                      shard_multiple: int = 1) -> ArenaLayout:
         layout = self._layouts.get(key)
         if layout is None:
             self._stats["misses"] += 1
-            layout = arena_lib.plan(tree, align_elems)
+            layout = arena_lib.plan(tree, align_elems, shard_multiple)
             self._layouts[key] = layout
             self._trim()
         else:
@@ -213,6 +235,32 @@ def cached_plan(tree: Any, align_elems: int = 1) -> ArenaLayout:
 
 def clear_cache() -> None:
     _DEFAULT_SESSION.clear()
+
+
+# ---------------------------------------------------------------------------
+# the device-side transforms (free functions over device tensors)
+# ---------------------------------------------------------------------------
+
+def unpack_traced(buffers: Buffers, layout: ArenaLayout) -> Any:
+    """acc_attach over device buckets: every leaf a view of its bucket."""
+    return arena_lib.unpack(buffers, layout)
+
+
+def pack_traced(tree: Any, layout: ArenaLayout) -> Buffers:
+    """Scatter the leaves into fresh zeroed buckets on the leaves' device
+    (the device-side direction of Alg. 1)."""
+    leaves = tree_leaves(tree)
+    if len(leaves) != layout.num_leaves:
+        raise ValueError("tree does not match arena layout")
+    device = as_tensor(leaves[0]).device if leaves else "cpu"
+    return arena_lib.pack_into(arena_lib.alloc_buffers(layout, device),
+                               layout, tree)
+
+
+def repack_traced(buffers: Buffers, layout: ArenaLayout, tree: Any) -> Buffers:
+    """``arena.repack_into`` on device buckets: a tree's leaves scattered
+    over copies of existing buckets."""
+    return arena_lib.repack_into(buffers, layout, tree)
 
 
 # per-buffer fences are trimmed to this depth: older events are waited so a
@@ -354,3 +402,7 @@ class ArenaEntry:
         zeroed buckets on ``device``."""
         buffers = arena_lib.alloc_buffers(self.layout, device=device)
         return arena_lib.pack_into(buffers, self.layout, tree)
+
+    def repack(self, buffers: Buffers, tree: Any) -> Buffers:
+        """:func:`repack_traced` over this entry's layout."""
+        return repack_traced(buffers, self.layout, tree)

@@ -43,7 +43,7 @@ give the same specs and policies in the same order.
 
 ``@dp1`` rules execute on one device, as in the reference; sharded rules
 (``@dpK``, K > 1) parse, partition and price, but executing one is not
-yet ported.  ``mark_dirty`` and the sanitizer hooks wait too.
+yet ported, nor are the sanitizer hooks.
 """
 from __future__ import annotations
 
@@ -612,6 +612,29 @@ class TransferProgram:
             for i, leaf in zip(region.indices, tree_leaves(back)):
                 out[i] = leaf
         return self.treedef.unflatten(out)
+
+    def mark_dirty(self, tree: Any, *paths: Union[str, TreePath]) -> None:
+        """Delta API for in-place host mutators: flag the buckets under
+        ``paths`` (all delta regions' buckets if none given) in every delta
+        region holding leaves below them — an interior path's leaves may
+        span several regions.  Materializes any in-flight pass first: a
+        mutation racing an enqueued copy must fence, not corrupt."""
+        self.drain()
+        leaves = self._flatten(tree)
+        roots = [str(TreePath.parse(p)) for p in paths]
+        for key, region in self.regions.items():
+            scheme = self._schemes[key]
+            if not getattr(scheme, "delta", False):
+                continue
+            sub = [leaves[i] for i in region.indices]
+            if not roots:
+                scheme.mark_dirty(sub)
+                continue
+            local = [f"[{j}]" for j, gp in enumerate(region.paths)
+                     if any(gp == r or gp.startswith(r + ".")
+                            or gp.startswith(r + "[") for r in roots)]
+            if local:
+                scheme.mark_dirty(sub, *local)
 
     def clear(self) -> None:
         """Release what this program retains on the device (delta state,

@@ -1,9 +1,9 @@
 """Fault-injection point names, as importable constants.
 
 The port's copy of ``repro/faultpoints.py``: a typo'd point string never
-fires, so call sites name points through these constants.  The checkpoint
-points are listed so the injector accepts the same names as the
-reference's; only the serve points have call sites in the port so far.
+fires, so call sites name points through these constants: the checkpoint
+points in :mod:`repro_torch.checkpoint`, ``restore.h2d`` in the train
+loop, the serve points in :mod:`repro_torch.runtime.serve`.
 """
 
 CKPT_PACK = "ckpt.pack"

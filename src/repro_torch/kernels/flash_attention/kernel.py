@@ -24,6 +24,13 @@ are TF32.  See the source for both designs.
 :func:`flash_attention` launches the kernel for CUDA tensors (or raises)
 and runs the plain version (:func:`~.ref.attention_ref`) only for CPU
 tensors.  ``flash_attention.launches`` counts the kernel's launches.
+
+On the card the call is a ``torch.autograd.Function``: the forward is the
+kernel, the backward is plain PyTorch — the gradient of
+:func:`~.ref.attention_ref` (einsums, no library attention call),
+recomputed from the saved q, k and v in f32 and cast to their dtype.  The
+reference has no backward kernel either (XLA differentiates its jnp
+path).  The backward launches nothing.
 """
 from __future__ import annotations
 
@@ -71,6 +78,32 @@ def _per_batch(t: Optional[torch.Tensor], B: int, device: torch.device,
         raise ValueError(f"{what} must be a ({B},) integer tensor on "
                          f"{device}, got {got}")
     return t.to(torch.int32).contiguous()
+
+
+class _Flash(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient backward.  The
+    output is the contiguous (B, Sq, H, hd) tensor (the caller takes the
+    (B, H, Sq, hd) view), so no view crosses the Function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_len, q_offset):
+        ctx.save_for_backward(q, k, v, kv_len, q_offset)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale, kv_len, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, kv_len, q_offset = ctx.saved_tensors
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            out = ref.attention_ref(qf, kf, vf, causal=ctx.causal,
+                                    scale=ctx.scale, kv_len=kv_len,
+                                    q_offset=q_offset)
+            dq, dk, dv = torch.autograd.grad(
+                out, (qf, kf, vf), grad.transpose(1, 2).float())
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -123,10 +156,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("the bf16 kernel copies 16-byte rows: q, k and v "
                          "need 16-byte aligned data and batch, head and row "
                          "strides that are multiples of 8 elements")
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, causal, float(scale), kv_len,
+                            q_offset).transpose(1, 2)
+    return _launch(q, k, v, causal, float(scale), kv_len,
+                   q_offset).transpose(1, 2)
+
+
+def _launch(q, k, v, causal, scale, kv_len, q_offset) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors; returns the
+    contiguous (B, Sq, H, hd) output."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    base = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    out = base.transpose(1, 2)
     if B == 0 or Sq == 0:
-        return out          # a grid of 0 blocks is a launch error
+        return base         # a grid of 0 blocks is a launch error
     err = _build.launch(
         _entry_point(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), 0 if q_offset is None else q_offset.data_ptr(),
@@ -137,7 +182,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")
     flash_attention.launches += 1
-    return out
+    return base
 
 
 flash_attention.launches = 0

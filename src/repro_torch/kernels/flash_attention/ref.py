@@ -43,7 +43,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_pos = off[:, None] + torch.arange(Sq, device=dev)          # (B,Sq)
         valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
     s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(B, H, Sq, hd).to(q.dtype)

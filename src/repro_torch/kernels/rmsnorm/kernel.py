@@ -10,6 +10,12 @@ bandwidth.  The kernel (``csrc/rmsnorm.cu``) runs one block per row with
 :func:`rmsnorm` launches the kernel for a CUDA tensor (or raises) and runs
 the plain version (:func:`~.ref.rmsnorm_ref`) only for a CPU tensor.
 ``rmsnorm.launches`` counts the kernel's launches.
+
+On the card the call is a ``torch.autograd.Function``: the forward is the
+kernel, the backward is plain PyTorch — the gradient of the plain version,
+recomputed from the saved x and scale in f32 and cast to their dtypes.
+The reference has no backward kernel either (XLA differentiates its jnp
+path).  The backward launches nothing.
 """
 from __future__ import annotations
 
@@ -43,9 +49,30 @@ def _entry_point():
     return _FN
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xf = x.detach().float().requires_grad_()
+            sf = scale.detach().float().requires_grad_()
+            y = ref.rmsnorm_ref(xf, sf, ctx.eps)
+            dx, ds = torch.autograd.grad(y, (xf, sf), grad.float())
+        return dx.to(x.dtype), ds.to(scale.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., D), scale: (D,) -> RMSNorm(x) * scale, in x's dtype."""
+    """x: (..., D), scale: (D,) -> RMSNorm(x) * scale, in x's dtype;
+    differentiable in x and scale on either device."""
     D = x.shape[-1]
     if scale.shape != (D,):
         raise ValueError(f"scale must be ({D},), got {tuple(scale.shape)}")
@@ -58,6 +85,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if x.dtype not in _DTYPES or scale.dtype != x.dtype:
         raise ValueError(f"rmsnorm takes float32 or bfloat16 x and a scale "
                          f"of the same dtype, got {x.dtype} / {scale.dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, float(eps))
+    return _launch(x, scale, float(eps))
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors."""
+    D = x.shape[-1]
     xm = x.contiguous()
     w = scale.contiguous()
     rows = xm.numel() // D if D else 0

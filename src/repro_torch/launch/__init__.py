@@ -1,0 +1,3 @@
+"""Launch layer of the port: the training entry point (``python -m
+repro_torch.launch.train``).  The reference's mesh construction, dry-run
+and HLO analysis are specific to XLA and are not ported."""

@@ -1,0 +1,98 @@
+"""Training entry point.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        [--smoke] [--device cpu] [--steps 100] [--ckpt-dir D] \\
+        [--dp-shardmap --grad-scheme arena --compress]
+
+The port's counterpart of ``repro/launch/train.py``: the same loop,
+checkpoints, watchdog and failure recovery on one device, the card unless
+``--device cpu``.  Params are drawn on that device from seed 0.
+``--dp-shardmap`` switches to the explicit data-parallel step whose
+gradient collective is the paper's transfer-scheme choice (pertensor |
+arena [+ int8]), at dp 1.  ``--production-mesh`` (the reference's 16x16
+pjit mesh) is specific to XLA and raises.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.data import SyntheticLM
+from repro_torch.models import registry
+from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.runtime import loop as loop_mod
+from repro_torch.runtime.train import (init_error_state, make_dp_train_step,
+                                       make_train_step, state_transfer_policy,
+                                       train_state)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=list(registry.ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--device", default=None,
+                    help="cpu, or a CUDA device (default: the card)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's 16x16 XLA mesh: not ported")
+    ap.add_argument("--dp-shardmap", action="store_true",
+                    help="explicit-DP step with chosen gradient collective")
+    ap.add_argument("--grad-scheme", default="arena",
+                    choices=["pertensor", "arena"])
+    ap.add_argument("--compress", action="store_true",
+                    help="int8+error-feedback gradient compression")
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+    if args.production_mesh:
+        raise NotImplementedError(
+            "--production-mesh builds the reference's pjit mesh, which is "
+            "specific to XLA; the port trains on one device")
+
+    dev = resolve_device(args.device)
+    api = registry.get(args.arch, smoke=args.smoke)
+    cfg = api.cfg
+    opt = make_optimizer(cfg.optimizer)
+    lr = warmup_cosine(args.lr, min(100, args.steps // 10 + 1), args.steps)
+    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
+
+    if args.dp_shardmap:
+        dp_step = make_dp_train_step(api, opt, lr, 1,
+                                     grad_scheme=args.grad_scheme,
+                                     compress=args.compress)
+
+        def step(state, batch):
+            new_state, metrics, step.err = dp_step(state, batch, step.err)
+            return new_state, metrics
+        step.err = init_error_state(api, args.compress, device=dev)
+    else:
+        step = make_train_step(api, opt, lr)
+
+    res = loop_mod.run(
+        step, lambda: train_state(api, opt, torch.Generator(
+            device=dev).manual_seed(0), device=dev),
+        data.batch, num_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        # restored checkpoints stage through ONE policy program: arena
+        # params + delta opt state + marshalled metadata
+        state_policy=state_transfer_policy(), log_every=args.log_every,
+        device=dev)
+
+    losses = [m["loss"] for m in res.metrics_history]
+    print(f"done: loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} "
+          f"({args.steps} steps, {res.restarts} restarts, "
+          f"{len(res.straggler_steps)} stragglers)")
+    return res
+
+
+if __name__ == "__main__":
+    main()

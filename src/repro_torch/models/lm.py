@@ -19,7 +19,19 @@ the transfer ledgers of a serve state equal the reference's.  The layer
 stack is a Python loop over the stacked axis where the reference scans.
 ``forward``'s aux loss is the MoE layers' load-balance losses summed (zero
 for the other families).  The vision and encoder-decoder families are not
-yet ported, and ``loss_fn`` waits for training.
+yet ported.
+
+``loss_fn`` is the reference's cross-entropy (f32 ``log_softmax`` and
+gather, labels below 0 masked, ``+ 0.01 * aux``), for the attention
+stacks: training the ssm and hybrid families needs ``ssd_chunks`` under
+autograd on the card, which is not yet ported, so their ``loss_fn``
+raises on every device.  ``cfg.remat`` wraps every block in
+``torch.utils.checkpoint`` when autograd records it (a param or the
+input requires grad; a serving forward does not) (:func:`_remat`):
+``full`` recomputes the whole block in the backward, ``dots`` saves the
+matmul outputs (``aten.mm``, ``aten.addmm``: the dots without batch
+dimensions that the reference's ``dots_with_no_batch_dims_saveable``
+keeps) and recomputes the rest, the kernels included.
 
 ``prefill`` and ``decode_step`` write the KV caches they are given in
 place (see :func:`~repro_torch.models.layers.multihead_attention`; a
@@ -28,13 +40,16 @@ and ``conv`` tensors, computed out of place, with a new ``pos``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt_lib
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
-from ..core.treepath import tree_map
+from ..core.deepcopy import ShapeDtype
+from ..core.treepath import tree_leaves, tree_map
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
@@ -94,6 +109,13 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return init_params(spec_tree(cfg), generator, cfg.param_dtype, device)
 
 
+def abstract(cfg: ModelConfig) -> Any:
+    """The params' shapes and dtypes, without data."""
+    dtype = torch_dtype(cfg.param_dtype)
+    return tree_map(lambda s: ShapeDtype(s.shape, s.dtype or dtype),
+                    spec_tree(cfg))
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
@@ -130,16 +152,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
-def kernel_launches(cfg: ModelConfig, prefills: int,
-                    steps: int) -> Dict[str, int]:
+def kernel_launches(cfg: ModelConfig, prefills: int = 0, steps: int = 0,
+                    train_steps: int = 0) -> Dict[str, int]:
     """Launches of each model kernel on the card for ``prefills`` prefill
-    requests and ``steps`` decode steps: one rmsnorm per block norm plus
-    the final one per forward (none for a LayerNorm model: LayerNorm is
-    plain PyTorch); per attention block (every layer of a dense or MoE
-    model, each application of the hybrid's shared block) one flash call
-    per prefill and one decode call per step; one ssd_chunks call per
-    Mamba2 layer per prefill (a decode step takes the recurrence).  The
-    MoE layer launches no kernel of its own."""
+    requests, ``steps`` decode steps and ``train_steps`` train steps: one
+    rmsnorm per block norm plus the final one per forward (none for a
+    LayerNorm model: LayerNorm is plain PyTorch); per attention block
+    (every layer of a dense or MoE model, each application of the hybrid's
+    shared block) one flash call per prefill and one decode call per step;
+    one ssd_chunks call per Mamba2 layer per prefill (a decode step takes
+    the recurrence).  The MoE layer launches no kernel of its own.  A
+    train step runs one forward per micro-batch, and under remat the
+    backward runs every block's forward again (its norms and flash, not
+    the final norm); the backwards launch nothing."""
     _check_family(cfg)
     L = cfg.num_layers
     if cfg.family in ATTN_STACKS:
@@ -149,14 +174,56 @@ def kernel_launches(cfg: ModelConfig, prefills: int,
         norms, ssd = L + 2 * attn + 1, L
     if cfg.norm != "rmsnorm":
         norms = 0
-    return {"rmsnorm": norms * (prefills + steps),
-            "flash_attention": attn * prefills,
+    forwards = train_steps * max(1, cfg.micro_batches)
+    redo = forwards if cfg.remat != "none" else 0
+    block_norms = norms - 1 if norms else 0
+    return {"rmsnorm": norms * (prefills + steps + forwards)
+            + block_norms * redo,
+            "flash_attention": attn * (prefills + forwards + redo),
             "decode_attention": attn * steps, "ssd_chunks": ssd * prefills}
 
 
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
+
+# the ops whose outputs "dots" remat keeps: matmuls without batch dims
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt_lib.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _records_grad(*trees) -> bool:
+    """Whether autograd would record a call on these arguments."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for tree in trees for t in tree_leaves(tree))
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` when autograd records the call (as is
+    otherwise: a forward for serving pays nothing): ``none`` as is,
+    ``full`` a checkpoint of the whole call, ``dots`` a selective
+    checkpoint that keeps the matmul outputs."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    context_fn = ckpt_lib.noop_context_fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(
+            ckpt_lib.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args, **kwargs):
+        if not _records_grad(args, kwargs):
+            return fn(*args, **kwargs)
+        return ckpt_lib.checkpoint(fn, *args, use_reentrant=False,
+                                   context_fn=context_fn, **kwargs)
+    return wrapped
+
 
 def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
     """One attention block; returns (x, the block's MoE aux loss, or None
@@ -190,11 +257,12 @@ def _run_attn_stack(cfg, params, x, *, positions, cache, kv_valid_len):
     """The attention blocks in order (dense, moe); returns (x, cache, the
     MoE aux losses summed over layers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(cfg, functools.partial(_attn_block, cfg))
     for i in range(cfg.num_layers):
         p = tree_map(lambda t: t[i], params["blocks"])
-        x, block_aux = _attn_block(cfg, p, x, positions=positions,
-                                   cache=_kv_slot(cache, i),
-                                   kv_valid_len=kv_valid_len)
+        x, block_aux = block(p, x, positions=positions,
+                             cache=_kv_slot(cache, i),
+                             kv_valid_len=kv_valid_len)
         if block_aux is not None:
             aux = aux + block_aux
     if cache is None:
@@ -254,6 +322,31 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if new_cache is not None:
         new_cache["pos"] = cache["pos"] + S
     return logits, new_cache, aux
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    _check_family(cfg)
+    if cfg.family not in ATTN_STACKS:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family needs the ssd_chunks kernel "
+            f"under autograd on the card, which is not yet ported; "
+            f"trainable: {ATTN_STACKS}")
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Cross-entropy LM loss.  batch: {"tokens", "labels"} (B, S) integer
+    tensors on the params' device.  Returns (loss + 0.01 * aux, metrics
+    {"loss", "aux_loss", "tokens"})."""
+    _check_trainable(cfg)
+    logits, _, aux = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"].to(torch.long)
+    mask = (labels >= 0).to(torch.float32)
+    labels = labels.clamp_min(0)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": torch.sum(mask)}
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,

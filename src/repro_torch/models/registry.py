@@ -48,8 +48,9 @@ def load_config(arch_id: str) -> ModelConfig:
 class ModelApi:
     """``init(generator, device=None)``, ``forward(params, tokens, **kw)``,
     ``prefill(params, tokens, cache)``, ``decode_step(params, tokens,
-    cache)`` and ``init_cache(batch, max_seq, device=None)``, each closed
-    over ``cfg``."""
+    cache)``, ``init_cache(batch, max_seq, device=None)``, ``loss_fn(params,
+    batch)`` and ``abstract()`` (the params' shapes and dtypes), each
+    closed over ``cfg``."""
 
     cfg: ModelConfig
     init: Callable
@@ -57,6 +58,8 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    loss_fn: Callable
+    abstract: Callable
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -71,6 +74,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_step=lambda params, tokens, cache: lm.decode_step(
             cfg, params, tokens, cache),
         init_cache=lambda b, s, device=None: lm.init_cache(cfg, b, s, device),
+        loss_fn=lambda params, batch: lm.loss_fn(cfg, params, batch),
+        abstract=lambda: lm.abstract(cfg),
     )
 
 

@@ -17,7 +17,8 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..core.treepath import tree_leaves, tree_map
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float64": torch.float64, "float32": torch.float32,
+          "bfloat16": torch.bfloat16}
 
 
 def torch_dtype(name: Any) -> torch.dtype:

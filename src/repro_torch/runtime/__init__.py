@@ -1,16 +1,29 @@
-"""The port's serving runtime: admission and request lifecycle
-(``admission.py``), fault injection (``faults.py``) and the continuous-
-batching ``Server`` over a TransferProgram-backed ServeState
-(``serve.py``).  Training (``loop.py``, ``train.py``) waits for its slice."""
+"""The port's runtime: admission and request lifecycle (``admission.py``),
+fault injection and the elastic restart (``faults.py``), the
+continuous-batching ``Server`` over a TransferProgram-backed ServeState
+(``serve.py``), the train steps and the train state's transfer policy
+(``train.py``) and the fault-tolerant training loop (``loop.py``)."""
 from .admission import (ACCEPTED, COMPLETED, FAILED, SHED, TIMED_OUT,
                         AdmissionQueue, Backoff, LifecycleError,
                         LifecycleTracker, RequestTimeout, ServeStats)
-from .faults import FaultInjector, InjectedFault, injected
+from .faults import (ElasticResult, FaultInjector, InjectedFault, injected,
+                     run_elastic, trajectory_diff)
+from .loop import (NodeFailure, RestoreError, StragglerWatchdog,
+                   TrainLoopResult, run)
 from .serve import (TRANSIENT_FAULTS, Request, Server,
                     serve_transfer_policy)
+from .train import (StatePrefetcher, compile_state_program, grad_arena_spec,
+                    init_error_state, make_dp_train_step, make_train_step,
+                    replicate_state, state_transfer_policy, train_state)
 
 __all__ = ["ACCEPTED", "COMPLETED", "FAILED", "SHED", "TIMED_OUT",
            "AdmissionQueue", "Backoff", "LifecycleError", "LifecycleTracker",
            "RequestTimeout", "ServeStats",
-           "FaultInjector", "InjectedFault", "injected",
+           "ElasticResult", "FaultInjector", "InjectedFault", "injected",
+           "run_elastic", "trajectory_diff",
+           "NodeFailure", "RestoreError", "StragglerWatchdog",
+           "TrainLoopResult", "run",
+           "StatePrefetcher", "compile_state_program", "grad_arena_spec",
+           "init_error_state", "make_dp_train_step", "make_train_step",
+           "replicate_state", "state_transfer_policy", "train_state",
            "TRANSIENT_FAULTS", "Request", "Server", "serve_transfer_policy"]

@@ -8,6 +8,12 @@ it also runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+
+# deterministic cuBLAS for the bit-identical restart test: read when the
+# first cuBLAS handle is made, so set before any test runs a product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import numpy as np
 import pytest
 import torch
@@ -877,3 +883,155 @@ def test_model_steps_read_nothing_back(cuda, arch):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(cuda)
     assert bool(torch.isfinite(logits).all())
+
+
+# ------------------------------------------------------------------ training
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_gradients_equal_the_plain_gradients(cuda, dtype):
+    """The kernel forward under autograd: dx and dscale equal autograd of
+    the plain version on the same inputs (f32 within 1e-5, bf16 within
+    the forward's 2e-2), and the backward launches nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 2048, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(2048, generator=gen, device=cuda)).to(dtype)
+    g = torch.randn(64, 2048, generator=gen, device=cuda).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = RK.rmsnorm.launches
+    y = RK.rmsnorm(xa, wa)
+    assert RK.rmsnorm.launches == before + 1 and y.grad_fn is not None
+    dx, dw = torch.autograd.grad(y, (xa, wa), g)
+    assert RK.rmsnorm.launches == before + 1
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ex, ew = torch.autograd.grad(RR.rmsnorm_ref(xb, wb), (xb, wb), g)
+    assert dx.dtype == dtype and dw.dtype == dtype
+    torch.testing.assert_close(dx.float(), ex.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), ew.float(), rtol=tol,
+                               atol=tol * float(ew.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_equal_the_plain_gradients(cuda, dtype):
+    """Causal GQA at the train shapes (8 query heads on 2 KV heads, S 128,
+    hd 64): dq, dk, dv equal autograd of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, H, KV, S, hd = 2, 8, 2, 128, 64
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda
+                           ).to(dtype).transpose(1, 2)
+               for n in (H, KV, KV))
+    g = torch.randn(B, H, S, hd, generator=gen, device=cuda).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+    before = FK.flash_attention.launches
+    out = FK.flash_attention(qa, ka, va, causal=True)
+    assert FK.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, (qa, ka, va), g)
+    assert FK.flash_attention.launches == before + 1
+    qb, kb, vb = (t.detach().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(FR.attention_ref(qb, kb, vb, causal=True),
+                               (qb, kb, vb), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_one_layer_full_width_step_moves_every_param(cuda):
+    """A full-width llama3.2-1b layer (bf16, remat "dots") takes a train
+    step on the card: every gradient leaf is finite and nonzero (the norm
+    scales and q/k/v reach their gradients through the kernels'
+    backward), and the step launches what kernel_launches predicts."""
+    import dataclasses
+    from repro_torch.models import lm, registry
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import train
+
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").cfg, num_layers=1)
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    RK.rmsnorm.launches = FK.flash_attention.launches = 0
+    loss, _, grads = train.value_and_grad(api.loss_fn, params, batch)
+    want = lm.kernel_launches(cfg, train_steps=1)
+    assert (RK.rmsnorm.launches, FK.flash_attention.launches) == (
+        want["rmsnorm"], want["flash_attention"])
+    assert bool(torch.isfinite(loss))
+    for g in tree_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    opt = make_optimizer("adamw")
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    # lr 1e-2: a bf16 norm scale of 1.0 moves only by more than half its
+    # ulp (2^-8)
+    new, met = train.make_train_step(api, opt, constant(1e-2))(state, batch)
+    assert all(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(new["params"]), tree_leaves(params)))
+
+
+def test_async_snapshot_holds_the_values_of_its_step(cuda, tmp_path):
+    """A snapshot taken before a later step writes the same tensors in
+    place holds the earlier values: the pack into the checkpointer's
+    buckets is ordered on the compute stream before the write."""
+    from repro_torch import checkpoint as ckpt
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    state = {"params": {"w": torch.randn(4096, 1024, generator=gen,
+                                         device=cuda).to(torch.bfloat16)},
+             "opt": {"mu": torch.randn(4096, 1024, generator=gen,
+                                       device=cuda)},
+             "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    want = tree_map(lambda t: t.cpu(), state)
+    ac = ckpt.AsyncCheckpointer(str(tmp_path), keep=2)
+    ac.save(state, 7)
+    for _ in range(20):                   # the later steps, in place
+        for t in tree_leaves(state):
+            t.mul_(3).add_(1)
+    ac.wait()
+    got = ckpt.load(str(tmp_path), 7)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert ac._snapshot._bufs[0]["float32"].is_pinned()
+    ac.close()
+
+
+def test_deterministic_restart_is_bit_identical(cuda, tmp_path):
+    """Under deterministic algorithms, a run that fails at step 5 and
+    restores step 4 through the state policy's program ends with the same
+    losses and params, bit for bit, as an uninterrupted run."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import (NodeFailure, make_train_step, run,
+                                     state_transfer_policy, train_state,
+                                     trajectory_diff)
+
+    api = registry.get("llama3.2-1b", smoke=True)
+    opt = make_optimizer("adamw")
+    step = make_train_step(api, opt, constant(1e-2))
+    data = SyntheticLM(api.cfg.vocab_size, 32, 8)
+    init = lambda: train_state(api, opt, torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    boom = {"armed": True}
+
+    def fail(s):
+        if s == 5 and boom["armed"]:
+            boom["armed"] = False
+            raise NodeFailure("simulated")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = run(step, init, data.batch, 8, device=cuda)
+        b = run(step, init, data.batch, 8, ckpt_dir=str(tmp_path), ckpt_every=4,
+                failure_injector=fail, state_policy=state_transfer_policy(),
+                device=cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert b.restarts == 1
+    assert trajectory_diff(a.metrics_history, b.metrics_history,
+                           keys=("loss", "grad_norm")) == []
+    for x, y in zip(tree_leaves(a.state), tree_leaves(b.state)):
+        assert torch.equal(x, y)
