@@ -121,9 +121,31 @@ Phases, each of which raises on failure:
      deterministic algorithms, 12 steps of the model cut to 3 layers
      uninterrupted against a run with a checkpoint every 4 steps and a
      NodeFailure at step 9: trajectory_diff empty, final states equal bit
-     for bit.  Printed: step wall, tokens/s, device time vs wall of one
-     step, peak device memory, checkpoint stall and write rate, the
-     restore's load / reshard / h2d split and rate, pinned bytes.
+     for bit; (e) after (c)'s save, the serve CLI (``python -m
+     repro_torch.launch.serve``'s ``main``) at full size with its defaults
+     (16 requests, 4 slots, max_seq 128, 16 new tokens) and ``--ckpt-dir``
+     on (c)'s checkpoint: the served params equal to (c)'s final params
+     bit for bit, every request completed, the tokens and the kernel
+     launches equal to those of a Server built on the in-memory params
+     over the same requests.  Printed: step wall, tokens/s, device time vs
+     wall of one step, peak device memory, checkpoint stall and write
+     rate, the restore's load / reshard / h2d split and rate, pinned
+     bytes, the CLI's restore wall and tokens/s;
+ 16. sanitizer   — run after phase 14 and before phase 15, so the card holds
+     no train state: (a) under ``sanitize()``, phase 4's Algorithm-2
+     matrix, phase 6's two real-size trees under every spec (three passes
+     on one executor each; a steady marshal+delta pass moves nothing) and
+     phase 13's mixed_policy program under both executors: no finding,
+     every ledger its closed form, one barrier a program pass, each
+     drive's events printed; (b) the steady pass wall of a 1 GiB f32 tree
+     under marshal+db and marshal+delta, alternating passes without and
+     with one sanitizer, and one fingerprint of the 1 GiB staging buffer
+     (recorded, not asserted); (c) the six seeded mutants of
+     tests/test_torch_sanitizer_mutants.py on a 256 MiB tree on the card,
+     each raising its own code (DC301-DC306) and its clean counterpart
+     silent; for DC301 and DC305 the copy stream is held so the copy is in
+     flight, and whether the card's bytes differ from those enqueued is
+     printed (and first, the DC301 mutant without the sanitizer).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -137,11 +159,13 @@ ssd_chunks 48 per prefill request; zamba2 rmsnorm 17 per forward, flash 2
 and ssd_chunks 12 per prefill request, decode 2 per step; starcoder2 no
 rmsnorm, flash 30 per prefill request, decode 30 per step; moonshot (4
 layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
-step; gather_tiles never; the policy and analysis phases launch
-nothing; a train step launches rmsnorm 2L + 1 and flash L times per
+step; gather_tiles never; the policy, analysis and sanitizer phases
+launch nothing; the serve CLI launches what a Server on the same params
+and requests launches; a train step launches rmsnorm 2L + 1 and flash L times per
 forward, and under remat the blocks' 2L and L again in the backward
 (llama: 65 and 32 a step).  The last lines are the card's name and power limit, a
-``kernels`` JSON line (launches summed over the serve and train phases) and
+``kernels`` JSON line (launches summed over the serve phases 8-12, and per
+phase, the train runs and the serve CLI under ``launches_by_phase``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 2 and prints no result.
 
@@ -166,6 +190,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SPECS = ("uvm", "marshal", "marshal+db", "marshal+delta", "pointerchain")
+# phase 6's two real-size trees: each scheme kind's (bytes, copies), closed
+# forms (dense_case(8, 524288, 3), linear_case(6, 33554432,
+# "allinit-allused"))
+REAL_CLOSED = {"dense": {"marshal": (1226836552, 2), "uvm": (2097180, 8),
+                         "pointerchain": (2097152, 1)},
+               "linear": {"marshal": (805306512, 2), "uvm": (805306368, 6),
+                          "pointerchain": (805306368, 6)}}
 GIB_TILES = 262144                       # 262144 f32 tiles of 4 KiB = 1 GiB
 H100_SXM_BANDWIDTH = 3.35e12             # bytes/s, NVIDIA's H100 SXM data sheet
 H100_SXM_BF16_FLOPS = 989e12             # dense bf16 tensor-core FLOP/s, same sheet
@@ -271,6 +302,16 @@ OFFLOAD_LEDGER = (9886515204, 2)
 # (d): full width cut to 3 of 16 layers (4.45 GB a checkpoint, 4 saves:
 # steps 4, 8, 12 and the final one), a NodeFailure at step 9
 RESTART_LAYERS, RESTART_EVERY, RESTART_FAIL = 3, 4, 9
+# the sanitizer phase (16): passes per real-size spec; the overhead tree
+# (2^28 f32, 1 GiB) and its alternating rounds; the mutants' tree (2^26
+# f32, 256 MiB, so a copy is really in flight) and how long the copy
+# stream is held for DC301 and DC305
+SAN_PASSES = 3
+SAN_OVERHEAD_N, SAN_ROUNDS = 2 ** 28, 5
+SAN_MUTANT_N, SAN_HOLD_S = 2 ** 26, 1.0
+# (e): the serve CLI's defaults (repro_torch/launch/serve.py, the
+# reference's): requests, slots, max_seq and new tokens a request
+SERVE_CLI = {"requests": 16, "slots": 4, "max_seq": 128, "max_new": 16}
 
 
 def say(*parts) -> None:
@@ -419,7 +460,7 @@ def check_gather_tiles(device, big_tiles: int) -> dict:
 
 # -- phases 4-7 --------------------------------------------------------------
 
-def algorithm2_matrix(device, size: str) -> int:
+def algorithm2_matrix(device, size: str, log: bool = True) -> int:
     from repro_torch.scenarios import iter_scenarios, run_scenario
 
     cells = 0
@@ -433,8 +474,9 @@ def algorithm2_matrix(device, size: str) -> int:
                      f"{(m.h2d_bytes, m.h2d_calls)} expected "
                      f"{m.expected.as_tuple()}")
             cells += 1
-        say(f"[algorithm2] {sc.name}: " + ", ".join(
-            f"{s} ok" for s in SPECS))
+        if log:
+            say(f"[algorithm2] {sc.name}: " + ", ".join(
+                f"{s} ok" for s in SPECS))
     return cells
 
 
@@ -1671,6 +1713,362 @@ def analysis_phase(device, smi: str, n: int) -> None:
         release_host_cache()
 
 
+# -- phase 16: the staging race sanitizer ------------------------------------
+
+def _launched(kernels: dict) -> dict:
+    return {k: f.launches for k, f in kernels.items() if f.launches}
+
+
+def _events(san) -> str:
+    return json.dumps(dict(sorted(san.events.items())))
+
+
+def sanitizer_clean(device, kernels: dict, real_cases) -> None:
+    """Part (a): under ``sanitize()``, the Algorithm-2 matrix of phase 4,
+    phase 6's two real-size trees under every spec (three passes on one
+    executor each) and phase 13's mixed_policy program under both
+    executors: no StagingRaceError, every ledger its closed form (a steady
+    marshal+delta pass moves nothing and skips the whole tree), one
+    barrier and one pass report per program pass, no kernel launched.
+    Each drive's events are printed."""
+    from repro_torch.analysis.sanitizer import sanitize
+    from repro_torch.core import TransferSession, transfer_scheme
+    from repro_torch.scenarios import (mixed_policy_case, run_algorithm2,
+                                       run_policy_scenario)
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with sanitize() as san:
+        cells = algorithm2_matrix(device, "full", log=False)
+    say(f"[sanitizer] (a) Algorithm 2, {cells} cells at 'full': ledgers == "
+        f"expected, no finding in {time.perf_counter() - t0:.2f} s; events "
+        f"{_events(san)}")
+    for sc, closed in real_cases:
+        tree = sc.build()
+        access = list(sc.uvm_access) if sc.uvm_access else None
+        for spec in SPECS:
+            want = closed[spec.split("+")[0]]
+            session = TransferSession()
+            scheme = transfer_scheme(spec, session, device=device)
+            walls = []
+            with sanitize() as san:
+                for i in range(SAN_PASSES):
+                    m = run_algorithm2(tree, list(sc.used_paths),
+                                       uvm_access=access, scheme=scheme)
+                    moved = (m.h2d_bytes, m.h2d_calls)
+                    steady = spec == "marshal+delta" and i > 0
+                    exact = (moved == (0, 0) and m.skipped_bytes == want[0]
+                             if steady else moved == want)
+                    if not (m.ok and exact):
+                        fail(f"sanitized {sc.name}/{spec} pass {i}: "
+                             f"ok={m.ok} ledger {moved} skipped "
+                             f"{m.skipped_bytes}, closed form {want}")
+                    walls.append(m.wall_us / 1e3)
+            say(f"[sanitizer] (a) {sc.name}/{spec}: {SAN_PASSES} passes, "
+                f"line-7 ok, ledgers == closed forms, no finding; walls "
+                f"{[round(w, 2) for w in walls]} ms; events {_events(san)}")
+            session.clear()
+            del scheme
+            release_host_cache()
+        del tree
+    sc = mixed_policy_case(POLICY_N, 1)
+    cold, steady = POLICY_LEDGERS[sc.family]
+    tree = sc.build()
+    for executor in ("blocking", "async"):
+        session = TransferSession()
+        with sanitize() as san:
+            ms = run_policy_scenario(sc, tree=tree, passes=POLICY_PASSES,
+                                     executor=executor, session=session,
+                                     device=device)
+        for i, m in enumerate(ms):
+            got = {k: (r["h2d_bytes"], r["h2d_calls"])
+                   for k, r in m.regions.items()}
+            if not (m.ok and m.motion_ok and m.syncs == 1
+                    and got == (cold if i == 0 else steady)):
+                fail(f"sanitized {sc.name} {executor} pass {i}: ok={m.ok} "
+                     f"motion_ok={m.motion_ok} syncs={m.syncs} regions "
+                     f"{got}")
+        if (san.events.get("pass"), san.events.get("sync")) != (
+                POLICY_PASSES, POLICY_PASSES):
+            fail(f"sanitized {sc.name} {executor}: {POLICY_PASSES} passes "
+                 f"reported events {san.events}")
+        say(f"[sanitizer] (a) {sc.name} {executor}: {POLICY_PASSES} passes,"
+            f" regions == closed forms, one barrier a pass, no finding; "
+            f"walls {[round(m.wall_us / 1e3, 2) for m in ms]} ms; events "
+            f"{_events(san)}")
+        session.clear()
+        release_host_cache()
+    del tree
+    release_host_cache()
+    if _launched(kernels):
+        fail(f"the sanitized drives launched {_launched(kernels)}; they run "
+             f"no kernel")
+
+
+def sanitizer_overhead(device, n: int, rounds: int) -> None:
+    """Part (b): the steady pass wall of a 4n-byte f32 tree under
+    marshal+db (two fingerprints a pass: at enqueue and at drain) and
+    marshal+delta (the identity path: a byte compare every VERIFY_EVERY
+    passes), alternating passes without and with one long-lived
+    sanitizer; and the fingerprint alone on the pinned staging buffer.
+    Recorded, not asserted."""
+    import statistics
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.analysis import sanitizer
+    from repro_torch.core import TransferSession, transfer_scheme
+
+    tree = {"w": torch.arange(n, dtype=torch.float32)}
+    for spec in ("marshal+db", "marshal+delta"):
+        session = TransferSession()
+        scheme = transfer_scheme(spec, session, device=device)
+        for _ in range(2):
+            scheme.to_device(tree)
+        synchronize(device)
+        san = sanitizer.Sanitizer()
+        walls = {False: [], True: []}
+        try:
+            for _ in range(rounds):
+                for on in (False, True):
+                    sanitizer._ACTIVE = san if on else None
+                    t0 = time.perf_counter()
+                    scheme.to_device(tree)
+                    synchronize(device)
+                    walls[on].append(time.perf_counter() - t0)
+        finally:
+            sanitizer._ACTIVE = None
+        off, on = (statistics.median(walls[k]) * 1e3 for k in (False, True))
+        say(f"[sanitizer] (b) {spec} steady pass at {4 * n} B: "
+            f"{off:.2f} ms without, {on:.2f} ms with the sanitizer "
+            f"({on / off:.2f}x; without {_spread_ms(walls[False])}, with "
+            f"{_spread_ms(walls[True])} over {rounds} alternating rounds); "
+            f"events {_events(san)}")
+        if spec == "marshal+db":
+            staging = scheme._entry.staging["float32"]
+            folds = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                sanitizer._fingerprint(staging)
+                folds.append(time.perf_counter() - t0)
+            say(f"[sanitizer] (b) one fingerprint of the {4 * n} B pinned "
+                f"staging buffer: {min(folds) * 1e3:.2f} ms (min of 3) = "
+                f"{4 * n / min(folds) / 1e9:.2f} GB/s on the host")
+        session.clear()
+        del scheme
+        release_host_cache()
+
+
+def _hold_copy_stream(device, seconds: float) -> None:
+    """Queue a sleep on the copy stream, so the next pass's copies are
+    still waiting to run when the host goes on (about 2e9 cycles a
+    second)."""
+    import torch
+    from repro_torch._device import copy_stream
+
+    with torch.cuda.stream(copy_stream(device)):
+        torch.cuda._sleep(int(seconds * 2e9))
+
+
+def sanitizer_mutants(device, n: int) -> None:
+    """Part (c): the six seeded mutants of
+    tests/test_torch_sanitizer_mutants.py on a tree of 4n bytes of f32
+    (plus 4 KiB of int32) on the card, each raising its own code, and its
+    clean counterpart silent.  For DC301 and DC305 the copy stream is held
+    (``_hold_copy_stream``) so the copy is in flight when the staging is
+    rewritten, and whether the card's bytes then differ from the bytes at
+    enqueue time is recorded, not asserted."""
+    import torch
+    from repro_torch.analysis import sanitizer
+    from repro_torch.analysis.sanitizer import StagingRaceError, sanitize
+    from repro_torch.core import TransferSession, engine, transfer_scheme
+    from repro_torch.core.schemes import MarshalScheme
+    from repro_torch.core.spec import TransferSpec
+
+    def tree(v):
+        return {"w": torch.full((n,), float(v)),
+                "i": torch.arange(1024, dtype=torch.int32) + v}
+
+    def drive(fn):
+        """``fn(session)`` under a fresh sanitizer: the code it raised
+        (None if none) and the events."""
+        session = TransferSession()
+        with sanitize() as san:
+            try:
+                fn(session)
+                got = None
+            except StagingRaceError as e:
+                got = e.code
+        torch.cuda.synchronize(device)
+        session.clear()
+        release_host_cache()
+        return got, _events(san)
+
+    def skip_fence_wait(session):
+        session.get_entry(tree(0), 1, pin_memory=True)._wait_fence = \
+            lambda bucket, buf_idx: None
+
+    def fenced_passes(mutate):
+        def fn(session):
+            s = transfer_scheme("marshal+db", session, device=device)
+            if mutate:
+                skip_fence_wait(session)
+            _hold_copy_stream(device, SAN_HOLD_S)
+            fn.devs = [s.to_device(tree(v)) for v in (1, 2, 3)]
+        return fn
+
+    def leaky(session):
+        entry = session.get_entry(tree(0), 1, pin_memory=True)
+
+        def add_fence(bucket, event):   # the bug: no FENCE_DEPTH trim
+            fence = entry._fences[bucket][entry._active[bucket]]
+            fence.append(event)
+            if sanitizer._ACTIVE is not None:
+                sanitizer._ACTIVE.on_add_fence(
+                    entry, bucket, entry._active[bucket], len(fence),
+                    engine.FENCE_DEPTH)
+        entry.add_fence = add_fence
+
+    def fences(mutate):
+        def fn(session):
+            entry = session.get_entry(tree(0), 1, pin_memory=True)
+            if mutate:
+                leaky(session)
+            entry.pack_host(tree(0))
+            for _ in range(engine.FENCE_DEPTH + 3):
+                event = torch.cuda.Event()
+                event.record()
+                entry.add_fence("float32", event)
+        return fn
+
+    class DoubleSync(MarshalScheme):
+        def _begin_pipelined(self, t):  # the bug: a barrier per region
+            entry = self._entry_for(t)
+            buffers = entry.pack_host(t)
+            names = list(buffers)
+            dev, _ = self._put_batch([buffers[b] for b in names], sync=True)
+            return dev, lambda: entry.unpack(dict(zip(names, dev)))
+
+    class ReuseDrained(MarshalScheme):
+        def _begin_pipelined(self, t):  # the bug: the spare buffer shipped
+            entry = self._entry_for(t)
+            entry.pack_host(t)
+            names = list(entry.staging)
+            stale = {b: entry._bufs[b][1 - entry._active[b]] for b in names}
+            dev, _ = self._put_batch([stale[b] for b in names], sync=False)
+            self._san_enqueued(entry, stale, names)
+            return dev, lambda: entry.unpack(dict(zip(names, dev)))
+
+    def scheme_pass(cls):
+        def fn(session):
+            cls(TransferSpec.parse("marshal+db"), session,
+                device=device).to_device(tree(1))
+        return fn
+
+    def program_pass(cls):
+        def fn(session):
+            program = session.compile(tree(1), "**=marshal+db",
+                                      device=device)
+            if cls is not None:
+                key = next(iter(program._schemes))
+                program._schemes[key] = cls(TransferSpec.parse("marshal+db"),
+                                            session, device=device)
+            program.to_device(tree(1))
+        return fn
+
+    def scribble(mutate):
+        def fn(session):
+            s = transfer_scheme("marshal+db", session, device=device)
+            _hold_copy_stream(device, SAN_HOLD_S)
+            pending, finish = s.begin_pass(tree(1))
+            fn.f32 = pending[list(s._entry.staging).index("float32")]
+            if mutate:
+                s._entry.staging["float32"][0] += 1.0  # lint: allow=DC204 -- seeded bug
+            finish()
+        return fn
+
+    def identity(mutate):
+        def fn(session):
+            s = transfer_scheme("marshal+delta", session, device=device)
+            t = tree(1)
+            s.to_device(t)
+            s.to_device(t)
+            t["w"][0] += 42.0
+            if not mutate:
+                s.mark_dirty(t)
+            s.to_device(t)
+        return fn
+
+    # the hazard itself: DC301's mutant run without the sanitizer
+    session = TransferSession()
+    hazard = fenced_passes(True)
+    hazard(session)
+    torch.cuda.synchronize(device)
+    landed = float(hazard.devs[0]["w"][0])
+    say(f"[sanitizer] (c) hazard, no sanitizer: the first of three "
+        f"marshal+db passes of {4 * n} B, its copy held behind a "
+        f"{SAN_HOLD_S} s sleep and its staging rewritten by the third pass "
+        f"with the fence wait skipped: the card holds {landed} where 1.0 "
+        f"was enqueued ({'corrupted' if landed != 1.0 else 'intact'})")
+    del hazard
+    session.clear()
+    release_host_cache()
+
+    for code, bad, good in (
+            ("DC301", fenced_passes(True), fenced_passes(False)),
+            ("DC302", scheme_pass(ReuseDrained), scheme_pass(MarshalScheme)),
+            ("DC303", fences(True), fences(False)),
+            ("DC304", program_pass(DoubleSync), program_pass(None)),
+            ("DC305", scribble(True), scribble(False)),
+            ("DC306", identity(True), identity(False))):
+        got, bad_events = drive(bad)
+        if got != code:
+            fail(f"sanitizer mutant {code} raised {got}")
+        clean, good_events = drive(good)
+        if clean is not None:
+            fail(f"the clean counterpart of mutant {code} raised {clean}")
+        note = ""
+        if code == "DC301":
+            ok = all(float(d["w"][0]) == v
+                     for d, v in zip(good.devs, (1.0, 2.0, 3.0)))
+            note = (f"; clean passes held behind the sleep land "
+                    f"{'intact' if ok else 'CORRUPTED'}")
+            if not ok:
+                fail("the fence discipline let a held copy be corrupted")
+        if code == "DC305":
+            differs = float(bad.f32[0]) != 1.0
+            note = (f"; the held copy landed "
+                    f"{float(bad.f32[0])} where 1.0 was enqueued "
+                    f"({'the bytes differ' if differs else 'the same bytes'})")
+        say(f"[sanitizer] (c) mutant {code} at {4 * n} B: caught as {code}, "
+            f"clean counterpart silent{note}; events {bad_events} / "
+            f"{good_events}")
+
+
+def sanitizer_phase(device, kernels: dict, real_cases) -> None:
+    """Phase 16: parts (a)-(c); no kernel may launch.  The mutants'
+    drives keep their device trees on function attributes (reference
+    cycles), so the cache release at the end collects them before the
+    next phase measures its peak memory."""
+    import torch
+
+    walls = []
+    for part in (lambda: sanitizer_clean(device, kernels, real_cases),
+                 lambda: sanitizer_overhead(device, SAN_OVERHEAD_N,
+                                            SAN_ROUNDS),
+                 lambda: sanitizer_mutants(device, SAN_MUTANT_N)):
+        t0 = time.perf_counter()
+        part()
+        walls.append(time.perf_counter() - t0)
+    release_host_cache()
+    if _launched(kernels):
+        fail(f"the sanitizer phase launched {_launched(kernels)}")
+    say(f"[sanitizer] phase 16 ok in {sum(walls):.2f} s ((a) {walls[0]:.2f}"
+        f" s, (b) {walls[1]:.2f} s, (c) {walls[2]:.2f} s), no kernel "
+        f"launched; {torch.cuda.memory_allocated(device)} B allocated on "
+        f"the card after it")
+
+
 # -- phase 15: training ------------------------------------------------------
 
 def _grad_check(what: str, got, want, tol: float) -> float:
@@ -1838,8 +2236,10 @@ def train_full(device, kernels: dict, cfg, batch: int, seq: int, steps: int,
         f" params, {cfg.optimizer}, remat {cfg.remat}; batch {batch} x seq "
         f"{seq}, lr warmup_cosine({TRAIN_LR}, {min(100, steps // 10 + 1)}, "
         f"{steps})")
+    before = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
     held = [train.train_state(api, opt, torch.Generator(
         device=device).manual_seed(0), device=device)]
     with torch.no_grad():
@@ -1889,7 +2289,7 @@ def train_full(device, kernels: dict, cfg, batch: int, seq: int, steps: int,
         f"{counts} == kernel_launches(train_steps={steps}); step wall: first "
         f"{walls[0] * 1e3:.2f} ms, then {_spread_ms(warm)}; {tps:.1f} tokens/s"
         f" at the median; train state {nbytes} B, peak device memory "
-        f"{peak} B")
+        f"{peak} B ({before} B allocated before the run)")
     bat = data.batch(steps)
     prof = profile_device_ms(device, lambda: step(res.state, bat))
     if prof["device_ms"]:
@@ -1987,10 +2387,104 @@ def train_full(device, kernels: dict, cfg, batch: int, seq: int, steps: int,
         f"the resident AdamW's bit for bit; "
         f"{pinned_report(off.scheme.session)}")
     off.scheme.session.clear()
-    del off, new, resident, grads, params, res
+    del off, new, resident, grads, params
+    release_host_cache()
+    cli = serve_cli(device, kernels, cfg, ckpt_dir, res.state["params"])
+    del res
     release_host_cache()
     return {"counts": counts, "step_ms": statistics.median(warm) * 1e3,
-            "tokens_per_s": tps}
+            "tokens_per_s": tps, "serve-cli": cli}
+
+
+def _cli_requests(vocab: int, n: int, max_new: int):
+    """The serve CLI's request stream: default_rng(0), prompts of 4-15
+    tokens (repro_torch/launch/serve.py, as the reference's)."""
+    import numpy as np
+    from repro_torch.runtime import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, size=int(rng.integers(4, 16))).astype(np.int32),
+        max_new_tokens=max_new) for i in range(n)]
+
+
+def serve_cli(device, kernels: dict, cfg, ckpt_dir: Path, params,
+              cli_args=None) -> dict:
+    """Part (e): ``repro_torch.launch.serve.main`` at ``cfg``'s full size
+    (``cli_args``, default ``--arch cfg.name``: the card, the registry's
+    config) with ``--ckpt-dir`` on part (c)'s checkpoint and the CLI's
+    defaults:
+    the served params equal to (c)'s final ``params`` bit for bit, every
+    request completed with its tokens, and the tokens and the launches
+    equal to those of a Server built on the in-memory ``params`` over the
+    same requests.  Returns the CLI run's launch counts."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.core import TransferSession, get_session, tree_leaves
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import registry
+    from repro_torch.runtime import Server
+
+    for k in kernels.values():
+        k.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        server, done = cli.main((cli_args or ["--arch", cfg.name])
+                                + ["--ckpt-dir", str(ckpt_dir)])
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    text = out.getvalue()
+    for line in text.strip().splitlines():
+        say(f"[train] (e) serve CLI: {line}")
+    restore_s = float(re.search(r" in ([0-9.]+)s", text).group(1))
+    tok_s = float(re.search(r"\(([0-9.]+) tok/s\)", text).group(1))
+    bad = [i for i, (a, b) in enumerate(zip(tree_leaves(server.params),
+                                            tree_leaves(params)))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    if bad or len(tree_leaves(server.params)) != len(tree_leaves(params)):
+        fail(f"the serve CLI's params differ from (c)'s at leaves {bad}")
+    got = {r.rid: list(r.tokens_out) for r in done}
+    if (server.stats.completed != SERVE_CLI["requests"]
+            or sorted(got) != list(range(SERVE_CLI["requests"]))
+            or any(len(t) != SERVE_CLI["max_new"] for t in got.values())):
+        fail(f"the serve CLI finished {sorted(got)} with {server.stats}")
+    del server, done
+    get_session().clear()
+    release_host_cache()
+
+    session = TransferSession()
+    ref = Server(registry.get_model(cfg), params, slots=SERVE_CLI["slots"],
+                 max_seq=SERVE_CLI["max_seq"], session=session,
+                 device=device)
+    for req in _cli_requests(cfg.vocab_size, SERVE_CLI["requests"],
+                             SERVE_CLI["max_new"]):
+        ref.submit(req)
+    for k in kernels.values():
+        k.launches = 0
+    want = {r.rid: list(r.tokens_out) for r in ref.run(
+        max_steps=SERVE_CLI["requests"] * SERVE_CLI["max_new"] + 50)}
+    synchronize(device)
+    ref_counts = {name: k.launches for name, k in kernels.items()}
+    if got != want:
+        fail(f"the serve CLI's tokens differ from the in-memory Server's at "
+             f"requests {[r for r in want if got.get(r) != want[r]]}")
+    if counts != ref_counts:
+        fail(f"the serve CLI launched {counts}, the in-memory Server "
+             f"{ref_counts}")
+    say(f"[train] (e) serve CLI on (c)'s checkpoint: restore (selective "
+        f"params read + full load) {restore_s:.2f} s, {wall:.2f} s in all; "
+        f"params == (c)'s bit for bit; {len(got)} requests completed, "
+        f"{tok_s} tokens/s; tokens == an in-memory Server's over the same "
+        f"requests; launches {counts} == that Server's")
+    del ref
+    session.clear()
+    release_host_cache()
+    return counts
 
 
 def train_restart(device, kernels: dict, cfg, batch: int, seq: int,
@@ -2103,7 +2597,8 @@ def train_phase(device, kernels: dict) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say(f"[train] phase 15 ok in {time.perf_counter() - t0:.2f} s")
-    return {"train": full["counts"], "train-restart": restart}
+    return {"train": full["counts"], "serve-cli": full["serve-cli"],
+            "train-restart": restart}
 
 
 def main() -> int:
@@ -2216,11 +2711,8 @@ def main() -> int:
     steady(device, 2048)
     dense = dense_case(8, 524288, 3)
     linear = linear_case(6, 33554432, "allinit-allused")
-    real_size(device, [
-        (dense, {"marshal": (1226836552, 2), "uvm": (2097180, 8),
-                 "pointerchain": (2097152, 1)}),
-        (linear, {"marshal": (805306512, 2), "uvm": (805306368, 6),
-                  "pointerchain": (805306368, 6)})])
+    real_size(device, [(dense, REAL_CLOSED["dense"]),
+                       (linear, REAL_CLOSED["linear"])])
     if any(counts().values()):
         fail(f"Algorithm 2 launched {counts()}; its engine calls no kernel")
 
@@ -2275,11 +2767,16 @@ def main() -> int:
     say(f"[analysis] phase 14 ok in {time.perf_counter() - t0:.2f} s, no "
         f"kernel launched")
 
+    # the staging race sanitizer (phase 16), before training so the card
+    # holds no train state: transfers only, so no kernel launches
+    sanitizer_phase(device, kernels, [
+        (dense_case(8, 524288, 3), REAL_CLOSED["dense"]),
+        (linear_case(6, 33554432, "allinit-allused"), REAL_CLOSED["linear"])])
+
     # training (phase 15): train_phase resets the counters just before
     # each run of the train path and reads them just after
     trained = train_phase(device, kernels)
-    for tag in ("train", "train-restart"):
-        served[tag] = trained[tag]
+    served.update(trained)
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = [dict(name="gather_tiles", route="cuda",

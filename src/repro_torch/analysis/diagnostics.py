@@ -5,11 +5,13 @@ severities and meanings, so a diagnostic reads the same from either
 package.  One taxonomy across the checking layers (DESIGN.md §13.1):
 
     DC1xx  static — policy/program analysis before any transfer (check, cost)
-    DC2xx  lint   — checks over the repo source (not yet ported)
-    DC3xx  runtime — the staging race sanitizer (not yet ported)
+    DC2xx  lint   — AST checks over the port's source (lint)
+    DC3xx  runtime — the staging race sanitizer (sanitizer)
 
-The DC2xx and DC3xx entries stay in the table because the taxonomy is one
-registry.  Only the standard library here.
+DC1xx and DC2xx are reported as :class:`Diagnostic` values; DC3xx are
+raised as typed exceptions (``StagingRaceError`` / ``SyncDisciplineError``)
+whose ``.code`` indexes this table.  Only the standard library here: the
+sanitizer is importable from the core engine without a cycle.
 """
 from __future__ import annotations
 
@@ -44,8 +46,9 @@ CODES = {
     "DC112": (WARNING, "predicted host staging footprint exceeds the "
                        "declared budget"),
     # -- repo lint (DC2xx) --------------------------------------------------
-    "DC201": (ERROR, "raw jax.device_put/jax.block_until_ready outside the "
-                     "engine/schemes/driver allowlist"),
+    "DC201": (ERROR, "raw transfer/sync primitive (synchronize, "
+                     "non_blocking, .cuda(), pin_memory, .to(device)) "
+                     "outside the engine/schemes/driver allowlist"),
     "DC202": (ERROR, "fault-point string literal not in faults.POINTS"),
     "DC203": (ERROR, "spec/policy string literal fails parse"),
     "DC204": (ERROR, "in-place write to an arena-managed buffer without a "

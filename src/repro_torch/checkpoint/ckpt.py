@@ -338,6 +338,7 @@ class SnapshotArena:
             self._layout, self._pinned = layout, pin_memory
             self._bufs, self._turn = [], 0
         if len(self._bufs) <= self._turn:
+            # lint: allow=DC201 -- the snapshot's pinned host buffers, the D2H side no program moves
             self._bufs.append(arena_lib.alloc_buffers(
                 self._layout, pin_memory=pin_memory))
         bufs = self._bufs[self._turn]
@@ -405,6 +406,7 @@ class AsyncCheckpointer:
         with torch.cuda.stream(self._stream):
             self._stream.wait_event(packed)
             for b, buf in dev_bufs.items():
+                # lint: allow=DC201 -- snapshot D2H on the side stream (the reference's restore fallback waiver)
                 bufs[b].copy_(buf, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(self._stream)
@@ -417,6 +419,7 @@ class AsyncCheckpointer:
         tensors = [arena_lib.as_tensor(l) for l in leaves]
         cuda = [t.device for t in tensors if t.device.type == "cuda"]
         device = cuda[0] if cuda else None
+        # lint: allow=DC201 -- the snapshot's pinned host buffers, the D2H side no program moves
         bufs, layout = self._snapshot.acquire(state,
                                               pin_memory=device is not None)
         held = event = None
@@ -430,6 +433,7 @@ class AsyncCheckpointer:
             nonlocal held
             try:
                 if event is not None:
+                    # lint: allow=DC201 -- the writer thread waits its snapshot's D2H (as the reference's waiver)
                     event.synchronize()     # the snapshot is in host memory
                     held = None
                 host = arena_lib.unpack(bufs, layout)

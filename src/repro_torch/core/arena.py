@@ -158,6 +158,7 @@ def unpack(buffers: Buffers, layout: ArenaLayout) -> Any:
 def alloc_buffers(layout: ArenaLayout, device: Any = "cpu",
                   pin_memory: bool = False) -> Buffers:
     """One zeroed buffer per dtype bucket."""
+    # lint: allow=DC201 -- the arena allocates the engine's pinned staging; the engine decides when
     return {b: torch.zeros(int(n), dtype=layout.bucket_dtypes[b],
                            device=device, pin_memory=pin_memory)
             for b, n in layout.bucket_sizes.items()}

@@ -16,8 +16,9 @@ repeat transfer can skip buckets whose bytes have not changed:
         leaf's RAW BYTES with the staged copy and bumps a bucket's version
         only when they differ (bytes, not values: NaN != NaN);
       - per-buffer fences: CUDA events recorded after the copies that read
-        a staging buffer.  ``pack_host`` waits the target buffer's fence
-        before rewriting it.
+        a staging buffer (on the CPU, where every copy has completed when
+        it returns, a completed stand-in).  ``pack_host`` waits the target
+        buffer's fence before rewriting it.
 
 The aliasing hazard on the card: a ``non_blocking`` copy from pinned
 memory still reads the staging buffer after the call that issued it has
@@ -39,6 +40,12 @@ where the reference's gather produced fresh arrays: a view aliases the
 bucket, and under ``+delta`` the retained bucket outlives the pass.  No
 caller writes into attached leaves in place; the Algorithm-2 kernel
 returns new tensors.
+
+The staging race sanitizer (:mod:`repro_torch.analysis.sanitizer`) is
+hooked where the reference hooks it: fence registration and wait, each
+identity-trusted skip, each staging rewrite and each rotation.  Every
+hook guards on ``_sanitizer._ACTIVE is not None``, one module-global read
+when it is off.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..analysis import sanitizer as _sanitizer
 from . import arena as arena_lib
 from .arena import ArenaLayout, as_tensor, dtype_name, flat_leaf
 from .treepath import tree_flatten, tree_leaves
@@ -95,7 +103,12 @@ class TransferSession:
     buckets."""
 
     def __init__(self, layout_max: Optional[int] = None,
-                 entry_max: Optional[int] = None):
+                 entry_max: Optional[int] = None, sanitize: bool = False):
+        if sanitize:
+            # the shadow machine is process-wide (entries and schemes hold
+            # no pointer to their session); the keyword is the opt-in next
+            # to REPRO_SANITIZE=1
+            _sanitizer.enable()
         self.layout_max = LAYOUT_CACHE_MAX if layout_max is None else int(layout_max)
         self.entry_max = ENTRY_CACHE_MAX if entry_max is None else int(entry_max)
         self._layouts: "collections.OrderedDict[Tuple, ArenaLayout]" = \
@@ -166,6 +179,16 @@ class TransferSession:
             self._entries.popitem(last=False)
             self._stats["entry_evictions"] += 1
 
+    def set_cache_limits(self, layout_max: Optional[int] = None,
+                         entry_max: Optional[int] = None) -> None:
+        """Set the cache caps (a deployment's memory budget), trimming the
+        caches to them at once."""
+        if layout_max is not None:
+            self.layout_max = int(layout_max)
+        if entry_max is not None:
+            self.entry_max = int(entry_max)
+        self._trim()
+
     def pinned_bytes(self) -> int:
         """Bytes of page-locked host staging held by this session's cached
         entries (both buffers of every bucket)."""
@@ -233,6 +256,20 @@ def cached_plan(tree: Any, align_elems: int = 1) -> ArenaLayout:
     return _DEFAULT_SESSION.cached_plan(tree, align_elems)
 
 
+def get_entry(tree: Any, align_elems: int = 1,
+              pin_memory: bool = False) -> "ArenaEntry":
+    return _DEFAULT_SESSION.get_entry(tree, align_elems, pin_memory)
+
+
+def set_cache_limits(layout_max: Optional[int] = None,
+                     entry_max: Optional[int] = None) -> None:
+    _DEFAULT_SESSION.set_cache_limits(layout_max, entry_max)
+
+
+def cache_stats() -> Dict[str, int]:
+    return _DEFAULT_SESSION.cache_stats()
+
+
 def clear_cache() -> None:
     _DEFAULT_SESSION.clear()
 
@@ -266,6 +303,24 @@ def repack_traced(buffers: Buffers, layout: ArenaLayout, tree: Any) -> Buffers:
 # per-buffer fences are trimmed to this depth: older events are waited so a
 # long clean streak cannot grow the list without bound.
 FENCE_DEPTH = 8
+
+
+class _Completed:
+    """The fence of a CPU copy, which has completed when it returns: an
+    event that is always done.  Registering it keeps the fence discipline
+    (the trim, the wait, the sanitizer's view of them) the same on both
+    devices."""
+
+    __slots__ = ()
+
+    def synchronize(self) -> None:
+        pass
+
+    def query(self) -> bool:
+        return True
+
+
+COMPLETED = _Completed()
 
 
 class ArenaEntry:
@@ -320,23 +375,26 @@ class ArenaEntry:
     # -- fences --------------------------------------------------------------
     def add_fence(self, bucket: str, event: Optional[Any]) -> None:
         """Register a CUDA event after which the bucket's ACTIVE staging
-        buffer is no longer read.  ``None`` (a CPU target) registers
-        nothing: the CPU copies have already completed."""
-        if event is None:
-            return
+        buffer is no longer read.  ``None`` (a CPU target, whose copies
+        have completed) registers the completed stand-in."""
         fence = self._fences[bucket][self._active[bucket]]
-        fence.append(event)
+        fence.append(COMPLETED if event is None else event)
         while len(fence) > FENCE_DEPTH:
             fence.pop(0).synchronize()
+        if _sanitizer._ACTIVE is not None:
+            _sanitizer._ACTIVE.on_add_fence(self, bucket, self._active[bucket],
+                                            len(fence), FENCE_DEPTH)
 
     def _wait_fence(self, bucket: str, buf_idx: int) -> None:
         fence = self._fences[bucket][buf_idx]
-        if fence:
+        if any(event is not COMPLETED for event in fence):
             t0 = time.perf_counter()
             for event in fence:
                 event.synchronize()
             self.fence_wait_s += time.perf_counter() - t0
-            fence.clear()
+        fence.clear()
+        if _sanitizer._ACTIVE is not None:
+            _sanitizer._ACTIVE.on_fence_wait(self, bucket, buf_idx)
 
     def take_fence_wait(self) -> float:
         s, self.fence_wait_s = self.fence_wait_s, 0.0
@@ -359,6 +417,10 @@ class ArenaEntry:
                 continue
             if (trust_identity and slot.bucket not in self._recheck
                     and self._last_leaf[i] is leaf):
+                if _sanitizer._ACTIVE is not None:
+                    # the shadow byte compare this fast path elides: catches
+                    # an in-place mutation without mark_dirty (DC306)
+                    _sanitizer._ACTIVE.on_identity_skip(self, slot, leaf)
                 continue
             arr = flat_leaf(leaf, slot)
             # a slot never packed is always dirty; otherwise compare raw
@@ -376,6 +438,8 @@ class ArenaEntry:
         for b in {self.layout.slots[i].bucket for i in pending}:
             tgt = 1 - self._active[b]
             self._wait_fence(b, tgt)
+            if _sanitizer._ACTIVE is not None:
+                _sanitizer._ACTIVE.on_staging_write(self, b, tgt)
             buf = self._bufs[b][tgt]
             held = self._buf_slot_vers[b][tgt]
             for lj, si in enumerate(self._bucket_slots[b]):
@@ -387,6 +451,8 @@ class ArenaEntry:
                     buf[slot.offset:slot.offset + slot.size].copy_(arr)
                     held[lj] = self._slot_vers[si]
             self._active[b] = tgt
+            if _sanitizer._ACTIVE is not None:
+                _sanitizer._ACTIVE.on_rotate(self, b, tgt)
             self.versions[b] += 1
         self._recheck.clear()
         self.pack_host_calls += 1

@@ -43,7 +43,14 @@ give the same specs and policies in the same order.
 
 ``@dp1`` rules execute on one device, as in the reference; sharded rules
 (``@dpK``, K > 1) parse, partition and price, but executing one is not
-yet ported, nor are the sanitizer hooks.
+yet ported.
+
+The staging race sanitizer sees a pass as the reference's does: the
+regions enqueue inside an enqueue half (a barrier there is DC304), the
+pass's one barrier reports ``on_sync`` (the blocking pass before it
+waits; the future when it first sees the barrier complete, outside any
+enqueue half, where the reference's sync thread reports it), and every
+materialized pass reports its stats.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from .. import _device
+from ..analysis import sanitizer as _sanitizer
 from .spec import TransferSpec, UnsupportedSpecError
 from .treepath import TreeDef, TreePath, _parse as _parse_steps
 from .treepath import leaf_paths, tree_flatten, tree_leaves
@@ -427,6 +435,8 @@ class ProgramFuture:
         if self._seen_done is None and (self._barrier is None
                                         or self._barrier.query()):
             self._seen_done = time.perf_counter()
+            if _sanitizer._ACTIVE is not None:
+                _sanitizer._ACTIVE.on_sync("ProgramFuture")
         return self._seen_done is not None
 
     def wait(self, timeout: Optional[float] = None) -> bool:
@@ -464,6 +474,8 @@ class ProgramFuture:
         program.last_stats = ProgramStats(
             self._enqueues, 1, sync_s, self._seen_done - self._started,
             time.perf_counter() - t1)
+        if _sanitizer._ACTIVE is not None:
+            _sanitizer._ACTIVE.on_pass_stats(program.last_stats)
         self._result = out
         self._materialized = True
         if program._inflight is self:
@@ -558,11 +570,14 @@ class TransferProgram:
         leaves = self._flatten(tree)
         finishes: List[Tuple[Region, Any]] = []
         enqueues: Dict[str, int] = {}
-        for key, region in self.regions.items():
-            sub = [leaves[i] for i in region.indices]
-            pending, finish = self._schemes[key].begin_pass(sub)
-            enqueues[key] = len(pending)
-            finishes.append((region, finish))
+        # the enqueue half: the sanitizer (when on) flags any barrier
+        # issued inside it (DC304, the one-sync-per-pass contract)
+        with _sanitizer.enqueue_half():
+            for key, region in self.regions.items():
+                sub = [leaves[i] for i in region.indices]
+                pending, finish = self._schemes[key].begin_pass(sub)
+                enqueues[key] = len(pending)
+                finishes.append((region, finish))
         barrier = None
         if self.device.type == "cuda":
             barrier = torch.cuda.Event()
@@ -582,12 +597,16 @@ class TransferProgram:
         synchronize, finish."""
         leaves, barrier, finishes, enqueues = self._begin(tree)
         t0 = time.perf_counter()
+        if _sanitizer._ACTIVE is not None:
+            _sanitizer._ACTIVE.on_sync("TransferProgram.to_device")
         if barrier is not None:
             barrier.synchronize()
         t1 = time.perf_counter()
         out = self._finish(leaves, finishes)
         self.last_stats = ProgramStats(enqueues, 1, t1 - t0,
                                        finish_s=time.perf_counter() - t1)
+        if _sanitizer._ACTIVE is not None:
+            _sanitizer._ACTIVE.on_pass_stats(self.last_stats)
         return out
 
     def to_device_async(self, tree: Any) -> ProgramFuture:

@@ -25,6 +25,13 @@ tensor, so "device" values never alias host memory there either.
 
 Every scheme records its traffic in a :class:`TransferLedger`, field for
 field the reference's, so tests can hold bytes and copy counts equal.
+
+The staging race sanitizer's hooks sit where the reference's do: a
+blocking ``_put_batch`` reports its barrier (``on_sync``), and the
+``+db`` / ``+delta`` halves report each bucket they enqueue and drain.
+The barriers the reference does not hook are not hooked here either: the
+D2H synchronize of ``_get_batch`` (the reference's ``device_get``) and the
+fence trim in :meth:`~repro_torch.core.engine.ArenaEntry.add_fence`.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from .. import _device
+from ..analysis import sanitizer as _sanitizer
 from . import arena as arena_lib
 from . import engine as engine_lib
 from .chainref import ChainRef, declare, extract, insert
@@ -267,8 +275,11 @@ class TransferScheme:
         t0 = time.perf_counter()
         ys, event = self._enqueue_h2d(xs)
         t1 = time.perf_counter()
-        if sync and event is not None:
-            event.synchronize()
+        if sync:
+            if _sanitizer._ACTIVE is not None:
+                _sanitizer._ACTIVE.on_sync(f"{type(self).__name__}._put_batch")
+            if event is not None:
+                event.synchronize()
         t2 = time.perf_counter()
         self.ledger.record_wall(t1 - t0, t2 - t1)
         for x in xs:
@@ -480,15 +491,39 @@ class MarshalScheme(TransferScheme):
             return self._begin_delta(tree)
         return self._begin_pipelined(tree)
 
+    # -- sanitizer hooks -----------------------------------------------------
+    @staticmethod
+    def _san_enqueued(entry, buffers, names) -> None:
+        """Report each enqueued bucket to the staging sanitizer.
+        ``buffers`` maps bucket -> the exact host tensor handed to
+        ``_enqueue_h2d``."""
+        san = _sanitizer._ACTIVE
+        if san is not None:
+            for b in names:
+                san.on_enqueue(entry, b, buffers[b])
+
+    @staticmethod
+    def _san_drained(entry, names) -> None:
+        san = _sanitizer._ACTIVE
+        if san is not None:
+            for b in names:
+                san.on_drain(entry, b)
+
     def _begin_pipelined(self, tree):
         entry = self._entry_for(tree)
         buffers = entry.pack_host(tree)
         self._record_fence_wait(entry)
         names = list(buffers)
         dev, event = self._put_batch([buffers[b] for b in names], sync=False)
+        self._san_enqueued(entry, buffers, names)
         for b in names:
             entry.add_fence(b, event)
-        return dev, lambda: entry.unpack(dict(zip(names, dev)))
+
+        def finish():
+            self._san_drained(entry, names)
+            return entry.unpack(dict(zip(names, dev)))
+
+        return dev, finish
 
     def _to_device_pipelined(self, tree):
         return self._begin_pipelined(tree)[1]()
@@ -549,12 +584,14 @@ class MarshalScheme(TransferScheme):
 
                 return [], finish_memo
         dev, event = self._put_batch([buffers[b] for b in dirty], sync=False)
+        self._san_enqueued(entry, buffers, dirty)
         for b in dirty:
             # the only reader of staging is the copy; device buckets never
             # alias host memory, so the copy's event is the whole fence
             entry.add_fence(b, event)
 
         def finish():
+            self._san_drained(entry, dirty)
             for b, arr in zip(dirty, dev):
                 retained[b] = (versions[b], arr, _write_count(arr))
             book_clean()
@@ -636,6 +673,18 @@ def transfer_scheme(spec: Union[TransferSpec, str],
     """Executor for ``spec`` on ``device`` (the CUDA card unless the caller
     passes ``device="cpu"``)."""
     return TransferScheme.from_spec(spec, session, device=device, **kw)
+
+
+def _named_factory(name: str) -> Callable[..., TransferScheme]:
+    def factory(**kw: Any) -> TransferScheme:
+        return transfer_scheme(name, **kw)
+    factory.__name__ = f"make_{name}"
+    return factory
+
+
+# the reference's name -> factory shim over the registry names
+SCHEMES: Dict[str, Callable[..., TransferScheme]] = {
+    name: _named_factory(name) for name in SCHEME_NAMES}
 
 
 def make_scheme(name: str, **kw: Any) -> TransferScheme:

@@ -191,3 +191,7 @@ class TransferSpec:
                 f"options: {KINDS}")
         return cls(**kw)
 
+
+# the paper's original three schemes, as specs (the reference's tuple)
+PAPER_SPECS = (TransferSpec("uvm"), TransferSpec("marshal"),
+               TransferSpec("pointerchain"))

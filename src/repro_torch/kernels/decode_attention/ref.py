@@ -34,6 +34,7 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, KV, g, hd),
                      k.float()) * scale
+    # lint: allow=DC201 -- the plain version puts the (B,) lengths beside q (a no-op when there)
     valid = valid_len.to(device=q.device, dtype=torch.long)
     mask = torch.arange(S, device=q.device)[None, :] < valid[:, None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
@@ -67,6 +68,7 @@ def decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
     s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, KV, g, hd),
                      kf) * scale
+    # lint: allow=DC201 -- the plain version puts the (B,) lengths beside q (a no-op when there)
     valid = valid_len.to(device=q.device, dtype=torch.long)
     empty = valid <= 0
     n_keys = torch.where(empty, S, valid.clamp(max=S))                # (B,)

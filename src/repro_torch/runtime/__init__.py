@@ -12,7 +12,8 @@ from .loop import (NodeFailure, RestoreError, StragglerWatchdog,
                    TrainLoopResult, run)
 from .serve import (TRANSIENT_FAULTS, Request, Server,
                     serve_transfer_policy)
-from .train import (StatePrefetcher, compile_state_program, grad_arena_spec,
+from .train import (StatePrefetcher, abstract_train_state,
+                    compile_state_program, grad_arena_spec,
                     init_error_state, make_dp_train_step, make_train_step,
                     replicate_state, state_transfer_policy, train_state)
 
@@ -23,7 +24,8 @@ __all__ = ["ACCEPTED", "COMPLETED", "FAILED", "SHED", "TIMED_OUT",
            "run_elastic", "trajectory_diff",
            "NodeFailure", "RestoreError", "StragglerWatchdog",
            "TrainLoopResult", "run",
-           "StatePrefetcher", "compile_state_program", "grad_arena_spec",
+           "StatePrefetcher", "abstract_train_state", "compile_state_program",
+           "grad_arena_spec",
            "init_error_state", "make_dp_train_step", "make_train_step",
            "replicate_state", "state_transfer_policy", "train_state",
            "TRANSIENT_FAULTS", "Request", "Server", "serve_transfer_policy"]

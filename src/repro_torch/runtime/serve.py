@@ -216,6 +216,7 @@ class Server:
         """Install a refill batch's per-sequence caches into the slot cache
         in place: one ``index_copy_`` per key on the slot axis (axis 0 of
         ``pos``, axis 1 of the ``(L, B, ...)`` caches)."""
+        # lint: allow=DC201 -- the refill's slot ids for index_copy_ (the reference scatters at host ints)
         index = slot_ids.to(device=self.device, dtype=torch.long)
         for key, val in self.cache.items():
             axis = 1 if val.dim() >= 2 and val.shape[1] == self.slots else 0

@@ -30,6 +30,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core import engine as engine_lib
+from ..core.deepcopy import ShapeDtype
 from ..core.spec import TransferSpec
 from ..core.treepath import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..models.registry import ModelApi
@@ -49,6 +50,16 @@ def train_state(api: ModelApi, optimizer: Optimizer,
     params = api.init(generator, device=dev)
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def abstract_train_state(api: ModelApi, optimizer: Optimizer
+                         ) -> Dict[str, Any]:
+    """The train state's shapes and dtypes without data
+    (:class:`~repro_torch.core.deepcopy.ShapeDtype` leaves): the params',
+    the optimizer state's and a 0-d int32 step."""
+    params = api.abstract()
+    return {"params": params, "opt": optimizer.abstract(params),
+            "step": ShapeDtype((), torch.int32)}
 
 
 def _device_of(tree: Any) -> torch.device:

@@ -1035,3 +1035,70 @@ def test_deterministic_restart_is_bit_identical(cuda, tmp_path):
                            keys=("loss", "grad_norm")) == []
     for x, y in zip(tree_leaves(a.state), tree_leaves(b.state)):
         assert torch.equal(x, y)
+
+
+# -- the staging race sanitizer on the card: DC301 and DC305 with real
+# copy events, the copy stream held so the copy is in flight -------------
+
+def _hold_copy_stream(device, seconds):
+    from repro_torch._device import copy_stream
+
+    with torch.cuda.stream(copy_stream(device)):
+        torch.cuda._sleep(int(seconds * 2e9))
+
+
+def _san_tree(v, n=2 ** 22):
+    return {"w": torch.full((n,), float(v)),
+            "i": torch.arange(64, dtype=torch.int32) + v}
+
+
+@pytest.mark.parametrize("skip_wait", [True, False])
+def test_sanitizer_dc301_with_real_fences(cuda, skip_wait):
+    """Three marshal+db passes whose copies wait behind a held copy
+    stream: with the fence wait skipped the third pack would rewrite the
+    first pass's staging under its queued copy, and the sanitizer raises
+    DC301 first; with the wait the passes land intact and it is silent."""
+    from repro_torch.analysis.sanitizer import StagingRaceError, sanitize
+
+    session = TransferSession()
+    s = transfer_scheme("marshal+db", session, device=cuda)
+    if skip_wait:
+        session.get_entry(_san_tree(0), 1, pin_memory=True)._wait_fence = \
+            lambda bucket, buf_idx: None
+    _hold_copy_stream(cuda, 0.2)
+    with sanitize():
+        if skip_wait:
+            with pytest.raises(StagingRaceError) as ei:
+                for v in (1, 2, 3):
+                    s.to_device(_san_tree(v))
+            assert ei.value.code == "DC301"
+        else:
+            devs = [s.to_device(_san_tree(v)) for v in (1, 2, 3)]
+    torch.cuda.synchronize(cuda)
+    if not skip_wait:
+        for v, d in zip((1, 2, 3), devs):
+            assert bool((d["w"] == float(v)).all()) and int(d["i"][0]) == v
+
+
+@pytest.mark.parametrize("scribble", [True, False])
+def test_sanitizer_dc305_with_a_held_copy(cuda, scribble):
+    """A host write to pinned staging while its copy is queued lands on
+    the card and the sanitizer raises DC305 at the drain; without the
+    write the drain is silent and the bytes are the enqueued ones."""
+    from repro_torch.analysis.sanitizer import StagingRaceError, sanitize
+
+    s = transfer_scheme("marshal+db", TransferSession(), device=cuda)
+    _hold_copy_stream(cuda, 0.2)
+    with sanitize() as san:
+        pending, finish = s.begin_pass(_san_tree(1))
+        f32 = pending[list(s._entry.staging).index("float32")]
+        if scribble:
+            s._entry.staging["float32"][0] += 1.0  # lint: allow=DC204 -- seeded bug
+            with pytest.raises(StagingRaceError) as ei:
+                finish()
+            assert ei.value.code == "DC305"
+        else:
+            finish()
+            assert san.events["drain"] == 2
+    torch.cuda.synchronize(cuda)
+    assert float(f32[0]) == (2.0 if scribble else 1.0)
