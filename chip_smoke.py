@@ -32,8 +32,14 @@ Phases, each of which raises on failure:
      at head dim 128 with the GQA groups of starcoder2-3b (12 query heads a
      KV head), granite-3-8b (4), qwen1.5-110b (8), moonshot-v1-16b-a3b (1)
      and arctic-480b (7), held at every serve length and timed at the
-     serve shapes.  The smoke models' f32 logits on the card (kernels) are
-     held against the CPU (plain versions) for all eight ported models;
+     serve shapes; flash and decode at head dim 96 with phi-3-vision's
+     32/32 heads (every serve prompt length, the 8 x 2048 ragged cache),
+     timed at P = 938 and over the 8 slots; non-causal flash at
+     seamless-m4t's widths (the encoder's self-attention over 512 frames,
+     each prompt's cross-attention, a decode step's at Sq = 1), the last
+     timed.  The smoke models' f32 logits on the card (kernels) are held
+     against the CPU (plain versions) for all ten models (phi-3 with
+     patches, seamless with frames);
   4. Algorithm 2 — every scenario of the ported families at the ``full``
      preset under uvm, marshal, marshal+db, marshal+delta and pointerchain:
      line-7 check ok and the ledger equal to the expected motion exactly;
@@ -127,10 +133,20 @@ Phases, each of which raises on failure:
      on (c)'s checkpoint: the served params equal to (c)'s final params
      bit for bit, every request completed, the tokens and the kernel
      launches equal to those of a Server built on the in-memory params
-     over the same requests.  Printed: step wall, tokens/s, device time vs
-     wall of one step, peak device memory, checkpoint stall and write
-     rate, the restore's load / reshard / h2d split and rate, pinned
-     bytes, the CLI's restore wall and tokens/s;
+     over the same requests; (f) the other families at full width, each
+     on one batch repeated with (c)'s optimizer, peak lr and schedule
+     shape: mamba2-1.3b at full depth (48 layers, batch 8 x seq 512, so
+     two 256-token chunks a sequence, 8 steps), zamba2-2.7b cut to 12
+     layers and moonshot-v1-16b-a3b cut to 2 (4 steps each): each update
+     with a nonzero lr lowering the loss, launches exactly
+     kernel_launches(train_steps=) (ssd_chunks 48 x 2 a mamba2 step:
+     forward and recompute); then each of the three at 2 layers in f32,
+     card vs CPU as (b).  (a) also holds ssd_chunks' autograd Function
+     (y_diag, states and cum each carrying a gradient) against autograd
+     of the plain version at mamba2's widths.  Printed: step wall,
+     tokens/s, device time vs wall of one step, peak device memory,
+     checkpoint stall and write rate, the restore's load / reshard / h2d
+     split and rate, pinned bytes, the CLI's restore wall and tokens/s;
  16. sanitizer   — run after phase 14 and before phase 15, so the card holds
      no train state: (a) under ``sanitize()``, phase 4's Algorithm-2
      matrix, phase 6's two real-size trees under every spec (three passes
@@ -145,7 +161,19 @@ Phases, each of which raises on failure:
      each raising its own code (DC301-DC306) and its clean counterpart
      silent; for DC301 and DC305 the copy stream is held so the copy is in
      flight, and whether the card's bytes differ from those enqueued is
-     printed (and first, the DC301 mutant without the sanitizer).
+     printed (and first, the DC301 mutant without the sanitizer);
+ 17. multimodal  — after phase 15: phi-3-vision-4.2b (32 layers, head dim
+     96, 3830516736 params) and seamless-m4t-medium (12 + 12 layers,
+     614926336 params) at full size, bf16, seeded on the card.  Each runs
+     first through the registry: 8 requests of 32-512 text tokens
+     prefilled one by one with their seeded side input (phi-3: 576 patch
+     embeddings before the prompt; seamless: frames (1, 512, 1024),
+     encoded at every prefill), their caches stacked into 8 slots, 32
+     greedy tokens each; launches exact, request 0's tokens equal to a
+     batch-1 prefill + greedy decode over 8 slots.  Then behind phase 8's
+     Server and traffic (text prompts: the Server passes neither patches
+     nor frames, as the reference's does), with phase 8's checks and
+     install ledgers held to their closed forms.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -159,13 +187,17 @@ ssd_chunks 48 per prefill request; zamba2 rmsnorm 17 per forward, flash 2
 and ssd_chunks 12 per prefill request, decode 2 per step; starcoder2 no
 rmsnorm, flash 30 per prefill request, decode 30 per step; moonshot (4
 layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
-step; gather_tiles never; the policy, analysis and sanitizer phases
+step; phi-3 rmsnorm 65 per forward, flash 32 per prefill request, decode
+32 per step; seamless no rmsnorm, flash 12 (the encoder, given frames) +
+24 per prefill request, decode 12 and flash 12 per step; gather_tiles
+never; the policy, analysis and sanitizer phases
 launch nothing; the serve CLI launches what a Server on the same params
 and requests launches; a train step launches rmsnorm 2L + 1 and flash L times per
 forward, and under remat the blocks' 2L and L again in the backward
-(llama: 65 and 32 a step).  The last lines are the card's name and power limit, a
-``kernels`` JSON line (launches summed over the serve phases 8-12, and per
-phase, the train runs and the serve CLI under ``launches_by_phase``) and
+(llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again).
+The last lines are the card's name and power limit, a ``kernels`` JSON
+line (launches summed over the serve phases 8-12 and 17, and per phase,
+the train runs and the serve CLI under ``launches_by_phase``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 2 and prints no result.
 
@@ -312,6 +344,47 @@ SAN_MUTANT_N, SAN_HOLD_S = 2 ** 26, 1.0
 # (e): the serve CLI's defaults (repro_torch/launch/serve.py, the
 # reference's): requests, slots, max_seq and new tokens a request
 SERVE_CLI = {"requests": 16, "slots": 4, "max_seq": 128, "max_new": 16}
+# (f): the other families trained at full width.  mamba2-1.3b at full
+# depth, 8 steps; batch 8 x seq 512, so each sequence spans two 256-token
+# chunks and the inter-chunk recurrence carries gradient; then zamba2-2.7b
+# at its serve depth (12 of 54 layers) and moonshot-v1-16b-a3b cut to 2 of
+# 48 layers, 4 steps each; AdamW at the CLI's peak lr with the CLI's
+# schedule shape, one batch repeated.  moonshot at its serve depth of 4
+# layers (2953332736 params) does not fit: the functional AdamW holds the
+# old and the new f32 moments (2 x 23.6 GB) at once beside the params and
+# gradients, and such a run went out of memory in its first update with
+# 69.45 GB allocated (H100 80GB HBM3)
+FAMILY_BATCH, FAMILY_SEQ = 8, 512
+MOONSHOT_TRAIN_LAYERS = 2
+FAMILY_RUNS = (("mamba2-1.3b", None, 8), ("zamba2-2.7b", ZAMBA_LAYERS, 4),
+               ("moonshot-v1-16b-a3b", MOONSHOT_TRAIN_LAYERS, 4))
+# (f)'s card-vs-CPU check of each family at full width cut to 2 layers in
+# f32 (part (b)'s tolerance): batch 2 x seq 512 for the Mamba2 models (two
+# chunks), 2 x 128 for moonshot
+FAMILY_CHECK_SEQ = {"mamba2-1.3b": 512, "zamba2-2.7b": 512,
+                    "moonshot-v1-16b-a3b": TRAIN_SEQ}
+# the multimodal phase (17): phi-3-vision-4.2b and seamless-m4t-medium at
+# full size.  The registry run: MM_REQUESTS requests of MM_PROMPT_RANGE
+# text tokens (numpy default_rng(17)), MM_NEW_TOKENS greedy tokens each;
+# phi-3's 576 patches before each prompt, seamless' frames (1,
+# SERVE_MAX_SEQ / 4, 1024), the length of its cache's encoder memory, so
+# the requests' caches stack into slots.  The Server run: phase 8's
+# traffic.  Its install ledgers (bytes, copies), closed forms: phi-3
+# 3830516736 bf16 params (every leaf a multiple of 128 elements), k and v
+# (32, 8, 2048, 32, 96) bf16 plus pos; seamless 614926336 bf16 params, k
+# and v (12, 8, 2048, 16, 64) and enc_out (8, 512, 1024) bf16 plus pos
+MM_ARCHS = (("phi-3-vision-4.2b", "serve-phi3"),
+            ("seamless-m4t-medium", "serve-seamless"))
+MM_REQUESTS, MM_NEW_TOKENS = 8, 32
+MM_PROMPT_RANGE = (32, 512)
+MM_LEDGERS = {
+    "phi-3-vision-4.2b": {"params/**": (7661033472, 1),
+                          "cache/**": (6442450976, 2),
+                          "**": SERVE_LEDGERS["**"]},
+    "seamless-m4t-medium": {"params/**": (1229852672, 1),
+                            "cache/**": (813695008, 2),
+                            "**": SERVE_LEDGERS["**"]},
+}
 
 
 def say(*parts) -> None:
@@ -925,6 +998,48 @@ def check_serve_attention(device, prompt_lens, serve_valid, H: int, KV: int,
     return err
 
 
+def check_cross_attention(device, prompt_lens, H: int, KV: int, hd: int,
+                          src: int, slots: int):
+    """The encoder-decoder's non-causal flash calls at its serve shapes:
+    the encoder's self-attention over ``src`` frames, a prefill's
+    cross-attention for every prompt length (q (1, P, H, hd) against the
+    (1, src, KV, hd) memory) and a decode step's (q (slots, 1, H, hd)
+    against (slots, src, KV, hd)), each against the plain version; the
+    decode step's call is then timed beside it and SDPA.  Returns (timed
+    row, max error)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def plain(q, k, v):
+        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=False
+                                 ).transpose(1, 2)
+
+    err = 0.0
+    for B, Sq in [(1, src)] + [(1, P) for P in sorted(set(prompt_lens))] \
+            + [(slots, 1)]:
+        q = _bf16_randn(gen, device, B, Sq, H, hd)
+        k, v = (_bf16_randn(gen, device, B, src, KV, hd) for _ in range(2))
+        err = max(err, _close(ops.mha(q, k, v, causal=False), plain(q, k, v),
+                              f"non-causal flash {B} x {Sq} queries against "
+                              f"{src} keys, hd {hd}"))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    m = _trio(device, {
+        "kernel": lambda: ops.mha(q, k, v, causal=False),
+        "plain": lambda: plain(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)}, 50)
+    m.update(_bound((2 * slots * H * hd + 2 * slots * src * KV * hd) * 2,
+                    4.0 * slots * H * src * hd))
+    m["shape"] = (f"q ({slots}, 1, {H}, {hd}) against ({slots}, {src}, {KV}, "
+                  f"{hd}) encoder memory, bf16, non-causal (a decode step's "
+                  f"cross-attention)")
+    return m, err
+
+
 def ssd_padded_len(P: int, chunk: int) -> int:
     """The length apply_ssm scans for a P-token prompt: one chunk of P steps
     up to the chunk size, else P padded to a chunk multiple."""
@@ -1054,7 +1169,8 @@ def check_hd128_attention(device, prompt_lens, serve_valid, cfgs):
 
 
 def report_kernel(name: str, m: dict) -> None:
-    rows = [(label, m.get(label)) for label in ("serve", "large", "zamba2")]
+    rows = [(label, m.get(label))
+            for label in ("serve", "large", "zamba2", "phi3", "seamless_cross")]
     rows += sorted(m.get("hd128", {}).items())
     for label, r in rows:
         if r is None:
@@ -1103,7 +1219,8 @@ def small_logits_check(device, arch: str = "llama3.2-1b") -> float:
     """The smoke model (f32) on the card, through the kernels, against the
     same weights on the CPU, through the plain versions: logits of a
     forward, a prefill, three decode steps and a second prefill at the
-    position they reached, within 2e-4."""
+    position they reached, within 2e-4 (the forward and the first prefill
+    with seeded patches for the vlm, frames for the encdec)."""
     import numpy as np
     import torch
     from repro_torch.core import tree_map
@@ -1112,8 +1229,15 @@ def small_logits_check(device, arch: str = "llama3.2-1b") -> float:
     api = registry.get(arch, smoke=True)
     params = api.init(torch.Generator().manual_seed(0), device="cpu")
     dparams = tree_map(lambda t: t.to(device), params)
-    toks = torch.as_tensor(np.random.default_rng(5).integers(
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(
         0, api.cfg.vocab_size, (2, 37)).astype(np.int32))
+    cfg, kw = api.cfg, {}
+    if cfg.is_encdec or cfg.frontend == "vision":
+        rows = 16 if cfg.is_encdec else cfg.frontend_tokens
+        kw["frames" if cfg.is_encdec else "patches"] = torch.as_tensor(
+            rng.standard_normal((2, rows, cfg.d_model)).astype(np.float32))
+    dkw = {k: v.to(device) for k, v in kw.items()}
     err = 0.0
 
     def cmp(a, b, what):
@@ -1123,21 +1247,22 @@ def small_logits_check(device, arch: str = "llama3.2-1b") -> float:
             fail(f"smoke {arch} {what}: card != CPU (max |diff| {e})")
         err = max(err, e)
 
-    cmp(api.forward(dparams, toks.to(device))[0], api.forward(params, toks)[0],
-        "forward")
+    cmp(api.forward(dparams, toks.to(device), **dkw)[0],
+        api.forward(params, toks, **kw)[0], "forward")
     cc, hc = api.init_cache(2, 64, device=device), api.init_cache(2, 64,
                                                                   device="cpu")
-    dl, cc = api.prefill(dparams, toks.to(device), cc)
-    hl, hc = api.prefill(params, toks, hc)
+    dl, cc = api.prefill(dparams, toks.to(device), cc, **dkw)
+    hl, hc = api.prefill(params, toks, hc, **kw)
     cmp(dl, hl, "prefill")
     for _ in range(3):
         nxt = hl[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         dl, cc = api.decode_step(dparams, nxt.to(device), cc)
         hl, hc = api.decode_step(params, nxt, hc)
         cmp(dl, hl, "decode")
+    at = int(hc["pos"][0])
     dl, cc = api.prefill(dparams, toks[:, :9].to(device), cc)
     hl, hc = api.prefill(params, toks[:, :9], hc)
-    cmp(dl, hl, "prefill at position 40")
+    cmp(dl, hl, f"prefill at position {at}")
     return err
 
 
@@ -1172,30 +1297,33 @@ def release_host_cache() -> None:
 
 
 def serve_phase(device, kernels: dict, api, tag: str,
-                ledgers_want: dict) -> dict:
-    """``api``'s model at full width (random bf16 params drawn on the card)
-    behind Server(slots=8, max_seq=2048) with its own TransferSession,
-    serving the 12 requests of ``serve_prompts``; returns the run's launch
-    counts.  Raises on any failed check.  The server, its programs and the
-    session's pinned staging are released before it returns."""
+                ledgers_want: dict, params=None) -> dict:
+    """``api``'s model at full width (random bf16 params drawn on the card,
+    unless given) behind Server(slots=8, max_seq=2048) with its own
+    TransferSession, serving the 12 requests of ``serve_prompts``; returns
+    the run's launch counts.  Raises on any failed check.  The server, its
+    programs and the session's pinned staging are released before it
+    returns."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch._device import synchronize
     from repro_torch.core import TransferSession
     from repro_torch.models.specs import param_count
-    from repro_torch.models import lm, moe
+    from repro_torch.models import moe, registry
     from repro_torch.runtime import Request, Server
 
     cfg = api.cfg
     prompts = serve_prompts(cfg.vocab_size)
     longest = max(len(p) for p in prompts)
     t0 = time.perf_counter()
-    params = api.init(torch.Generator(device=device).manual_seed(0),
-                      device=device)
+    if params is None:
+        params = api.init(torch.Generator(device=device).manual_seed(0),
+                          device=device)
     synchronize(device)
-    say(f"[{tag}] {cfg.name}: {cfg.family}, {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, "
+    say(f"[{tag}] {cfg.name}: {cfg.family}, "
+        + (f"{cfg.enc_layers} encoder + " if cfg.is_encdec else "")
+        + f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
         + (f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
            f"{cfg.resolved_head_dim}, " if cfg.family != "ssm" else "")
         + (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
@@ -1207,7 +1335,7 @@ def serve_phase(device, kernels: dict, api, tag: str,
            f"prefill), " if cfg.family == "moe" else "")
         + f"{cfg.norm}, "
         + f"vocab {cfg.vocab_size}, {cfg.param_dtype}, "
-        f"{param_count(lm.spec_tree(cfg))} params; drawn on the card in "
+        f"{param_count(registry.spec_tree(cfg))} params; on the card in "
         f"{time.perf_counter() - t0:.2f} s")
 
     times = {"prefill": [], "decode": []}
@@ -1277,7 +1405,8 @@ def serve_phase(device, kernels: dict, api, tag: str,
              f"{SERVE_NEW_TOKENS} tokens ({len(done)} terminal of "
              f"{SERVE_REQUESTS})")
     def expected_launches(prefills, steps):      # the pack kernel: never
-        return {"gather_tiles": 0, **lm.kernel_launches(cfg, prefills, steps)}
+        return {"gather_tiles": 0,
+                **registry.kernel_launches(cfg, prefills, steps)}
 
     want = expected_launches(stats.prefill_requests, stats.decode_steps)
     if counts != want:
@@ -1293,7 +1422,8 @@ def serve_phase(device, kernels: dict, api, tag: str,
         f"decode steps; launches {counts} == {per_fwd['rmsnorm']} rmsnorm x "
         f"(prefills + steps), {per_fwd['flash_attention']} flash and "
         f"{per_fwd['ssd_chunks']} ssd_chunks x prefills, "
-        f"{expected_launches(0, 1)['decode_attention']} decode x steps")
+        f"{expected_launches(0, 1)['decode_attention']} decode "
+        f"(+ {expected_launches(0, 1)['flash_attention']} flash) x steps")
     pre, dec = times["prefill"], times["decode"]
     say(f"[{tag}] run {run_s:.3f} s, {tokens} tokens = {tokens / run_s:.1f} "
         f"tokens/s; prefill per request {1e3 * sum(pre) / len(pre):.2f} ms "
@@ -1314,8 +1444,7 @@ def serve_phase(device, kernels: dict, api, tag: str,
     cache = api.init_cache(1, SERVE_MAX_SEQ, device=device)
     logits, cache = api.prefill(params, torch.as_tensor(prompts[0][None],
                                                         device=device), cache)
-    wide = {k: v.repeat_interleave(SERVE_SLOTS, dim=0 if k == "pos" else 1)
-            for k, v in cache.items()}
+    wide = widen(cache, SERVE_SLOTS)
     last_w = last_1 = logits[0, -1].float()
     manual, agree, drift = [], 0, 0.0
     for step in range(SERVE_NEW_TOKENS):
@@ -1368,6 +1497,146 @@ def serve_phase(device, kernels: dict, api, tag: str,
     release_host_cache()
     say(f"[{tag}] released: before, {held}; after, {pinned_report(session)}")
     return counts
+
+
+def widen(cache: dict, n: int) -> dict:
+    """A batch-1 cache repeated into ``n`` slots: the (L, B, ...) stacks on
+    axis 1, ``pos`` and the encoder memory on axis 0."""
+    return {k: v.repeat_interleave(n, dim=0 if k in ("pos", "enc_out")
+                                   else 1)
+            for k, v in cache.items()}
+
+
+def serve_multimodal(device, kernels: dict, api, params, tag: str) -> dict:
+    """``api``'s model through the registry's ``prefill`` with its side
+    input (phi-3's patches, seamless' frames; seeded, bf16) and
+    ``decode_step``, as a server would run them: MM_REQUESTS requests of
+    MM_PROMPT_RANGE text tokens prefilled one by one at batch 1, their
+    caches stacked into MM_REQUESTS slots, then MM_NEW_TOKENS - 1 greedy
+    decode steps over the slots.  Fails unless every logit is finite, the
+    launches are exactly ``kernel_launches``' (each prefill encoding its
+    frames for seamless) and request 0's tokens equal a batch-1 prefill
+    and greedy decode with its cache in every slot (phases 8-12's check of
+    the server).  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.models import registry
+
+    cfg = api.cfg
+    rng = np.random.default_rng(17)
+    lo, hi = MM_PROMPT_RANGE
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, size=MM_REQUESTS)]
+    if cfg.is_encdec:
+        key, rows = "frames", max(1, SERVE_MAX_SEQ // cfg.src_ratio)
+        encodes = {"encodes": MM_REQUESTS}
+    else:
+        key, rows, encodes = "patches", cfg.frontend_tokens, {}
+    gen = torch.Generator(device=device).manual_seed(17)
+    extras = [torch.randn(1, rows, cfg.d_model, generator=gen,
+                          device=device).to(torch.bfloat16) for _ in prompts]
+
+    def prefill(j):
+        cache = api.init_cache(1, SERVE_MAX_SEQ, device=device)
+        return api.prefill(params, torch.as_tensor(prompts[j][None],
+                                                   device=device),
+                           cache, **{key: extras[j]})
+
+    def greedy(logits):
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{cfg.name} {key} run: non-finite logits")
+        return logits[:, -1].argmax(-1).tolist()
+
+    for k in kernels.values():
+        k.launches = 0
+    pre, dec, caches, out = [], [], [], []
+    for j in range(MM_REQUESTS):
+        synchronize(device)
+        t = time.perf_counter()
+        logits, cache = prefill(j)
+        synchronize(device)
+        pre.append(time.perf_counter() - t)
+        out.append(greedy(logits))
+        caches.append(cache)
+    cache = {k: torch.cat([c[k] for c in caches],
+                          dim=0 if k in ("pos", "enc_out") else 1)
+             for k in caches[0]}
+    del caches
+    for _ in range(MM_NEW_TOKENS - 1):
+        tok = torch.tensor([[o[-1]] for o in out], dtype=torch.int32,
+                           device=device)
+        synchronize(device)
+        t = time.perf_counter()
+        logits, cache = api.decode_step(params, tok, cache)
+        synchronize(device)
+        dec.append(time.perf_counter() - t)
+        for o, n in zip(out, greedy(logits)):
+            o.append(n)
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {"gather_tiles": 0, **registry.kernel_launches(
+        cfg, MM_REQUESTS, MM_NEW_TOKENS - 1, **encodes)}
+    if counts != want:
+        fail(f"{cfg.name} {key} run launched {counts}, expected {want}")
+    del cache, logits
+
+    logits, one = prefill(0)
+    wide = widen(one, MM_REQUESTS)
+    manual = greedy(logits)
+    for _ in range(MM_NEW_TOKENS - 1):
+        tok = torch.full((MM_REQUESTS, 1), manual[-1], dtype=torch.int32,
+                         device=device)
+        logits, wide = api.decode_step(params, tok, wide)
+        manual.append(greedy(logits)[0])
+    if manual != out[0]:
+        at = next(i for i, (a, b) in enumerate(zip(manual, out[0])) if a != b)
+        fail(f"{cfg.name} {key} run: request 0 differs from the batch-1 run "
+             f"at token {at}: {out[0][at:]} vs {manual[at:]}")
+    extra = (f"frames (1, {rows}, {cfg.d_model}) encoded at every prefill"
+             if cfg.is_encdec else
+             f"{rows} patch embeddings (1, {rows}, {cfg.d_model}) before "
+             f"each prompt")
+    tokens = MM_REQUESTS * MM_NEW_TOKENS
+    say(f"[{tag}] registry prefill({key}=) + decode_step: {MM_REQUESTS} "
+        f"requests of {[len(p) for p in prompts]} text tokens, {extra}, "
+        f"{MM_NEW_TOKENS} greedy tokens each over {MM_REQUESTS} slots; "
+        f"launches {counts} == kernel_launches; request 0 == a batch-1 "
+        f"prefill + greedy decode over {MM_REQUESTS} slots at all "
+        f"{MM_NEW_TOKENS} tokens; prefill per request {_spread_ms(pre)}; "
+        f"decode step {_spread_ms(dec)}; {tokens} tokens in "
+        f"{sum(pre) + sum(dec):.3f} s = "
+        f"{tokens / (sum(pre) + sum(dec)):.1f} tokens/s")
+    return counts
+
+
+def multimodal_phase(device, kernels: dict) -> dict:
+    """Phase 17: phi-3-vision-4.2b and seamless-m4t-medium at full size,
+    each drawn once on the card (seeded bf16), first through the registry
+    with patches / frames (serve_multimodal), then behind the Server
+    (serve_phase: text prompts, as the reference's Server serves them).
+    Returns the launch counts of each run."""
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.models import registry
+
+    out = {}
+    t0 = time.perf_counter()
+    for arch, tag in MM_ARCHS:
+        api = registry.get(arch)
+        t = time.perf_counter()
+        params = api.init(torch.Generator(device=device).manual_seed(0),
+                          device=device)
+        synchronize(device)
+        say(f"[{tag}] {arch}: params drawn on the card in "
+            f"{time.perf_counter() - t:.2f} s")
+        out[f"{tag}-{'frames' if api.cfg.is_encdec else 'patches'}"] = \
+            serve_multimodal(device, kernels, api, params, tag)
+        out[tag] = serve_phase(device, kernels, api, tag, MM_LEDGERS[arch],
+                               params=params)
+        del params
+        release_host_cache()
+    say(f"[multimodal] phase 17 ok in {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def profile_device_ms(device, fn, calls: int = 3) -> dict:
@@ -2140,8 +2409,134 @@ def train_kernel_grads(device, rows: int, D: int, B: int, H: int, KV: int,
     return out
 
 
-def train_card_vs_cpu(device, cfg, batch: int, seq: int) -> float:
-    """Part (b): one train step's loss and gradients of ``cfg`` (f32) on
+def train_ssd_grads(device, B: int, S: int, nh: int, hd: int, N: int,
+                    chunk: int) -> float:
+    """Part (a), continued: ssd_chunks' autograd.Function on the card (the
+    kernel forward, the plain version's gradient backward) against
+    ``torch.autograd`` of the plain version, with y_diag, states and cum
+    each carrying a seeded gradient, at B x S tokens cut into chunks of
+    ``chunk`` (nh heads of hd, state N), in f32 (within TRAIN_F32_TOL) and
+    bf16 (within BF16_TOL); one launch forward, none backward.  Returns the
+    max |diff|."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as SK, ref as SR
+
+    nc = S // chunk
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TRAIN_F32_TOL if dtype == torch.float32 else BF16_TOL
+        gen = torch.Generator(device=device).manual_seed(16)
+        x = torch.randn(B, nc, chunk, nh, hd, generator=gen, device=device
+                        ).to(dtype).transpose(2, 3)
+        dt = 0.01 + 0.1 * torch.rand(B, nc, nh, 1, chunk, generator=gen,
+                                     device=device)
+        dtA = -dt * (0.1 + torch.rand(nh, 1, 1, generator=gen,
+                                      device=device))
+        Bm, Cm = (torch.randn(B, nc, chunk, N, generator=gen, device=device
+                              ).to(dtype) for _ in range(2))
+        ins = (x, dt, dtA, Bm, Cm)
+        leaves = [t.detach().requires_grad_() for t in ins]
+        before = SK.ssd_chunks.launches
+        outs = SK.ssd_chunks(*leaves)
+        grads = [torch.randn(o.shape, generator=gen, device=device
+                             ).to(o.dtype) for o in outs]
+        got = torch.autograd.grad(outs, leaves, grads)
+        if device.type == "cuda" and SK.ssd_chunks.launches != before + 1:
+            fail(f"ssd_chunks under autograd launched "
+                 f"{SK.ssd_chunks.launches - before} times, not once")
+        plain = [t.detach().requires_grad_() for t in ins]
+        want = torch.autograd.grad(SR.ssd_chunks_ref(*plain), plain, grads)
+        err = max(err, _grad_check(f"ssd_chunks {dtype} dx/ddt/ddtA/dB/dC",
+                                   got, want, tol))
+    say(f"[train] (a) ssd_chunks: autograd on the card == autograd of the "
+        f"plain version for x, dt, dtA, B and C at B {B}, S {S} in chunks of "
+        f"{chunk}, {nh} heads of {hd}, state {N} (y_diag, states and cum "
+        f"each carrying a gradient): max |diff| {err} (f32 within "
+        f"{TRAIN_F32_TOL}, bf16 within {BF16_TOL}); one launch forward, "
+        f"none backward")
+    return err
+
+
+def train_family(device, kernels: dict, cfg, batch: int, seq: int,
+                 steps: int) -> dict:
+    """Part (f): ``cfg`` at full width trains ``steps`` steps through
+    ``runtime.loop.run`` from params drawn on the card, on one batch
+    repeated: finite losses, each lower than the one before wherever the
+    update between them had a nonzero lr, the launches exactly
+    ``kernel_launches(cfg, train_steps=steps)``.  Prints the step walls,
+    one step's device busy share and the peak device memory; returns the
+    launch counts."""
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm, registry
+    from repro_torch.models.specs import param_count
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime import loop, train
+
+    api = registry.get_model(cfg)
+    opt = make_optimizer(cfg.optimizer)
+    warmup = min(100, steps // 10 + 1)
+    step = train.make_train_step(api, opt,
+                                 warmup_cosine(TRAIN_LR, warmup, steps))
+    data = SyntheticLM(cfg.vocab_size, seq, batch)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device) if cuda else 0
+    held = [train.train_state(api, opt, torch.Generator(
+        device=device).manual_seed(0), device=device)]
+    one = data.batch(0)
+    for k in kernels.values():
+        k.launches = 0
+    res = loop.run(step, held.pop, lambda s: one, steps, device=device)
+    synchronize(device)
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {"gather_tiles": 0, **lm.kernel_launches(cfg, train_steps=steps)}
+    if counts != want:
+        fail(f"{cfg.name} training launched {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    losses = [m["loss"] for m in res.metrics_history]
+    lrs = [float(m["lr"]) for m in res.metrics_history]
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"{cfg.name} training: non-finite loss {losses}")
+    rises = [s for s in range(1, steps)
+             if lrs[s - 1] > 0 and not losses[s] < losses[s - 1]]
+    if rises:
+        fail(f"{cfg.name} training on one batch: the updates before steps "
+             f"{rises} did not lower the loss ({losses}; lrs {lrs})")
+    walls = [m["wall_s"] for m in res.metrics_history]
+    tps = batch * seq / sorted(walls[1:])[len(walls[1:]) // 2]
+    say(f"[train] (f) {cfg.name} at full width ({cfg.family}, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{param_count(lm.spec_tree(cfg))} {cfg.param_dtype} params, "
+        f"{cfg.optimizer}, remat {cfg.remat}), batch {batch} x seq {seq}, "
+        f"lr warmup_cosine({TRAIN_LR}, {warmup}, {steps}), {steps} steps on "
+        f"one batch: losses {[round(x, 4) for x in losses]}, each lower than "
+        f"the one before after an update with a nonzero lr; launches "
+        f"{counts} == kernel_launches(train_steps={steps}); step wall: first "
+        f"{walls[0] * 1e3:.2f} ms, then {_spread_ms(walls[1:])}; {tps:.1f} "
+        f"tokens/s at the median; peak device memory {peak} B ({before} B "
+        f"allocated before the run)")
+    bat = data.batch(steps)
+    prof = profile_device_ms(device, lambda: step(res.state, bat), calls=2)
+    if prof["device_ms"]:
+        say(f"[train] (f) {cfg.name} profile, one step: "
+            f"{prof['wall_ms']:.2f} ms of wall (unprofiled), device busy "
+            f"{prof['device_ms']:.2f} ms under the profiler, so the device is "
+            f"idle {100 * max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1f}"
+            f"% of the step; top device ops {prof['top']}")
+    else:
+        say(f"[train] (f) {cfg.name} profile: the profiler recorded no "
+            f"device time; device busy share not measured")
+    del res, bat, held
+    release_host_cache()
+    return counts
+
+
+def train_card_vs_cpu(device, cfg, batch: int, seq: int,
+                      part: str = "b") -> float:
+    """Part (b) (and (f)'s checks): one train step's loss and gradients of ``cfg`` (f32) on
     the card, through the kernels, against the CPU, through the plain
     versions, from the same params (drawn on the CPU and carried over by
     ``convert``'s round trip): the loss within rtol 1e-4, every gradient
@@ -2178,7 +2573,7 @@ def train_card_vs_cpu(device, cfg, batch: int, seq: int) -> float:
             fail(f"train step card vs CPU: {path} differs by {gap} of its "
                  f"largest |grad| {top} (tolerance {TRAIN_STEP_TOL})")
         worst = max(worst, gap)
-    say(f"[train] (b) {cfg.name} at full width cut to {cfg.num_layers} "
+    say(f"[train] ({part}) {cfg.name} at full width cut to {cfg.num_layers} "
         f"layers (f32, remat {cfg.remat}), batch {batch} x seq {seq}: loss "
         f"{float(loss):.6f} on the card (kernels) vs {float(h_loss):.6f} on "
         f"the CPU (plain versions); all {len(tree_leaves(grads))} gradient "
@@ -2567,19 +2962,22 @@ def train_restart(device, kernels: dict, cfg, batch: int, seq: int,
 
 
 def train_phase(device, kernels: dict) -> dict:
-    """Phase 15: parts (a)-(d) at the shapes the constants name; returns
-    the launch counts of (c) and (d).
+    """Phase 15: parts (a)-(f) at the shapes the constants name; returns
+    the launch counts of (c), (d), (e) and each of (f)'s runs.
     Checkpoints go under build/ (ignored by git) and are removed."""
     import dataclasses
     import shutil
     from repro_torch.models import registry
 
     cfg = registry.get("llama3.2-1b").cfg
+    mamba = registry.get("mamba2-1.3b").cfg
     t0 = time.perf_counter()
     train_kernel_grads(device, TRAIN_NORM_ROWS, cfg.d_model,
                                   TRAIN_BATCH, cfg.num_heads,
                                   cfg.num_kv_heads, TRAIN_SEQ,
                                   cfg.resolved_head_dim)
+    train_ssd_grads(device, 2, FAMILY_SEQ, mamba.ssm_heads,
+                    mamba.ssm_head_dim, mamba.ssm_state, mamba.ssm_chunk)
     f32 = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS,
                               param_dtype="float32",
                               compute_dtype="float32")
@@ -2596,9 +2994,23 @@ def train_phase(device, kernels: dict) -> dict:
                                 root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    out = {"train": full["counts"], "serve-cli": full["serve-cli"],
+           "train-restart": restart}
+    for arch, layers, steps in FAMILY_RUNS:
+        fcfg = registry.get(arch).cfg
+        if layers is not None:
+            fcfg = dataclasses.replace(fcfg, num_layers=layers)
+        out[f"train-{arch.split('-')[0]}"] = train_family(
+            device, kernels, fcfg, FAMILY_BATCH, FAMILY_SEQ, steps)
+    for arch, _, _ in FAMILY_RUNS:
+        f32 = dataclasses.replace(registry.get(arch).cfg,
+                                  num_layers=TRAIN_CHECK_LAYERS,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        train_card_vs_cpu(device, f32, TRAIN_CHECK_BATCH,
+                          FAMILY_CHECK_SEQ[arch], part="f")
     say(f"[train] phase 15 ok in {time.perf_counter() - t0:.2f} s")
-    return {"train": full["counts"], "serve-cli": full["serve-cli"],
-            "train-restart": restart}
+    return out
 
 
 def main() -> int:
@@ -2690,6 +3102,30 @@ def main() -> int:
         + f": == plain within {BF16_TOL} (max |diff| {herr})")
     flash["max_abs_err"] = max(flash["max_abs_err"], herr)
     dec["max_abs_err"] = max(dec["max_abs_err"], herr)
+    phi = registry.get("phi-3-vision-4.2b").cfg
+    perr = check_serve_attention(device, lens, serve_valid, phi.num_heads,
+                                 phi.num_kv_heads, phi.resolved_head_dim)
+    flash["phi3"], dec["phi3"], terr = time_serve_attention(
+        device, max(lens), serve_valid, phi.num_heads, phi.num_kv_heads,
+        phi.resolved_head_dim)
+    perr = max(perr, terr)
+    say(f"[kernels] flash_attention and decode_attention at head dim "
+        f"{phi.resolved_head_dim} ({phi.name}, {phi.num_heads}/"
+        f"{phi.num_kv_heads} heads; prompts {sorted(set(lens))}, the serve "
+        f"run's ragged 8 x {SERVE_MAX_SEQ} cache): == plain within "
+        f"{BF16_TOL} (max |diff| {perr})")
+    seam = registry.get("seamless-m4t-medium").cfg
+    src = SERVE_MAX_SEQ // seam.src_ratio
+    flash["seamless_cross"], cerr = check_cross_attention(
+        device, lens, seam.num_heads, seam.num_kv_heads,
+        seam.resolved_head_dim, src, SERVE_SLOTS)
+    say(f"[kernels] non-causal flash_attention at {seam.name}'s widths "
+        f"({seam.num_heads} heads of {seam.resolved_head_dim}, {src} frames "
+        f"of encoder memory: the encoder's self-attention, each prompt's "
+        f"cross-attention, a decode step's at Sq = 1): == plain within "
+        f"{BF16_TOL} (max |diff| {cerr})")
+    flash["max_abs_err"] = max(flash["max_abs_err"], perr, cerr)
+    dec["max_abs_err"] = max(dec["max_abs_err"], perr)
     report_kernel("flash_attention", flash)
     report_kernel("decode_attention", dec)
     ssd = check_ssd(device, lens, mamba.ssm_chunk, [
@@ -2697,7 +3133,8 @@ def main() -> int:
         ("zamba2", zamba.ssm_heads, zamba.ssm_head_dim, zamba.ssm_state)],
         16384)
     report_kernel("ssd_chunks", ssd)
-    for arch in ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b") + HD128_ARCHS:
+    for arch in ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b") + HD128_ARCHS \
+            + tuple(a for a, _ in MM_ARCHS):
         say(f"[kernels] smoke {arch} (f32) logits on the card == CPU within "
             f"2e-4: max |diff| {small_logits_check(device, arch)}")
     torch.cuda.empty_cache()
@@ -2746,7 +3183,6 @@ def main() -> int:
                     "cache/**": SSM_CACHE_LEDGERS[api.cfg.name],
                     "**": SERVE_LEDGERS["**"]}
         served[tag] = serve_phase(device, kernels, api, tag, want)
-    served_counts = {k: sum(c[k] for c in served.values()) for k in kernels}
 
     # the policy scenarios (phase 13): transfers only, so no kernel launches
     reset()
@@ -2776,6 +3212,13 @@ def main() -> int:
     # training (phase 15): train_phase resets the counters just before
     # each run of the train path and reads them just after
     trained = train_phase(device, kernels)
+
+    # the vlm and the encoder-decoder (phase 17), after training so the
+    # card holds no train state: each run resets the counters just before
+    # and reads them just after
+    multimodal = multimodal_phase(device, kernels)
+    served.update(multimodal)
+    served_counts = {k: sum(c[k] for c in served.values()) for k in kernels}
     served.update(trained)
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
@@ -2791,7 +3234,8 @@ def main() -> int:
              "decode_attention/kernel.py:65"),
             ("ssd_chunks", ssd, "ssd_scan", "ssd_scan/kernel.py:56")):
         serve_m = m["serve"]
-        extra = {k: m[k] for k in ("zamba2", "hd128", "max_abs_err_vs_split")
+        extra = {k: m[k] for k in ("zamba2", "phi3", "seamless_cross",
+                                   "hd128", "max_abs_err_vs_split")
                  if k in m}
         rows.append(dict(
             name=kname, route="cuda", source=src.format(pkg, kname),

@@ -85,6 +85,11 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k runs only for sub-quadratic families (DESIGN.md §4.2)."""
+        return self.family in ("ssm", "hybrid")
+
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU smoke tests."""
         return dataclasses.replace(

@@ -26,7 +26,8 @@
 //     BlockSpec's `h // g` index map.  The queries, pre-scaled by
 //     scale * log2(e), and the f32 accumulators live in registers.
 //   * Each lane reads 16 bytes of a K and a V row (hd 64 in bf16: 8 lanes a
-//     row, 4 rows per warp instruction; hd 80: 10 of a 16-lane group), 4
+//     row, 4 rows per warp instruction; hd 80 and 96: 10 and 12 of a
+//     16-lane group, the rest of the group idle), 4
 //     rows per lane group in flight before any is used.  Dot products are
 //     reduced with shuffles inside the lane group; each lane group keeps
 //     its own online softmax over its rows, one rescale per 4 rows.  The
@@ -346,6 +347,7 @@ int launch(const void* q, const void* k, const void* v, const int* valid_len,
     case 32: launch_heads<T, 32>(gt, grid, stream, q, k, v, valid_len, ml, pa, H, KV, S, split, qs, ks, vs, sl, vec); break;
     case 64: launch_heads<T, 64>(gt, grid, stream, q, k, v, valid_len, ml, pa, H, KV, S, split, qs, ks, vs, sl, vec); break;
     case 80: launch_heads<T, 80>(gt, grid, stream, q, k, v, valid_len, ml, pa, H, KV, S, split, qs, ks, vs, sl, vec); break;
+    case 96: launch_heads<T, 96>(gt, grid, stream, q, k, v, valid_len, ml, pa, H, KV, S, split, qs, ks, vs, sl, vec); break;
     case 128: launch_heads<T, 128>(gt, grid, stream, q, k, v, valid_len, ml, pa, H, KV, S, split, qs, ks, vs, sl, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -365,7 +367,7 @@ int launch(const void* q, const void* k, const void* v, const int* valid_len,
 // each given by its strides in elements (batch, seq, head; the head dim
 // contiguous; q and out ignore their seq stride); valid_len (B,) int32 on
 // the card.  scratch: B * H * ceil(S / split) * (hd + 2) floats on the
-// card.  dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 80, 128}.
+// card.  dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 80, 96, 128}.
 // vec = 1 when every K/V row is 16-byte aligned.  H % KV == 0,
 // B * KV > 0, split > 0.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,

@@ -37,7 +37,7 @@ from . import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 SPLITS = (64, 128, 256, 512)   # the keys a first-pass block may take
 
 

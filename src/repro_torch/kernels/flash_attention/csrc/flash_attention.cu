@@ -39,10 +39,12 @@
 //     host work to a host-bound serve loop; with cp.async the kernel writes
 //     the wgmma layout itself.  That layout is the no-swizzle one (8 x 16 B
 //     core matrices, each 128 contiguous bytes): it takes every head dim
-//     the models use, 16 to 128 including zamba2's 80 (a 160-byte row that
-//     no 128-byte swizzle atom holds), with no padding, and its stores are
-//     free of bank conflicts because 8 neighbouring lanes fill the 8 rows
-//     of one core matrix (smem offset = 16 * copy index).
+//     the models use, 16 to 128 including zamba2's 80 and phi-3's 96 (160-
+//     and 192-byte rows that no 128-byte swizzle atom holds), with no
+//     padding, and its stores are free of bank conflicts because 8
+//     neighbouring lanes fill the 8 rows of one core matrix (smem offset =
+//     16 * copy index).  At hd 96 P V is wgmma m64n96k16 (a valid N) and
+//     Q K^T six k16 steps; the ring keeps three stages, 96 KiB in all.
 //   * The row max and sum of a fragment span the 4 lanes of a quad
 //     (__shfl_xor_sync over 1 and 2); exp2 with the scale folded into
 //     log2(e) and applied in the exponent's FFMA; O is rescaled in
@@ -403,6 +405,31 @@ template <> struct WgmmaRS<80> {
   }
 };
 
+template <> struct WgmmaRS<96> {
+  static __device__ __forceinline__ void run(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
 template <> struct WgmmaRS<128> {
   static __device__ __forceinline__ void run(float (&d)[64],
                                              const uint32_t (&a)[4],
@@ -689,7 +716,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // its strides in elements (batch, head, seq; the head dim contiguous).
 // dtype 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel:
 // q, k and v 16-byte aligned with strides a multiple of 8 elements); hd in
-// {16, 32, 64, 80, 128}; H % KV == 0; B, H, Sq > 0.  q_offset and kv_lens
+// {16, 32, 64, 80, 96, 128}; H % KV == 0; B, H, Sq > 0.  q_offset and kv_lens
 // are (B,) int32 on the device, or null for an offset of 0 and every key
 // valid; a length is clamped into [1, Sk] and an offset to >= 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -712,6 +739,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 32: return launch<32>(dtype, q, k, v, o, q_offset, kv_lens, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
     case 64: return launch<64>(dtype, q, k, v, o, q_offset, kv_lens, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
     case 80: return launch<80>(dtype, q, k, v, o, q_offset, kv_lens, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
+    case 96: return launch<96>(dtype, q, k, v, o, q_offset, kv_lens, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
     case 128: return launch<128>(dtype, q, k, v, o, q_offset, kv_lens, B, H, KV, Sq, Sk, causal, scale, qs, ks, vs, os, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

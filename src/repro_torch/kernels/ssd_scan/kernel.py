@@ -19,6 +19,14 @@ kernels on the CUDA cores.  See the source for the design.
 runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU tensors.
 ``ssd_chunks.launches`` counts the wrapper's launches (one per call,
 whichever of the source's kernels it runs).
+
+On the card, when autograd records the call, it is a
+``torch.autograd.Function``: the forward is the kernel, the backward is
+plain PyTorch — the gradient of :func:`~.ref.ssd_chunks_ref`, recomputed
+in f32 from the saved inputs and cast to their dtypes, for whichever of
+y_diag, states and cum received a gradient.  The reference has no backward
+kernel either (XLA differentiates its jnp scan).  The backward launches
+nothing.
 """
 from __future__ import annotations
 
@@ -88,13 +96,59 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
                          f"N <= {MAX_N}, got Q {Q}, hd {hd}, N {N}")
     if x.stride(4) != 1 or Bm.stride(3) != 1 or Cm.stride(3) != 1:
         raise ValueError("the last dim of x, Bm and Cm must be contiguous")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, dtA, Bm, Cm)):
+        y, states, cum = _SSDChunks.apply(x, dt, dtA, Bm, Cm)
+    else:
+        y, states, cum = _launch(x, dt, dtA, Bm, Cm)
+    return y.transpose(2, 3), states, cum
+
+
+class _SSDChunks(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient backward.  The
+    forward returns y_diag's contiguous (B, nc, Q, nh, hd) base (the caller
+    takes the (B, nc, nh, Q, hd) view), so no view crosses the Function.
+    All three outputs carry gradient in the model (``cum`` through the
+    inter-chunk decay and ``exp(cum)`` of the off-diagonal term); a
+    gradient autograd does not deliver arrives as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dtA, Bm, Cm):
+        ctx.save_for_backward(x, dt, dtA, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return _launch(x, dt, dtA, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, gy, gstates, gcum):
+        ins = ctx.saved_tensors
+        outs, grads = [], []
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in ins]
+            y, states, cum = ref.ssd_chunks_ref(*leaves)
+            for out, g in ((y, None if gy is None else gy.transpose(2, 3)),
+                           (states, gstates), (cum, gcum)):
+                if g is not None:
+                    outs.append(out)
+                    grads.append(g.float())
+            if not outs:
+                return (None,) * 5
+            got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+        return tuple(None if g is None else g.to(t.dtype)
+                     for g, t in zip(got, ins))
+
+
+def _launch(x, dt, dtA, Bm, Cm):
+    """One launch of the kernel on checked CUDA tensors; returns y_diag's
+    contiguous (B, nc, Q, nh, hd) base, states and cum."""
+    B, nc, nh, Q, hd = x.shape
+    N = Bm.shape[-1]
     dev = x.device
-    y = torch.empty((B, nc, Q, nh, hd), dtype=x.dtype,
-                    device=dev).transpose(2, 3)
+    base = torch.empty((B, nc, Q, nh, hd), dtype=x.dtype, device=dev)
+    y = base.transpose(2, 3)
     states = torch.empty((B, nc, nh, hd, N), dtype=torch.float32, device=dev)
     cum = torch.empty((B, nc, nh, 1, Q), dtype=torch.float32, device=dev)
     if B == 0 or nc == 0 or nh == 0:
-        return y, states, cum   # a grid of 0 blocks is a launch error
+        return base, states, cum   # a grid of 0 blocks is a launch error
 
     def s4(t):
         return t.stride(0), t.stride(1), t.stride(2), t.stride(-1)
@@ -115,7 +169,7 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
     if err:
         raise RuntimeError(f"ssd_chunks launch failed with CUDA error {err}")
     ssd_chunks.launches += 1
-    return y, states, cum
+    return base, states, cum
 
 
 ssd_chunks.launches = 0

@@ -9,12 +9,15 @@ Pallas kernel's ``_ssd_kernel``) over the whole (B, nc, nh) grid at once:
 
 It is two batched matmuls plus the masked ``exp``: ``C Bᵀ`` is formed once
 per chunk (B and C are shared across heads) and broadcast over the heads,
-so the largest temporary is one (B, nc, nh, Q, Q) f32 tensor (about 1 GB
-at B = 1, S = 16384, nh = 64, Q = 256); a three-way einsum would build a
-(Q, Q, hd) product per tile instead.  The entries above the diagonal are
-set to -inf before the ``exp``, so they are 0 and never overflow.  The CPU
-path of :func:`~repro_torch.kernels.ssd_scan.kernel.ssd_chunks` runs it;
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+so the largest temporaries are two (B, nc, nh, Q, Q) f32 tensors (about
+1 GB each at B = 1, S = 16384, nh = 64, Q = 256); a three-way einsum would
+build a (Q, Q, hd) product per tile instead.  Every op is out of place
+after the mask, so autograd differentiates it.  The entries above the
+diagonal are set to -inf before the ``exp``, so they are 0 and never
+overflow.  The CPU path of
+:func:`~repro_torch.kernels.ssd_scan.kernel.ssd_chunks` runs it, and on
+the card its gradient is the kernel's backward; ``chip_smoke.py`` holds
+the CUDA kernel against it on the card.
 
 :func:`ssd_chunks_split_ref` is a CPU model of the bf16 tensor-core
 kernel's arithmetic, for the tests and ``chip_smoke.py`` only (no path
@@ -41,7 +44,8 @@ def ssd_chunks_ref(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
     L = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper,
                                                              float("-inf"))
     Bf, Cf = Bm.float(), Cm.float()
-    L.exp_().mul_((Cf @ Bf.transpose(-1, -2))[:, :, None])        # (C Bᵀ) ∘ L
+    # out of place: autograd keeps exp's output for its backward
+    L = torch.exp(L) * (Cf @ Bf.transpose(-1, -2))[:, :, None]    # (C Bᵀ) ∘ L
     dtx = x.float() * dt[:, :, :, 0, :, None].float()              # B,nc,nh,Q,hd
     y = L @ dtx
     del L

@@ -1,0 +1,232 @@
+"""Encoder-decoder LM (the seamless-m4t backbone).
+
+The port's counterpart of ``repro/models/encdec.py``.  The audio frontend
+is a stub: the caller supplies precomputed frame embeddings (B, S_src,
+d_model).  The encoder is a non-causal transformer over the frames; the
+decoder a causal one with cross-attention to the encoder's output.  The
+same parameter tree paths (``enc_blocks`` and ``dec_blocks`` stacked on a
+leading axis) and the same cache layout (``(L, B, S_max, KV, hd)`` KV,
+``enc_out`` (B, max(1, S_max / src_ratio), d_model)), so the transfer
+ledgers of a serve state equal the reference's.
+
+On the card every attention goes through the hand-written kernels: the
+encoder's self-attention and every cross-attention through
+``flash_attention`` with ``causal=False`` (a one-token decode step's
+cross-attention at Sq = 1), the decoder's self-attention through flash at
+a prefill and ``decode_attention`` at a decode step.  LayerNorm, the GeLU
+MLP and the tied embedding stay plain PyTorch, as in the decoder-only
+models.  Every block runs under ``cfg.remat`` (:func:`lm._remat`) when
+autograd records it.
+
+``prefill`` encodes ``frames`` when given and otherwise reads the cache's
+``enc_out``, as the reference does; the new cache carries the encoder
+output it used.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..configs.base import ModelConfig
+from ..core.deepcopy import ShapeDtype
+from ..core.treepath import tree_map
+from . import layers as L
+from .lm import _kv_slot, _remat, _stack, cross_entropy
+from .specs import init_params, torch_dtype
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if not cfg.is_encdec:
+        raise ValueError(f"encdec.py builds encoder-decoder models "
+                         f"(enc_layers > 0), not {cfg.name!r}")
+
+
+def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    _check_family(cfg)
+    enc_block = {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+                 "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    dec_block = {"ln1": L.norm_specs(cfg), "attn": L.attention_specs(cfg),
+                 "lnx": L.norm_specs(cfg),
+                 "xattn": L.attention_specs(cfg, cross=True),
+                 "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    return {
+        "embed": L.embed_specs(cfg),
+        "enc_blocks": _stack(enc_block, cfg.enc_layers),
+        "dec_blocks": _stack(dec_block, cfg.num_layers),
+        "enc_norm": L.norm_specs(cfg),
+        "final_norm": L.norm_specs(cfg),
+    }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device: DeviceLike = None) -> Any:
+    return init_params(spec_tree(cfg), generator, cfg.param_dtype, device)
+
+
+def abstract(cfg: ModelConfig) -> Any:
+    """The params' shapes and dtypes, without data."""
+    dtype = torch_dtype(cfg.param_dtype)
+    return tree_map(lambda s: ShapeDtype(s.shape, s.dtype or dtype),
+                    spec_tree(cfg))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The decoder's KV cache, its positions and the encoder memory."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    kv_dtype = torch_dtype(cfg.compute_dtype)
+    kvhd = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    src = max(1, max_seq // cfg.src_ratio)
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "k": torch.zeros((cfg.num_layers, batch, max_seq) + kvhd,
+                         dtype=kv_dtype, device=dev),
+        "v": torch.zeros((cfg.num_layers, batch, max_seq) + kvhd,
+                         dtype=kv_dtype, device=dev),
+        # encoder memory, filled at prefill, read by cross-attention
+        "enc_out": torch.zeros((batch, src, cfg.d_model), dtype=kv_dtype,
+                               device=dev),
+    }
+
+
+def kernel_launches(cfg: ModelConfig, prefills: int = 0, steps: int = 0,
+                    train_steps: int = 0, encodes: int = 0
+                    ) -> Dict[str, int]:
+    """Launches of each model kernel on the card: ``encodes`` of the
+    ``prefills`` prefill requests had frames to encode (one flash per
+    encoder layer); a prefill then runs one flash per decoder layer for the
+    self-attention and one for the cross-attention, a decode step one
+    decode_attention and one flash (the cross-attention at Sq = 1) per
+    decoder layer.  A train step's forward (one per micro-batch) encodes
+    and decodes, and under remat the backward runs every block's forward
+    again.  rmsnorm: two per encoder block, three per decoder block, the
+    encoder's and the final norm per forward, where ``cfg.norm`` is
+    rmsnorm (seamless' is LayerNorm: none)."""
+    _check_family(cfg)
+    E, D = cfg.enc_layers, cfg.num_layers
+    forwards = train_steps * max(1, cfg.micro_batches)
+    redo = forwards if cfg.remat != "none" else 0
+    rms = cfg.norm == "rmsnorm"
+    enc_norms, dec_norms = (2 * E + 1, 3 * D + 1) if rms else (0, 0)
+    return {"rmsnorm": enc_norms * (encodes + forwards)
+            + dec_norms * (prefills + steps + forwards)
+            + (enc_norms + dec_norms - 2 if rms else 0) * redo,
+            "flash_attention": E * (encodes + forwards + redo)
+            + 2 * D * (prefills + forwards + redo) + D * steps,
+            "decode_attention": D * steps, "ssd_chunks": 0}
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _enc_block(cfg, p, x, *, positions):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    out, _ = L.multihead_attention(cfg, p["attn"], h, positions=positions,
+                                   causal=False)
+    x = x + out
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.apply_mlp(cfg, p["mlp"], h)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_src, d_model) precomputed frontend embeddings ->
+    the encoder memory (B, S_src, d_model) in the compute dtype."""
+    x = frames.to(torch_dtype(cfg.compute_dtype))
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    block = _remat(cfg, functools.partial(_enc_block, cfg))
+    for i in range(cfg.enc_layers):
+        p = tree_map(lambda t: t[i], params["enc_blocks"])
+        x = block(p, x, positions=positions)
+    return L.apply_norm(cfg, params["enc_norm"], x)
+
+
+def _dec_block(cfg, p, x, enc_out, *, positions, cache, kv_valid_len):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    out, _ = L.multihead_attention(cfg, p["attn"], h, positions=positions,
+                                   kv_cache=cache, kv_valid_len=kv_valid_len)
+    x = x + out
+    h = L.apply_norm(cfg, p["lnx"], x)
+    out, _ = L.multihead_attention(cfg, p["xattn"], h, positions=positions,
+                                   kv_x=enc_out)
+    x = x + out
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.apply_mlp(cfg, p["mlp"], h)
+
+
+def _decode_stack(cfg, params, x, enc_out, *, positions, cache,
+                  kv_valid_len):
+    """The decoder blocks in order, each writing its KV slot in place."""
+    block = _remat(cfg, functools.partial(_dec_block, cfg))
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda t: t[i], params["dec_blocks"])
+        x = block(p, x, enc_out, positions=positions,
+                  cache=_kv_slot(cache, i), kv_valid_len=kv_valid_len)
+    return x
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+            frames: torch.Tensor) -> Tuple[torch.Tensor, None, torch.Tensor]:
+    """Teacher-forced logits: tokens (B, S) and frames (B, S_src, d_model)
+    -> logits (B, S, V) f32, no cache, aux loss 0 (``loss_fn``'s
+    forward)."""
+    _check_family(cfg)
+    enc_out = encode(cfg, params, frames)
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _decode_stack(cfg, params, x, enc_out, positions=positions,
+                      cache=None, kv_valid_len=None)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return (L.unembed(cfg, params["embed"], x), None,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """batch: {"frames": (B, S_src, D), "tokens": (B, S), "labels": (B,
+    S)}.  Returns (loss, metrics {"loss", "aux_loss" (0), "tokens"})."""
+    logits, _, aux = forward(cfg, params, batch["tokens"],
+                             frames=batch["frames"])
+    loss, tokens = cross_entropy(logits, batch["labels"])
+    return loss, {"loss": loss, "aux_loss": aux, "tokens": tokens}
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+            cache: Dict[str, torch.Tensor], *,
+            frames: Optional[torch.Tensor] = None):
+    """Encode ``frames`` (or read the cache's ``enc_out``) and fill the
+    decoder's self-attention cache from a prompt at any cache position;
+    returns last-token logits and the new cache, whose ``enc_out`` is the
+    memory used (in the cache's dtype)."""
+    _check_family(cfg)
+    S = tokens.shape[1]
+    enc_out = (encode(cfg, params, frames) if frames is not None
+               else cache["enc_out"])
+    positions = torch.arange(S, device=tokens.device)[None, :] \
+        + cache["pos"][:, None]
+    valid = cache["pos"] + S
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = _decode_stack(cfg, params, x, enc_out, positions=positions,
+                      cache=cache, kv_valid_len=valid)
+    x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
+    logits = L.unembed(cfg, params["embed"], x)
+    return logits, {"pos": valid, "k": cache["k"], "v": cache["v"],
+                    "enc_out": enc_out.to(cache["enc_out"].dtype)}
+
+
+def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor]):
+    """One token per sequence against the cache. tokens: (B, 1)."""
+    _check_family(cfg)
+    positions = cache["pos"][:, None]
+    valid = cache["pos"] + 1
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = _decode_stack(cfg, params, x, cache["enc_out"], positions=positions,
+                      cache=cache, kv_valid_len=valid)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(cfg, params["embed"], x)
+    return logits, {"pos": valid, "k": cache["k"], "v": cache["v"],
+                    "enc_out": cache["enc_out"]}

@@ -1,8 +1,8 @@
 """Transformer layers, as pure functions over param dicts.
 
-The port's counterpart of ``repro/models/layers.py``, for the paths the
-decoder-only attention models take (dense, moe and the hybrid's shared
-block).  Where the reference attends through its blockwise jnp softmax and
+The port's counterpart of ``repro/models/layers.py``, for every path the
+models take (the decoder stacks, the hybrid's shared block, the
+encoder-decoder's encoder and cross-attention).  Where the reference attends through its blockwise jnp softmax and
 normalises in jnp, the port calls the kernels of :mod:`repro_torch.kernels`
 — on the card the hand-written CUDA kernels, on the CPU their plain
 versions:
@@ -13,13 +13,15 @@ versions:
   * every other attention goes through ``kernels.flash_attention``, causal,
     with the query rows at ``q_offset = positions[:, 0]`` onwards and
     ``kv_len`` the number of valid keys, both per batch on the device, so
-    a multi-token call at any cache position masks as the reference does.
+    a multi-token call at any cache position masks as the reference does;
+    the encoder's self-attention and every cross-attention (a one-token
+    decode step's too, at Sq = 1) go through it non-causal.
 
 The matmuls stay ``torch.matmul``: they are products outside any kernel of
 the reference.  So do LayerNorm (f32, biased variance, eps 1e-5), the qkv
 biases (added before rope) and the non-gated MLP, whose GeLU is the tanh
 approximation, ``jax.nn.gelu``'s default: no Pallas kernel of the
-reference computes them.  Cross-attention waits for the encdec family.
+reference computes them.
 """
 from __future__ import annotations
 
@@ -81,7 +83,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # attention (GQA, optional KV cache)
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamSpec]:
+    """The projections; a cross-attention's (``cross``) are the same
+    shapes, its keys and values projected from the encoder memory."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     s = {"wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
          "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
@@ -129,16 +133,26 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor,
     cache[rows[:, None], idx.clamp(max=S_max - 1)] = vals
 
 
+def _self_qkv(cfg, p, x, positions):
+    """Self-attention's q, k (both roped) and v, biases added first."""
+    q = rope(_project(x, p["wq"], p.get("bq")), positions, cfg.rope_theta)
+    k = rope(_project(x, p["wk"], p.get("bk")), positions, cfg.rope_theta)
+    return q, k, _project(x, p["wv"], p.get("bv"))
+
+
 def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
                         positions: torch.Tensor,
                         kv_cache: Optional[Dict[str, Any]] = None,
                         causal: bool = True,
+                        kv_x: Optional[torch.Tensor] = None,
                         kv_valid_len: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """GQA attention.
 
-    x: (B, S, D); positions: broadcastable to (B, S).  ``kv_cache``
-    {"k": (B, S_max, KV, hd), "v": ...} is written IN PLACE at
+    x: (B, S, D); positions: broadcastable to (B, S).  ``kv_x`` (B, S_src,
+    D) switches to cross-attention: keys and values projected from it (no
+    biases, no rope on either side), non-causal, every key valid, no cache.
+    ``kv_cache`` {"k": (B, S_max, KV, hd), "v": ...} is written IN PLACE at
     ``positions`` (index writes, where the reference blends a new cache
     with ``where`` over all of S_max); the values equal the reference's.
     The returned cache holds the same tensors.
@@ -147,15 +161,17 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     offset = positions.expand(B, S)[:, 0]       # positions run offset + s
 
-    q = rope(_project(x, p["wq"], p.get("bq")), positions, cfg.rope_theta)
-    k = rope(_project(x, p["wk"], p.get("bk")), positions, cfg.rope_theta)
-    v = _project(x, p["wv"], p.get("bv"))
-
     new_cache = None
-    if kv_cache is None:
+    if kv_x is not None:
+        q = _project(x, p["wq"], p.get("bq"))
+        ctx = mha(q, _project(kv_x, p["wk"]), _project(kv_x, p["wv"]),
+                  causal=False, q_offset=offset)
+    elif kv_cache is None:
+        q, k, v = _self_qkv(cfg, p, x, positions)
         ctx = mha(q, k, v, causal=causal, kv_len=kv_valid_len,
                   q_offset=offset)
     else:
+        q, k, v = _self_qkv(cfg, p, x, positions)
         ck, cv = kv_cache["k"], kv_cache["v"]
         if S > ck.shape[1]:
             raise ValueError(f"{S} tokens do not fit a {ck.shape[1]}-token "

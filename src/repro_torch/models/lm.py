@@ -1,5 +1,5 @@
-"""Decoder-only language models, families ``dense``, ``moe``, ``ssm`` and
-``hybrid``.
+"""Decoder-only language models, families ``dense``, ``moe``, ``vlm``,
+``ssm`` and ``hybrid``.
 
 The port's counterpart of ``repro/models/lm.py``:
 
@@ -7,6 +7,8 @@ The port's counterpart of ``repro/models/lm.py``:
             qwen, starcoder2)
   moe     — the MLP replaced by the top-k expert layer, with a dense MLP
             beside it where ``moe_dense_residual``   (moonshot, arctic)
+  vlm     — the dense stack, with precomputed patch embeddings projected
+            by ``vision_proj`` and prepended to the text   (phi-3-vision)
   ssm     — [norm, Mamba2 SSD] x L                         (mamba2)
   hybrid  — the Mamba2 stack plus one weight-SHARED attention block that
             runs before every ``attn_every``-th Mamba2 layer      (zamba2)
@@ -18,14 +20,16 @@ W-1, di)`` conv tails, the hybrid's ``(napps, B, S_max, KV, hd)`` KV), so
 the transfer ledgers of a serve state equal the reference's.  The layer
 stack is a Python loop over the stacked axis where the reference scans.
 ``forward``'s aux loss is the MoE layers' load-balance losses summed (zero
-for the other families).  The vision and encoder-decoder families are not
-yet ported.
+for the other families).  With ``patches`` (B, P, d_model), a vlm forward
+prepends their projection and returns logits over the text positions
+only.  The encoder-decoder family is ``encdec.py``.
 
 ``loss_fn`` is the reference's cross-entropy (f32 ``log_softmax`` and
-gather, labels below 0 masked, ``+ 0.01 * aux``), for the attention
-stacks: training the ssm and hybrid families needs ``ssd_chunks`` under
-autograd on the card, which is not yet ported, so their ``loss_fn``
-raises on every device.  ``cfg.remat`` wraps every block in
+gather, labels below 0 masked, ``+ 0.01 * aux``), for every family: on
+the card rmsnorm, flash and ``ssd_chunks`` are autograd Functions (the
+kernel forward, the plain version's gradient backward).
+``cfg.remat`` wraps every block (each attention block, each Mamba2
+block and each application of the hybrid's shared block) in
 ``torch.utils.checkpoint`` when autograd records it (a param or the
 input requires grad; a serving forward does not) (:func:`_remat`):
 ``full`` recomputes the whole block in the backward, ``dots`` saves the
@@ -55,16 +59,17 @@ from . import moe as MOE
 from . import ssm as SSM
 from .specs import ParamSpec, init_params, torch_dtype
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-ATTN_STACKS = ("dense", "moe")      # the families of _run_attn_stack
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+ATTN_STACKS = ("dense", "moe", "vlm")   # the families of _run_attn_stack
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.frontend != "none" \
-            or cfg.is_encdec:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} (frontend {cfg.frontend!r}) is not "
-            f"yet ported to the PyTorch package; ported: {FAMILIES}")
+    if cfg.family not in FAMILIES or cfg.is_encdec \
+            or cfg.frontend not in ("none", "vision"):
+        raise ValueError(
+            f"lm.py does not build family {cfg.family!r} (frontend "
+            f"{cfg.frontend!r}); it builds {FAMILIES}, and encdec.py the "
+            f"encoder-decoder")
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +106,9 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
         tree["blocks"] = _stack(_ssm_block_specs(cfg), cfg.num_layers)
     if cfg.family == "hybrid":
         tree["shared_attn"] = _attn_block_specs(cfg)
+    if cfg.frontend == "vision":
+        tree["vision_proj"] = {
+            "w": ParamSpec((cfg.d_model, cfg.d_model), ("embed", "embed_out"))}
     return tree
 
 
@@ -158,13 +166,14 @@ def kernel_launches(cfg: ModelConfig, prefills: int = 0, steps: int = 0,
     requests, ``steps`` decode steps and ``train_steps`` train steps: one
     rmsnorm per block norm plus the final one per forward (none for a
     LayerNorm model: LayerNorm is plain PyTorch); per attention block
-    (every layer of a dense or MoE model, each application of the hybrid's
-    shared block) one flash call per prefill and one decode call per step;
-    one ssd_chunks call per Mamba2 layer per prefill (a decode step takes
-    the recurrence).  The MoE layer launches no kernel of its own.  A
-    train step runs one forward per micro-batch, and under remat the
-    backward runs every block's forward again (its norms and flash, not
-    the final norm); the backwards launch nothing."""
+    (every layer of a dense, MoE or vlm model, each application of the
+    hybrid's shared block) one flash call per prefill and one decode call
+    per step; one ssd_chunks call per Mamba2 layer per prefill (a decode
+    step takes the recurrence).  The MoE layer and the vision projection
+    launch no kernel of their own.  A train step runs one forward per
+    micro-batch, and under remat the backward runs every block's forward
+    again (its norms, flash and ssd_chunks, not the final norm); the
+    backwards launch nothing."""
     _check_family(cfg)
     L = cfg.num_layers
     if cfg.family in ATTN_STACKS:
@@ -180,7 +189,8 @@ def kernel_launches(cfg: ModelConfig, prefills: int = 0, steps: int = 0,
     return {"rmsnorm": norms * (prefills + steps + forwards)
             + block_norms * redo,
             "flash_attention": attn * (prefills + forwards + redo),
-            "decode_attention": attn * steps, "ssd_chunks": ssd * prefills}
+            "decode_attention": attn * steps,
+            "ssd_chunks": ssd * (prefills + forwards + redo)}
 
 
 # ---------------------------------------------------------------------------
@@ -273,20 +283,22 @@ def _run_attn_stack(cfg, params, x, *, positions, cache, kv_valid_len):
 def _run_ssm_stack(cfg, params, x, *, positions, cache, kv_valid_len):
     """The Mamba2 blocks in order; for hybrid, the shared attention block
     runs before layer ``i`` when ``i % attn_every == 0``, on KV slot ``i //
-    attn_every``.  The new states and conv tails are stacked out of
+    attn_every``.  Each block (and each shared-block application) is under
+    ``cfg.remat``.  The new states and conv tails are stacked out of
     place."""
     hybrid = cfg.family == "hybrid"
+    shared = _remat(cfg, functools.partial(_attn_block, cfg))
+    block = _remat(cfg, functools.partial(_ssm_block, cfg))
     states, convs = [], []
     for i in range(cfg.num_layers):
         if hybrid and i % cfg.attn_every == 0:
-            x, _ = _attn_block(cfg, params["shared_attn"], x,
-                               positions=positions,
-                               cache=_kv_slot(cache, i // cfg.attn_every),
-                               kv_valid_len=kv_valid_len)
+            x, _ = shared(params["shared_attn"], x, positions=positions,
+                          cache=_kv_slot(cache, i // cfg.attn_every),
+                          kv_valid_len=kv_valid_len)
         p = tree_map(lambda t: t[i], params["blocks"])
         c = None if cache is None else {"state": cache["state"][i],
                                         "conv": cache["conv"][i]}
-        x, new_c = _ssm_block(cfg, p, x, cache=c)
+        x, new_c = block(p, x, cache=c)
         if new_c is not None:
             states.append(new_c["state"])
             convs.append(new_c["conv"])
@@ -301,12 +313,20 @@ def _run_ssm_stack(cfg, params, x, *, positions, cache, kv_valid_len):
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict[str, torch.Tensor]] = None,
+            patches: Optional[torch.Tensor] = None,
             kv_valid_len: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """tokens: (B, S) -> logits (B, S, V) f32, new_cache, aux_loss."""
+    """tokens: (B, S) -> logits (B, S, V) f32, new_cache, aux_loss.  A vlm
+    model's ``patches`` (B, P, d_model) are projected and prepended; the
+    logits cover the S text positions only."""
     _check_family(cfg)
     B, S = tokens.shape
     x = L.embed_tokens(cfg, params["embed"], tokens)
+    vision = cfg.frontend == "vision" and patches is not None
+    if vision:
+        pe = patches.to(x.dtype) @ params["vision_proj"]["w"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if cfg.family in ATTN_STACKS:
@@ -318,47 +338,50 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
                                       cache=cache, kv_valid_len=kv_valid_len)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.apply_norm(cfg, params["final_norm"], x)
+    if vision:
+        x = x[:, patches.shape[1]:]          # logits over text positions only
     logits = L.unembed(cfg, params["embed"], x)
     if new_cache is not None:
         new_cache["pos"] = cache["pos"] + S
     return logits, new_cache, aux
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    _check_family(cfg)
-    if cfg.family not in ATTN_STACKS:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family needs the ssd_chunks kernel "
-            f"under autograd on the card, which is not yet ported; "
-            f"trainable: {ATTN_STACKS}")
-
-
-def loss_fn(cfg: ModelConfig, params, batch, rng=None):
-    """Cross-entropy LM loss.  batch: {"tokens", "labels"} (B, S) integer
-    tensors on the params' device.  Returns (loss + 0.01 * aux, metrics
-    {"loss", "aux_loss", "tokens"})."""
-    _check_trainable(cfg)
-    logits, _, aux = forward(cfg, params, batch["tokens"])
-    labels = batch["labels"].to(torch.long)
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """The reference's masked mean NLL (f32 ``log_softmax`` and gather,
+    labels below 0 masked) and the count of unmasked labels."""
+    labels = labels.to(torch.long)
     mask = (labels >= 0).to(torch.float32)
     labels = labels.clamp_min(0)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss, torch.sum(mask)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+    """Cross-entropy LM loss.  batch: {"tokens", "labels"} (B, S) integer
+    tensors on the params' device, and for a vlm model optionally
+    "patches" (B, P, d_model).  Returns (loss + 0.01 * aux, metrics
+    {"loss", "aux_loss", "tokens"})."""
+    logits, _, aux = forward(cfg, params, batch["tokens"],
+                             patches=batch.get("patches"))
+    loss, tokens = cross_entropy(logits, batch["labels"])
     total = loss + 0.01 * aux
-    return total, {"loss": loss, "aux_loss": aux, "tokens": torch.sum(mask)}
+    return total, {"loss": loss, "aux_loss": aux, "tokens": tokens}
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-            cache: Dict[str, torch.Tensor]):
-    """Fill the KV/SSM caches from a prompt, at any cache position;
-    returns last-token logits."""
-    S = tokens.shape[1]
+            cache: Dict[str, torch.Tensor], *,
+            patches: Optional[torch.Tensor] = None):
+    """Fill the KV/SSM caches from a prompt, at any cache position (a vlm
+    model's ``patches`` first); returns last-token logits."""
+    S = tokens.shape[1] + (patches.shape[1] if patches is not None else 0)
     positions = torch.arange(S, device=tokens.device)[None, :] \
         + cache["pos"][:, None]
     valid = cache["pos"] + S
     logits, new_cache, _ = forward(cfg, params, tokens, positions=positions,
-                                   cache=cache, kv_valid_len=valid)
+                                   cache=cache, patches=patches,
+                                   kv_valid_len=valid)
     new_cache["pos"] = valid
     return logits[:, -1:], new_cache
 

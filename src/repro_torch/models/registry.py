@@ -1,20 +1,24 @@
 """Model registry: one uniform API over the ported families.
 
 The port's counterpart of ``repro/models/registry.py``.  ``get_model(cfg)``
-returns a :class:`ModelApi` whose methods close over the config.  Every id
-of the reference's registry is known here; the ids in :data:`PORTED` are
-the ones whose configurations and families are ported (dense, moe, ssm
-and hybrid), and the vlm ``phi-3-vision-4.2b`` and the encdec
-``seamless-m4t-medium`` raise ``NotImplementedError``.
+returns a :class:`ModelApi` whose methods close over the config: the
+decoder-only families through ``lm.py``, the encoder-decoder through
+``encdec.py``.  Every id of the reference's registry is ported.
+:meth:`ModelApi.inputs` gives the reference's ``input_specs`` as the
+shapes and dtypes of a step's data (``patches`` for the vlm, ``frames``
+for the encdec).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
-from ..configs.base import ModelConfig
-from . import lm
+import torch
+
+from ..configs.base import InputShape, ModelConfig
+from . import encdec, lm
+from .specs import torch_dtype
 
 ARCH_IDS = (
     "seamless-m4t-medium",
@@ -28,18 +32,11 @@ ARCH_IDS = (
     "zamba2-2.7b",
     "mamba2-1.3b",
 )
-PORTED = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "starcoder2-3b",
-          "granite-3-8b", "qwen1.5-110b", "moonshot-v1-16b-a3b",
-          "arctic-480b")
 
 
 def load_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; options: {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not yet ported to the PyTorch package; ported: "
-            f"{PORTED}")
     module = "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(module).CONFIG
 
@@ -47,8 +44,9 @@ def load_config(arch_id: str) -> ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     """``init(generator, device=None)``, ``forward(params, tokens, **kw)``,
-    ``prefill(params, tokens, cache)``, ``decode_step(params, tokens,
-    cache)``, ``init_cache(batch, max_seq, device=None)``, ``loss_fn(params,
+    ``prefill(params, tokens, cache, **kw)`` (``patches=`` for the vlm,
+    ``frames=`` for the encdec), ``decode_step(params, tokens, cache)``,
+    ``init_cache(batch, max_seq, device=None)``, ``loss_fn(params,
     batch)`` and ``abstract()`` (the params' shapes and dtypes), each
     closed over ``cfg``."""
 
@@ -61,21 +59,65 @@ class ModelApi:
     loss_fn: Callable
     abstract: Callable
 
+    def inputs(self, shape: InputShape) -> Dict[str, Tuple[tuple,
+                                                           torch.dtype]]:
+        """The (shape, dtype) of each data input of a step at ``shape``,
+        the reference's ``input_specs``: tokens and labels for a train
+        step, with the vlm's patches (the text shortened by them) and the
+        encdec's frames (B, max(1, S / src_ratio), d_model); tokens (and
+        patches or frames) for a prefill; one token for a decode step."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        cdt = torch_dtype(cfg.compute_dtype)
+        frames = ((B, max(1, S // cfg.src_ratio), cfg.d_model), cdt)
+        patches = ((B, cfg.frontend_tokens, cfg.d_model), cdt)
+        vision = cfg.frontend == "vision"
+        text = S - cfg.frontend_tokens if vision else S
+        tok = ((B, text), torch.int32)
+        if shape.mode == "train":
+            out = {"tokens": tok, "labels": tok}
+        elif shape.mode == "prefill":
+            out = {"tokens": tok}
+        elif shape.mode == "decode":
+            return {"tokens": ((B, 1), torch.int32)}
+        else:
+            raise ValueError(f"unknown mode {shape.mode}")
+        if cfg.is_encdec:
+            out["frames"] = frames
+        elif vision:
+            out["patches"] = patches
+        return out
+
+
+def _module(cfg: ModelConfig):
+    return encdec if cfg.is_encdec else lm
+
+
+def spec_tree(cfg: ModelConfig):
+    """The model's parameter spec tree, from the module that builds it."""
+    return _module(cfg).spec_tree(cfg)
+
+
+def kernel_launches(cfg: ModelConfig, *args, **kwargs) -> Dict[str, int]:
+    """``lm.kernel_launches`` or ``encdec.kernel_launches``, by family."""
+    return _module(cfg).kernel_launches(cfg, *args, **kwargs)
+
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    lm._check_family(cfg)
+    m = _module(cfg)
+    m._check_family(cfg)
     return ModelApi(
         cfg=cfg,
-        init=lambda generator, device=None: lm.init(cfg, generator, device),
-        forward=lambda params, tokens, **kw: lm.forward(cfg, params, tokens,
-                                                        **kw),
-        prefill=lambda params, tokens, cache: lm.prefill(cfg, params, tokens,
-                                                         cache),
-        decode_step=lambda params, tokens, cache: lm.decode_step(
+        init=lambda generator, device=None: m.init(cfg, generator, device),
+        forward=lambda params, tokens, **kw: m.forward(cfg, params, tokens,
+                                                       **kw),
+        prefill=lambda params, tokens, cache, **kw: m.prefill(
+            cfg, params, tokens, cache, **kw),
+        decode_step=lambda params, tokens, cache: m.decode_step(
             cfg, params, tokens, cache),
-        init_cache=lambda b, s, device=None: lm.init_cache(cfg, b, s, device),
-        loss_fn=lambda params, batch: lm.loss_fn(cfg, params, batch),
-        abstract=lambda: lm.abstract(cfg),
+        init_cache=lambda b, s, device=None: m.init_cache(cfg, b, s, device),
+        loss_fn=lambda params, batch: m.loss_fn(cfg, params, batch),
+        abstract=lambda: m.abstract(cfg),
     )
 
 

@@ -516,7 +516,7 @@ def test_flash_bf16_kernel_refuses_misaligned_input(cuda):
     torch.cuda.synchronize(cuda)
 
 
-@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("hd", [64, 80, 96])
 @pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])              # g = 1, 4
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_across_split_boundaries(cuda, hd, H, KV, dtype):
@@ -934,6 +934,97 @@ def test_flash_function_gradients_equal_the_plain_gradients(cuda, dtype):
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_and_decode_at_head_dim_96(cuda, dtype):
+    """phi-3-vision's attention (32 query heads on 32 KV heads of 96): a
+    ragged causal prefill at per-batch offsets, a non-causal call and an
+    8-slot ragged decode, each against its plain version."""
+    rng = np.random.default_rng(96)
+    B, H, S = 2, 32, 300
+    q, k, v = (_randn(rng, (B, S, H, 96), dtype, cuda).transpose(1, 2)
+               for _ in range(3))
+    lens = torch.tensor([S, 211], dtype=torch.int32, device=cuda)
+    offs = torch.tensor([0, 17], dtype=torch.int32, device=cuda)
+    for causal in (True, False):
+        got = FK.flash_attention(q, k, v, causal=causal, kv_len=lens,
+                                 q_offset=offs)
+        want = FR.attention_ref(q.float(), k.float(), v.float(),
+                                causal=causal, kv_len=lens, q_offset=offs)
+        torch.testing.assert_close(got.float(), want, **_tol(dtype))
+    cache_k = _randn(rng, (8, 2048, H, 96), dtype, cuda)
+    cache_v = _randn(rng, (8, 2048, H, 96), dtype, cuda)
+    qd = _randn(rng, (8, H, 96), dtype, cuda)
+    valid = torch.tensor([1, 33, 128, 129, 700, 1500, 2047, 2048],
+                         dtype=torch.int32, device=cuda)
+    kk, vv = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    got = DK.decode_attention(qd, kk, vv, valid)
+    torch.testing.assert_close(got.float(), DR.decode_ref(
+        qd.float(), kk.float(), vv.float(), valid), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_gradients_equal_the_plain_gradients(cuda, dtype):
+    """ssd_chunks under autograd at mamba2's widths (two 256-step chunks):
+    one kernel launch forward, none backward, and the gradients of all
+    five inputs, with y_diag, states and cum each carrying one, equal
+    autograd of the plain version in f32 (within 1e-5 of each gradient's
+    largest element; bf16 within 2e-2)."""
+    rng = np.random.default_rng(7)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, 512, 8, 64, 128, dtype, cuda)
+    xc = x.reshape(2, 2, 256, 8, 64).transpose(2, 3)
+    dtc = dt.reshape(2, 2, 256, 8).transpose(2, 3)[:, :, :, None, :]
+    dtA = dtc * A[None, None, :, None, None]
+    ins = (xc, dtc, dtA, Bm.reshape(2, 2, 256, 128),
+           Cm.reshape(2, 2, 256, 128))
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    leaves = [t.detach().requires_grad_() for t in ins]
+    before = SK.ssd_chunks.launches
+    outs = SK.ssd_chunks(*leaves)
+    grads = [torch.randn(o.shape, generator=gen, device=cuda).to(o.dtype)
+             for o in outs]
+    got = torch.autograd.grad(outs, leaves, grads)
+    assert SK.ssd_chunks.launches == before + 1
+    plain = [t.detach().float().requires_grad_() for t in ins]
+    want = torch.autograd.grad(SR.ssd_chunks_ref(*plain), plain,
+                               [g.float() for g in grads])
+    for a, b, t in zip(got, want, ins):
+        assert a.dtype == t.dtype and a.shape == b.shape
+        bound = tol * float(b.abs().max())
+        assert float((a.float() - b).abs().max()) <= bound
+
+
+def test_smoke_mamba2_train_step_on_the_card(cuda):
+    """One remat train step of the smoke mamba2 (f32) on the card: the
+    loss and every gradient leaf equal the CPU's (within 2e-4 of the
+    leaf's largest element), and ssd_chunks launches once per Mamba2 layer
+    forward and again per recompute."""
+    import dataclasses
+    from repro_torch.models import lm, registry
+    from repro_torch.runtime import train
+
+    cfg = dataclasses.replace(registry.get("mamba2-1.3b", smoke=True).cfg,
+                              remat="dots")
+    api = registry.get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 33)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want_loss, _, want = train.value_and_grad(api.loss_fn, params, batch)
+    RK.rmsnorm.launches = SK.ssd_chunks.launches = 0
+    loss, _, got = train.value_and_grad(
+        api.loss_fn, tree_map(lambda t: t.to(cuda), params),
+        {k: v.to(cuda) for k, v in batch.items()})
+    counts = lm.kernel_launches(cfg, train_steps=1)
+    assert (RK.rmsnorm.launches, SK.ssd_chunks.launches) == (
+        counts["rmsnorm"], counts["ssd_chunks"])
+    torch.testing.assert_close(float(loss), float(want_loss), rtol=1e-4,
+                               atol=0)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-6 + 2e-4 * float(b.abs().max())
 
 
 def test_one_layer_full_width_step_moves_every_param(cuda):

@@ -229,7 +229,7 @@ def test_decode_split_comes_from_the_capacity(S, want):
 def test_decode_wrapper_takes_the_kernels_head_dims():
     """On the CPU the wrapper runs the plain version at any head dim; the
     head dims it names are the CUDA kernels'."""
-    assert DK.HEAD_DIMS == FK.HEAD_DIMS == (16, 32, 64, 80, 128)
+    assert DK.HEAD_DIMS == FK.HEAD_DIMS == (16, 32, 64, 80, 96, 128)
     q = torch.randn(1, 2, 24)
     k = torch.randn(1, 1, 9, 24)
     got = DK.decode_attention(q, k, k, torch.tensor([5]))

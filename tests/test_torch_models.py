@@ -138,10 +138,7 @@ def test_init_is_seeded_and_placed():
             api.init(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-medium"])
-def test_other_architectures_are_not_yet_ported(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        p_registry.get(arch)
+def test_unknown_architecture_raises():
     with pytest.raises(KeyError):
         p_registry.get("no-such-model")
 
@@ -168,6 +165,9 @@ def test_other_architectures_are_not_yet_ported(arch):
      {"flash_attention": 48, "decode_attention": 48}),
     ("arctic-480b", None, {"rmsnorm": 71},
      {"flash_attention": 35, "decode_attention": 35}),
+    # the vision projection launches nothing: phi-3's dense stack
+    ("phi-3-vision-4.2b", None, {"rmsnorm": 65},
+     {"flash_attention": 32, "decode_attention": 32}),
 ])
 def test_kernel_launches_closed_forms(arch, layers, per_forward, per_prefill):
     """At full width: rmsnorm per forward, flash and ssd_chunks per prefill
@@ -185,8 +185,42 @@ def test_kernel_launches_closed_forms(arch, layers, per_forward, per_prefill):
         "ssd_chunks": per_block["ssd_chunks"] * 3}
 
 
+@pytest.mark.parametrize("arch,layers,remat,micro,want", [
+    # a forward per micro-batch, and under remat every block's forward
+    # again in the backward (its norms, flash and ssd_chunks)
+    ("mamba2-1.3b", None, "dots", 1,
+     {"rmsnorm": 49 + 48, "flash_attention": 0, "ssd_chunks": 2 * 48}),
+    ("mamba2-1.3b", None, "none", 2,
+     {"rmsnorm": 2 * 49, "flash_attention": 0, "ssd_chunks": 2 * 48}),
+    ("mamba2-1.3b", None, "full", 2,
+     {"rmsnorm": 2 * (49 + 48), "flash_attention": 0,
+      "ssd_chunks": 2 * 2 * 48}),
+    ("zamba2-2.7b", 12, "dots", 1,
+     {"rmsnorm": 17 + 16, "flash_attention": 2 * 2, "ssd_chunks": 2 * 12}),
+    ("zamba2-2.7b", None, "dots", 1,
+     {"rmsnorm": 73 + 72, "flash_attention": 2 * 9, "ssd_chunks": 2 * 54}),
+    ("zamba2-2.7b", None, "none", 1,
+     {"rmsnorm": 73, "flash_attention": 9, "ssd_chunks": 54}),
+    ("moonshot-v1-16b-a3b", 4, "dots", 1,
+     {"rmsnorm": 9 + 8, "flash_attention": 2 * 4, "ssd_chunks": 0}),
+    ("phi-3-vision-4.2b", None, "dots", 1,
+     {"rmsnorm": 65 + 64, "flash_attention": 2 * 32, "ssd_chunks": 0}),
+])
+def test_train_kernel_launches_closed_forms(arch, layers, remat, micro,
+                                            want):
+    """One train step at full width: no decode call, the rest per
+    forward and per recompute."""
+    cfg = dataclasses.replace(p_registry.get(arch).cfg, remat=remat,
+                              micro_batches=micro)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    assert p_lm.kernel_launches(cfg, train_steps=3) == {
+        **{k: 3 * n for k, n in want.items()}, "decode_attention": 0}
+
+
 @pytest.mark.parametrize("arch", ("llama3.2-1b", "mamba2-1.3b",
-                                  "zamba2-2.7b") + VARIANTS)
+                                  "zamba2-2.7b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium") + VARIANTS)
 def test_kernel_launches_counts_the_model_call_sites(arch, monkeypatch):
     """The formula against the calls the smoke model makes into each kernel
     wrapper's entry point on the CPU, over one prefill and three decode
@@ -212,7 +246,7 @@ def test_kernel_launches_counts_the_model_call_sites(arch, monkeypatch):
     for _ in range(3):
         nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         logits, cache = api.decode_step(params, nxt, cache)
-    assert calls == p_lm.kernel_launches(api.cfg, 1, 3)
+    assert calls == p_registry.kernel_launches(api.cfg, 1, 3)
 
 
 # ------------------------------------------------------- the model vs JAX

@@ -10,6 +10,12 @@ against the JAX package on the CPU.
     ``ssd_chunked_kernel`` and ``models.ssm.ssd_chunked`` (1e-4) and
     against the literal per-token recurrence (1e-3, the tolerance of
     ``test_kernels.py::test_ssd_chunked_matches_sequential_recurrence``);
+  * the scan's gradients (the plain version under autograd, which is
+    the card's backward) against ``jax.grad`` of ``ssd_chunked``, each
+    within 1e-4 of the gradient's largest element, and the
+    ``_SSDChunks`` Function's backward, with the kernel launch stood in
+    for by the plain version, against autograd of the plain version for
+    every subset of the outputs that carries a gradient;
   * ``apply_ssm``, ``forward``, ``prefill`` and ``decode_step`` of the smoke
     mamba2 and the smoke zamba2, with the reference's weights carried
     across by ``params_from_reference``, within 2e-4 in f32, and the
@@ -140,7 +146,67 @@ def test_ssd_chunks_rejects_mismatched_shapes():
         SK.ssd_chunks(x, dt, dt, bm, torch.zeros(1, 2, 8, 5, device="meta"))
 
 
+def _fake_launch(x, dt, dtA, Bm, Cm):
+    """The plain version in the kernel launch's output layout: y_diag's
+    contiguous (B, nc, Q, nh, hd) base."""
+    y, st, cum = SK.ref.ssd_chunks_ref(x, dt, dtA, Bm, Cm)
+    return y.transpose(2, 3).contiguous(), st, cum
+
+
+@pytest.mark.parametrize("outputs", [(0,), (1,), (2,), (0, 1, 2)])
+def test_ssd_function_backward_is_the_plain_gradient(outputs, monkeypatch):
+    """The card's autograd Function, run on the CPU with the launch stood
+    in for: the backward returns the plain version's gradients for the
+    outputs that received one (y_diag, states, cum), None-safe."""
+    monkeypatch.setattr(SK, "_launch", _fake_launch)
+    ins = _t(*_chunked(*_scan_inputs(np.random.default_rng(21), 2, 32, 3, 8,
+                                     4), 16))
+    rng = np.random.default_rng(22)
+    fn = [t.clone().requires_grad_() for t in ins]
+    y, st, cum = SK._SSDChunks.apply(*fn)
+    outs = (y.transpose(2, 3), st, cum)
+    gs = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
+          for o in outs]
+    got = torch.autograd.grad([outs[i] for i in outputs], fn,
+                              [gs[i] for i in outputs], allow_unused=True)
+    plain = [t.clone().requires_grad_() for t in ins]
+    ref_outs = SK.ref.ssd_chunks_ref(*plain)
+    want = torch.autograd.grad([ref_outs[i] for i in outputs], plain,
+                               [gs[i] for i in outputs], allow_unused=True)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------- the full scan
+
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_SHAPES)
+def test_ssd_chunked_kernel_gradients_equal_the_reference(B, S, nh, hd, N,
+                                                          chunk):
+    rng = np.random.default_rng(200 + S)
+    ins = _scan_inputs(rng, B, S, nh, hd, N)
+    init = rng.standard_normal((B, nh, hd, N)).astype(np.float32)
+    gy = rng.standard_normal((B, S, nh, hd)).astype(np.float32)
+    gst = rng.standard_normal((B, nh, hd, N)).astype(np.float32)
+
+    def r_obj(*a):
+        y, st = r_ssm.ssd_chunked(*a[:5], chunk=chunk, init_state=a[5])
+        return jnp.sum(y * gy) + jnp.sum(st * gst)
+
+    want = jax.grad(r_obj, argnums=tuple(range(6)))(
+        *[jnp.asarray(a) for a in ins], jnp.asarray(init))
+    leaves = [t.requires_grad_() for t in _t(*ins, init)]
+    y, st = SO.ssd_chunked_kernel(*leaves[:5], chunk=chunk,
+                                  init_state=leaves[5])
+    got = torch.autograd.grad(
+        (y * torch.from_numpy(gy)).sum() + (st * torch.from_numpy(gst)).sum(),
+        leaves)
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = np.asarray(b)
+        bound = 1e-4 * float(np.abs(b).max())
+        assert float(np.abs(a.numpy() - b).max()) <= bound, i
+
 
 @pytest.mark.parametrize("B,S,nh,hd,N,chunk", SSD_SHAPES)
 @pytest.mark.parametrize("with_init", [False, True])

@@ -3,9 +3,10 @@
 The same weights (``train_state_from_reference``) and the same seeded
 numpy batches go through ``repro`` and ``repro_torch``:
 
-  * ``loss_fn`` and its gradients on the smoke llama3.2-1b and the smoke
-    starcoder2-3b (f32) against ``jax.value_and_grad``: the loss and
-    metrics within rtol 1e-4, the gradients leaf by leaf against the
+  * ``loss_fn`` and its gradients on the smoke llama3.2-1b, starcoder2-3b,
+    mamba2-1.3b, zamba2-2.7b, moonshot-v1-16b-a3b and arctic-480b (f32)
+    against ``jax.value_and_grad``: the loss and metrics (the MoE aux loss
+    among them) within rtol 1e-4, the gradients leaf by leaf against the
     leaf's largest magnitude (``|port - ref| <= 1e-6 + 2e-4 * max|ref|``,
     ``GRAD_RTOL`` says why): the packages sum in different orders, and an
     element that nearly cancels keeps an absolute float32 error that no
@@ -27,8 +28,9 @@ numpy batches go through ``repro`` and ``repro_torch``:
     ``repack_traced``, ``ArenaEntry.repack``, ``arena.repack_into``) bit
     for bit, and ``TransferProgram.mark_dirty``'s region ledgers equal;
   * remat ``none`` / ``dots`` / ``full`` giving equal values and the
-    launch counts ``kernel_launches(train_steps=)`` predicts;
-  * the ssm and hybrid families raising, naming ``ssd_chunks``.
+    launch counts ``kernel_launches(train_steps=)`` predicts, for llama,
+    mamba2 and zamba2 (the Mamba2 blocks and the hybrid's shared block
+    are each checkpointed).
 """
 import dataclasses
 
@@ -104,7 +106,9 @@ def _pair(arch, **replace):
 
 # ---------------------------------------------------------- loss and grads
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b",
+                                  "mamba2-1.3b", "zamba2-2.7b",
+                                  "moonshot-v1-16b-a3b", "arctic-480b"])
 def test_loss_and_gradients_equal_the_reference(arch):
     r_api, p_api = _pair(arch)
     params = r_api.init(jax.random.PRNGKey(3))
@@ -132,15 +136,6 @@ def test_value_and_grad_writes_no_param():
         k: torch.as_tensor(v) for k, v in _batch(257).items()})
     assert [t._version for t in tree_leaves(params)] == versions
     assert not any(t.requires_grad for t in tree_leaves(params))
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_ssm_and_hybrid_training_raise_naming_the_kernel(arch):
-    _, p_api = _pair(arch)
-    params = p_api.init(torch.Generator().manual_seed(0), device=CPU)
-    with pytest.raises(NotImplementedError, match="ssd_chunks"):
-        p_api.loss_fn(params, {k: torch.as_tensor(v) for k, v in
-                               _batch(257, 2, 8).items()})
 
 
 # ----------------------------------------------------------- train steps
@@ -292,32 +287,37 @@ def test_policy_and_spec_strings_equal_the_reference():
 # ---------------------------------------------------------------- remat
 
 def _count_calls(monkeypatch):
-    from repro_torch.models import layers as p_layers
+    from repro_torch.models import layers as p_layers, ssm as p_ssm
 
-    calls = {"rmsnorm": 0, "flash_attention": 0}
-    for attr, name in (("rmsnorm", "rmsnorm"), ("mha", "flash_attention")):
-        def counted(*a, _fn=getattr(p_layers, attr), _name=name, **kw):
+    calls = {"rmsnorm": 0, "flash_attention": 0, "ssd_chunks": 0}
+    for mod, attr, name in ((p_layers, "rmsnorm", "rmsnorm"),
+                            (p_layers, "mha", "flash_attention"),
+                            (p_ssm, "ssd_chunked_kernel", "ssd_chunks")):
+        def counted(*a, _fn=getattr(mod, attr), _name=name, **kw):
             calls[_name] += 1
             return _fn(*a, **kw)
-        monkeypatch.setattr(p_layers, attr, counted)
+        monkeypatch.setattr(mod, attr, counted)
     return calls
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
 @pytest.mark.parametrize("micro", [1, 2])
 def test_remat_policies_give_equal_values_and_counted_launches(
-        micro, monkeypatch):
+        arch, micro, monkeypatch):
     """The three policies give the same loss, gradients and new params,
     and each makes the kernel calls ``kernel_launches(train_steps=1)``
-    predicts (a remat policy runs every block's forward again)."""
+    predicts (a remat policy runs every block's forward again: the
+    attention blocks, the Mamba2 blocks and the hybrid's shared block)."""
     calls = _count_calls(monkeypatch)
     base = None
     for remat in ("none", "dots", "full"):
-        _, api = _pair("llama3.2-1b", remat=remat, micro_batches=micro)
+        _, api = _pair(arch, remat=remat, micro_batches=micro)
         opt = make_optimizer("adamw")
         state = p_train.train_state(api, opt, torch.Generator().manual_seed(4),
                                     device=CPU)
         step = p_train.make_train_step(api, opt, constant(1e-2))
-        calls.update(rmsnorm=0, flash_attention=0)
+        calls.update(rmsnorm=0, flash_attention=0, ssd_chunks=0)
         new, met = step(state, _batch(257, seed=5))
         want = p_lm.kernel_launches(api.cfg, train_steps=1)
         assert calls == {k: want[k] for k in calls}, remat
@@ -383,6 +383,15 @@ def test_grad_norm_at_init_equals_the_reference_across_depth(layers):
 def test_train_launch_closed_forms():
     cfg = p_registry.get("llama3.2-1b").cfg           # 16 layers, remat dots
     assert cfg.remat == "dots"
+    mamba = p_registry.get("mamba2-1.3b").cfg         # 48 layers, remat dots
+    assert p_lm.kernel_launches(mamba, train_steps=8) == {
+        "rmsnorm": 8 * (49 + 48), "flash_attention": 0,
+        "decode_attention": 0, "ssd_chunks": 8 * 2 * 48}
+    zamba = dataclasses.replace(p_registry.get("zamba2-2.7b").cfg,
+                                num_layers=12)        # 2 shared applications
+    assert p_lm.kernel_launches(zamba, train_steps=4) == {
+        "rmsnorm": 4 * (17 + 16), "flash_attention": 4 * 2 * 2,
+        "decode_attention": 0, "ssd_chunks": 4 * 2 * 12}
     assert p_lm.kernel_launches(cfg, train_steps=12) == {
         "rmsnorm": 12 * (33 + 32), "flash_attention": 12 * 32,
         "decode_attention": 0, "ssd_chunks": 0}

@@ -10,7 +10,8 @@ failures raising, a foreign checkpoint named as a schema mismatch, the
 straggler watchdog, ``run_elastic`` and ``trajectory_diff``;
 ``SyntheticLM`` bit-equal to the reference's over steps, ranks and worlds,
 the ``Prefetcher``; and the CLI (``python -m repro_torch.launch.train
---smoke --device cpu``).
+--smoke --device cpu``), for llama and for the ssm, hybrid, MoE and vlm
+smoke models.
 """
 import numpy as np
 import pytest
@@ -312,3 +313,18 @@ def test_cli_smoke_on_the_cpu(tmp_path, capsys):
     assert int(res.state["step"]) == 3
     with pytest.raises(NotImplementedError, match="XLA"):
         cli.main(["--smoke", "--device", "cpu", "--production-mesh"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "moonshot-v1-16b-a3b", "phi-3-vision-4.2b"])
+def test_cli_trains_the_other_families_on_the_cpu(arch, capsys):
+    """The ssm, hybrid, MoE and vlm smoke models take CLI steps (the vlm on
+    text alone: the CLI's data has no patches); the loss stays finite."""
+    from repro_torch.launch import train as cli
+
+    res = cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                    "3", "--batch", "2", "--seq", "16", "--log-every", "0"])
+    assert "3 steps" in capsys.readouterr().out
+    assert int(res.state["step"]) == 3
+    losses = [m["loss"] for m in res.metrics_history]
+    assert len(losses) == 3 and all(np.isfinite(losses))
