@@ -40,9 +40,10 @@ Phases, each of which raises on failure:
      timed.  The smoke models' f32 logits on the card (kernels) are held
      against the CPU (plain versions) for all ten models (phi-3 with
      patches, seamless with frames);
-  4. Algorithm 2 — every scenario of the ported families at the ``full``
-     preset under uvm, marshal, marshal+db, marshal+delta and pointerchain:
-     line-7 check ok and the ledger equal to the expected motion exactly;
+  4. Algorithm 2 — every scenario of the registry at the ``full`` preset
+     (the mesh-sized families at one device) under uvm, marshal,
+     marshal+db, marshal+delta and pointerchain: line-7 check ok and the
+     ledger equal to the expected motion exactly;
   5. steady      — marshal+delta steady passes on steady_reuse_n2048;
   6. real size   — the paper's two figures at about 1 GiB under every spec
      (ledger == the closed forms);
@@ -173,7 +174,27 @@ Phases, each of which raises on failure:
      batch-1 prefill + greedy decode over 8 slots.  Then behind phase 8's
      Server and traffic (text prompts: the Server passes neither patches
      nor frames, as the reference's does), with phase 8's checks and
-     install ledgers held to their closed forms.
+     install ledgers held to their closed forms;
+ 18. sharded     — after phase 17: the sharded deep copy (@dpK) on a mesh
+     of SHARD_K = 4 positions, position i on cuda:(i mod the visible card
+     count) (on one card every position sits on cuda:0: the per-shard
+     staging views, copies, event fences, delta versions and write checks
+     run on the real copy engine, but that is not multi-GPU).  (a) the
+     mesh and the card count printed; (b) Algorithm 2 on the sharded and
+     sharded_delta trees at n = 2^26 (2^30 B of f32 and a 64 B id table
+     each) under uvm@dp4, marshal@dp4, marshal+delta@dp4 and
+     pointerchain@dp4: line 7 ok and every position's ledger its closed
+     form (SHARD_CLOSED), then each position's H2D rate (its copies timed
+     alone with CUDA events); (c) three marshal+delta@dp4 steady passes on
+     the sharded_delta tree after mutating hot.a and hot.b: exactly
+     shards 2 and 3 of the f32 bucket ship (2^28 B in one copy each),
+     h2d + skipped == full on every position, values == the host tree;
+     (d) mixed_policy and elastic at n = 2^25 on the mesh, three passes
+     under each executor: every region's per-position ledger equal to the
+     family's closed form and to policy_cost's, one barrier a pass; (e)
+     the registry's full sharded and sharded_delta families at the live
+     card count under every spec they declare; (f) (b)'s sharded_delta
+     cells once more under ``sanitize()``: no finding.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -190,14 +211,15 @@ layers) rmsnorm 9 per forward, flash 4 per prefill request, decode 4 per
 step; phi-3 rmsnorm 65 per forward, flash 32 per prefill request, decode
 32 per step; seamless no rmsnorm, flash 12 (the encoder, given frames) +
 24 per prefill request, decode 12 and flash 12 per step; gather_tiles
-never; the policy, analysis and sanitizer phases
-launch nothing; the serve CLI launches what a Server on the same params
+never; the policy, analysis, sanitizer and sharded
+phases launch nothing; the serve CLI launches what a Server on the same params
 and requests launches; a train step launches rmsnorm 2L + 1 and flash L times per
 forward, and under remat the blocks' 2L and L again in the backward
 (llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again).
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line (launches summed over the serve phases 8-12 and 17, and per phase,
-the train runs and the serve CLI under ``launches_by_phase``) and
+the train runs, the serve CLI and the sharded phase under
+``launches_by_phase``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 2 and prints no result.
 
@@ -385,6 +407,29 @@ MM_LEDGERS = {
                             "cache/**": (813695008, 2),
                             "**": SERVE_LEDGERS["**"]},
 }
+
+# the sharded phase (18): a SHARD_K-position mesh on the visible cards,
+# position i on cuda:(i mod count) (on one card every position sits on
+# cuda:0: the per-device arenas, copies, fences and delta versions run,
+# but that is not multi-GPU).  The sharded and sharded_delta families at n
+# = 2^26 (2^30 B of f32 plus a 64 B id table each) under the four @dp4
+# specs; each position's (bytes, copies), closed forms: marshal (2^30 +
+# 64) / 4 in 2 (the f32 and the i32 bucket's shard); the per-leaf schemes
+# the used leaves' rows, w + v = 2^30 / 4 (sharded) and hot.a + cold = 3 *
+# 2^26 (sharded_delta), in 2.  A steady marshal+delta@dp4 pass after
+# mutating hot.a and hot.b ships shards 2 and 3 of the f32 bucket, 2^28 B
+# in one copy each.  The policy families at n = 2^25 over the same mesh.
+SHARD_K = 4
+SHARD_N = 2 ** 26
+SHARD_SPECS = tuple(f"{s}@dp{SHARD_K}" for s in
+                    ("uvm", "marshal", "marshal+delta", "pointerchain"))
+SHARD_CLOSED = {"sharded": {"marshal": ((2 ** 30 + 64) // 4, 2),
+                            "per_leaf": (2 ** 28, 2)},
+                "sharded_delta": {"marshal": ((2 ** 30 + 64) // 4, 2),
+                                  "per_leaf": (3 * 2 ** 26, 2)}}
+SHARD_STEADY = {"2": (2 ** 28, 1), "3": (2 ** 28, 1)}
+SHARD_PASSES = 3
+SHARD_POLICY_N = 2 ** 25
 
 
 def say(*parts) -> None:
@@ -3013,6 +3058,254 @@ def train_phase(device, kernels: dict) -> dict:
     return out
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+def sharded_mesh():
+    """The phase's mesh and the visible card count: SHARD_K positions,
+    position i on cuda:(i mod count)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return tuple(torch.device("cuda", i % count)
+                 for i in range(SHARD_K)), count
+
+
+def shard_copy_rates(mesh, sources) -> str:
+    """Each position's H2D rate: its copies (``sources[s]``, host tensors)
+    timed alone between CUDA events on its device's copy stream (a pass
+    queues every position's copies back to back, so its wall does not
+    split by position).  Not measured on the CPU."""
+    import torch
+    from repro_torch._device import copy_stream
+
+    if mesh[0].type != "cuda":
+        return "not measured (CPU mesh)"
+    out = []
+    for s, dev in enumerate(mesh):
+        dsts = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+                for t in sources[s]]
+        stream = copy_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            for dst, src in zip(dsts, sources[s]):
+                dst.copy_(src, non_blocking=True)
+            end.record(stream)
+        end.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in sources[s])
+        ms = start.elapsed_time(end)
+        out.append(f"{s}: {nbytes} B in {ms:.3f} ms = "
+                   f"{nbytes / ms / 1e6:.2f} GB/s")
+        del dsts
+    return "; ".join(out)
+
+
+def _per_position(ledger_dict) -> dict:
+    return {d: (ledger_dict["h2d_bytes_by_device"][d],
+                ledger_dict["h2d_calls_by_device"].get(d, 0))
+            for d in ledger_dict["h2d_bytes_by_device"]}
+
+
+def sharded_algorithm2(mesh, n: int) -> None:
+    """Parts (b) and (f): Algorithm 2 on the sharded and sharded_delta trees
+    at ``n`` under every @dpK spec on ``mesh``: line 7 ok, every position's
+    ledger its closed form (SHARD_CLOSED at n = SHARD_N; the families'
+    closed forms at any n), then each position's H2D rate.  (f): the
+    sharded_delta tree's cold passes once more under ``sanitize()``: no
+    finding."""
+    from repro_torch.analysis.sanitizer import sanitize
+    from repro_torch.core import declare, extract, get_session
+    from repro_torch.core.sharded import host_pieces
+    from repro_torch.scenarios import (run_scenario, sharded_case,
+                                       sharded_delta_case)
+
+    k = len(mesh)
+    for case in (sharded_case, sharded_delta_case):
+        sc = case(n, k)
+        t0 = time.perf_counter()
+        tree = sc.build()
+        say(f"[sharded] (b) {sc.name}: built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        rows = [[p.tensor for p in host_pieces(leaf, k)]
+                for leaf in extract(tree, declare(tree, *sc.used_paths))]
+        for sanitized in (False, True) if sc.family == "sharded_delta" \
+                else (False,):
+            for spec in SHARD_SPECS:
+                motion = sc.expected[spec.split("@")[0].replace(
+                    "marshal+delta", "marshal_delta")]
+                want = {str(s): motion.per_device_tuple() for s in range(k)}
+                if n == SHARD_N:
+                    kind = "marshal" if spec.startswith("marshal") \
+                        else "per_leaf"
+                    if motion.per_device_tuple() != \
+                            SHARD_CLOSED[sc.family][kind]:
+                        fail(f"{sc.name}/{spec}: the family's closed form "
+                             f"{motion} is not this phase's")
+                scheme = sc.scheme_for(spec, device=mesh)
+                if sanitized:
+                    with sanitize() as san:
+                        m = run_scenario(sc, scheme=scheme, tree=tree)
+                else:
+                    m = run_scenario(sc, scheme=scheme, tree=tree)
+                if not (m.ok and m.motion_ok and m.per_device == want):
+                    fail(f"{sc.name}/{spec}: ok={m.ok} motion_ok="
+                         f"{m.motion_ok} per position {m.per_device}, "
+                         f"closed form {want}")
+                if sanitized:
+                    say(f"[sharded] (f) {sc.name}/{spec} under the "
+                        f"sanitizer: line-7 ok, per position == closed "
+                        f"form, no finding; wall {m.wall_us / 1e3:.2f} ms;"
+                        f" events {_events(san)}")
+                    continue
+                if spec.startswith("marshal"):
+                    views = scheme._entry.shard_views()
+                    sources = [[v[s] for v in views.values()]
+                               for s in range(k)]
+                else:
+                    sources = [[r[s] for r in rows] for s in range(k)]
+                say(f"[sharded] (b) {sc.name}/{spec}: line-7 ok, per "
+                    f"position {m.per_device} == closed form; Alg-2 wall "
+                    f"{m.wall_us / 1e3:.2f} ms (enqueue "
+                    f"{m.enqueue_us / 1e3:.2f} + sync "
+                    f"{m.sync_us / 1e3:.2f}); H2D per position: "
+                    f"{shard_copy_rates(mesh, sources)}")
+                del scheme
+        del tree, rows
+        get_session().clear()
+        release_host_cache()
+
+
+def sharded_steady(mesh, n: int) -> None:
+    """Part (c): SHARD_PASSES marshal+delta@dpK passes on the sharded_delta
+    tree after mutating hot.a and hot.b: exactly the trailing shards of the
+    f32 bucket ship (SHARD_STEADY at n = SHARD_N), one copy each; every
+    position keeps h2d + skipped == the full sharded motion; the values
+    equal the host tree."""
+    from repro_torch.core import get_session
+    from repro_torch.scenarios import run_steady_scenario, sharded_delta_case
+
+    sc = sharded_delta_case(n, len(mesh))
+    want = {str(s): (b, c) for s, (b, c) in enumerate(
+        sc.steady_expected.by_shard) if c}
+    if n == SHARD_N and want != SHARD_STEADY:
+        fail(f"{sc.name}: the family's steady closed form {want} is not "
+             f"this phase's {SHARD_STEADY}")
+    for i, m in enumerate(run_steady_scenario(sc, passes=SHARD_PASSES,
+                                              device=mesh)):
+        if not (m.ok and m.motion_ok
+                and {d: b for d, b in m.h2d_by_device.items()}
+                == {d: b for d, (b, _) in want.items()}):
+            fail(f"{sc.name} steady pass {i}: {m}")
+        say(f"[sharded] (c) {sc.name} pass {i}: moved {m.h2d_by_device} B "
+            f"in {m.h2d_calls} copies (one a shard), skipped "
+            f"{m.skipped_by_device} B; h2d + skipped == full on every "
+            f"position; values == host; wall {m.wall_us / 1e3:.2f} ms = "
+            f"{m.h2d_bytes / m.wall_us / 1e3:.2f} GB/s H2D")
+    get_session().clear()
+    release_host_cache()
+
+
+def sharded_policy(mesh, n: int) -> None:
+    """Part (d): mixed_policy and elastic at ``n`` on the mesh through
+    run_policy_scenario, SHARD_PASSES passes under each executor: every
+    region's per-position ledger equal to the family's closed form (cold,
+    then steady), one barrier a pass, and policy_cost's per-position
+    prediction equal to the same ledgers."""
+    from repro_torch.analysis.cost import policy_cost
+    from repro_torch.core import TransferSession
+    from repro_torch.scenarios import (elastic_case, mixed_policy_case,
+                                       run_policy_scenario)
+
+    k = len(mesh)
+
+    def positions(motion) -> dict:
+        if motion.per_device_tuple() is not None:
+            return {str(s): motion.per_device_tuple() for s in range(k)}
+        return {"0": motion.as_tuple()} if motion.h2d_calls else {}
+
+    for case in (mixed_policy_case, elastic_case):
+        sc = case(n, k)
+        t0 = time.perf_counter()
+        tree = sc.build()
+        cost = policy_cost(tree, sc.policy(), sc.steady_mutate_paths())
+        say(f"[sharded] (d) {sc.name}: {sc.declared_policy}; built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for executor in ("blocking", "async"):
+            session = TransferSession()
+            ms = run_policy_scenario(sc, tree=tree, passes=SHARD_PASSES,
+                                     executor=executor, session=session,
+                                     device=mesh)
+            for i, m in enumerate(ms):
+                closed = sc.region_expected if i == 0 \
+                    else sc.steady_region_expected
+                got = {key: _per_position(r) for key, r in m.regions.items()}
+                want = {key: positions(v) for key, v in closed.items()}
+                priced = {rc.key: positions(rc.cold if i == 0 else rc.steady)
+                          for rc in cost.regions}
+                if not (m.ok and m.motion_ok and m.syncs == 1
+                        and got == want == priced):
+                    fail(f"{sc.name} {executor} pass {i}: ok={m.ok} "
+                         f"motion_ok={m.motion_ok} syncs={m.syncs} per "
+                         f"position {got}, closed forms {want}, priced "
+                         f"{priced}")
+                say(f"[sharded] (d) {sc.name} {executor} pass {i}: per "
+                    f"position {got} == closed forms == policy_cost, one "
+                    f"barrier, values == host; wall {m.wall_us / 1e3:.2f} ms"
+                    f" = {m.h2d_bytes / m.wall_us / 1e3:.2f} GB/s H2D; sync "
+                    f"{m.sync_us / 1e3:.3f} ms, finish "
+                    f"{m.finish_us / 1e3:.3f} ms")
+            session.clear()
+            release_host_cache()
+        del tree
+        release_host_cache()
+
+
+def sharded_registry(device, count: int) -> int:
+    """Part (e): the registry's ``full`` sharded and sharded_delta families
+    at the live card count, under every spec they declare."""
+    from repro_torch.scenarios import iter_scenarios, run_scenario
+
+    cells = 0
+    for sc in iter_scenarios("full", only=["sharded", "sharded_delta"],
+                             devices=count):
+        tree = sc.build()
+        sc.validate(tree)
+        for spec in sc.specs():
+            m = run_scenario(sc, spec, tree=tree, device=device)
+            if not (m.ok and m.motion_ok):
+                fail(f"{sc.name}/{spec}: ok={m.ok} ledger "
+                     f"{(m.h2d_bytes, m.h2d_calls)} per device "
+                     f"{m.per_device}, expected {m.expected}")
+            cells += 1
+        say(f"[sharded] (e) {sc.name}: " + ", ".join(
+            f"{s} ok" for s in sc.specs()))
+    return cells
+
+
+def sharded_phase(kernels: dict, smi: str) -> dict:
+    """Phase 18: the sharded deep copy on a SHARD_K-position mesh; no kernel
+    may launch.  Returns the launch counts of its run (all 0)."""
+    mesh, count = sharded_mesh()
+    say(f"[sharded] {smi}; mesh {[str(d) for d in mesh]} over {count} "
+        f"visible card(s)" + (": every position on one card, which is not "
+                              "multi-GPU" if count == 1 else ""))
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    sharded_algorithm2(mesh, SHARD_N)
+    sharded_steady(mesh, SHARD_N)
+    sharded_policy(mesh, SHARD_POLICY_N)
+    cells = sharded_registry(None, count)
+    launched = {name: k.launches for name, k in kernels.items()}
+    if any(launched.values()):
+        fail(f"the sharded phase launched {launched}; it runs no kernel")
+    say(f"[sharded] phase 18 ok in {time.perf_counter() - t0:.2f} s ((e): "
+        f"{cells} cells), no kernel launched")
+    return launched
+
+
 def main() -> int:
     import dataclasses
     import torch
@@ -3220,6 +3513,9 @@ def main() -> int:
     served.update(multimodal)
     served_counts = {k: sum(c[k] for c in served.values()) for k in kernels}
     served.update(trained)
+
+    # the sharded deep copy (phase 18): transfers only, counters 0
+    served["sharded"] = sharded_phase(kernels, smi)
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = [dict(name="gather_tiles", route="cuda",

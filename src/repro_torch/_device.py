@@ -68,3 +68,19 @@ def synchronize(device: torch.device) -> None:
     CPU, where every op has already run)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class Barrier:
+    """One pass's barrier over every device it copied to: the CUDA events
+    recorded after each device's last copy.  It completes when all of them
+    have (no events: nothing was queued, as on the CPU)."""
+
+    def __init__(self, events):
+        self.events = [e for e in events if e is not None]
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()

@@ -231,8 +231,8 @@ class Sanitizer:
     # -- scheme hooks (the _begin_* / finish halves) -------------------------
     def on_enqueue(self, entry: Any, bucket: str, t: torch.Tensor) -> None:
         """A scheme issued the H2D copy of ``bucket``'s staging.  ``t`` is
-        the exact host tensor handed to ``_enqueue_h2d`` (held by
-        identity)."""
+        the exact host tensor the copy reads, or whose per-shard views a
+        sharded pass copies (held by identity)."""
         self._count("enqueue")
         active_idx = entry._active[bucket]
         shadow = self._shadow(entry, bucket, active_idx)

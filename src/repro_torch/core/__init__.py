@@ -1,23 +1,25 @@
 """repro_torch.core — deep-copy semantics, the pointerchain directive,
 marshalling arenas and the three transfer schemes, on PyTorch.
 
-Counterpart of ``repro.core`` on one device, with path-scoped policies
-compiled into one-synchronize programs (``policy``) and the autotuner's
-candidate grid (``candidate_specs``, ``enumerate_policies``), and the
-staging race sanitizer's hooks (``repro_torch.analysis.sanitizer``).  Not
-yet ported: sharded (``@dpK``, K > 1) execution.
+Counterpart of ``repro.core``, with path-scoped policies compiled into
+one-synchronize programs (``policy``), the autotuner's candidate grid
+(``candidate_specs``, ``enumerate_policies``), the staging race
+sanitizer's hooks (``repro_torch.analysis.sanitizer``) and sharded
+execution (``@dpK``, K > 1) on a mesh of K positions (``sharded``).
 """
 from .treepath import (TreeDef, TreePath, leaf_items, leaf_paths,
                        max_chain_depth, tree_flatten, tree_leaves, tree_map,
                        tree_structure, tree_unflatten)
-from .chainref import ChainRef, Region, declare, extract, insert, region
+from .chainref import (ChainRef, Region, ShardSlice, chain_call, chain_jit,
+                       declare, extract, insert, region, resolve_shards)
 from .arena import (ArenaLayout, LeafSlot, alloc_buffers, datasize_dense,
                     datasize_linear, dtype_name, pack, pack_into, plan,
-                    repack_into, unpack)
+                    repack_into, shard_ranges, unpack)
 from .engine import (ArenaEntry, DeltaState, TransferSession, cache_stats,
                      cached_plan, clear_cache, get_entry, get_session,
-                     pack_traced, repack_traced, set_cache_limits,
-                     unpack_traced)
+                     num_shards_of, pack_traced, repack_traced,
+                     set_cache_limits, unpack_traced)
+from .sharded import Piece, ShardedTensor, resolve_mesh, to_host
 from .spec import PAPER_SPECS, TransferSpec, UnsupportedSpecError
 from .schemes import (LazyLeaf, MarshalScheme, PointerChainScheme,
                       SCHEME_NAMES, SCHEMES, TransferLedger, TransferScheme,
@@ -33,13 +35,16 @@ __all__ = [
     "TreeDef", "TreePath", "leaf_items", "leaf_paths", "max_chain_depth",
     "tree_flatten", "tree_leaves", "tree_map", "tree_structure",
     "tree_unflatten",
-    "ChainRef", "Region", "declare", "extract", "insert", "region",
+    "ChainRef", "Region", "ShardSlice", "chain_call", "chain_jit", "declare",
+    "extract", "insert", "region", "resolve_shards",
     "ArenaLayout", "LeafSlot", "alloc_buffers", "datasize_dense",
     "datasize_linear", "dtype_name", "pack", "pack_into", "plan",
-    "repack_into", "unpack",
+    "repack_into", "shard_ranges", "unpack",
     "ArenaEntry", "DeltaState", "TransferSession", "cache_stats",
-    "cached_plan", "clear_cache", "get_entry", "get_session", "pack_traced",
-    "repack_traced", "set_cache_limits", "unpack_traced",
+    "cached_plan", "clear_cache", "get_entry", "get_session",
+    "num_shards_of", "pack_traced", "repack_traced", "set_cache_limits",
+    "unpack_traced",
+    "Piece", "ShardedTensor", "resolve_mesh", "to_host",
     "PAPER_SPECS", "TransferSpec", "UnsupportedSpecError",
     "LazyLeaf", "MarshalScheme", "PointerChainScheme", "SCHEME_NAMES",
     "SCHEMES", "TransferLedger", "TransferScheme", "UVMScheme", "make_scheme",

@@ -15,6 +15,8 @@ Counterpart of ``repro/core/arena.py``:
   * ``repack_into()`` = the reverse direction, functionally: a tree's
                    leaves scattered over copies of existing buckets (the
                    gradient-arena update path).
+  * ``shard_ranges()`` = the per-device requestList of a sharded layout:
+                   each bucket split into equal contiguous sub-ranges.
 
 Buckets are per dtype and named by the dtype's numpy name (``float32``,
 ``int32``, ``bfloat16``), as in the reference.
@@ -73,8 +75,8 @@ class ArenaLayout:
     align_elems: int
     bucket_dtypes: Dict[str, torch.dtype] = dataclasses.field(default_factory=dict)
     # per-device arenas: bucket sizes are padded to a multiple of this, so
-    # each of ``shard_multiple`` devices owns an equal contiguous sub-range
-    # (the static analysis prices this; every execution path plans with 1)
+    # each of ``shard_multiple`` mesh positions owns an equal contiguous
+    # sub-range (:func:`shard_ranges`)
     shard_multiple: int = 1
 
     @property
@@ -122,6 +124,24 @@ def plan(tree: Any, align_elems: int = 1,
         cursors = {b: _align(n, shard_multiple) for b, n in cursors.items()}
     return ArenaLayout(treedef, tuple(slots), dict(cursors), align_elems,
                        dtypes, shard_multiple)
+
+
+def shard_ranges(layout: ArenaLayout, num_shards: Optional[int] = None
+                 ) -> Dict[str, List[Tuple[int, int]]]:
+    """Equal contiguous ``(lo, hi)`` element ranges per shard for every
+    bucket: the per-device half of the requestList.  Shard ``i`` of a bucket
+    of ``n`` elements owns ``[i*n/k, (i+1)*n/k)``; the bucket size must be a
+    multiple of the shard count (``plan(..., shard_multiple=k)`` pads it)."""
+    k = num_shards or layout.shard_multiple
+    out: Dict[str, List[Tuple[int, int]]] = {}
+    for bucket, n in layout.bucket_sizes.items():
+        if n % k:
+            raise ValueError(
+                f"bucket {bucket!r} has {n} elements, not divisible into "
+                f"{k} shards; plan with shard_multiple={k}")
+        step = n // k
+        out[bucket] = [(i * step, (i + 1) * step) for i in range(k)]
+    return out
 
 
 Buffers = Dict[str, torch.Tensor]

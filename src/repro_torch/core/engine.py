@@ -5,9 +5,10 @@ cached artifact, and the staging contents are versioned so a steady-state
 repeat transfer can skip buckets whose bytes have not changed:
 
   * :class:`TransferSession` — owns the LRU-bounded layout and entry caches
-    keyed by (treedef, leaf signature, alignment, pinned staging) and the
-    :class:`DeltaState` registry (retained device buckets).  The
-    module-level functions delegate to a default session.
+    keyed by (treedef, leaf signature, alignment, shards, pinned staging)
+    and the :class:`DeltaState` registry (retained device buckets, or
+    bucket shards).  The module-level functions delegate to a default
+    session.
   * :class:`ArenaEntry` — per-layout persistent state:
       - TWO host staging tensors per dtype bucket (double buffering),
         page-locked (``pin_memory``) when the target is a CUDA device so
@@ -15,6 +16,11 @@ repeat transfer can skip buckets whose bytes have not changed:
       - per-bucket monotone version counters: ``pack_host`` compares each
         leaf's RAW BYTES with the staged copy and bumps a bucket's version
         only when they differ (bytes, not values: NaN != NaN);
+      - per-(bucket, shard) version counters (``shard_versions``) for a
+        sharded layout: a changed slot bumps exactly the shards whose
+        element ranges it overlaps, so a per-device delta transfer re-ships
+        only those shards (``shard_views`` are the staging's zero-copy
+        per-shard views);
       - per-buffer fences: CUDA events recorded after the copies that read
         a staging buffer (on the CPU, where every copy has completed when
         it returns, a completed stand-in).  ``pack_host`` waits the target
@@ -75,9 +81,24 @@ def _leaf_signature(leaves) -> Tuple:
     return tuple(sig)
 
 
-def _layout_key(tree: Any, align_elems: int) -> Tuple[Any, Tuple, int]:
+def _layout_key(tree: Any, align_elems: int,
+                num_shards: int = 1) -> Tuple[Any, ...]:
     leaves, treedef = tree_flatten(tree)
-    return (treedef, _leaf_signature(leaves), align_elems)
+    key = (treedef, _leaf_signature(leaves), align_elems)
+    return key + (num_shards,) if num_shards > 1 else key
+
+
+def num_shards_of(sharding: Any) -> int:
+    """Shard count of a sharding target: ``None`` (1), an int mesh size or
+    a mesh (a sequence of devices, the port's ``NamedSharding``).  Anything
+    else is a ``TypeError``."""
+    if sharding is None:
+        return 1
+    if isinstance(sharding, (list, tuple)):
+        return len(sharding)
+    if isinstance(sharding, int):
+        return int(sharding)
+    raise TypeError(f"cannot read a shard count off {sharding!r}")
 
 
 class DeltaState:
@@ -87,7 +108,8 @@ class DeltaState:
 
     def __init__(self):
         # entry -> {bucket: (shipped version, retained device buffer, its
-        # write count when retained)}
+        # write count when retained)}, or for a sharded layout {bucket:
+        # [that triple, or None, per shard]}
         self.retained: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         # entry -> (versions snapshot, attached device tree)
         self.last_unpack: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -134,11 +156,9 @@ class TransferSession:
         from .spec import TransferSpec
 
         spec = TransferSpec.parse(spec)
-        key = _layout_key(tree, spec.align_elems)
-        if spec.num_shards > 1:
-            key += (spec.num_shards,)
-        return self._plan_for_key(key, tree, spec.align_elems,
-                                  spec.num_shards)
+        return self._plan_for_key(
+            _layout_key(tree, spec.align_elems, spec.num_shards), tree,
+            spec.align_elems, spec.num_shards)
 
     def _plan_for_key(self, key: Tuple, tree: Any, align_elems: int,
                       shard_multiple: int = 1) -> ArenaLayout:
@@ -154,15 +174,18 @@ class TransferSession:
         return layout
 
     def get_entry(self, tree: Any, align_elems: int = 1,
-                  pin_memory: bool = False) -> "ArenaEntry":
+                  pin_memory: bool = False,
+                  num_shards: int = 1) -> "ArenaEntry":
         """Cached :class:`ArenaEntry` for this tree's shape.  ``pin_memory``
         (a CUDA target) is part of the key: pinned and pageable staging are
-        different entries."""
-        key = _layout_key(tree, align_elems)
+        different entries.  ``num_shards > 1`` plans per-device arenas
+        (every bucket padded to a multiple of it), a distinct entry."""
+        key = _layout_key(tree, align_elems, num_shards)
         entry_key = key + (pin_memory,)
         entry = self._entries.get(entry_key)
         if entry is None:
-            entry = ArenaEntry(self._plan_for_key(key, tree, align_elems),
+            entry = ArenaEntry(self._plan_for_key(key, tree, align_elems,
+                                                  num_shards),
                                pin_memory=pin_memory)
             self._entries[entry_key] = entry
             self._trim()
@@ -200,9 +223,13 @@ class TransferSession:
         out = dict(self._stats)
         out["layout_size"] = len(self._layouts)
         out["entry_size"] = len(self._entries)
+        # every device bucket (or bucket shard) a delta state still holds
         out["retained_device_buckets"] = sum(
-            len(per_entry) for state in list(self._delta_states)
-            for per_entry in state.retained.values())
+            sum(1 for x in held if x is not None)
+            if isinstance(held, list) else 1
+            for state in list(self._delta_states)
+            for per_entry in state.retained.values()
+            for held in per_entry.values())
         return out
 
     # -- delta state ---------------------------------------------------------
@@ -225,9 +252,9 @@ class TransferSession:
         """Compile a :class:`~repro_torch.core.policy.TransferPolicy` against
         ``tree``'s structure into a
         :class:`~repro_torch.core.policy.TransferProgram` over THIS
-        session's caches, on ``device`` (the card unless ``"cpu"``): one
-        executor per region, every region's copies enqueued before one
-        synchronize per pass."""
+        session's caches, on ``device`` (the card unless ``"cpu"``; a
+        sharded rule on the mesh it names): one executor per region, every
+        region's copies enqueued before one synchronize per pass."""
         from .policy import compile_program
 
         return compile_program(tree, policy, session=self, device=device)
@@ -256,9 +283,10 @@ def cached_plan(tree: Any, align_elems: int = 1) -> ArenaLayout:
     return _DEFAULT_SESSION.cached_plan(tree, align_elems)
 
 
-def get_entry(tree: Any, align_elems: int = 1,
-              pin_memory: bool = False) -> "ArenaEntry":
-    return _DEFAULT_SESSION.get_entry(tree, align_elems, pin_memory)
+def get_entry(tree: Any, align_elems: int = 1, pin_memory: bool = False,
+              num_shards: int = 1) -> "ArenaEntry":
+    return _DEFAULT_SESSION.get_entry(tree, align_elems, pin_memory,
+                                      num_shards)
 
 
 def set_cache_limits(layout_max: Optional[int] = None,
@@ -324,9 +352,10 @@ COMPLETED = _Completed()
 
 
 class ArenaEntry:
-    """Everything reusable about one (treedef, signature, alignment,
+    """Everything reusable about one (treedef, signature, alignment, shards,
     pinning) point: the layout, double-buffered host staging per bucket with
-    content version counters, and per-buffer fences."""
+    content version counters (bucket- and shard-granular), and per-buffer
+    fences."""
 
     def __init__(self, layout: ArenaLayout, pin_memory: bool = False):
         self.layout = layout
@@ -342,6 +371,10 @@ class ArenaEntry:
         # versions[b] bumps exactly when bucket b's staged bytes change (or
         # bump_version forces it) — monotone.
         self.versions: Dict[str, int] = {b: 0 for b in self._bufs}
+        # shard s of bucket b bumps exactly when a changed slot overlaps its
+        # element range: the per-device half of the dirty tracking
+        self.shard_versions: Dict[str, List[int]] = {
+            b: [0] * self.num_shards for b in self._bufs}
         self._slot_vers: List[int] = [0] * layout.num_leaves
         self._bucket_slots: Dict[str, List[int]] = {b: [] for b in self._bufs}
         for i, slot in enumerate(layout.slots):
@@ -356,9 +389,21 @@ class ArenaEntry:
         self.fence_wait_s = 0.0
 
     @property
+    def num_shards(self) -> int:
+        return max(1, self.layout.shard_multiple)
+
+    @property
     def staging(self) -> Buffers:
         """The ACTIVE buffer per bucket (the one holding the newest bytes)."""
         return {b: bufs[self._active[b]] for b, bufs in self._bufs.items()}
+
+    def shard_views(self, num_shards: Optional[int] = None
+                    ) -> Dict[str, List[torch.Tensor]]:
+        """Zero-copy per-shard views of every active staging buffer."""
+        ranges = arena_lib.shard_ranges(self.layout, num_shards)
+        stg = self.staging
+        return {b: [stg[b][lo:hi] for lo, hi in rs]
+                for b, rs in ranges.items()}
 
     # -- dirty tracking ------------------------------------------------------
     def mark_dirty(self, *buckets: str) -> None:
@@ -367,10 +412,27 @@ class ArenaEntry:
         self._recheck.update(buckets or self._bufs)
 
     def bump_version(self, *buckets: str) -> None:
-        """Advance bucket versions (all if none given), forcing the next
-        delta transfer to re-ship them."""
+        """Advance bucket (and shard) versions (all buckets if none given),
+        forcing the next delta transfer to re-ship them."""
         for b in (buckets or list(self._bufs)):
             self.versions[b] += 1
+            self.shard_versions[b] = [v + 1 for v in self.shard_versions[b]]
+
+    def _bump_shards(self, bucket: str, changed: List[int]) -> None:
+        """Bump the versions of the shards the changed slots overlap."""
+        shards = self.shard_versions[bucket]
+        k = len(shards)
+        if k == 1:
+            shards[0] += 1
+            return
+        step = self.layout.bucket_sizes[bucket] // k
+        touched = set()
+        for i in changed:
+            slot = self.layout.slots[i]
+            touched.update(range(slot.offset // step, min(
+                (slot.offset + slot.size - 1) // step, k - 1) + 1))
+        for s in touched:
+            shards[s] += 1
 
     # -- fences --------------------------------------------------------------
     def add_fence(self, bucket: str, event: Optional[Any]) -> None:
@@ -407,7 +469,8 @@ class ArenaEntry:
         match; with ``trust_identity`` also skip the compare when the
         identical leaf object was packed last time (in-place mutators must
         ``mark_dirty``).  A bucket that changes rotates to its spare buffer
-        (after waiting that buffer's fence) and bumps its version."""
+        (after waiting that buffer's fence) and bumps its version, and the
+        shards its changed slots overlap bump theirs."""
         leaves = tree_leaves(tree)
         if len(leaves) != self.layout.num_leaves:
             raise ValueError("tree does not match arena layout")
@@ -454,6 +517,8 @@ class ArenaEntry:
             if _sanitizer._ACTIVE is not None:
                 _sanitizer._ACTIVE.on_rotate(self, b, tgt)
             self.versions[b] += 1
+            self._bump_shards(b, [i for i in pending
+                                  if self.layout.slots[i].bucket == b])
         self._recheck.clear()
         self.pack_host_calls += 1
         return self.staging

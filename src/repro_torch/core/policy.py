@@ -1,7 +1,7 @@
 """Path-scoped transfer policies — per-subtree specs compiled into ONE
 program.
 
-Counterpart of ``repro/core/policy.py`` on one device:
+Counterpart of ``repro/core/policy.py``:
 
   * :class:`PolicyRule`      — a frozen (path pattern, TransferSpec) pair.
   * :class:`TransferPolicy`  — an ordered rule set with a required default
@@ -26,10 +26,12 @@ as the one-rule policy ``**=<spec>``.  Matching: the longest fixed prefix
 wins, then the most literal steps, then an exact pattern over a ``**`` one,
 then declaration order.
 
-On the card every region enqueues its copies on the device's copy stream
+On the card every region enqueues its copies on its devices' copy streams
 without waiting (``begin_pass``); the program then records one CUDA event
-on that stream after the last enqueue — stream order makes it complete
-only after every copy of the pass — and waits on it once.  The staging
+on the copy stream of every device the program copies to, after the last
+enqueue (stream order makes each complete only after every copy of the
+pass on its device), and waits on them as ONE barrier that covers the
+whole mesh.  The staging
 buffers are fenced per bucket by their own copies' events, so the barrier
 is a latency choice, not what keeps staging safe.
 :meth:`TransferProgram.to_device_async` returns a :class:`ProgramFuture`
@@ -41,9 +43,13 @@ reference's: :func:`candidate_specs`, :func:`enumerate_policies`,
 :meth:`TransferPolicy.with_rule` and :meth:`TransferPolicy.neighbors`
 give the same specs and policies in the same order.
 
-``@dp1`` rules execute on one device, as in the reference; sharded rules
-(``@dpK``, K > 1) parse, partition and price, but executing one is not
-yet ported.
+``@dp1`` rules execute on one device, as in the reference; a sharded rule
+(``@dpK``, K > 1) executes on the program's mesh (``device``: the default
+mesh, ``"cpu"`` for K positions on the CPU, or a sequence of devices),
+its unsharded rules on the mesh's first position (``@devN``: its
+position N).  A mesh too short for a rule raises the stale-mesh
+:class:`UnsupportedPolicyError`, naming the rule, which
+:meth:`TransferPolicy.reshard` recovers from.
 
 The staging race sanitizer sees a pass as the reference's does: the
 regions enqueue inside an enqueue half (a barrier there is DC304), the
@@ -64,6 +70,7 @@ import torch
 
 from .. import _device
 from ..analysis import sanitizer as _sanitizer
+from . import sharded as sharded_lib
 from .spec import TransferSpec, UnsupportedSpecError
 from .treepath import TreeDef, TreePath, _parse as _parse_steps
 from .treepath import leaf_paths, tree_flatten, tree_leaves
@@ -486,13 +493,13 @@ class ProgramFuture:
 
 class TransferProgram:
     """A policy compiled against one tree structure: per-region scheme
-    executors over a shared session, executed as ONE transfer pass on one
-    device.  Ledgers stay per region (:attr:`ledgers`);
-    :meth:`merged_ledger` sums them."""
+    executors over a shared session, executed as ONE transfer pass over
+    every device they copy to (:attr:`devices`).  Ledgers stay per region
+    (:attr:`ledgers`); :meth:`merged_ledger` sums them."""
 
     def __init__(self, session: Any, policy: TransferPolicy, treedef: TreeDef,
                  regions: "collections.OrderedDict[str, Region]",
-                 device: _device.DeviceLike = None):
+                 device: sharded_lib.MeshLike = None):
         from .schemes import transfer_scheme
 
         self.session = session
@@ -510,7 +517,11 @@ class TransferProgram:
                 raise UnsupportedPolicyError(
                     f"rule {region.rule} cannot execute on this host: {e}"
                 ) from e
-        self.device = _device.resolve_device(device)
+        self.device = sharded_lib.resolve_one(device)
+        # every device a region copies to, in first-use order
+        self.devices = tuple(dict.fromkeys(
+            d for s in self._schemes.values()
+            for d in (s.mesh or (s.device,))))
         self.last_stats: Optional[ProgramStats] = None
         self._inflight: Optional[ProgramFuture] = None
 
@@ -562,10 +573,16 @@ class TransferProgram:
         fut, self._inflight = self._inflight, None
         return fut.result() if fut is not None else None
 
+    def synchronize(self) -> None:
+        """Wait for all work queued on every device of the program."""
+        for dev in self.devices:
+            _device.synchronize(dev)
+
     def _begin(self, tree: Any):
         """Every region packs and enqueues, in declaration order, without a
-        synchronize; then one barrier event after the last enqueue (None on
-        the CPU, where every copy has completed)."""
+        synchronize; then one barrier: an event after the last enqueue on
+        each device's copy stream (None on the CPU, where every copy has
+        completed)."""
         self.drain()
         leaves = self._flatten(tree)
         finishes: List[Tuple[Region, Any]] = []
@@ -578,10 +595,12 @@ class TransferProgram:
                 pending, finish = self._schemes[key].begin_pass(sub)
                 enqueues[key] = len(pending)
                 finishes.append((region, finish))
-        barrier = None
-        if self.device.type == "cuda":
-            barrier = torch.cuda.Event()
-            barrier.record(_device.copy_stream(self.device))
+        events = []
+        for dev in self.devices:
+            if dev.type == "cuda":
+                events.append(torch.cuda.Event())
+                events[-1].record(_device.copy_stream(dev))
+        barrier = _device.Barrier(events) if events else None
         return leaves, barrier, finishes, enqueues
 
     def _finish(self, leaves: List[Any],
@@ -672,10 +691,11 @@ class TransferProgram:
 
 def compile_program(tree: Any, policy: Union[str, TransferPolicy],
                     session: Any = None,
-                    device: _device.DeviceLike = None) -> TransferProgram:
+                    device: sharded_lib.MeshLike = None) -> TransferProgram:
     """Compile ``policy`` against ``tree``'s structure for ``device`` (the
-    card unless ``"cpu"``), warming the session's entries (and their
-    staging) for every marshalling region."""
+    card, or the default mesh, unless ``"cpu"`` or a mesh is given),
+    warming the session's entries (and their staging) for every
+    marshalling region."""
     from . import engine as engine_lib
 
     session = session if session is not None else engine_lib.get_session()

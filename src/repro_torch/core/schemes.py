@@ -1,6 +1,6 @@
 """Transfer schemes — thin executors of a :class:`TransferSpec`.
 
-Counterpart of ``repro/core/schemes.py`` on one device:
+Counterpart of ``repro/core/schemes.py``:
 
   * :class:`UVMScheme`          — demand-paged analogue: leaf-granular,
                                   on-access transfers (simulated faults).
@@ -9,7 +9,7 @@ Counterpart of ``repro/core/schemes.py`` on one device:
                                   Blocking, ``+db`` and ``+delta``.
   * :class:`PointerChainScheme` — declared chains only (selective deep copy).
 
-Host -> device on the card (:meth:`TransferScheme._enqueue_h2d`): every copy
+Host -> device on the card (:func:`_enqueue_copies`): every copy
 is a ``non_blocking`` copy issued on a dedicated copy stream; the compute
 stream waits on one event recorded after them, so attach and kernels are
 ordered behind the copies.  The blocking path then synchronizes once per
@@ -23,12 +23,35 @@ into fresh pinned host tensors on the compute stream, then one
 synchronize.  On the CPU every copy is an explicit ``copy_`` into a new
 tensor, so "device" values never alias host memory there either.
 
+Sharded specs (``@dpK``, K > 1) run on a mesh of K positions
+(:func:`~repro_torch.core.sharded.resolve_mesh`: the default mesh is
+``cuda:0 ... cuda:K-1``, ``device="cpu"`` is K positions on the CPU, a
+sequence of devices is the mesh as given) and return
+:class:`~repro_torch.core.sharded.ShardedTensor` leaves.  Marshal plans
+per-device arenas (every bucket padded to a multiple of K), packs once and
+enqueues one copy per (bucket, position) from the staging's per-shard
+views, each with its own CUDA event as the fence of that copy; one barrier
+covers the pass over every device of the mesh.  Under ``+delta`` only the
+dirty shards re-ship (staging shard versions, plus each retained shard's
+write count: the in-place write check, per shard), and each clean shard
+is booked as skipped on its position.  UVM and pointerchain copy each
+leaf per position: dim 0 split K ways where it divides, the whole leaf
+replicated otherwise.
+``from_device`` copies each piece back (D2H per piece) and reassembles.
+@dp1 runs unsharded on one device, as in the reference.
+
 Every scheme records its traffic in a :class:`TransferLedger`, field for
-field the reference's, so tests can hold bytes and copy counts equal.
+field the reference's, so tests can hold bytes and copy counts equal.  A
+sharded transfer books its copies per mesh position (keys ``"0"`` ...
+``"K-1"``), not per device index: on the CPU, or on a mesh that repeats a
+card, a device index would merge the shards.
 
 The staging race sanitizer's hooks sit where the reference's do: a
-blocking ``_put_batch`` reports its barrier (``on_sync``), and the
-``+db`` / ``+delta`` halves report each bucket they enqueue and drain.
+blocking ``_put_batch`` (and the blocking sharded marshal pass) reports its
+barrier (``on_sync``), and the ``+db`` / ``+delta`` / sharded halves report
+each bucket they enqueue and drain.  A sharded half reports the bucket's
+active staging buffer, whose per-shard views it copies from (the reference
+reports no array there), so DC302 and DC305 hold on sharded passes too.
 The barriers the reference does not hook are not hooked here either: the
 D2H synchronize of ``_get_batch`` (the reference's ``device_get``) and the
 fence trim in :meth:`~repro_torch.core.engine.ArenaEntry.add_fence`.
@@ -45,13 +68,48 @@ from .. import _device
 from ..analysis import sanitizer as _sanitizer
 from . import arena as arena_lib
 from . import engine as engine_lib
+from . import sharded as sharded_lib
 from .chainref import ChainRef, declare, extract, insert
+from .sharded import ShardedTensor
 from .spec import TransferSpec, UnsupportedSpecError
 from .treepath import TreePath, leaf_items, tree_flatten, tree_leaves, tree_map
 
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
+
+
+def _enqueue_copies(jobs: Sequence[Tuple[torch.Tensor, torch.device]],
+                    mark_each: bool = False
+                    ) -> Tuple[List[torch.Tensor], List[Optional[Any]]]:
+    """Issue one copy per ``(host tensor, device)`` job WITHOUT waiting.
+
+    Returns the device tensors and, per job, the CUDA event recorded on its
+    device's copy stream right after it: after every copy when
+    ``mark_each`` (a shard copy's own fence), else only after each device's
+    last copy (``None`` elsewhere, and everywhere on the CPU, where the
+    copies are done).  The destinations are allocated on each device's
+    compute stream, so its copy stream first waits on it (a block the
+    allocator recycled may still be read there), and the compute stream
+    waits on the device's last event before anything reads them."""
+    ys = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x, dev in jobs]
+    marks: List[Optional[Any]] = [None] * len(jobs)
+    last = {dev: i for i, (_, dev) in enumerate(jobs) if dev.type == "cuda"}
+    for dev in last:
+        _device.copy_stream(dev).wait_stream(torch.cuda.current_stream(dev))
+    for i, ((x, dev), y) in enumerate(zip(jobs, ys)):
+        if dev.type != "cuda":
+            y.copy_(x)
+            continue
+        stream = _device.copy_stream(dev)
+        with torch.cuda.stream(stream):
+            y.copy_(x, non_blocking=True)
+            if mark_each or last[dev] == i:
+                marks[i] = torch.cuda.Event()
+                marks[i].record(stream)
+    for dev, i in last.items():
+        torch.cuda.current_stream(dev).wait_event(marks[i])
+    return ys, marks
 
 
 @dataclasses.dataclass
@@ -68,7 +126,7 @@ class TransferLedger:
     ``skipped_bytes`` records bytes a delta transfer proved unchanged, so
     per pass ``h2d_bytes + skipped_bytes`` equals the full-marshal motion.
     ``*_by_device`` split the same totals per target device, keyed by the
-    device index as a string.
+    device index as a string (by mesh position for a sharded transfer).
     """
 
     h2d_bytes: int = 0
@@ -170,7 +228,8 @@ class TransferScheme:
 
     Thin executor over a (spec, session) pair.  ``device`` is where it
     runs: the CUDA card by default (``cuda:N`` for a spec's ``@devN``), the
-    CPU only when the caller passes ``device="cpu"``.
+    CPU only when the caller passes ``device="cpu"``.  A sharded spec runs
+    on :attr:`mesh`, its K positions (``device`` is then the first).
     """
 
     kind: str = "marshal"
@@ -185,15 +244,16 @@ class TransferScheme:
             raise UnsupportedSpecError(
                 f"{type(self).__name__} executes kind={self.kind!r} specs, "
                 f"got {spec}")
-        if spec.num_shards > 1:
-            raise NotImplementedError(
-                f"spec {spec}: sharded execution (@dpK, K > 1) is not yet "
-                f"ported to the PyTorch package")
-        # @dp1 runs on one device, unsharded, as in the reference
         self.spec = spec
         self.session = session if session is not None \
             else engine_lib.get_session()
-        self.device = _device.resolve_device(device, spec.device)
+        # @dp1 runs on one device, unsharded, as in the reference
+        self.mesh: Optional[sharded_lib.Mesh] = None
+        if spec.num_shards > 1:
+            self.mesh = sharded_lib.resolve_mesh(device, spec.num_shards)
+            self.device = self.mesh[0]
+        else:
+            self.device = sharded_lib.resolve_one(device, spec.device)
         self.ledger = TransferLedger()
         self.name = spec.name
 
@@ -237,43 +297,32 @@ class TransferScheme:
         return dev, (declare(tree, *used_paths) if declare_refs else ())
 
     # -- host -> device ------------------------------------------------------
-    def _enqueue_h2d(self, xs: Sequence[torch.Tensor]
-                     ) -> Tuple[List[torch.Tensor], Optional[Any]]:
-        """Issue one copy per host tensor WITHOUT waiting for them.
-
-        Returns the device tensors and the CUDA event recorded after the
-        copies (``None`` on the CPU, where the copies are done).  The
-        destinations are allocated on the compute stream, so the copy
-        stream first waits on it (a block the allocator recycled may still
-        be read there), and the compute stream waits on the event before
-        anything reads them."""
-        dev = self.device
-        if dev.type != "cuda":
-            return [torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
-                    for x in xs], None
-        compute = torch.cuda.current_stream(dev)
-        stream = _device.copy_stream(dev)
-        ys = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in xs]
-        stream.wait_stream(compute)
-        with torch.cuda.stream(stream):
-            for x, y in zip(xs, ys):
-                y.copy_(x, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        compute.wait_event(event)
-        return ys, event
-
     def _put_batch(self, xs: Sequence[torch.Tensor], sync: bool = True
-                   ) -> Tuple[List[torch.Tensor], Optional[Any]]:
+                   ) -> Tuple[List[Any], Optional[Any]]:
         """Enqueue every H2D copy, then (``sync``) wait for them ONCE.
 
-        One ledger record per buffer.  ``sync=False`` is the pipelined
-        path: the caller fences the staging buffers with the returned
-        event instead."""
+        One ledger record per copy: one per buffer, or on a mesh one per
+        piece of each leaf (booked on its position), each returned leaf a
+        :class:`ShardedTensor`.  ``sync=False`` is the pipelined path: the
+        caller fences the staging buffers with the returned event (the
+        CUDA event after the copies; ``None`` on the CPU) instead; on a
+        mesh it is the :class:`~repro_torch._device.Barrier` of the
+        copies."""
         if not xs:
             return [], None
         t0 = time.perf_counter()
-        ys, event = self._enqueue_h2d(xs)
+        if self.mesh is None:
+            out, marks = _enqueue_copies([(x, self.device) for x in xs])
+            event = marks[-1]
+        else:
+            split = [sharded_lib.host_pieces(x, len(self.mesh)) for x in xs]
+            ys, marks = _enqueue_copies([(p.tensor, self.mesh[p.position])
+                                         for ps in split for p in ps])
+            it = iter(ys)
+            out = [ShardedTensor(x.shape, x.dtype,
+                                 [p._replace(tensor=next(it)) for p in ps])
+                   for x, ps in zip(xs, split)]
+            event = _device.Barrier(marks)
         t1 = time.perf_counter()
         if sync:
             if _sanitizer._ACTIVE is not None:
@@ -282,31 +331,48 @@ class TransferScheme:
                 event.synchronize()
         t2 = time.perf_counter()
         self.ledger.record_wall(t1 - t0, t2 - t1)
-        for x in xs:
-            self.ledger.record_h2d(_nbytes(x), device=self.device)
-        return ys, event
+        if self.mesh is None:
+            for x in xs:
+                self.ledger.record_h2d(_nbytes(x), device=self.device)
+        else:
+            for x, ps in zip(xs, split):
+                for p in ps:
+                    self.ledger.record_h2d((p.hi - p.lo) * x.element_size(),
+                                           device=str(p.position))
+        return out, event
 
-    def _put(self, x: torch.Tensor) -> torch.Tensor:
+    def _put(self, x: torch.Tensor) -> Any:
         return self._put_batch([x])[0][0]
 
     # -- device -> host ------------------------------------------------------
-    def _get_batch(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Enqueue every D2H copy into fresh pinned host tensors, then
-        synchronize once (a non-blocking copy into pageable memory would not
-        be safe to read)."""
+    def _get_batch(self, xs: Sequence[Any]) -> List[torch.Tensor]:
+        """Enqueue every D2H copy into fresh host tensors (pinned when the
+        scheme runs on the card), then synchronize once (a non-blocking
+        copy into pageable memory would not be safe to read).  A
+        :class:`ShardedTensor` is copied back piece by piece (one copy a
+        covering piece) into its slice of one host tensor; it is one ledger
+        record, as the reference's one ``device_get`` of a global array."""
         if not xs:
             return []
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            ys = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                  for x in xs]
-            for x, y in zip(xs, ys):
-                y.copy_(x, non_blocking=True)
-            t1 = time.perf_counter()
-            torch.cuda.current_stream(self.device).synchronize()
-        else:
-            ys = [torch.empty(x.shape, dtype=x.dtype).copy_(x) for x in xs]
-            t1 = time.perf_counter()
+        pin = any(d.type == "cuda" for d in (self.mesh or (self.device,)))
+        ys, devices = [], set()
+        for x in xs:
+            y = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+            if isinstance(x, ShardedTensor):
+                flat = y.view(-1)
+                copies = [(flat[p.lo:p.hi], p.tensor.reshape(-1))
+                          for p in x.covering()]
+            else:
+                copies = [(y, x)]
+            for dst, src in copies:
+                dst.copy_(src, non_blocking=pin)
+                devices.add(src.device)
+            ys.append(y)
+        t1 = time.perf_counter()
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         t2 = time.perf_counter()
         self.ledger.record_wall(t1 - t0, t2 - t1)
         for y in ys:
@@ -398,7 +464,7 @@ class UVMScheme(TransferScheme):
                     fetch_vals.append(l._dev)
                 else:
                     leaves[i] = l._host
-            elif isinstance(l, torch.Tensor):
+            elif isinstance(l, (torch.Tensor, ShardedTensor)):
                 fetch_idx.append(i)
                 fetch_vals.append(l)
         for i, y in zip(fetch_idx, self._get_batch(fetch_vals)):
@@ -429,6 +495,12 @@ class MarshalScheme(TransferScheme):
                         buckets whose staging version moved or whose
                         retained tensor was written in place; clean buckets
                         are ``skipped_bytes``.
+    * ``sharding``    — per-device arenas: every (bucket, position) shard
+                        is one copy, all enqueued before one barrier.
+    * ``delta + sharding`` — per-(bucket, position) incremental transfers:
+                        only the dirty shards re-ship; clean shards are
+                        skipped on their position, so ``h2d + skipped ==
+                        the full sharded motion`` holds on every position.
     """
 
     kind = "marshal"
@@ -447,7 +519,10 @@ class MarshalScheme(TransferScheme):
 
     def _entry_for(self, tree) -> engine_lib.ArenaEntry:
         entry = self.session.get_entry(
-            tree, self.align_elems, pin_memory=self.device.type == "cuda")
+            tree, self.align_elems,
+            pin_memory=any(d.type == "cuda"
+                           for d in (self.mesh or (self.device,))),
+            num_shards=len(self.mesh) if self.mesh else 1)
         self._entry = entry
         self.layout = entry.layout
         return entry
@@ -468,6 +543,10 @@ class MarshalScheme(TransferScheme):
         # 1) requestList (cached); 2) pack into the persistent staging;
         # 3) ONE copy per dtype bucket (only dirty buckets under delta);
         # 4) attach = views into the device buckets.
+        if self.mesh is not None:
+            if self.delta:
+                return self._begin_delta_sharded(tree)[1]()
+            return self._to_device_sharded(tree)
         if self.delta:
             return self._to_device_delta(tree)
         if self.staging == "double_buffered":
@@ -487,6 +566,10 @@ class MarshalScheme(TransferScheme):
         """Enqueue-only half of :meth:`to_device`: every mode fences its
         staging with its copies' event, so the program's barrier is not
         what keeps staging safe."""
+        if self.mesh is not None:
+            if self.delta:
+                return self._begin_delta_sharded(tree)
+            return self._begin_sharded(tree)
         if self.delta:
             return self._begin_delta(tree)
         return self._begin_pipelined(tree)
@@ -495,8 +578,8 @@ class MarshalScheme(TransferScheme):
     @staticmethod
     def _san_enqueued(entry, buffers, names) -> None:
         """Report each enqueued bucket to the staging sanitizer.
-        ``buffers`` maps bucket -> the exact host tensor handed to
-        ``_enqueue_h2d``."""
+        ``buffers`` maps bucket -> the exact host tensor the copies read
+        (a sharded pass copies from its per-shard views)."""
         san = _sanitizer._ACTIVE
         if san is not None:
             for b in names:
@@ -604,12 +687,162 @@ class MarshalScheme(TransferScheme):
     def _to_device_delta(self, tree):
         return self._begin_delta(tree)[1]()
 
+    # -- sharded: per-device arenas ------------------------------------------
+    def _ship_shards(self, entry, buffers, ships, sync: bool):
+        """Enqueue one copy per ``(bucket, shard)`` of ``ships``, from the
+        staging's shard view to its mesh position, each with its own CUDA
+        event.  ``sync``: then wait them all (the pass's one barrier);
+        otherwise each event fences its bucket's active staging buffer
+        (in stream order it also covers the earlier copies of its stream,
+        so the fence is conservative, never short).  Books one H2D record
+        per shard on its position."""
+        if not ships:
+            return []
+        ranges = arena_lib.shard_ranges(entry.layout)
+        t0 = time.perf_counter()
+        dev, marks = _enqueue_copies(
+            [(buffers[b][slice(*ranges[b][s])], self.mesh[s])
+             for b, s in ships], mark_each=True)
+        t1 = time.perf_counter()
+        if sync:
+            if _sanitizer._ACTIVE is not None:
+                _sanitizer._ACTIVE.on_sync("MarshalScheme._put_sharded")
+            _device.Barrier(marks).synchronize()
+        else:
+            for (b, _), event in zip(ships, marks):
+                entry.add_fence(b, event)
+        self.ledger.record_wall(t1 - t0, time.perf_counter() - t1)
+        for (b, s), y in zip(ships, dev):
+            self.ledger.record_h2d(_nbytes(y), device=str(s))
+        return dev
+
+    def _all_shards(self, names):
+        return [(b, s) for b in names for s in range(len(self.mesh))]
+
+    def _to_device_sharded(self, tree):
+        entry = self._entry_for(tree)
+        buffers = entry.pack_host(tree)
+        names = list(buffers)
+        dev = iter(self._ship_shards(entry, buffers, self._all_shards(names),
+                                     sync=True))
+        return sharded_lib.unpack(
+            {b: [next(dev) for _ in self.mesh] for b in names}, entry.layout)
+
+    def _begin_sharded(self, tree):
+        entry = self._entry_for(tree)
+        buffers = entry.pack_host(tree)
+        self._record_fence_wait(entry)
+        names = list(buffers)
+        dev = self._ship_shards(entry, buffers, self._all_shards(names),
+                                sync=False)
+        self._san_enqueued(entry, buffers, names)
+
+        def finish():
+            self._san_drained(entry, names)
+            it = iter(dev)
+            return sharded_lib.unpack(
+                {b: [next(it) for _ in self.mesh] for b in names},
+                entry.layout)
+
+        return dev, finish
+
+    def _begin_delta_sharded(self, tree):
+        """The composed axes: re-ship only the (bucket, shard) pieces that
+        are dirty, by the staging's shard version or by a write to the
+        retained shard since it was shipped (the in-place write check, per
+        shard: a write through a leaf's piece on shard s re-ships shard s
+        only); book every clean shard as skipped on its position; attach
+        every bucket from the retained + fresh shards.  A fully clean
+        repeat returns the memoized attach."""
+        entry = self._entry_for(tree)
+        buffers = entry.pack_host(tree, trust_identity=True)
+        self._record_fence_wait(entry)
+        retained = self._delta_state.retained.setdefault(entry, {})
+        names = list(buffers)
+        k = len(self.mesh)
+        versions = {b: list(v) for b, v in entry.shard_versions.items()}
+        ranges = arena_lib.shard_ranges(entry.layout)
+        itemsizes = {b: buffers[b].element_size() for b in names}
+        ships, skips = [], []
+        for b in names:
+            held = retained.setdefault(b, [None] * k)
+            for s in range(k):
+                h = held[s]
+                clean = (h is not None and h[0] == versions[b][s]
+                         and h[2] is not None and _write_count(h[1]) == h[2])
+                (skips if clean else ships).append((b, s))
+
+        def book_clean():
+            for b, s in skips:
+                lo, hi = ranges[b][s]
+                self.ledger.record_skip((hi - lo) * itemsizes[b],
+                                        device=str(s))
+            if skips:
+                self.ledger.delta_calls += 1
+
+        if not ships:
+            memo = self._delta_state.last_unpack.get(entry)
+            if memo is not None and memo[0] == versions:
+                def finish_memo():
+                    book_clean()
+                    return memo[1]
+
+                return [], finish_memo
+        dev = self._ship_shards(entry, buffers, ships, sync=False)
+        shipped = sorted({b for b, _ in ships}, key=names.index)
+        self._san_enqueued(entry, buffers, shipped)
+
+        def finish():
+            self._san_drained(entry, shipped)
+            for (b, s), arr in zip(ships, dev):
+                retained[b][s] = (versions[b][s], arr, _write_count(arr))
+            book_clean()
+            out = sharded_lib.unpack(
+                {b: [retained[b][s][1] for s in range(k)] for b in names},
+                entry.layout)
+            self._delta_state.last_unpack[entry] = (versions, out)
+            return out
+
+        return dev, finish
+
+    def _pack_shards(self, entry, device_tree) -> Dict[str, ShardedTensor]:
+        """The device-side direction of Alg. 1 on a mesh: every leaf's
+        elements copied into fresh zeroed per-shard buckets on their
+        positions (from the piece on the same position where one holds
+        them), each bucket a :class:`ShardedTensor`."""
+        layout = entry.layout
+        ranges = arena_lib.shard_ranges(layout)
+        bufs = {b: [torch.zeros(hi - lo, dtype=layout.bucket_dtypes[b],
+                                device=self.mesh[s])
+                    for s, (lo, hi) in enumerate(rs)]
+                for b, rs in ranges.items()}
+        leaves = tree_leaves(device_tree)
+        if len(leaves) != layout.num_leaves:
+            raise ValueError("tree does not match arena layout")
+        for leaf, slot in zip(leaves, layout.slots):
+            for sl in sharded_lib.slot_slices(slot, ranges[slot.bucket]):
+                a, b = sl.lo - slot.offset, sl.hi - slot.offset
+                src = leaf.piece_at(sl.shard, a, b) \
+                    if isinstance(leaf, ShardedTensor) \
+                    else arena_lib.as_tensor(leaf).reshape(-1)[a:b]
+                bufs[slot.bucket][sl.shard][
+                    sl.local_lo:sl.local_lo + sl.size].copy_(src)
+        return {b: ShardedTensor(
+            (layout.bucket_sizes[b],), layout.bucket_dtypes[b],
+            [sharded_lib.Piece(s, lo, hi, t)
+             for s, ((lo, hi), t) in enumerate(zip(ranges[b], bufs[b]))])
+            for b in ranges}
+
     def from_device(self, device_tree, host_tree, paths=None):
-        # demarshal: slice copies into fresh device buckets, one D2H per
-        # bucket behind one synchronize, views of the host buckets
+        # demarshal: slice copies into fresh device buckets (per shard on a
+        # mesh), the D2H of every bucket behind one synchronize, views of
+        # the host buckets
         entry = self._entry if self._entry is not None \
             else self._entry_for(host_tree)
-        buffers = entry.pack_device(device_tree, self.device)
+        if self.mesh is not None:
+            buffers = self._pack_shards(entry, device_tree)
+        else:
+            buffers = entry.pack_device(device_tree, self.device)
         names = list(buffers)
         host = self._get_batch([buffers[b] for b in names])
         return arena_lib.unpack(dict(zip(names, host)), entry.layout)

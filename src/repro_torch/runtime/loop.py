@@ -29,6 +29,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..checkpoint import AsyncCheckpointer, latest_step, load
+from ..core.sharded import live_mesh
 from ..core.treepath import tree_map
 from . import faults as faults_lib
 
@@ -154,7 +155,8 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
             policy, resharded = policy.reshard(max(1, k)), True
             policy_reshards += 1
         try:
-            return (policy, get_session().compile(host, policy, device=dev),
+            return (policy, get_session().compile(host, policy,
+                                                device=live_mesh(dev)),
                     resharded)
         except (UnsupportedSpecError, NotImplementedError):
             survivors = max(1, min(k, live_devices(dev)))
@@ -162,7 +164,8 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
                 raise      # not a stale-mesh failure; don't mask it
             policy = policy.reshard(survivors)
             policy_reshards += 1
-            return (policy, get_session().compile(host, policy, device=dev),
+            return (policy, get_session().compile(host, policy,
+                                                device=live_mesh(dev)),
                     True)
 
     def fresh_or_restored():

@@ -41,6 +41,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..core import engine as engine_lib
 from ..core.policy import TransferPolicy, TransferTimeout
+from ..core.sharded import live_mesh
 from ..core.spec import UnsupportedSpecError
 from ..core.treepath import tree_map
 from ..models.registry import ModelApi
@@ -151,15 +152,14 @@ class Server:
         """One compiled program pass moving the whole ServeState."""
         faults_lib.trip(faults_lib.SERVE_POLICY_SWAP)
         program = self.session.compile(self._host_state, policy,
-                                       device=self.device)
+                                       device=live_mesh(self.device))
         return program, program.to_device(self._host_state)
 
     def _install_policy(self, requested: TransferPolicy) -> None:
         """Stage ServeState under ``requested``, walking the degradation
         ladder when it cannot execute here: requested -> reshard(the
-        visible devices) -> unsharded.  A sharded rule the port cannot run
-        yet (``@dpK``, K > 1) degrades the same way.  Every rung below the
-        top is counted and described in ``stats``."""
+        visible devices) -> unsharded.  Every rung below the top is counted
+        and described in ``stats``."""
         k = torch.cuda.device_count() if self.device.type == "cuda" else 1
         ladder = [requested]
         if requested.num_shards > 1 and requested.num_shards != k:

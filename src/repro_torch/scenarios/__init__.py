@@ -1,10 +1,11 @@
 """repro_torch.scenarios — the registry-driven workload matrix.
 
-Counterpart of ``repro.scenarios`` on one device: the families linear,
-dense, ragged, mixed_dtype, sweep, model_state, mixed_policy, elastic and
-steady_reuse, the Algorithm-2 driver (spec, scheme or policy program), the
-steady delta harness and the region-aware policy harness.  Not yet ported:
-the sharded and sharded_delta families.
+Counterpart of ``repro.scenarios``: the families linear, dense, ragged,
+mixed_dtype, sweep, model_state, sharded, sharded_delta, mixed_policy,
+elastic and steady_reuse (the mesh-sized ones at the caller's
+``iter_scenarios(devices=k)``), the Algorithm-2 driver (spec, scheme or
+policy program), the steady delta harness (per device on a mesh) and the
+region-aware policy harness.
 """
 from .base import (Motion, PAPER_SCHEMES, SCHEME_NAMES, SIZE_PRESETS,
                    Scenario, derive_motion, derive_policy_motion,
@@ -21,7 +22,10 @@ from .families import (LINEAR_LAYOUTS, chain_access_set, deep_narrow_case,
                        linear_tree, linear_used_paths, mixed_dtype_case,
                        mixed_dtype_tree, mixed_policy_case,
                        mixed_policy_tree, model_state_case, ragged_case,
-                       ragged_tree, steady_reuse_case, steady_reuse_tree,
+                       ragged_tree, sharded_case, sharded_delta_case,
+                       sharded_delta_expected, sharded_delta_steady_expected,
+                       sharded_delta_tree, sharded_expected, sharded_tree,
+                       steady_reuse_case, steady_reuse_tree,
                        wide_shallow_case, wide_shallow_tree)
 
 __all__ = [
@@ -38,6 +42,9 @@ __all__ = [
     "elastic_tree", "linear_case", "linear_chain", "linear_expected",
     "linear_tree", "linear_used_paths", "mixed_dtype_case",
     "mixed_dtype_tree", "mixed_policy_case", "mixed_policy_tree",
-    "model_state_case", "ragged_case", "ragged_tree", "steady_reuse_case",
+    "model_state_case", "ragged_case", "ragged_tree", "sharded_case",
+    "sharded_delta_case", "sharded_delta_expected",
+    "sharded_delta_steady_expected", "sharded_delta_tree",
+    "sharded_expected", "sharded_tree", "steady_reuse_case",
     "steady_reuse_tree", "wide_shallow_case", "wide_shallow_tree",
 ]

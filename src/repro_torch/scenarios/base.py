@@ -1,16 +1,22 @@
 """Scenario core: the dataclass, the registry, and the analytic data-motion
 expectations every scheme is held against.
 
-Counterpart of ``repro/scenarios/base.py`` on one device.  A
-:class:`Scenario` declares a deterministic tree builder, the pointer chains
+Counterpart of ``repro/scenarios/base.py``.  A :class:`Scenario` declares
+a deterministic function that builds its tree, the pointer chains
 its kernel dereferences (``used_paths``), the leaves a demand-paging walk
 touches (``uvm_access``) and the exact bytes / copy counts each scheme must
 issue (:class:`Motion`).  A policy scenario also declares the path-scoped
 policy it is designed for and the exact per-region motion of a cold and a
 steady program pass (:func:`derive_policy_motion`,
-:func:`derive_steady_policy_motion`).  The derivations also price sharded
-rules (``@dpK``, K > 1: per-device arenas, :class:`Motion`'s per-device
-fields), as the static analysis needs; executing them is not yet ported.
+:func:`derive_steady_policy_motion`).  The derivations price sharded rules
+(``@dpK``, K > 1: per-device arenas, :class:`Motion`'s per-device fields).
+A sharded scenario (``sharding`` set, at ``num_shards`` = K) runs its
+specs with that axis on the caller's mesh.
+
+The reference builds its registry at ``jax.device_count()`` devices.  The
+port does not probe: :func:`iter_scenarios` takes the mesh size from its
+caller (``devices``, one by default), and the families that depend on it
+(registered with ``mesh=True``) build their cases at that size.
 """
 from __future__ import annotations
 
@@ -221,6 +227,13 @@ class Scenario:
     declared_policy: Optional[str] = None
     region_expected: Optional[Mapping[str, Motion]] = None
     steady_region_expected: Optional[Mapping[str, Motion]] = None
+    # sharded scenarios: the dp axis their specs take (``@dp{sharding}``),
+    # the mesh size the closed forms were derived at
+    sharding: Optional[int] = None
+
+    @property
+    def num_shards(self) -> int:
+        return self.sharding or 1
 
     def steady_mutate_paths(self) -> Tuple[str, ...]:
         paths = self.params.get("mutate_paths")
@@ -239,16 +252,24 @@ class Scenario:
         return None
 
     def specs(self) -> Tuple[TransferSpec, ...]:
-        """The specs the scenario runs under: the reference's four plus
-        ``marshal+db`` (the double-buffered full transfer)."""
-        return (TransferSpec("uvm"),
-                TransferSpec("marshal"),
-                TransferSpec("marshal", staging="double_buffered"),
-                TransferSpec("marshal", delta=True),
-                TransferSpec("pointerchain"))
+        """The specs the scenario runs under: the reference's four with the
+        scenario's sharding axis applied, plus ``marshal+db`` (the
+        double-buffered full transfer) on an unsharded scenario (the
+        capability matrix keeps non-delta ``+db`` single-device)."""
+        sh = self.sharding
+        db = () if sh is not None else (
+            TransferSpec("marshal", staging="double_buffered"),)
+        return (TransferSpec("uvm", sharding=sh),
+                TransferSpec("marshal", sharding=sh),
+                *db,
+                TransferSpec("marshal", delta=True, sharding=sh),
+                TransferSpec("pointerchain", sharding=sh))
 
     def scheme_for(self, spec: Union[str, TransferSpec], session=None,
                    device=None):
+        """Executor for ``spec`` on ``device``: for a sharded spec, the mesh
+        ``device`` names (the default mesh, ``"cpu"`` for K positions on the
+        CPU, or a sequence of devices)."""
         return transfer_scheme(TransferSpec.parse(spec), session,
                                device=device)
 
@@ -262,7 +283,7 @@ class Scenario:
         if tree is None:
             tree = self.build()
         return derive_motion(tree, self.used_paths, self.uvm_access, name,
-                             align_elems)
+                             align_elems, num_shards=self.num_shards)
 
     def validate(self, tree: Any = None) -> None:
         """Check the scenario contract on the built tree."""
@@ -284,19 +305,35 @@ class Scenario:
                 raise ValueError(
                     f"{self.name}: uvm_access does not cover used chains "
                     f"{missing} — UVM could not extract them for the kernel")
+        if self.num_shards > 1:
+            # per-leaf schemes split each moved leaf's dim 0 over the mesh:
+            # every accessed leaf must split evenly
+            access = declare(tree, *(self.uvm_access or self.used_paths))
+            for r in {*used, *access}:
+                t = as_tensor(leaves[r.flat_index])
+                if t.dim() < 1 or t.shape[0] % self.num_shards:
+                    raise ValueError(
+                        f"{self.name}: leaf {r.path} (shape "
+                        f"{tuple(t.shape)}) does not split into "
+                        f"{self.num_shards} shards")
 
 
-FamilyFn = Callable[[str], List[Scenario]]
+FamilyFn = Callable[..., List[Scenario]]
 _REGISTRY: Dict[str, FamilyFn] = {}
+_MESH_FAMILIES: set = set()
 
 
-def register(name: str) -> Callable[[FamilyFn], FamilyFn]:
-    """Decorator: register ``fn(size_preset) -> [Scenario, ...]``."""
+def register(name: str, mesh: bool = False) -> Callable[[FamilyFn], FamilyFn]:
+    """Decorator: register ``fn(size_preset) -> [Scenario, ...]``, or with
+    ``mesh=True`` ``fn(size_preset, devices)`` (a family sized by the mesh
+    it runs on)."""
 
     def deco(fn: FamilyFn) -> FamilyFn:
         if name in _REGISTRY:
             raise ValueError(f"scenario family {name!r} already registered")
         _REGISTRY[name] = fn
+        if mesh:
+            _MESH_FAMILIES.add(name)
         return fn
 
     return deco
@@ -315,14 +352,20 @@ def get_family(name: str) -> FamilyFn:
 
 
 def iter_scenarios(size: str = "quick",
-                   only: Optional[Iterable[str]] = None) -> List[Scenario]:
-    """Every registered scenario at the size preset, in registration order."""
+                   only: Optional[Iterable[str]] = None,
+                   devices: int = 1) -> List[Scenario]:
+    """Every registered scenario at the size preset, in registration order;
+    the mesh-sized families (sharded, sharded_delta, mixed_policy, elastic)
+    at a mesh of ``devices`` positions (the caller's, never probed)."""
     if size not in SIZE_PRESETS:
         raise KeyError(f"unknown size preset {size!r}; options: {SIZE_PRESETS}")
+    if devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
     names = list(_REGISTRY) if only is None else list(only)
     out: List[Scenario] = []
     for fam in names:
-        out.extend(get_family(fam)(size))
+        fn = get_family(fam)
+        out.extend(fn(size, devices) if fam in _MESH_FAMILIES else fn(size))
     seen: Dict[str, str] = {}
     for sc in out:
         if sc.name in seen:

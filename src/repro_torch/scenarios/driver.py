@@ -1,8 +1,8 @@
 """Scheme-agnostic Algorithm-2 driver.
 
-Counterpart of ``repro/scenarios/driver.py`` on one device.  One
-straight-line pass for any spec, or for a path-scoped policy compiled into
-one program:
+Counterpart of ``repro/scenarios/driver.py``.  One straight-line pass for
+any spec (on one device, or on a mesh for ``@dpK``), or for a path-scoped
+policy compiled into one program:
 
     stage (transfer under the spec or policy) -> extract declared leaves ->
     kernel (x1.5) -> insert -> from_device -> check (line 7)
@@ -12,7 +12,10 @@ analytic :class:`~repro_torch.scenarios.base.Motion`,
 :func:`run_steady_scenario` warms a delta executor, mutates, and holds
 every steady pass to its exact dirty motion, and
 :func:`run_policy_scenario` holds every region of a program pass to its
-motion (closed form == structural derivation == region ledger).
+motion (closed form == structural derivation == region ledger).  On a
+mesh every motion check is also held per position: the uniform split, a
+delta pass's ``by_shard`` split, and ``h2d + skipped == the full sharded
+motion`` on every position.
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 
-from .._device import DeviceLike, synchronize
+from .._device import synchronize
 from ..core import (LazyLeaf, TransferPolicy, TransferSpec, TreePath, declare,
                     extract, get_session, insert, transfer_scheme)
 from ..core.arena import as_tensor
+from ..core.sharded import MeshLike, ShardedTensor, to_host
 from ..core.treepath import tree_leaves
 from .base import (Motion, Scenario, derive_policy_motion,
                    derive_steady_motion, derive_steady_policy_motion)
@@ -49,9 +53,23 @@ class Measurement:
     device: Optional[str] = None          # where it ran
 
 
-def motion_matches(ledger, expected: Motion) -> bool:
-    """Exact ledger == expectation."""
-    return (ledger.h2d_bytes, ledger.h2d_calls) == expected.as_tuple()
+def motion_matches(ledger, expected: Motion, num_shards: int = 1) -> bool:
+    """Exact ledger == expectation, including the per-device split when the
+    expectation declares one (every one of ``num_shards`` positions,
+    uniformly)."""
+    if (ledger.h2d_bytes, ledger.h2d_calls) != expected.as_tuple():
+        return False
+    want = expected.per_device_tuple()
+    if want is None:
+        return True
+    per_dev = ledger.per_device()
+    return len(per_dev) == num_shards and \
+        all(got == want for got in per_dev.values())
+
+
+def _sync_all(devices) -> None:
+    for dev in dict.fromkeys(devices):
+        synchronize(dev)
 
 
 # 1.5 is exactly representable in every float dtype the scenarios use, and
@@ -59,11 +77,12 @@ def motion_matches(ledger, expected: Motion) -> bool:
 _SCALE = 1.5
 
 
-def scale_kernel(leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def scale_kernel(leaves: Sequence[Any]) -> List[Any]:
     """The Algorithm-2 kernel: every declared leaf times 1.5, on whatever
-    device the leaf lives on (new tensors; attached views are never written
-    in place)."""
-    return [l * _SCALE for l in leaves]
+    device the leaf lives on, a sharded leaf piece by piece on each piece's
+    device (new tensors; attached views are never written in place)."""
+    return [l.map(lambda t: t * _SCALE) if isinstance(l, ShardedTensor)
+            else l * _SCALE for l in leaves]
 
 
 def _check_rtol(leaf: torch.Tensor) -> float:
@@ -76,7 +95,7 @@ def run_algorithm2(tree: Any, used_paths: Sequence[str],
                    uvm_access: Optional[Sequence[str]] = None,
                    kernel_repeats: int = 1,
                    scheme: Optional[Any] = None,
-                   device: DeviceLike = None,
+                   device: MeshLike = None,
                    policy: Union[str, TransferPolicy, None] = None,
                    program: Optional[Any] = None) -> Measurement:
     """One full Algorithm-2 pass; returns wall/kernel time + motion stats.
@@ -161,7 +180,7 @@ def _kernel_only_us(tree: Any, refs, kernel_repeats: int,
 def _run_algorithm2_program(tree: Any, used_paths: Sequence[str], *,
                             policy: Union[str, TransferPolicy, None],
                             program: Optional[Any], kernel_repeats: int,
-                            device: DeviceLike) -> Measurement:
+                            device: MeshLike) -> Measurement:
     """Algorithm 2 with a compiled TransferProgram as the transfer step."""
     if program is None:
         program = get_session().compile(tree, TransferPolicy.parse(policy),
@@ -193,10 +212,10 @@ def _run_algorithm2_program(tree: Any, used_paths: Sequence[str], *,
 def run_scenario(sc: Scenario, spec: Union[str, TransferSpec, None] = None, *,
                  scheme: Optional[Any] = None, tree: Any = None,
                  kernel_repeats: int = 1,
-                 device: DeviceLike = None) -> Measurement:
+                 device: MeshLike = None) -> Measurement:
     """Algorithm 2 over a registry scenario, with the motion check:
     ``motion_ok`` is True iff the ledger equals the scenario's expectation
-    exactly."""
+    exactly, per device too for a sharded scenario."""
     if tree is None:
         tree = sc.build()
     if scheme is None:
@@ -209,7 +228,7 @@ def run_scenario(sc: Scenario, spec: Union[str, TransferSpec, None] = None, *,
                        kernel_repeats=kernel_repeats, scheme=scheme)
     m.expected = sc.expected_motion(
         m.scheme, tree, align_elems=getattr(scheme, "align_elems", 1))
-    m.motion_ok = motion_matches(scheme.ledger, m.expected)
+    m.motion_ok = motion_matches(scheme.ledger, m.expected, sc.num_shards)
     return m
 
 
@@ -224,18 +243,24 @@ class SteadyMeasurement:
     ok: bool                     # the attached tree equals the host tree
     motion_ok: bool              # ledger == the steady expectation exactly
     spec: Optional[str] = None
+    # on a mesh: the per-position split of the same pass
+    h2d_by_device: Optional[Dict[str, int]] = None
+    skipped_by_device: Optional[Dict[str, int]] = None
 
 
 def run_steady_scenario(sc: Scenario, *, passes: int = 3,
                         scheme: Optional[Any] = None,
                         spec: Union[str, TransferSpec, None] = None,
-                        device: DeviceLike = None
+                        device: MeshLike = None
                         ) -> List[SteadyMeasurement]:
     """Warm a delta executor with one full transfer, then repeatedly mutate
     the leaves at ``params['mutate_path(s)']`` (+1) and re-transfer.  Every
-    pass must ship EXACTLY the mutated leaves' dtype buckets, with
-    ``h2d_bytes + skipped_bytes`` equal to the full marshal motion, and the
-    attached tree must equal the mutated host tree leaf for leaf."""
+    pass must ship EXACTLY the mutated leaves' dtype buckets (on a mesh:
+    only the (bucket, position) shards the mutation overlaps, with the
+    ``by_shard`` split when declared), with ``h2d_bytes + skipped_bytes``
+    equal to the full marshal motion (on a mesh, on every position:
+    ``h2d[d] + skipped[d] == full / K``), and the attached tree must equal
+    the mutated host tree leaf for leaf."""
     mutate = list(sc.steady_mutate_paths())
     if not mutate:
         raise ValueError(f"{sc.name} is not a steady-state scenario "
@@ -253,10 +278,12 @@ def run_steady_scenario(sc: Scenario, *, passes: int = 3,
     tree = sc.build()
     scheme.to_device(tree)                      # warm-up: full cold transfer
     full_bytes = sum(scheme.layout.bucket_bytes().values())
+    k = max(1, scheme.layout.shard_multiple)
     declared = sc.steady_expected is not None and str(want_spec) == str(
         sc.steady_spec or TransferSpec.parse("marshal+delta"))
     expected = sc.steady_expected if declared else derive_steady_motion(
-        tree, mutate, align_elems=scheme.align_elems)
+        tree, mutate, num_shards=k, align_elems=scheme.align_elems)
+    devices = scheme.mesh or (scheme.device,)
     tps = [TreePath.parse(p) for p in mutate]
     out: List[SteadyMeasurement] = []
     for _ in range(passes):
@@ -266,16 +293,28 @@ def run_steady_scenario(sc: Scenario, *, passes: int = 3,
         scheme.ledger.reset()
         t0 = time.perf_counter()
         dev = scheme.to_device(tree)
-        synchronize(scheme.device)
+        _sync_all(devices)
         wall_us = (time.perf_counter() - t0) * 1e6
         led = scheme.ledger
         motion_ok = (led.h2d_bytes, led.h2d_calls) == expected.as_tuple() \
             and led.h2d_bytes + led.skipped_bytes == full_bytes
-        ok = all(torch.equal(a.cpu(), as_tensor(b))
+        if k > 1:
+            for s in range(k):
+                key = str(s)
+                moved = led.h2d_bytes_by_device.get(key, 0)
+                # the per-position complement, exact on every position
+                motion_ok &= moved + led.skipped_bytes_by_device.get(
+                    key, 0) == full_bytes // k
+                if expected.by_shard is not None:
+                    motion_ok &= (moved, led.h2d_calls_by_device.get(
+                        key, 0)) == expected.by_shard[s]
+        ok = all(torch.equal(to_host(a), as_tensor(b))
                  for a, b in zip(tree_leaves(dev), tree_leaves(tree)))
-        out.append(SteadyMeasurement(led.h2d_bytes, led.h2d_calls,
-                                     led.skipped_bytes, wall_us, ok,
-                                     motion_ok, spec=str(want_spec)))
+        out.append(SteadyMeasurement(
+            led.h2d_bytes, led.h2d_calls, led.skipped_bytes, wall_us, ok,
+            motion_ok, spec=str(want_spec),
+            h2d_by_device=dict(led.h2d_bytes_by_device) or None,
+            skipped_by_device=dict(led.skipped_bytes_by_device) or None))
     return out
 
 
@@ -307,10 +346,25 @@ class PolicyMeasurement:
 def _region_motion_ok(spec: TransferSpec, ledger, expected: Motion,
                       cold: Motion) -> bool:
     """Exact region ledger == expectation; for a delta region also the
-    complement ``h2d + skipped == the region's cold bytes``."""
+    complement ``h2d + skipped == the region's cold bytes``; for a sharded
+    region both per position: the uniform split (or a delta pass's
+    ``by_shard``) and the complement against ``cold / K``."""
     ok = (ledger.h2d_bytes, ledger.h2d_calls) == expected.as_tuple()
     if spec.delta:
         ok &= ledger.h2d_bytes + ledger.skipped_bytes == cold.h2d_bytes
+    k = spec.num_shards
+    if k > 1:
+        for s in range(k):
+            key = str(s)
+            moved = ledger.h2d_bytes_by_device.get(key, 0)
+            calls = ledger.h2d_calls_by_device.get(key, 0)
+            if spec.delta:
+                ok &= moved + ledger.skipped_bytes_by_device.get(key, 0) \
+                    == cold.h2d_bytes // k
+                if expected.by_shard is not None:
+                    ok &= (moved, calls) == expected.by_shard[s]
+            elif expected.per_device_tuple() is not None:
+                ok &= (moved, calls) == expected.per_device_tuple()
     return ok
 
 
@@ -321,7 +375,7 @@ def _materialized_equal(dev: Any, host: Any) -> bool:
     if len(dev_leaves) != len(host_leaves):
         return False
     for a, b in zip(dev_leaves, host_leaves):
-        a = as_tensor(a._host if isinstance(a, LazyLeaf) else a).cpu()
+        a = to_host(a._host if isinstance(a, LazyLeaf) else a)
         b = as_tensor(b)
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
             return False
@@ -334,7 +388,7 @@ def run_policy_scenario(sc: Scenario,
                         program: Optional[Any] = None,
                         session: Optional[Any] = None,
                         executor: str = "blocking",
-                        device: DeviceLike = None
+                        device: MeshLike = None
                         ) -> List[PolicyMeasurement]:
     """The region-aware harness over a compiled program: pass 0 is cold,
     each later pass first mutates ``params['mutate_paths']`` (+1, out of
@@ -350,9 +404,8 @@ def run_policy_scenario(sc: Scenario,
 
     ``executor="async"`` runs every pass as ``to_device_async(...).result()``
     under the same checks.  ``policy`` defaults to the declared one; the
-    program is compiled on ``device`` (the card unless ``"cpu"``) over
-    ``session`` unless one is passed.  A sharded rule (``@dpK``, K > 1)
-    raises ``NotImplementedError`` when it is compiled.
+    program is compiled on ``device`` (the card unless ``"cpu"``; a sharded
+    rule runs on the mesh it names) over ``session`` unless one is passed.
     """
     if executor not in ("blocking", "async"):
         raise ValueError(f"executor must be 'blocking' or 'async', "
@@ -384,7 +437,7 @@ def run_policy_scenario(sc: Scenario,
             dev = program.to_device_async(cur).result()
         else:
             dev = program.to_device(cur)
-        synchronize(program.device)
+        program.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         stats = program.last_stats
         if i == 0:

@@ -1,10 +1,11 @@
-"""Scenario families — the paper's two workloads plus seven more.
+"""Scenario families — the paper's two workloads plus nine more.
 
-Counterpart of ``repro/scenarios/families.py`` for the families linear,
-dense, ragged, mixed_dtype, sweep, model_state, mixed_policy, elastic and
-steady_reuse, registered in the reference's order, with the same seeds,
-the same sizes and the same closed forms.  Payloads are drawn with numpy's
-``default_rng`` exactly as the reference draws them, then wrapped with
+Counterpart of ``repro/scenarios/families.py``: the families linear,
+dense, ragged, mixed_dtype, sweep, model_state, sharded, sharded_delta,
+mixed_policy, elastic and steady_reuse, registered in the reference's
+order, with the same seeds, the same sizes and the same closed forms.
+Payloads are drawn with numpy's ``default_rng`` exactly as the reference
+draws them, then wrapped with
 ``torch.from_numpy``; a bf16 leaf is the float32 array cast with
 ``.to(torch.bfloat16)`` (bit-equal to the reference's ``astype``); header
 scalars are 0-d int32 tensors.
@@ -12,8 +13,10 @@ scalars are 0-d int32 tensors.
 model_state's trees are the port's own smoke params (``torch.Generator``
 seeded with 0): the same paths, shapes and dtypes as the reference's, not
 its values, which ``jax.random`` draws.  Motion depends on structure only.
-mixed_policy and elastic run at one device (``@dp1``) until sharded
-execution is ported.  Not yet ported: sharded and sharded_delta.
+
+sharded, sharded_delta, mixed_policy and elastic are sized by a mesh of k
+positions.  The reference reads ``jax.device_count()`` when it builds
+them; here k comes from the caller (``iter_scenarios(devices=k)``).
 """
 from __future__ import annotations
 
@@ -344,15 +347,114 @@ def _model_state_family(size: str) -> List[Scenario]:
     return [model_state_case(a) for a in archs]
 
 
+# -- sharded — per-device arenas over the whole mesh -------------------------
+
+def sharded_tree(n: int, k: int, seed: int = 13) -> Any:
+    """Two f32 payloads and an i32 id table, all 1-D with sizes divisible by
+    the mesh size ``k``, so every copy splits evenly per device."""
+    rng = np.random.default_rng(seed)
+    return {"w": _f32(rng, n), "v": _f32(rng, 3 * n),
+            "ids": torch.arange(4 * k, dtype=torch.int32)}
+
+
+def _sharded_motion(marshal_bytes: int, used_bytes: int, k: int) -> dict:
+    """Two buckets (marshal) or two used leaves (per-leaf schemes), each
+    one copy per device; a delta transfer's COLD pass is marshal's."""
+    if k == 1:
+        marshal, per_leaf = Motion(marshal_bytes, 2), Motion(used_bytes, 2)
+    else:
+        marshal = Motion(marshal_bytes, 2 * k, marshal_bytes // k, 2)
+        per_leaf = Motion(used_bytes, 2 * k, used_bytes // k, 2)
+    return {"marshal": marshal, "marshal_delta": marshal,
+            "uvm": per_leaf, "pointerchain": per_leaf}
+
+
+def sharded_expected(n: int, k: int) -> dict:
+    """Closed-form per-device Motion on a k-device mesh: marshal ships one
+    contiguous sub-range per (bucket, device) of the f32 bucket (w + v, 4n
+    elements) and the i32 bucket (4k); the per-leaf schemes split w and v
+    k ways."""
+    return _sharded_motion(_F32 * 4 * n + _I32 * 4 * k, _F32 * 4 * n, k)
+
+
+def sharded_case(n: int, k: int) -> Scenario:
+    used = ("w", "v")
+    return Scenario(
+        name=f"sharded_n{n}_dev{k}",
+        family="sharded",
+        build=functools.partial(sharded_tree, n, k),
+        used_paths=used,
+        uvm_access=used,
+        expected=sharded_expected(n, k),
+        sharding=k,
+        params=dict(n=n, devices=k))
+
+
+@register("sharded", mesh=True)
+def _sharded_family(size: str, k: int) -> List[Scenario]:
+    return [sharded_case((16 if size == "smoke" else 256) * k, k)]
+
+
+# -- sharded_delta — per-device incremental transfers (marshal+delta@dpk) ----
+
+def sharded_delta_tree(n: int, k: int, seed: int = 19) -> Any:
+    """Two hot f32 leaves that mutate every pass, a cold f32 leaf that never
+    does, and a frozen i32 id table.  Dict keys flatten in sorted order, so
+    the f32 bucket is ``cold[2n] | hot.a[n] | hot.b[n]``: mutating the hot
+    leaves dirties exactly the trailing ``ceil(k/2)`` shards of it."""
+    rng = np.random.default_rng(seed)
+    return {"hot": {"a": _f32(rng, n), "b": _f32(rng, n)},
+            "cold": _f32(rng, 2 * n),
+            "ids": torch.arange(4 * k, dtype=torch.int32)}
+
+
+def sharded_delta_expected(n: int, k: int) -> dict:
+    """Cold-pass closed forms: the f32 bucket is 4n elements and the i32
+    bucket 4k (marshal); the used leaves hot.a and cold are 3n f32."""
+    return _sharded_motion(_F32 * 4 * n + _I32 * 4 * k, _F32 * 3 * n, k)
+
+
+def sharded_delta_steady_expected(n: int, k: int) -> Motion:
+    """ONE steady pass after mutating hot.a and hot.b: the mutated region is
+    elements [2n, 4n) of the f32 bucket, whose shard is 4n/k elements, so
+    exactly the shards overlapping it ship (one copy each, a full shard of
+    bytes) and every other (bucket, device) shard is skipped."""
+    if k == 1:
+        return Motion(_F32 * 4 * n, 1)    # the whole f32 bucket, one copy
+    step = (4 * n) // k
+    first_dirty = (2 * n) // step
+    by_shard = tuple((step * _F32, 1) if s >= first_dirty else (0, 0)
+                     for s in range(k))
+    dirty = k - first_dirty               # == ceil(k/2)
+    return Motion(dirty * step * _F32, dirty, by_shard=by_shard)
+
+
+def sharded_delta_case(n: int, k: int) -> Scenario:
+    used = ("hot.a", "cold")
+    return Scenario(
+        name=f"sharded_delta_n{n}_dev{k}",
+        family="sharded_delta",
+        build=functools.partial(sharded_delta_tree, n, k),
+        used_paths=used,
+        uvm_access=used,
+        expected=sharded_delta_expected(n, k),
+        sharding=k,
+        steady_expected=sharded_delta_steady_expected(n, k),
+        steady_spec=TransferSpec("marshal", delta=True, sharding=k),
+        params=dict(n=n, devices=k, mutate_paths=("hot.a", "hot.b")))
+
+
+@register("sharded_delta", mesh=True)
+def _sharded_delta_family(size: str, k: int) -> List[Scenario]:
+    return [sharded_delta_case((4 if size == "smoke" else 64) * k, k)]
+
+
 # -- mixed_policy — path-scoped policies over model-shaped state -------------
 
-def _one_device_family(k: int) -> None:
-    """The closed forms below are one device's; the reference's per-device
-    split at K > 1 waits for sharded execution."""
-    if k != 1:
-        raise NotImplementedError(
-            f"policy families on {k} devices need sharded execution (@dpK, "
-            f"K > 1), not yet ported to the PyTorch package")
+def _params_cold(n: int, k: int) -> Motion:
+    """The params region: one f32 bucket of 3n elements (w + b), 12n bytes
+    in one copy (per device 12n/k bytes, one copy each on a k-mesh)."""
+    return Motion(12 * n, 1) if k == 1 else Motion(12 * n, k, 12 * n // k, 1)
 
 
 def mixed_policy_tree(n: int, seed: int = 23) -> Any:
@@ -371,16 +473,16 @@ def mixed_policy_case(n: int, k: int) -> Scenario:
     """Closed-form per-region Motion for the declared policy
     ``params/**=marshal@dp{k}; opt/**=marshal+delta; **=pointerchain``:
 
-    * params — one f32 bucket of 3n elements (w + b): 12n bytes, 1 copy.
+    * params — one f32 bucket of 3n elements (w + b): 12n bytes, 1 copy
+      (per device 12n/k bytes, one copy each on a k-mesh).
     * opt — f32 bucket (m + v, 8n bytes) + i32 bucket (t, 4 bytes): cold
       8n + 4 bytes in 2 copies; steady after mutating ``opt.m`` the f32
       bucket ships whole (8n, 1) and the i32 bucket is skipped.
     * default (meta) — pointerchain, one copy per leaf every pass: ids
       (8n) + scale (4n) = 12n bytes in 2 copies.
     """
-    _one_device_family(k)
     pol = f"params/**=marshal@dp{k}; opt/**=marshal+delta; **=pointerchain"
-    params_cold = Motion(12 * n, 1)
+    params_cold = _params_cold(n, k)
     meta = Motion(12 * n, 2)
     return Scenario(
         name=f"mixed_policy_n{n}_dev{k}",
@@ -398,13 +500,9 @@ def mixed_policy_case(n: int, k: int) -> Scenario:
         params=dict(n=n, devices=k, mutate_paths=("opt.m",)))
 
 
-@register("mixed_policy")
-def _mixed_policy_family(size: str) -> List[Scenario]:
-    # k = 1: the reference's name on one device (it passes
-    # jax.device_count()); @dpK with K > 1 is not ported yet
-    k = 1
-    n = (8 if size == "smoke" else 128) * k
-    return [mixed_policy_case(n, k)]
+@register("mixed_policy", mesh=True)
+def _mixed_policy_family(size: str, k: int) -> List[Scenario]:
+    return [mixed_policy_case((8 if size == "smoke" else 128) * k, k)]
 
 
 # -- elastic — the restore-onto-a-changed-mesh state shape -------------------
@@ -424,15 +522,16 @@ def elastic_case(n: int, k: int) -> Scenario:
     """Closed-form per-region Motion for the restore policy
     ``params/**=marshal@dp{k}; opt/**=marshal+delta; **=marshal``:
 
-    * params — one f32 bucket of 3n elements (w + b): 12n bytes, 1 copy.
+    * params — one f32 bucket of 3n elements (w + b): 12n bytes, 1 copy
+      (per device 12n/k bytes, one copy each on a k-mesh): the bytes an
+      n -> m restore re-ships per surviving device.
     * opt — f32 bucket (mu + nu, 12n bytes) + i32 bucket (t, 4): cold
       12n + 4 bytes in 2 copies; steady after mutating ``opt.mu`` the f32
       bucket ships whole (12n, 1), the i32 bucket is skipped.
     * default (step) — 4 bytes, 1 copy, every pass.
     """
-    _one_device_family(k)
     pol = f"params/**=marshal@dp{k}; opt/**=marshal+delta; **=marshal"
-    params_cold = Motion(12 * n, 1)
+    params_cold = _params_cold(n, k)
     return Scenario(
         name=f"elastic_n{n}_dev{k}",
         family="elastic",
@@ -449,11 +548,9 @@ def elastic_case(n: int, k: int) -> Scenario:
         params=dict(n=n, devices=k, mutate_paths=("opt.mu",)))
 
 
-@register("elastic")
-def _elastic_family(size: str) -> List[Scenario]:
-    k = 1                                 # as in mixed_policy
-    n = (8 if size == "smoke" else 128) * k
-    return [elastic_case(n, k)]
+@register("elastic", mesh=True)
+def _elastic_family(size: str, k: int) -> List[Scenario]:
+    return [elastic_case((8 if size == "smoke" else 128) * k, k)]
 
 
 # -- steady_reuse — the delta transfer steady state --------------------------

@@ -19,7 +19,9 @@
   * the three-way differential on the port at ``smoke``: static ==
     structural == the ledger of ``run_policy_scenario(device="cpu")``;
   * no fallback: without a card the live mesh and the calibration raise
-    ``NoCudaDeviceError``, and ``@dpK`` execution still raises.
+    ``NoCudaDeviceError``; ``@dpK`` executes on a K-position mesh (booking
+    per position what the cost model prices) and raises the stale-mesh
+    error on a narrower one.
 
 The reference runs under ``JAX_PLATFORMS=cpu`` on its numpy trees, which
 the port takes with ``from_reference_tree``.
@@ -51,7 +53,8 @@ from repro_torch.analysis import cost as p_cost
 from repro_torch.analysis import diagnostics as p_diag
 from repro_torch.convert import from_reference_tree
 from repro_torch.core import (TransferPolicy, TransferSession,
-                              UnsupportedPolicyError, candidate_specs,
+                              UnsupportedPolicyError, UnsupportedSpecError,
+                              candidate_specs,
                               enumerate_policies, partition_tree,
                               transfer_scheme, tree_map)
 from repro_torch.core import arena as p_arena
@@ -627,17 +630,33 @@ def test_the_live_mesh_and_calibration_need_a_card():
 
 
 def test_sharded_execution_still_raises():
+    """What the cost model prices for a sharded rule is what executing it
+    on a K-position mesh books, per position; on a mesh narrower than the
+    rule, execution raises the stale-mesh error (DC106's condition)."""
     sc = _PORT["mixed_policy_n8_dev1"]
     tree = sc.build()
     policy = "params/**=marshal@dp2; **=marshal"
-    # priced statically ...
-    assert p_cost.policy_cost(tree, policy).region("params/**") \
-        .cold.per_device_tuple() == (48, 1)
-    # ... but never executed
-    for run in (lambda: TransferSession().compile(tree, policy, device=CPU),
-                lambda: transfer_scheme("marshal+delta@dp8", device=CPU),
-                lambda: PS.run_policy_scenario(sc, policy, device=CPU),
-                lambda: PS.mixed_policy_case(16, 2),
-                lambda: PS.elastic_case(16, 4)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    cost = p_cost.policy_cost(tree, policy)
+    assert cost.region("params/**").cold.per_device_tuple() == (48, 1)
+    m, = PS.run_policy_scenario(sc, policy, device=CPU,
+                                session=TransferSession())
+    assert m.ok and m.motion_ok
+    for rc in cost.regions:
+        led = m.regions[rc.key]
+        assert (led["h2d_bytes"], led["h2d_calls"]) == rc.cold.as_tuple()
+        if rc.cold.per_device_tuple() is not None:
+            assert {d: (led["h2d_bytes_by_device"][d],
+                        led["h2d_calls_by_device"][d])
+                    for d in led["h2d_bytes_by_device"]} == \
+                {"0": (48, 1), "1": (48, 1)}
+    assert [d.code for d in p_check.check_policy(tree, policy,
+                                                 mesh_size=1)] == ["DC106"]
+    for run in (lambda: TransferSession().compile(tree, policy,
+                                                  device=[CPU]),
+                lambda: transfer_scheme("marshal+delta@dp8",
+                                        device=[CPU] * 4)):
+        with pytest.raises(UnsupportedSpecError, match="stale for this"):
             run()
+    for case in (PS.mixed_policy_case(16, 2), PS.elastic_case(16, 4)):
+        assert all(mm.ok and mm.motion_ok for mm in PS.run_policy_scenario(
+            case, passes=2, device=CPU, session=TransferSession()))

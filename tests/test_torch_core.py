@@ -26,10 +26,12 @@ from repro_torch.core import chainref as p_chainref
 from repro_torch.core import spec as p_spec
 from repro_torch.core import treepath as p_treepath
 
-# the port's families in its registration order (the reference's, less
-# sharded and sharded_delta)
+# the port's families in its registration order: the reference's, all of
+# them (the mesh-sized ones at one device, the reference's device count
+# in this process)
 FAMILIES = ("linear", "dense", "ragged", "mixed_dtype", "sweep",
-            "model_state", "mixed_policy", "elastic", "steady_reuse")
+            "model_state", "sharded", "sharded_delta", "mixed_policy",
+            "elastic", "steady_reuse")
 _REF = {sc.name: sc for size in ("smoke", "quick")
         for sc in RS.iter_scenarios(size, only=FAMILIES)}
 _PORT = {sc.name: sc for size in ("smoke", "quick")

@@ -1193,3 +1193,81 @@ def test_sanitizer_dc305_with_a_held_copy(cuda, scribble):
             assert san.events["drain"] == 2
     torch.cuda.synchronize(cuda)
     assert float(f32[0]) == (2.0 if scribble else 1.0)
+
+
+# -- sharded execution: a four-position mesh on the card ---------------------
+
+_SHARD_SPECS = ("uvm@dp4", "marshal@dp4", "marshal+delta@dp4",
+                "pointerchain@dp4")
+
+
+def _mesh(cuda):
+    """Four positions on the visible cards, position i on cuda:(i mod
+    count) (on one card all four sit on cuda:0)."""
+    count = torch.cuda.device_count()
+    return tuple(torch.device("cuda", i % count) for i in range(4))
+
+
+@pytest.mark.parametrize("family", ["sharded", "sharded_delta"])
+def test_sharded_algorithm2_on_the_card(cuda, family):
+    from repro_torch.core import ShardedTensor, to_host
+
+    mesh = _mesh(cuda)
+    sc = PS.iter_scenarios("quick", only=[family], devices=4)[0]
+    tree = sc.build()
+    for spec in _SHARD_SPECS:
+        m = PS.run_scenario(sc, spec, tree=tree, device=mesh)
+        assert m.ok and m.motion_ok, (sc.name, spec, m)
+        scheme = sc.scheme_for(spec, TransferSession(), device=mesh)
+        dev = scheme.to_device(tree)
+        if spec.startswith("uvm"):
+            dev = scheme.materialize(dev)
+        for a, b in zip(tree_leaves(dev), tree_leaves(tree)):
+            assert isinstance(a, ShardedTensor)
+            assert all(p.tensor.device.type == "cuda" for p in a.pieces)
+            assert torch.equal(to_host(a), b)
+
+
+def test_sharded_delta_shard_fences_and_write_check_on_the_card(cuda):
+    """Three marshal+delta@dp4 passes behind a held copy stream: each
+    shard copy's event fences the staging until it lands, so every
+    returned tree keeps its own bytes; then an in-place write through one
+    piece re-ships that shard only."""
+    from repro_torch.core import to_host
+
+    mesh = _mesh(cuda)
+    sc = PS.sharded_delta_case(2 ** 20, 4)
+    s = sc.scheme_for(sc.steady_spec, TransferSession(), device=mesh)
+    tree = sc.build()
+    trees, devs = [], []
+    _hold_copy_stream(cuda, 0.2)
+    for _ in range(3):
+        trees.append(tree)
+        devs.append(s.to_device(tree))
+        tree = {"hot": {k: v + 1 for k, v in tree["hot"].items()},
+                "cold": tree["cold"], "ids": tree["ids"]}
+    torch.cuda.synchronize(cuda)
+    for t, d in zip(trees, devs):
+        for a, b in zip(tree_leaves(d), tree_leaves(t)):
+            assert torch.equal(to_host(a), b)
+    last = trees[-1]
+    piece = next(p for p in devs[-1]["cold"].pieces if p.position == 1)
+    piece.tensor.mul_(2.0)
+    s.ledger.reset()
+    again = s.to_device(last)
+    assert s.ledger.h2d_bytes_by_device == {"1": 2 ** 22}
+    for a, b in zip(tree_leaves(again), tree_leaves(last)):
+        assert torch.equal(to_host(a), b)
+
+
+@pytest.mark.parametrize("executor", ["blocking", "async"])
+def test_sharded_policy_scenario_on_the_card(cuda, executor):
+    mesh = _mesh(cuda)
+    for case in (PS.mixed_policy_case, PS.elastic_case):
+        sc = case(2 ** 12, 4)
+        ms = PS.run_policy_scenario(sc, passes=3, executor=executor,
+                                    session=TransferSession(), device=mesh)
+        for m in ms:
+            assert m.ok and m.motion_ok and m.syncs == 1
+            led = m.regions["params/**"]
+            assert led["h2d_calls_by_device"] == {str(s): 1 for s in range(4)}

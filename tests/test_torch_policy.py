@@ -33,7 +33,7 @@ from repro_torch.convert import from_reference_tree
 from repro_torch.core import (PolicyRule, TransferPolicy, TransferSession,
                               TransferTimeout, UnsupportedPolicyError,
                               UnsupportedSpecError, partition_tree,
-                              transfer_scheme, tree_leaves)
+                              to_host, transfer_scheme, tree_leaves)
 from repro_torch.core import schemes as p_schemes
 from repro_torch.runtime import serve_transfer_policy
 
@@ -261,8 +261,15 @@ def test_result_timeout_is_typed_and_retryable():
 
 
 def test_dp1_runs_on_one_device_and_dpk_is_not_ported():
-    assert transfer_scheme("marshal+align128@dp1", device=CPU).device.type \
-        == "cpu"
+    """@dp1 runs unsharded on one device; @dpK runs on a mesh of K
+    positions and nowhere narrower: on a one-position mesh the compile
+    raises the stale-mesh policy error, naming the rule."""
+    scheme = transfer_scheme("marshal+align128@dp1", device=CPU)
+    assert scheme.device.type == "cpu" and scheme.mesh is None
     tree = {"a": torch.ones(4)}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TransferSession().compile(tree, "**=marshal@dp2", device=CPU)
+    with pytest.raises(UnsupportedPolicyError, match=r"\*\*=marshal@dp2"):
+        TransferSession().compile(tree, "**=marshal@dp2", device=[CPU])
+    prog = TransferSession().compile(tree, "**=marshal@dp2", device=CPU)
+    out = prog.to_device(tree)
+    assert torch.equal(to_host(out["a"]), tree["a"])
+    assert prog.scheme("**").mesh == (torch.device("cpu"),) * 2

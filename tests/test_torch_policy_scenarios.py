@@ -36,7 +36,8 @@ from repro.core import leaf_paths as r_leaf_paths
 from repro_torch import scenarios as PS
 from repro_torch.convert import from_reference_tree
 from repro_torch.core import (LazyLeaf, ProgramStats, TransferLedger,
-                              TransferPolicy, TransferSession, full_deepcopy,
+                              TransferPolicy, TransferSession,
+                              UnsupportedSpecError, full_deepcopy,
                               leaf_paths, tree_leaves)
 from test_torch_policy import _LEDGER_FIELDS, _MATRIX
 
@@ -236,16 +237,21 @@ def test_run_policy_scenario_rejects_what_it_cannot_check():
         PS.run_policy_scenario(sc, executor="threads", device=CPU)
     with pytest.raises(ValueError, match="declares no policy"):
         PS.run_policy_scenario(_PORT["ragged_n32"], device=CPU)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a sharded rule cannot be checked on a mesh it does not fit: the
+    # compile raises the stale-mesh error instead of running unsharded
+    with pytest.raises(UnsupportedSpecError, match="stale for this"):
         PS.run_policy_scenario(
-            sc, "params/**=marshal@dp2; **=marshal", device=CPU)
-    # the derivation is host arithmetic and prices @dpK (per-device
-    # arenas: 48 f32 and 17 -> 24 i32 elements over 8 devices); only
-    # executing a sharded rule raises
+            sc, "params/**=marshal@dp2; **=marshal", device=[CPU])
+    # the derivation prices @dpK (per-device arenas: 48 f32 and 17 -> 24
+    # i32 elements over 8 devices), and a K-position mesh executes it
     assert PS.derive_policy_motion(sc.build(), "**=marshal+delta@dp8")[
         "**"].per_device_tuple() == (36, 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PS.mixed_policy_case(16, 2)
+    m, = PS.run_policy_scenario(sc, "**=marshal+delta@dp8", device=CPU,
+                                session=TransferSession())
+    assert m.ok and m.motion_ok and m.regions["**"]["h2d_bytes_by_device"] \
+        == {str(s): 36 for s in range(8)}
+    case = PS.mixed_policy_case(16, 2)
+    assert case.region_expected["params/**"].per_device_tuple() == (96, 1)
 
 
 # -- Algorithm 2 over a program ----------------------------------------------

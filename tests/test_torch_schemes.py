@@ -35,7 +35,8 @@ from repro_torch import NoCudaDeviceError
 from repro_torch import scenarios as PS
 from repro_torch.convert import from_reference_tree, to_reference_tree
 from repro_torch.core import (MarshalScheme, ShapeDtype, TransferSession,
-                              TreePath, declare, extract, full_deepcopy,
+                              TransferSpec, TreePath, UnsupportedSpecError,
+                              declare, extract, full_deepcopy,
                               host_skeleton, insert, selective_deepcopy,
                               transfer_scheme, tree_bytes, tree_leaves,
                               tree_map)
@@ -464,8 +465,24 @@ def test_default_device_is_cuda_or_raises():
 
 
 def test_sharded_specs_parse_but_do_not_execute():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transfer_scheme("marshal@dp2", device=CPU)
+    """A sharded spec parses anywhere, but executes only on a mesh of K
+    positions: on a shorter one it raises the stale-mesh error, and
+    without a card the default mesh raises like every other default."""
+    spec = TransferSpec.parse("marshal@dp2")
+    assert spec.num_shards == 2
+    with pytest.raises(UnsupportedSpecError, match="stale for this"):
+        transfer_scheme(spec, device=[CPU])
+    if not torch.cuda.is_available():
+        with pytest.raises(NoCudaDeviceError):
+            transfer_scheme(spec)
+    scheme = transfer_scheme(spec, device=CPU)
+    assert scheme.mesh == (torch.device("cpu"),) * 2
+    tree = {"a": torch.arange(6, dtype=torch.float32)}
+    out = scheme.to_device(tree)
+    assert [(p.position, p.lo, p.hi) for p in out["a"].pieces] == \
+        [(0, 0, 3), (1, 3, 6)]
+    assert torch.equal(scheme.from_device(out, tree)["a"], tree["a"])
+    assert scheme.ledger.per_device() == {"0": (12, 1), "1": (12, 1)}
     assert transfer_scheme("marshal@dev0", device=CPU).device.type == "cpu"
 
 
