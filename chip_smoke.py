@@ -150,8 +150,9 @@ Phases, each of which raises on failure:
      split and rate, pinned bytes, the CLI's restore wall and tokens/s;
  16. sanitizer   — run after phase 14 and before phase 15, so the card holds
      no train state: (a) under ``sanitize()``, phase 4's Algorithm-2
-     matrix, phase 6's two real-size trees under every spec (three passes
-     on one executor each; a steady marshal+delta pass moves nothing) and
+     matrix, phase 6's two real-size trees under every spec (two passes,
+     cold and steady, on one executor each; a steady marshal+delta pass
+     moves nothing) and
      phase 13's mixed_policy program under both executors: no finding,
      every ledger its closed form, one barrier a program pass, each
      drive's events printed; (b) the steady pass wall of a 1 GiB f32 tree
@@ -194,7 +195,36 @@ Phases, each of which raises on failure:
      family's closed form and to policy_cost's, one barrier a pass; (e)
      the registry's full sharded and sharded_delta families at the live
      card count under every spec they declare; (f) (b)'s sharded_delta
-     cells once more under ``sanitize()``: no finding.
+     cells once more under ``sanitize()``: no finding;
+ 19. dp          — after phase 18, on the same DP_K positions (on one card
+     the collectives' pieces are device-local copies: not multi-GPU):
+     (a) llama3.2-1b at full width cut to DP_LAYERS layers, bf16, AdamW,
+     dp 4, batch 8 x 128, under deterministic algorithms: in float32 at
+     2 layers the 4 slices' gradients summed by the collective within
+     DP_GRAD_TOL of 4 x the dp-1 gradient over the whole batch; on one
+     replicated bf16 state, arena's synced gradients equal to
+     pertensor's bit for bit and within BF16_TOL of the float32 sum of
+     the local gradients; then DP_STEPS steps under each of
+     pertensor, arena and arena+int8 from that state: every position's
+     params and optimizer state equal bit for bit after every step, the
+     collective calls exact (one psum a gradient leaf; one psum_scatter
+     and one all_gather a bucket; one pmax and one psum a bucket; one
+     pmean of the loss), arena's losses equal to pertensor's and int8's
+     within DP_INT8_LOSS_TOL; printed: the losses, step walls, peak
+     memory and, from the last step under torch.profiler, the device time
+     of each collective's copies and adds; (b) apply_moe_sharded on one
+     moonshot-v1-16b-a3b layer at full width (seeded bf16 weights), x (8,
+     128, 2048), on meshes (4, 1) and (2, 2): each ep slice equal to the
+     plain layer on it within BF16_TOL, and the tokens that kept every
+     choice (and routed alike) in both paths equal to the plain layer
+     over the whole batch within BF16_TOL; the aux loss printed; (c)
+     run_elastic 4 -> 2 and 2 -> 4 with make_train_step on llama3.2-1b
+     cut to ELASTIC_LAYERS layers, as benchmarks/elastic_restart.py runs
+     it, under deterministic algorithms: trajectory_diff against the
+     uninterrupted run empty, one policy re-derivation, the last
+     checkpoint restored through the survivor's policy and replicated
+     onto m positions equal to it bit for bit on each; the restore split
+     printed.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -215,10 +245,13 @@ never; the policy, analysis, sanitizer and sharded
 phases launch nothing; the serve CLI launches what a Server on the same params
 and requests launches; a train step launches rmsnorm 2L + 1 and flash L times per
 forward, and under remat the blocks' 2L and L again in the backward
-(llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again).
+(llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again); the
+dp phase launches a train step's count on every position of every step
+(4 x 33 rmsnorm and 4 x 16 flash a dp step at 8 layers; each of an elastic
+survivor's m positions a step's count) and nothing in the MoE layer.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line (launches summed over the serve phases 8-12 and 17, and per phase,
-the train runs, the serve CLI and the sharded phase under
+the train runs, the serve CLI, the sharded phase and the dp phase under
 ``launches_by_phase``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 2 and prints no result.
@@ -229,6 +262,7 @@ reduction flag is left at its default and printed.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -356,11 +390,12 @@ OFFLOAD_LEDGER = (9886515204, 2)
 # (d): full width cut to 3 of 16 layers (4.45 GB a checkpoint, 4 saves:
 # steps 4, 8, 12 and the final one), a NodeFailure at step 9
 RESTART_LAYERS, RESTART_EVERY, RESTART_FAIL = 3, 4, 9
-# the sanitizer phase (16): passes per real-size spec; the overhead tree
-# (2^28 f32, 1 GiB) and its alternating rounds; the mutants' tree (2^26
-# f32, 256 MiB, so a copy is really in flight) and how long the copy
-# stream is held for DC301 and DC305
-SAN_PASSES = 3
+# the sanitizer phase (16): passes per real-size spec (a cold and a steady
+# one; three until PR 24, cut to keep the script's wall as phase 19 came
+# in); the overhead tree (2^28 f32, 1 GiB) and its alternating rounds; the
+# mutants' tree (2^26 f32, 256 MiB, so a copy is really in flight) and how
+# long the copy stream is held for DC301 and DC305
+SAN_PASSES = 2
 SAN_OVERHEAD_N, SAN_ROUNDS = 2 ** 28, 5
 SAN_MUTANT_N, SAN_HOLD_S = 2 ** 26, 1.0
 # (e): the serve CLI's defaults (repro_torch/launch/serve.py, the
@@ -430,6 +465,28 @@ SHARD_CLOSED = {"sharded": {"marshal": ((2 ** 30 + 64) // 4, 2),
 SHARD_STEADY = {"2": (2 ** 28, 1), "3": (2 ** 28, 1)}
 SHARD_PASSES = 3
 SHARD_POLICY_N = 2 ** 25
+# the dp phase (19): SHARD_K positions of the same mesh.  (a) the dp step on
+# llama3.2-1b at full width cut to DP_LAYERS of 16 layers (PERF.md §4: four
+# replicas of params and AdamW moments, 7.5 GB each, and the update's new
+# set beside the old), batch DP_BATCH x DP_SEQ (two rows a position), AdamW
+# at the CLI's peak lr, DP_STEPS steps a scheme; the K slices' float32
+# gradients summed against K x the dp-1 gradient within DP_GRAD_TOL of each
+# leaf's largest element; int8's losses within DP_INT8_LOSS_TOL of
+# pertensor's (the reference's tests/test_distributed.py bound).  (b) one moonshot MoE layer
+# at full width, x (MOE_BATCH, MOE_SEQ, d).  (c) run_elastic over
+# ELASTIC_EPISODES on llama3.2-1b at full width cut to ELASTIC_LAYERS
+# layers (3.85 GB of train state a checkpoint), benchmarks/elastic_restart
+# .py's batch, steps, crash and checkpoint interval
+DP_K = SHARD_K
+DP_LAYERS = 8
+DP_BATCH, DP_SEQ, DP_STEPS = 8, 128, 3
+DP_GRAD_TOL = 2e-2
+DP_INT8_LOSS_TOL = 0.1
+MOE_BATCH, MOE_SEQ = 8, 128
+ELASTIC_LAYERS = 2
+ELASTIC_BATCH, ELASTIC_SEQ = 4, 32
+ELASTIC_STEPS, ELASTIC_CRASH, ELASTIC_EVERY = 8, 6, 4
+ELASTIC_EPISODES = ((4, 2), (2, 4))
 
 
 def say(*parts) -> None:
@@ -2039,8 +2096,8 @@ def _events(san) -> str:
 
 def sanitizer_clean(device, kernels: dict, real_cases) -> None:
     """Part (a): under ``sanitize()``, the Algorithm-2 matrix of phase 4,
-    phase 6's two real-size trees under every spec (three passes on one
-    executor each) and phase 13's mixed_policy program under both
+    phase 6's two real-size trees under every spec (SAN_PASSES passes on
+    one executor each) and phase 13's mixed_policy program under both
     executors: no StagingRaceError, every ledger its closed form (a steady
     marshal+delta pass moves nothing and skips the whole tree), one
     barrier and one pass report per program pass, no kernel launched.
@@ -3306,6 +3363,535 @@ def sharded_phase(kernels: dict, smi: str) -> dict:
     return launched
 
 
+# -- phase 19: data parallelism on four positions -----------------------------
+
+def _dp_mesh(shape):
+    """A named mesh of ``shape`` over phase 18's positions (on one card
+    every position sits on cuda:0)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    return make_debug_mesh(*shape, device=sharded_mesh()[0])
+
+
+def _replicas_equal(state, k: int, what: str) -> None:
+    import torch
+    from repro_torch.core import tree_leaves
+    from repro_torch.core.sharded import replica
+
+    for i, leaf in enumerate(tree_leaves(state)):
+        first = replica(leaf, 0)
+        for p in range(1, k):
+            if not torch.equal(first, replica(leaf, p)):
+                fail(f"{what}: position {p}'s copy of leaf {i} differs "
+                     f"from position 0's")
+
+
+def _collective_device_ms(prof, steps: int = 1) -> dict:
+    """Device time (ms) of the kernels and copies each ``collective.*``
+    range launched, and of every device op, from a profile."""
+    out, total = {}, 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = e.cuda_time_total
+        self_dev = getattr(e, "self_device_time_total", None)
+        if self_dev is None:
+            self_dev = e.self_cuda_time_total
+        total += self_dev
+        if e.key.startswith("collective."):
+            out[e.key[len("collective."):]] = dev / 1e3 / steps
+    return {"collectives": out, "device_ms": total / 1e3 / steps}
+
+
+def dp_step_phase(kernels: dict, smi: str) -> dict:
+    """Part (a): llama3.2-1b at full width cut to DP_LAYERS layers, bf16,
+    AdamW, dp DP_K on the mesh's positions, under deterministic
+    algorithms (so separate runs compute the same local gradients).
+
+    First the gradient collective on batch 0.  The identity "the sum of
+    the K slices' gradients == K x the dp-1 gradient over the whole
+    batch" (each slice's mean is over equal tokens) is held in float32 at
+    full width cut to TRAIN_CHECK_LAYERS layers, within DP_GRAD_TOL of
+    each leaf's largest element: deeper, this randomly initialised model
+    amplifies the rounding of products of different row counts until the
+    two sides part (PERF.md, PR 24).  On the step's own bf16 state,
+    replicated: arena's synced gradients bit-equal to pertensor's, and the
+    synced gradient within BF16_TOL of the float32 sum of the positions'
+    local gradients; its distance to K x a bf16 dp-1 gradient is printed.
+
+    Then DP_STEPS steps under each scheme from the seeded state: every
+    position's state equal bit for bit after every step, collective calls
+    and kernel launches exact, arena's losses equal to pertensor's and
+    int8's within the reference test's 0.1 of them (equal at the first
+    step).  The last step of each scheme runs under torch.profiler.
+    Returns the launch counts of the three runs."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import train
+
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").cfg,
+                              num_layers=DP_LAYERS)
+    api = registry.get_model(cfg)
+    opt = make_optimizer("adamw")
+    mesh = _dp_mesh((DP_K, 1))
+    dev = mesh.positions[0]
+    data = SyntheticLM(cfg.vocab_size, DP_SEQ, DP_BATCH)
+
+    def fresh():
+        return train.train_state(api, opt, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _dp_runs(kernels, smi, cfg, api, opt, mesh, data, fresh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def _collective_spans(spans: dict, cuda: bool):
+    """Within the block, each collective of repro_torch.core.collectives
+    is bracketed by CUDA events on the current stream; on leaving, the
+    spans (ms, first event to last, so a host-side gap counts too) are
+    summed into ``spans`` by kind.  Nothing is timed without a card."""
+    import torch
+    from repro_torch.core import collectives as C
+
+    if not cuda:
+        yield
+        return
+    marks, real = [], {k: getattr(C, k) for k in C.KINDS}
+
+    def bracket(kind, fn):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((kind, start, end))
+            return out
+        return timed
+
+    for kind, fn in real.items():
+        setattr(C, kind, bracket(kind, fn))
+    try:
+        yield
+    finally:
+        for kind, fn in real.items():
+            setattr(C, kind, fn)
+    torch.cuda.synchronize()
+    for kind, start, end in marks:
+        spans[kind] = spans.get(kind, 0.0) + start.elapsed_time(end)
+
+
+def _leaf_rel(got, want) -> list:
+    """Per leaf: max |got - want| over the leaf's largest |want|."""
+    out = []
+    for a, b in zip(got, want):
+        top = float(b.float().abs().max())
+        out.append(float((a.float() - b.float()).abs().max())
+                   / max(top, 1e-30))
+    return out
+
+
+def _slice_identity(mesh, cfg, batch, slices) -> list:
+    """Float32 at full width cut to TRAIN_CHECK_LAYERS layers: the
+    positions' slice gradients summed by the pertensor collective against
+    K x the dp-1 gradient over the whole batch, per leaf (max |diff| over
+    the leaf's largest)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import tree_leaves
+    from repro_torch.models import registry
+    from repro_torch.runtime import train
+
+    api = registry.get_model(dataclasses.replace(
+        cfg, num_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+        compute_dtype="float32"))
+    dev = mesh.positions[0]
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    grads = [train.value_and_grad(api.loss_fn, st["params"], b)[2]
+             for st, b in zip(train.per_position({"params": params}, mesh),
+                              slices)]
+    synced = train.sync_gradients(grads, [{}] * mesh.size, mesh,
+                                  "pertensor", False)[0]
+    g1 = train.value_and_grad(api.loss_fn, params, batch)[2]
+    return _leaf_rel(tree_leaves(synced[0]),
+                     [mesh.size * g for g in tree_leaves(g1)])
+
+
+def _dp_runs(kernels, smi, cfg, api, opt, mesh, data, fresh) -> dict:
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch._device import synchronize
+    from repro_torch.core import collectives as C
+    from repro_torch.core import leaf_paths, tree_leaves
+    from repro_torch.models import lm
+    from repro_torch.optim import constant
+    from repro_torch.runtime import train
+
+    dev = mesh.positions[0]
+    batch = data.batch(0)
+    whole = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    slices = train._split_batch(batch, mesh)
+    none = [{} for _ in range(mesh.size)]
+    names = [str(p) for p in leaf_paths(api.abstract())]
+    worst = lambda rel: max(zip(rel, names))
+    t0 = time.perf_counter()
+    f32_rel = _slice_identity(mesh, cfg, whole, slices)
+    bad = [(names[i], r) for i, r in enumerate(f32_rel) if r > DP_GRAD_TOL]
+    if bad:
+        fail(f"dp: float32 slice gradients summed vs {DP_K} x the dp-1 "
+             f"gradient past {DP_GRAD_TOL} of the leaf's largest: {bad}")
+    release_host_cache()
+    state = train.replicate_state(fresh(), mesh.size, device=mesh.positions)
+    states = train.per_position(state, mesh)
+    grads = [train.value_and_grad(api.loss_fn, st["params"], b)[2]
+             for st, b in zip(states, slices)]
+    local = [sum(g.float() for g in leaves)
+             for leaves in zip(*[tree_leaves(g) for g in grads])]
+    pert = train.sync_gradients(list(grads), none, mesh, "pertensor",
+                                False)[0]
+    arena = train.sync_gradients(list(grads), none, mesh, "arena", False)[0]
+    del grads
+    for p in range(mesh.size):
+        for i, (a, b) in enumerate(zip(tree_leaves(pert[p]),
+                                       tree_leaves(arena[p]))):
+            if not torch.equal(a, b):
+                fail(f"dp: arena's synced gradient leaf {i} on position {p} "
+                     f"!= pertensor's")
+    del arena
+    sum_rel = _leaf_rel(tree_leaves(pert[0]), local)
+    bad = [(names[i], r) for i, r in enumerate(sum_rel) if r > BF16_TOL]
+    if bad:
+        fail(f"dp: the bf16 synced gradient vs the float32 sum of the local "
+             f"gradients past {BF16_TOL} of the leaf's largest: {bad}")
+    del local
+    bf1 = [DP_K * g.float() for g in tree_leaves(
+        train.value_and_grad(api.loss_fn, states[0]["params"], whole)[2])]
+    bb_rel = _leaf_rel(tree_leaves(pert[0]), bf1)
+    say(f"[dp] (a) {smi}; {cfg.name} at full width cut to {DP_LAYERS} "
+        f"layers, bf16, AdamW, dp {DP_K} on {[str(d) for d in mesh.positions]}"
+        f" (four positions on one card: not multi-GPU), batch {DP_BATCH} x "
+        f"{DP_SEQ}; of each leaf's largest: the {DP_K} float32 slice "
+        f"gradients summed vs {DP_K} x the dp-1 gradient at "
+        f"{TRAIN_CHECK_LAYERS} layers worst {worst(f32_rel)} (held to "
+        f"{DP_GRAD_TOL}); the bf16 synced gradient vs the float32 sum of the "
+        f"local ones worst {worst(sum_rel)} (held to {BF16_TOL}), vs {DP_K} x "
+        f"a bf16 dp-1 gradient at {DP_LAYERS} layers worst {worst(bb_rel)} "
+        f"(recorded); arena's synced gradients == pertensor's bit for bit "
+        f"on every position ({time.perf_counter() - t0:.2f} s)")
+    del pert, bf1, states, state, whole
+    release_host_cache()
+
+    n_leaves = len(tree_leaves(api.abstract()))
+    per_step = lm.kernel_launches(cfg, train_steps=DP_STEPS)
+    out, losses = {}, {}
+    for scheme, compress in (("pertensor", False), ("arena", False),
+                             ("arena", True)):
+        tag = scheme + ("+int8" if compress else "")
+        t_run = time.perf_counter()
+        step = train.make_dp_train_step(api, opt, constant(TRAIN_LR), mesh,
+                                        grad_scheme=scheme,
+                                        compress=compress)
+        # the step gets the only references to the state and the error
+        # state, so it frees each position's old copy once it is updated
+        box = {"state": train.replicate_state(fresh(), mesh.size,
+                                              device=mesh.positions),
+               "err": train.init_error_state(api, compress, mesh)}
+
+        def one_step(s):
+            box["state"], met, box["err"] = step(
+                box.pop("state"), data.batch(s), box.pop("err"))
+            return float(met["loss"])
+
+        synchronize(dev)
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels.values():
+            k.launches = 0
+        C.STATS.reset()
+        walls, prof, spans = [], None, {}
+        for s in range(DP_STEPS):
+            t0 = time.perf_counter()
+            if s < DP_STEPS - 1:
+                loss = one_step(s)
+            elif scheme == "arena" and not compress:
+                # the one profiled step (reading a profile takes ~12 s)
+                with _collective_spans(spans, cuda), profile(
+                        activities=[ProfilerActivity.CPU] + (
+                            [ProfilerActivity.CUDA] if cuda else [])
+                ) as prof:
+                    loss = one_step(s)
+            else:
+                with _collective_spans(spans, cuda):
+                    loss = one_step(s)
+            walls.append(time.perf_counter() - t0)
+            losses.setdefault(tag, []).append(loss)
+            _replicas_equal(box["state"], mesh.size, f"dp {tag} step {s}")
+        counts = {name: k.launches for name, k in kernels.items()}
+        calls = C.STATS.snapshot()
+        want = {"gather_tiles": 0, **{k: DP_K * v
+                                      for k, v in per_step.items()}}
+        if counts != want:
+            fail(f"dp {tag}: launched {counts}, expected {want} ({DP_K} "
+                 f"positions x {DP_STEPS} steps)")
+        if scheme == "pertensor":
+            want_calls = {"psum": n_leaves * DP_STEPS, "pmean": DP_STEPS}
+        elif not compress:
+            want_calls = {"psum_scatter": DP_STEPS, "all_gather": DP_STEPS,
+                          "pmean": DP_STEPS}
+        else:
+            want_calls = {"pmax": DP_STEPS, "psum": DP_STEPS,
+                          "pmean": DP_STEPS}
+        if calls != want_calls:
+            fail(f"dp {tag}: collectives {calls}, expected {want_calls}")
+        if not all(abs(v) < float("inf") for v in losses[tag]):
+            fail(f"dp {tag}: losses {losses[tag]}")
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        span = "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+            spans.items())) or "not measured (no card)"
+        profiled = ""
+        if prof is not None:
+            profd = _collective_device_ms(prof)
+            coll = "; ".join(f"{k} {v:.3f} ms" for k, v in
+                             sorted(profd["collectives"].items()))
+            profiled = (f"; under torch.profiler: device "
+                        f"{profd['device_ms']:.2f} ms, the collectives' "
+                        f"kernels and copies {coll or 'not measured'}")
+        a_step = {k: v // DP_STEPS for k, v in calls.items()}
+        say(f"[dp] (a) {tag}: losses {losses[tag]}; step walls "
+            f"{[round(w * 1e3, 2) for w in walls]} ms (the last with CUDA "
+            f"events around each collective{', and profiled' if prof else ''}"
+            f"; median of the others "
+            f"{statistics.median(walls[:-1]) * 1e3:.2f} ms); peak "
+            f"{peak / 1e9:.2f} GB; collectives a step {a_step}, "
+            f"{sum(C.STATS.bytes.values()) // DP_STEPS} B of operands a "
+            f"position; the last step's collectives from first to last "
+            f"event, summed by kind: {span}{profiled}; launches {counts} == "
+            f"{DP_K} x kernel_launches; {time.perf_counter() - t_run:.2f} s")
+        out[tag] = counts
+        del box, step, prof
+    if losses["arena+int8"][0] != losses["pertensor"][0] or any(
+            abs(a - b) >= DP_INT8_LOSS_TOL for a, b in zip(
+                losses["arena+int8"], losses["pertensor"])):
+        fail(f"dp: int8 losses {losses['arena+int8']} vs pertensor "
+             f"{losses['pertensor']}")
+    if losses["arena"] != losses["pertensor"]:
+        fail(f"dp: arena losses {losses['arena']} != pertensor "
+             f"{losses['pertensor']}")
+    return {k: sum(c[k] for c in out.values()) for k in kernels}
+
+
+def moe_sharded_phase(kernels: dict) -> None:
+    """Part (b): one moonshot-v1-16b-a3b MoE layer at full width (seeded
+    bf16 weights on the card) through apply_moe_sharded on meshes (4, 1)
+    and (2, 2) of the positions, x (MOE_BATCH, MOE_SEQ, d): each ep slice
+    within BF16_TOL of the plain layer on that slice (same routing and
+    capacity), and the tokens no path dropped a choice of within BF16_TOL
+    of the plain layer over the whole batch; no kernel launched."""
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.models import moe, registry
+
+    cfg = registry.get("moonshot-v1-16b-a3b").cfg
+    mesh0 = _dp_mesh((DP_K, 1))
+    dev = mesh0.positions[0]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    p = {k: (torch.randn(s.shape, generator=gen, device=dev) * 0.02)
+         .to(torch.bfloat16) for k, s in moe.moe_specs(cfg).items()}
+    x = torch.randn(MOE_BATCH, MOE_SEQ, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in p.values())
+    N = MOE_BATCH * MOE_SEQ
+    K = cfg.experts_per_token
+
+    def routed(xs, C):
+        """Each token's K expert ids and whether it kept every choice."""
+        ids, pos = moe._route_and_rank(cfg, p["router"],
+                                       xs.reshape(-1, cfg.d_model))[:2]
+        return ids.view(-1, K), (pos < C).view(-1, K).all(dim=1)
+
+    for k in kernels.values():
+        k.launches = 0
+    plain, plain_aux = moe.apply_moe(cfg, p, x)
+    ids_global, keep_global = routed(x, moe.capacity(cfg, N))
+    for shape in ((4, 1), (2, 2)):
+        mesh = _dp_mesh(shape)
+        n_ep = shape[0]
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out, aux = moe.apply_moe_sharded(cfg, p, x, mesh, ("data",),
+                                         ("model",))
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        rows = MOE_BATCH // n_ep
+        C_l = moe.capacity(cfg, rows * MOE_SEQ)
+        err = 0.0
+        keep = keep_global.clone()
+        same = torch.ones_like(keep)
+        for e in range(n_ep):
+            xs = x[e * rows:(e + 1) * rows]
+            err = max(err, _close(out[e * rows:(e + 1) * rows],
+                                  moe.apply_moe(cfg, p, xs)[0],
+                                  f"moe {shape} slice {e} vs plain"))
+            ids, kept = routed(xs, C_l)
+            sl = slice(e * rows * MOE_SEQ, (e + 1) * rows * MOE_SEQ)
+            keep[sl] &= kept
+            # the f32 router product at another row count may round a
+            # near-tie the other way: such a token routes differently
+            same[sl] = (ids == ids_global[sl]).all(dim=1)
+        both = (keep & same).view(MOE_BATCH, MOE_SEQ)
+        gerr = _close(out[both], plain[both],
+                      f"moe {shape} vs the plain layer on kept tokens")
+        say(f"[dp] (b) apply_moe_sharded, {cfg.name} layer at full width "
+            f"({cfg.num_experts} experts, top {K}, d {cfg.d_model}, d_ff "
+            f"{cfg.d_ff}; {nbytes} B of bf16 weights), x {tuple(x.shape)}, "
+            f"mesh {shape} (ep {n_ep}, tp {shape[1]}; local capacity "
+            f"{C_l}): each slice == the plain layer on it within {BF16_TOL} "
+            f"(max |diff| {err}); {int(both.sum())} of {N} tokens kept "
+            f"every choice in both paths ({N - int(keep_global.sum())} "
+            f"dropped one at the global capacity {moe.capacity(cfg, N)}, "
+            f"{N - int(keep.sum())} at either, {N - int(same.sum())} routed "
+            f"otherwise), "
+            f"those == the plain layer within {BF16_TOL} (max |diff| "
+            f"{gerr}); aux {float(aux['moe_aux_loss']):.6f} (the pmean of "
+            f"the local losses) vs the global "
+            f"{float(plain_aux['moe_aux_loss']):.6f}; wall "
+            f"{wall * 1e3:.2f} ms")
+    launched = {name: k.launches for name, k in kernels.items()}
+    if any(launched.values()):
+        fail(f"the MoE layer launched {launched}; it runs no kernel")
+    del p, x, plain
+    release_host_cache()
+
+
+def elastic_phase(kernels: dict, root: Path) -> dict:
+    """Part (c): run_elastic n -> m over the positions for each of
+    ELASTIC_EPISODES, with make_train_step on llama3.2-1b at full width cut
+    to ELASTIC_LAYERS layers (bf16, AdamW, SyntheticLM(vocab, 32, 4)),
+    deterministic algorithms: trajectory_diff against the uninterrupted
+    run empty, one policy re-derivation, and the last checkpoint restored
+    through the survivor's policy and replicated onto m positions equal to
+    it bit for bit on each; launches exact.  Returns the counts."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import load
+    from repro_torch.core import TransferSession, tree_bytes, tree_leaves
+    from repro_torch.core.sharded import replica
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm, registry
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import (loop, run_elastic, train,
+                                     trajectory_diff)
+
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").cfg,
+                              num_layers=ELASTIC_LAYERS)
+    api = registry.get_model(cfg)
+    opt = make_optimizer("adamw")
+    step = train.make_train_step(api, opt, constant(TRAIN_LR))
+    data = SyntheticLM(cfg.vocab_size, ELASTIC_SEQ, ELASTIC_BATCH)
+    positions = sharded_mesh()[0]
+    dev = positions[0]
+    init = lambda: train.train_state(api, opt, torch.Generator(
+        device=dev).manual_seed(11), device=dev)
+    for k in kernels.values():
+        k.launches = 0
+    taken = ELASTIC_STEPS
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        ref = loop.run(step, init, data.batch, ELASTIC_STEPS,
+                       device=positions)
+        say(f"[dp] (c) the uninterrupted run: {ELASTIC_STEPS} steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for n, m in ELASTIC_EPISODES:
+            ckpt = root / f"elastic_{n}_{m}"
+            t0 = time.perf_counter()
+            res = run_elastic(step, init, data.batch, ELASTIC_STEPS,
+                              ckpt_dir=str(ckpt), crash_step=ELASTIC_CRASH,
+                              n_devices=n, m_devices=m,
+                              ckpt_every=ELASTIC_EVERY, device=positions)
+            wall = time.perf_counter() - t0
+            taken += ELASTIC_CRASH + m * (ELASTIC_STEPS - res.restored_step)
+            diff = trajectory_diff(ref.metrics_history,
+                                   res.result.metrics_history)
+            if diff or res.result.policy_reshards != 1:
+                fail(f"elastic {n} -> {m}: trajectory {diff}, "
+                     f"{res.result.policy_reshards} policy re-derivations")
+            _replicas_equal(res.result.state, m, f"elastic {n} -> {m}")
+            split = res.restore_split
+            t1 = time.perf_counter()
+            host = load(str(ckpt))
+            program = TransferSession().compile(host, split["policy"],
+                                                device=positions)
+            placed = train.replicate_state(program.to_device(host), m,
+                                           device=positions)
+            for i, (a, b) in enumerate(zip(tree_leaves(placed),
+                                           tree_leaves(host))):
+                b = b.to(dev)
+                for p in range(m):
+                    if not torch.equal(replica(a, p), b.to(
+                            replica(a, p).device)):
+                        fail(f"elastic {n} -> {m}: position {p}'s restored "
+                             f"leaf {i} != the checkpoint")
+            nbytes = tree_bytes(host)
+            say(f"[dp] (c) run_elastic {n} -> {m} on "
+                f"{[str(d) for d in positions[:max(n, m)]]}, {cfg.name} at "
+                f"full width cut to {ELASTIC_LAYERS} layers ({nbytes} B of "
+                f"train state a copy), {ELASTIC_STEPS} steps, crash at "
+                f"{ELASTIC_CRASH}, a checkpoint every {ELASTIC_EVERY}: "
+                f"trajectory_diff empty, {res.result.policy_reshards} policy "
+                f"re-derivation to '{split['policy']}', the checkpoint "
+                f"restored and replicated onto {m} positions == it bit for "
+                f"bit on each; restore split load {split['load_s']:.2f} s / "
+                f"reshard {split['reshard_s']:.2f} s / h2d + replication "
+                f"{split['h2d_s']:.2f} s; checkpoint stall "
+                f"{res.result.ckpt_stall_s * 1e3:.2f} ms over "
+                f"{res.result.ckpt_saves} saves; episode {wall:.2f} s, "
+                f"the restore check {time.perf_counter() - t1:.2f} s")
+            del res, host, program, placed
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {"gather_tiles": 0, **lm.kernel_launches(cfg, train_steps=taken)}
+    if counts != want:
+        fail(f"elastic runs launched {counts}, expected {want} ({taken} "
+             f"position-steps)")
+    del ref
+    release_host_cache()
+    return counts
+
+
+def dp_phase(kernels: dict, smi: str) -> dict:
+    """Phase 19: (a) the dp step, (b) expert-parallel MoE, (c) elastic
+    restarts n -> m, on the positions of phase 18's mesh.  Returns the
+    launch counts of (a) and (c) summed."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "phase19_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        dp = dp_step_phase(kernels, smi)
+        t1 = time.perf_counter()
+        moe_sharded_phase(kernels)
+        t2 = time.perf_counter()
+        elastic = elastic_phase(kernels, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t3 = time.perf_counter()
+    say(f"[dp] phase 19 ok in {t3 - t0:.2f} s ((a) {t1 - t0:.2f} s, (b) "
+        f"{t2 - t1:.2f} s, (c) {t3 - t2:.2f} s)")
+    return {k: dp[k] + elastic[k] for k in dp}
+
+
 def main() -> int:
     import dataclasses
     import torch
@@ -3516,6 +4102,10 @@ def main() -> int:
 
     # the sharded deep copy (phase 18): transfers only, counters 0
     served["sharded"] = sharded_phase(kernels, smi)
+
+    # data parallelism on the mesh's positions (phase 19): each run resets
+    # the counters just before and reads them just after
+    served["dp"] = dp_phase(kernels, smi)
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = [dict(name="gather_tiles", route="cuda",

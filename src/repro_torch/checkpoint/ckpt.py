@@ -43,6 +43,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core import arena as arena_lib
+from ..core.sharded import replica
 from ..core.treepath import TreePath, leaf_paths, tree_flatten, tree_map
 from ..faultpoints import CKPT_COMMIT, CKPT_GC, CKPT_PACK, CKPT_WRITE
 
@@ -195,8 +196,15 @@ def _write_step(host_state: Any, buffers: Dict[str, torch.Tensor],
     return final
 
 
+def _one_copy(leaf: Any) -> torch.Tensor:
+    """A leaf as one tensor: position 0's copy of a replicated leaf (a
+    replicated state saves once, as the reference's ``device_get`` of a
+    replicated array reads one copy)."""
+    return arena_lib.as_tensor(replica(leaf, 0))
+
+
 def _host(leaf: Any) -> torch.Tensor:
-    return arena_lib.as_tensor(leaf).detach().cpu()
+    return _one_copy(leaf).detach().cpu()
 
 
 def save(state: Any, directory: str, step: int, *,
@@ -416,7 +424,7 @@ class AsyncCheckpointer:
         t0 = time.perf_counter()
         self.wait()  # depth-1 pipeline: the join doubles as the buffer fence
         leaves = tree_flatten(state)[0]
-        tensors = [arena_lib.as_tensor(l) for l in leaves]
+        tensors = [_one_copy(l) for l in leaves]
         cuda = [t.device for t in tensors if t.device.type == "cuda"]
         device = cuda[0] if cuda else None
         # lint: allow=DC201 -- the snapshot's pinned host buffers, the D2H side no program moves

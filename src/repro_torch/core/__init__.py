@@ -4,8 +4,9 @@ marshalling arenas and the three transfer schemes, on PyTorch.
 Counterpart of ``repro.core``, with path-scoped policies compiled into
 one-synchronize programs (``policy``), the autotuner's candidate grid
 (``candidate_specs``, ``enumerate_policies``), the staging race
-sanitizer's hooks (``repro_torch.analysis.sanitizer``) and sharded
-execution (``@dpK``, K > 1) on a mesh of K positions (``sharded``).
+sanitizer's hooks (``repro_torch.analysis.sanitizer``), sharded
+execution (``@dpK``, K > 1) on a mesh of K positions (``sharded``) and
+single-controller collectives over a named mesh (``collectives``).
 """
 from .treepath import (TreeDef, TreePath, leaf_items, leaf_paths,
                        max_chain_depth, tree_flatten, tree_leaves, tree_map,

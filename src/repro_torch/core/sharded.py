@@ -162,6 +162,38 @@ class ShardedTensor:
                 f"{[(p.position, p.lo, p.hi) for p in self.pieces]})")
 
 
+def replicated(copies: Sequence[torch.Tensor]) -> ShardedTensor:
+    """A value held whole by every position: ``copies[p]`` is position
+    ``p``'s copy (one piece a position, each covering the whole value)."""
+    t = copies[0]
+    return ShardedTensor(t.shape, t.dtype,
+                         [Piece(p, 0, t.numel(), c)
+                          for p, c in enumerate(copies)])
+
+
+def replica(x: Any, position: int = 0) -> Any:
+    """Position ``position``'s whole copy of a replicated value (a plain
+    value is returned as it is)."""
+    if not isinstance(x, ShardedTensor):
+        return x
+    for p in x.pieces:
+        if p.position == position and p.lo == 0 and p.hi == x.numel():
+            return p.tensor.view(x.shape)
+    raise ValueError(f"position {position} holds no whole copy of {x!r}")
+
+
+def replica_count(tree_leaves: Sequence[Any]) -> int:
+    """How many positions a tree's leaves are replicated over: 0 for plain
+    leaves, else the pieces of each :class:`ShardedTensor` leaf (which must
+    agree)."""
+    counts = {len(leaf.pieces) for leaf in tree_leaves
+              if isinstance(leaf, ShardedTensor)}
+    if len(counts) > 1:
+        raise ValueError(f"leaves replicated over different position "
+                         f"counts {sorted(counts)}")
+    return counts.pop() if counts else 0
+
+
 def to_host(x: Any) -> torch.Tensor:
     """A device value (plain or sharded) as one host tensor."""
     if isinstance(x, ShardedTensor):

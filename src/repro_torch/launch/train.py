@@ -9,8 +9,12 @@ checkpoints, watchdog and failure recovery on one device, the card unless
 ``--device cpu``.  Params are drawn on that device from seed 0.
 ``--dp-shardmap`` switches to the explicit data-parallel step whose
 gradient collective is the paper's transfer-scheme choice (pertensor |
-arena [+ int8]), at dp 1.  ``--production-mesh`` (the reference's 16x16
-pjit mesh) is specific to XLA and raises.
+arena [+ int8]) over a (n, 1) mesh of every visible device, as the
+reference builds it: the visible cards, or one position with ``--device
+cpu``.  Its step replicates the state, so restores on that path move the
+tree leaf by leaf (no state policy), as the reference's do.
+``--production-mesh`` (the reference's 16x16 pjit mesh) is specific to
+XLA and raises.
 """
 from __future__ import annotations
 
@@ -21,12 +25,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import registry
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.runtime import loop as loop_mod
 from repro_torch.runtime.train import (init_error_state, make_dp_train_step,
                                        make_train_step, state_transfer_policy,
                                        train_state)
+
+
+def visible_positions(dev: torch.device) -> int:
+    """The dp mesh's size: every visible card, or one position on the CPU
+    (the reference's ``len(jax.devices())``)."""
+    return 1 if dev.type == "cpu" else torch.cuda.device_count()
 
 
 def main(argv=None):
@@ -66,14 +77,16 @@ def main(argv=None):
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
 
     if args.dp_shardmap:
-        dp_step = make_dp_train_step(api, opt, lr, 1,
+        mesh = make_debug_mesh(data=visible_positions(dev), model=1,
+                               device=dev)
+        dp_step = make_dp_train_step(api, opt, lr, mesh,
                                      grad_scheme=args.grad_scheme,
                                      compress=args.compress)
 
         def step(state, batch):
             new_state, metrics, step.err = dp_step(state, batch, step.err)
             return new_state, metrics
-        step.err = init_error_state(api, args.compress, device=dev)
+        step.err = init_error_state(api, args.compress, mesh)
     else:
         step = make_train_step(api, opt, lr)
 
@@ -83,8 +96,10 @@ def main(argv=None):
         data.batch, num_steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
         # restored checkpoints stage through ONE policy program: arena
-        # params + delta opt state + marshalled metadata
-        state_policy=state_transfer_policy(), log_every=args.log_every,
+        # params + delta opt state + marshalled metadata; not on the dp
+        # path, whose step replicates the state itself
+        state_policy=None if args.dp_shardmap else state_transfer_policy(),
+        log_every=args.log_every,
         device=dev)
 
     losses = [m["loss"] for m in res.metrics_history]

@@ -23,9 +23,13 @@ as einsums outside any kernel.
 
 Divergence by design: ``torch.topk``'s order on exactly equal
 probabilities is not specified on CUDA, where ``jax.lax.top_k`` prefers
-the lower index.  The expert-parallel path of the reference
-(``apply_moe_sharded``, ``shard_map``) is not ported: it needs more than
-one device.
+the lower index.
+
+Expert parallelism (:func:`apply_moe_sharded`) runs the reference's
+``shard_map`` body on every position of a named mesh, one controller
+driving them (``core/collectives.py``); :func:`apply_moe` takes it under
+an active :mod:`pspec` context whose ``expert`` rule divides the experts
+and the batch (``_sharded_config``, as the reference's).
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import collectives
+from ..core.collectives import NamedMesh
+from . import pspec
 from .specs import ParamSpec
 
 
@@ -56,24 +63,14 @@ def capacity(cfg: ModelConfig, num_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def apply_moe_sharded(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-                      mesh: Any, ep_axes: Any, tp_axes: Any):
-    raise NotImplementedError(
-        "expert-parallel MoE (the reference's shard_map path) is not yet "
-        "ported to the PyTorch package: it needs more than one device")
-
-
-def apply_moe(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, D) -> (B, S, D), {"moe_aux_loss": f32 scalar}."""
-    B, S, D = x.shape
+def _route_and_rank(cfg: ModelConfig, router_w: torch.Tensor,
+                    xt: torch.Tensor):
+    """Top-k routing of N tokens and each (token, choice)'s rank within
+    its expert: (flat_expert (N*K,), pos (N*K,), gate_vals (N, K), aux)."""
     E, K = cfg.num_experts, cfg.experts_per_token
-    N = B * S
-    C = capacity(cfg, N)
-    xt = x.reshape(N, D)
-    dev = x.device
-
-    logits = xt.to(torch.float32) @ p["router"].to(torch.float32)
+    N = xt.shape[0]
+    dev = xt.device
+    logits = xt.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)           # (N, K)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
@@ -93,24 +90,159 @@ def apply_moe(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(NK, device=dev) - starts[flat_expert[sorted_idx]]
     pos = torch.empty_like(pos_sorted).scatter_(0, sorted_idx, pos_sorted)
-    keep = pos < C
+    return flat_expert, pos, gate_vals, aux_loss
 
-    # dispatch: kept rows to their (expert, slot), dropped rows to the
-    # spare row E * C
+
+def _dispatch(cfg: ModelConfig, xt: torch.Tensor, flat_expert, pos, C: int):
+    """Kept rows to their (expert, slot) of an (E, C, D) buffer, dropped
+    rows (rank >= C) to a spare row past it; returns the buffer and each
+    row's slot (E * C where dropped)."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    keep = pos < C
     slot = torch.where(keep, flat_expert * C + pos,
                        torch.full_like(pos, E * C))
     src = xt.repeat_interleave(K, dim=0)                            # (N*K, D)
-    buf = torch.zeros(E * C + 1, D, dtype=x.dtype, device=dev)
+    buf = torch.zeros(E * C + 1, xt.shape[1], dtype=xt.dtype,
+                      device=xt.device)
     buf.index_copy_(0, slot, src)
-    buf = buf[:E * C].view(E, C, D)
+    return buf[:E * C].view(E, C, -1), slot
 
-    g = F.silu(torch.bmm(buf, p["w_gate"].to(x.dtype)))
-    u = torch.bmm(buf, p["w_up"].to(x.dtype))
-    out_buf = torch.bmm(g * u, p["w_down"].to(x.dtype)).view(E * C, D)
 
-    # combine: each token's kept rows, weighted by its gates
-    gathered = out_buf[torch.where(keep, slot, 0)]
+def _experts(buf, w_gate, w_up, w_down):
+    """The per-expert SwiGLU as three batched products."""
+    g = F.silu(torch.bmm(buf, w_gate.to(buf.dtype)))
+    u = torch.bmm(buf, w_up.to(buf.dtype))
+    return torch.bmm(g * u, w_down.to(buf.dtype))
+
+
+def _combine(cfg: ModelConfig, out_buf, slot, gate_vals, N: int):
+    """Each token's kept rows of the (E, C, D) buffer, weighted by its
+    gates."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    D = out_buf.shape[-1]
+    C = out_buf.shape[1]
+    keep = slot < E * C
+    gathered = out_buf.reshape(E * C, D)[torch.where(keep, slot, 0)]
     gathered = torch.where(keep[:, None], gathered, 0)
-    combined = (gathered.view(N, K, D)
-                * gate_vals[..., None].to(x.dtype)).sum(dim=1)
+    return (gathered.view(N, K, D)
+            * gate_vals[..., None].to(out_buf.dtype)).sum(dim=1)
+
+
+def _tile(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def apply_moe_sharded(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+                      mesh: NamedMesh, ep_axes: Any, tp_axes: Any
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert parallelism over ``ep_axes`` (and per-expert tensor
+    parallelism over ``tp_axes``) of ``mesh``, single-controller: the
+    reference's ``shard_map`` body run on every position with the
+    collectives of :mod:`repro_torch.core.collectives`.
+
+    Each position holds its ep slice of the batch and of the experts (and
+    its tp slice of d_ff), moved there from the global tensors.  Per
+    position: route and rank its tokens with the local capacity
+    ``capacity(cfg, N_l)``, scatter them into an (E, C_l, D) buffer,
+    ``all_to_all`` it to (E_l, n_ep * C_l, D), run the local experts (a
+    ``psum`` over the tp axes when d_ff is split), ``all_to_all`` back,
+    gather and combine.  The output is the positions' slices (those at tp
+    index 0) concatenated on x's device; the aux loss is the ``pmean`` of
+    the local aux losses over the ep axes (not the global one), position
+    0's.  Autograd flows through every step to x and the weights."""
+    ep = mesh.axes(ep_axes)
+    tp = mesh.axes(tp_axes) if tp_axes else ()
+    E, K = cfg.num_experts, cfg.experts_per_token
+    B, S, D = x.shape
+    n_ep = mesh.axis_size(ep)
+    n_tp = mesh.axis_size(tp) if tp else 1
+    if E % n_ep or B % n_ep:
+        raise ValueError(f"{E} experts and a batch of {B} must split over "
+                         f"{n_ep} expert-parallel positions")
+    B_l = B // n_ep
+    N_l = B_l * S
+    C_l = capacity(cfg, N_l)
+    auxs, bufs, local, routes = [], [], [], []
+    for pos, dev in enumerate(mesh.positions):
+        e = mesh.index(pos, ep)
+        t = mesh.index(pos, tp) if tp else 0
+        xt = _tile(x, 0, n_ep, e).to(dev).reshape(N_l, D)
+        ws = (_tile(_tile(p["w_gate"], 0, n_ep, e), 2, n_tp, t).to(dev),
+              _tile(_tile(p["w_up"], 0, n_ep, e), 2, n_tp, t).to(dev),
+              _tile(_tile(p["w_down"], 0, n_ep, e), 1, n_tp, t).to(dev))
+        flat_expert, rank, gate_vals, aux = _route_and_rank(
+            cfg, p["router"].to(dev), xt)
+        buf, slot = _dispatch(cfg, xt, flat_expert, rank, C_l)
+        bufs.append(buf)
+        local.append(ws)
+        routes.append((slot, gate_vals))
+        auxs.append(aux)
+    # dispatch: split E into the ep members' expert slices, concatenate
+    # the slots by source member -> (E_l, n_ep * C_l, D)
+    bufs = collectives.all_to_all(bufs, mesh, ep, split_axis=0,
+                                  concat_axis=1)
+    obs = [_experts(b, *ws) for b, ws in zip(bufs, local)]
+    if tp:
+        obs = collectives.psum(obs, mesh, tp)   # the partial d_ff sums
+    obs = collectives.all_to_all(obs, mesh, ep, split_axis=1,
+                                 concat_axis=0)                # (E, C_l, D)
+    outs = [_combine(cfg, ob, slot, gates, N_l)
+            for ob, (slot, gates) in zip(obs, routes)]
+    aux = collectives.pmean(auxs, mesh, ep)
+    rest = [a for a in mesh.axis_names if a not in ep]
+    owners = sorted((pos for pos in range(mesh.size)
+                     if not rest or mesh.index(pos, rest) == 0),
+                    key=lambda pos: mesh.index(pos, ep))
+    out = torch.cat([outs[pos].to(x.device) for pos in owners], dim=0)
+    return out.view(B, S, D), {"moe_aux_loss": aux[0]}
+
+
+def _sharded_config(cfg: ModelConfig, x: torch.Tensor):
+    """The expert-parallel path's (mesh, ep axes, tp axes) when a
+    :mod:`pspec` context with an ``expert`` rule is active and the experts
+    and the batch divide over the ep axes (tp None where d_ff does not
+    divide over it); else None."""
+    rules = pspec.active_rules()
+    if rules is None:
+        return None
+    mesh = pspec.active_mesh()
+    ep = rules.get("expert")
+    if not ep:
+        return None
+    ep = ep if isinstance(ep, tuple) else (ep,)
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    n_ep = 1
+    for ax in ep:
+        n_ep *= sizes[ax]
+    if cfg.num_experts % n_ep or x.shape[0] % n_ep:
+        return None
+    tp = rules.get("expert_mlp")
+    if tp:
+        tp = tp if isinstance(tp, tuple) else (tp,)
+        n_tp = 1
+        for ax in tp:
+            n_tp *= sizes[ax]
+        if cfg.d_ff % n_tp:
+            tp = None
+    return mesh, ep, tp
+
+
+def apply_moe(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, D) -> (B, S, D), {"moe_aux_loss": f32 scalar}.  Under a
+    :mod:`pspec` context with an ``expert`` rule whose shapes divide, the
+    expert-parallel :func:`apply_moe_sharded`."""
+    sharded = _sharded_config(cfg, x)
+    if sharded is not None:
+        return apply_moe_sharded(cfg, p, x, *sharded)
+    B, S, D = x.shape
+    N = B * S
+    C = capacity(cfg, N)
+    xt = x.reshape(N, D)
+    flat_expert, pos, gate_vals, aux_loss = _route_and_rank(
+        cfg, p["router"], xt)
+    buf, slot = _dispatch(cfg, xt, flat_expert, pos, C)
+    out_buf = _experts(buf, p["w_gate"], p["w_up"], p["w_down"])
+    combined = _combine(cfg, out_buf, slot, gate_vals, N)
     return combined.view(B, S, D), {"moe_aux_loss": aux_loss}

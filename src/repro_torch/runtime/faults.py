@@ -24,8 +24,6 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
-from .._device import DeviceLike
-
 from ..faultpoints import (CKPT_COMMIT, CKPT_GC, CKPT_PACK, CKPT_WRITE,  # noqa: F401
                            POINTS, RESTORE_H2D, SERVE_DECODE_STEP,
                            SERVE_POINTS, SERVE_POLICY_SWAP,
@@ -152,7 +150,7 @@ def run_elastic(train_step: Callable, init_state_fn: Callable[[], Any],
                 m_devices: int, ckpt_every: int = 4,
                 policy_fn: Optional[Callable[[int], Any]] = None,
                 max_restarts: int = 3, settle_timeout_s: float = 60.0,
-                device: DeviceLike = None) -> ElasticResult:
+                device: Any = None) -> ElasticResult:
     """Train on an n-device mesh, "crash", restore onto m devices.
 
     Two incarnations of :func:`repro_torch.runtime.loop.run` over one
@@ -160,7 +158,10 @@ def run_elastic(train_step: Callable, init_state_fn: Callable[[], Any],
     is killed at ``crash_step`` by an exception the loop does not catch;
     the survivor gets the now-stale n-device policy plus
     ``mesh_size=m_devices``, re-derives the policy, stages the checkpoint
-    through one compiled TransferProgram and resumes to ``num_steps``."""
+    through one compiled TransferProgram and resumes to ``num_steps``.
+    ``device`` is the loop's (:func:`repro_torch.runtime.loop.run`): a
+    mesh of positions given as a sequence of devices is the live mesh, so
+    m > 1 restores replicate onto its first m positions."""
     from ..checkpoint import latest_step
     from . import loop as loop_lib
     if policy_fn is None:

@@ -15,8 +15,11 @@ The port's counterpart of ``repro/runtime/loop.py``:
   * **straggler watchdog**: per-step wall-time outlier flags.
 
 The loop runs on ``device`` (the card unless ``"cpu"``); the live mesh is
-``torch.cuda.device_count()`` cards there and one device on the CPU.
-A step's wall ends when its loss is read on the host.
+``torch.cuda.device_count()`` cards there and one device on the CPU, or
+the positions of a mesh given as a sequence of devices (``(cpu,) * 4``,
+``(cuda:0,) * 4``).  A restore onto m > 1 positions replicates the staged
+state over them (``runtime.train.replicate_state``), and the step runs on
+every copy.  A step's wall ends when its loss is read on the host.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import DeviceLike, resolve_device
+from .._device import resolve_device
 from ..checkpoint import AsyncCheckpointer, latest_step, load
-from ..core.sharded import live_mesh
+from ..core.sharded import MeshLike, live_mesh
 from ..core.treepath import tree_map
 from . import faults as faults_lib
 
@@ -115,7 +118,7 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
         mesh_size: Optional[Any] = None,
         watchdog: Optional[StragglerWatchdog] = None,
         log_every: int = 0,
-        device: DeviceLike = None) -> TrainLoopResult:
+        device: MeshLike = None) -> TrainLoopResult:
     """Run ``num_steps`` of training with checkpoint/restart semantics.
 
     ``state_policy`` (a :class:`~repro_torch.core.TransferPolicy` or policy
@@ -127,9 +130,15 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
     or a zero-arg callable polled every step; a policy derived for a
     different mesh is re-derived (``result.policy_reshards``).  Each
     restore's wall is split into load (disk -> host) / reshard (policy
-    re-derivation + program compile) / h2d (program pass) in
+    re-derivation + program compile) / h2d (program pass and the
+    replication onto the survivors) in
     ``result.restore_splits``."""
-    dev = resolve_device(device)
+    if isinstance(device, (list, tuple)):
+        mesh = tuple(resolve_device(d) for d in device)
+        dev, n_live = mesh[0], len(mesh)
+    else:
+        dev = resolve_device(device)
+        mesh, n_live = live_mesh(dev), live_devices(dev)
     watchdog = watchdog or StragglerWatchdog()
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     restarts = 0
@@ -150,22 +159,22 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
 
         policy = TransferPolicy.parse(state_policy)
         resharded = False
-        k = mesh_now if mesh_now is not None else live_devices(dev)
+        k = mesh_now if mesh_now is not None else n_live
         if policy.num_shards > 1 and policy.num_shards != k:
             policy, resharded = policy.reshard(max(1, k)), True
             policy_reshards += 1
         try:
             return (policy, get_session().compile(host, policy,
-                                                device=live_mesh(dev)),
+                                                device=mesh),
                     resharded)
         except (UnsupportedSpecError, NotImplementedError):
-            survivors = max(1, min(k, live_devices(dev)))
+            survivors = max(1, min(k, n_live))
             if policy.num_shards <= survivors:
                 raise      # not a stale-mesh failure; don't mask it
             policy = policy.reshard(survivors)
             policy_reshards += 1
             return (policy, get_session().compile(host, policy,
-                                                device=live_mesh(dev)),
+                                                device=mesh),
                     True)
 
     def fresh_or_restored():
@@ -188,7 +197,8 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
             prefetch = StatePrefetcher(program)
             prefetch.schedule(host)
             faults_lib.trip(faults_lib.RESTORE_H2D)   # mid-restore kill point
-            state = replicate_state(prefetch.take(), policy.num_shards)
+            state = replicate_state(prefetch.take(), policy.num_shards,
+                                    device=mesh)
             restore_splits.append(dict(
                 step=step0, policy=str(policy), resharded=resharded,
                 load_s=t_load, reshard_s=t_reshard,
@@ -211,8 +221,8 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
         from .train import replicate_state
 
         t1 = time.perf_counter()
-        k = observed if observed is not None else live_devices(dev)
-        survivors = max(1, min(k, live_devices(dev)))
+        k = observed if observed is not None else n_live
+        survivors = max(1, min(k, n_live))
         resharded = False
         if state_policy is not None:
             policy = TransferPolicy.parse(state_policy)
@@ -221,7 +231,7 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
                 policy_reshards += 1
                 resharded = True
         t2 = time.perf_counter()
-        state = replicate_state(state, survivors)
+        state = replicate_state(state, survivors, device=mesh)
         restore_splits.append(dict(
             step=step, policy=str(state_policy or ""), resharded=resharded,
             load_s=0.0, reshard_s=t2 - t1,

@@ -1,36 +1,45 @@
 """Training step builders and the train state's transfer policy.
 
-The port's counterpart of ``repro/runtime/train.py``, on one device:
+The port's counterpart of ``repro/runtime/train.py``:
 
 ``make_train_step``     — gradients of ``api.loss_fn`` by autograd, an
                           optional micro-batch loop (gradients summed in
-                          float32, then averaged), the optimizer update.
+                          float32, then averaged), the optimizer update; a
+                          replicated state steps on every position.
 ``make_dp_train_step``  — the explicit data-parallel step whose gradient
                           collective is the paper's transfer-scheme choice:
-                          ``pertensor`` (one collective per gradient leaf),
+                          ``pertensor`` (one all-reduce per gradient leaf),
                           ``arena`` (gradients packed into per-dtype
-                          buckets on the device, one collective per
-                          bucket), optionally int8 + error feedback.  At
-                          dp 1, the only degree ported, every collective is
-                          the identity, so the three agree with the plain
-                          step up to the compression.
+                          buckets on the device, one reduce-scatter and
+                          one all-gather per bucket), optionally int8 +
+                          error feedback.  It runs single-controller over
+                          a mesh of K positions (``launch/mesh.py``), its
+                          collectives those of ``core/collectives.py``; at
+                          dp 1 every collective is the identity.
 
 Both are functional: a step returns a new state and writes none of its
 arguments in place.  Gradients are taken with ``torch.autograd.grad`` on
 ``detach().requires_grad_()`` aliases of the param leaves, so a param that
 is a view of a retained transfer bucket (a restored state) is read, never
 written, and its bucket's write count does not move.  A batch is numpy or
-tensors; the step moves it to the params' device.
+tensors; the step moves it (or each position's slice) to the params'
+device.  ``replicate_state`` places a state on K positions, one real copy
+each.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..core import collectives
 from ..core import engine as engine_lib
+from ..core.collectives import NamedMesh
 from ..core.deepcopy import ShapeDtype
+from ..core.sharded import (MeshLike, ShardedTensor, replica, replica_count,
+                            replicated, resolve_mesh)
 from ..core.spec import TransferSpec
 from ..core.treepath import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..models.registry import ModelApi
@@ -87,6 +96,16 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any
             treedef.unflatten(grads))
 
 
+def _replicas(state: Any) -> Optional[List[Any]]:
+    """Each position's copy of a replicated state; None for a plain one."""
+    leaves, treedef = tree_flatten(state)
+    k = replica_count(leaves)
+    if not k:
+        return None
+    return [treedef.unflatten([replica(leaf, p) for leaf in leaves])
+            for p in range(k)]
+
+
 def _grad_norm(grads: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
                           for g in tree_leaves(grads)))
@@ -98,10 +117,20 @@ def make_train_step(api: ModelApi, optimizer: Optimizer,
     "grad_norm"})``.  With ``cfg.micro_batches = m > 1`` the batch is split
     into m equal slices along its first axis, each slice's gradients are
     summed in float32 and the sum divided by m; the loss is the slices'
-    mean."""
+    mean.  A replicated state (:func:`replicate_state`) is stepped on every
+    position's copy with the whole batch (replicated compute, as a jitted
+    step on a replicated array) and comes back replicated; the metrics are
+    position 0's."""
     m = api.cfg.micro_batches
 
     def train_step(state, batch):
+        copies = _replicas(state)
+        if copies is None:
+            return one_step(state, batch)
+        outs = [one_step(c, batch) for c in copies]
+        return from_positions([o[0] for o in outs]), outs[0][1]
+
+    def one_step(state, batch):
         params = state["params"]
         batch = _batch_on(batch, _device_of(params))
         if m > 1:
@@ -140,76 +169,233 @@ def _check_dp(dp_size: int) -> int:
     dp_size = int(dp_size)
     if dp_size < 1:
         raise ValueError(f"dp_size must be >= 1, got {dp_size}")
-    if dp_size > 1:
-        raise NotImplementedError(
-            f"data parallelism over {dp_size} devices (its gradient "
-            f"collectives) is not yet ported to the PyTorch package; dp 1 "
-            f"runs")
     return dp_size
 
 
+def dp_mesh(dp_size: Union[int, NamedMesh] = 1,
+            device: MeshLike = None) -> Optional[NamedMesh]:
+    """The mesh a dp step runs on: ``dp_size`` itself when it is a
+    :class:`NamedMesh` (it needs a ``data`` axis), else a (dp, 1) mesh over
+    ``dp_size`` positions of ``device`` (``"cpu"``, a sequence of devices,
+    or the default mesh ``cuda:0 ... cuda:dp-1``; a shorter mesh raises
+    the stale-mesh ``ValueError``).  None at dp 1 without a device: the
+    step then runs where the state lives."""
+    if isinstance(dp_size, NamedMesh):
+        if "data" not in dp_size.axis_names:
+            raise ValueError(f"a dp mesh needs a 'data' axis: {dp_size!r}")
+        return dp_size
+    dp = _check_dp(dp_size)
+    if dp == 1 and device is None:
+        return None
+    from ..launch.mesh import make_debug_mesh
+    return make_debug_mesh(data=dp, model=1, device=device)
+
+
+def _one_position(tree: Any) -> NamedMesh:
+    return NamedMesh((_device_of(tree),), (1, 1), ("data", "model"))
+
+
+def per_position(tree: Any, mesh: NamedMesh) -> List[Any]:
+    """``tree`` as each position of ``mesh`` holds it: a replicated leaf's
+    copy on that position, a plain leaf moved to the position's device
+    (not copied where it already lies)."""
+    leaves, treedef = tree_flatten(tree)
+    k = mesh.size
+    out = []
+    for p, dev in enumerate(mesh.positions):
+        mine = []
+        for leaf in leaves:
+            if isinstance(leaf, ShardedTensor):
+                if len(leaf.pieces) != k:
+                    raise ValueError(
+                        f"a leaf replicated over {len(leaf.pieces)} "
+                        f"positions on a {k}-position mesh")
+                mine.append(replica(leaf, p))
+            else:
+                mine.append(torch.as_tensor(leaf).to(dev))
+        out.append(treedef.unflatten(mine))
+    return out
+
+
+def from_positions(trees: Sequence[Any]) -> Any:
+    """K per-position trees as one replicated tree (one tree as itself)."""
+    if len(trees) == 1:
+        return trees[0]
+    leaves = [tree_leaves(t) for t in trees]
+    treedef = tree_flatten(trees[0])[1]
+    return treedef.unflatten([replicated(copies) for copies in zip(*leaves)])
+
+
+def _split_batch(batch: Dict[str, Any], mesh: NamedMesh
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """The global batch split along dim 0 over the ``data`` axis (the
+    reference's ``P("data")``), each position's slice on its device."""
+    n = mesh.shape["data"]
+    out = []
+    for p, dev in enumerate(mesh.positions):
+        i = mesh.index(p, "data")
+        part = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.shape[0] % n:
+                raise ValueError(f"batch {k!r} of {t.shape[0]} rows does not "
+                                 f"split over a data axis of {n}")
+            rows = t.shape[0] // n
+            part[k] = t[i * rows:(i + 1) * rows].to(dev)
+        out.append(part)
+    return out
+
+
+def sync_gradients(grads: List[Any], errors: List[Dict[str, torch.Tensor]],
+                   mesh: NamedMesh, grad_scheme: str, compress: bool
+                   ) -> Tuple[List[Any], List[Dict[str, torch.Tensor]]]:
+    """The dp step's gradient collective over the mesh's ``data`` axis:
+    each position's gradient tree in, each position's synced tree (the
+    sum over the axis, as in the reference) and error-feedback buffers
+    out.  ``pertensor``: one all-reduce a leaf.  ``arena``: the leaves
+    packed by :func:`grad_arena_spec`'s plan, one reduce-scatter and one
+    all-gather a bucket over the per-position ranges the plan pads to;
+    with ``compress`` a ``pmax`` of each chunk's scale, an int32 all-reduce
+    of the int8 payload and the residual into the error buffers.  The
+    lists are consumed: each local gradient and old error buffer is
+    released as soon as it is used, and the compression runs position by
+    position, so one position's float32 temporaries are alive at a
+    time."""
+    k = mesh.size
+    if grad_scheme == "pertensor":
+        leaves = [tree_flatten(g)[0] for g in grads]
+        treedef = tree_flatten(grads[0])[1]
+        grads[:] = [None] * k
+        synced: List[List[torch.Tensor]] = [[] for _ in range(k)]
+        for i in range(len(leaves[0])):
+            out = collectives.psum([leaves[p][i] for p in range(k)], mesh,
+                                   "data")
+            for p in range(k):
+                leaves[p][i] = None
+                synced[p].append(out[p])
+        return [treedef.unflatten(s) for s in synced], errors
+    layout = engine_lib.get_session().plan(
+        grads[0], grad_arena_spec(mesh.shape["data"]))
+    buffers = [engine_lib.pack_traced(g, layout) for g in grads]
+    grads[:] = [None] * k
+    out_bufs: List[Dict[str, torch.Tensor]] = [{} for _ in range(k)]
+    new_err: List[Dict[str, torch.Tensor]] = [{} for _ in range(k)]
+    C = compression.CHUNK
+    for bucket in layout.bucket_sizes:
+        bufs = [b.pop(bucket) for b in buffers]
+        if not compress:
+            parts = collectives.psum_scatter(bufs, mesh, "data")
+            del bufs
+            synced_b = collectives.all_gather(parts, mesh, "data")
+        elif bucket not in errors[0]:
+            synced_b = collectives.psum(bufs, mesh, "data")
+        else:
+            n, dtype = bufs[0].shape[0], bufs[0].dtype
+
+            def corrected(p):
+                return (compression._pad_to(bufs[p].to(F32), C)
+                        + errors[p][bucket]).reshape(-1, C)
+
+            scale = collectives.pmax(
+                [corrected(p).abs().amax(dim=1) for p in range(k)], mesh,
+                "data")
+            scale = [s / 127.0 + 1e-12 for s in scale]
+            payload = []
+            for p in range(k):
+                chunks = corrected(p)
+                q = torch.clamp(torch.round(chunks / scale[p][:, None]),
+                                -127, 127)
+                new_err[p][bucket] = (chunks - q * scale[p][:, None]
+                                      ).reshape(-1)
+                payload.append(q.to(torch.int32))
+                del chunks, q
+                bufs[p] = None
+                errors[p].pop(bucket)
+            qsum = collectives.psum(payload, mesh, "data")
+            del payload
+            synced_b = []
+            for p in range(k):
+                synced_b.append((qsum[p].to(F32) * scale[p][:, None])
+                                .reshape(-1)[:n].to(dtype))
+                qsum[p] = None
+        for p in range(k):
+            out_bufs[p][bucket] = synced_b[p]
+    if compress:
+        errors = new_err
+    return ([engine_lib.unpack_traced(b, layout) for b in out_bufs],
+            errors)
+
+
 def make_dp_train_step(api: ModelApi, optimizer: Optimizer,
-                       lr_schedule: Callable, dp_size: int = 1, *,
+                       lr_schedule: Callable,
+                       dp_size: Union[int, NamedMesh] = 1, *,
+                       device: MeshLike = None,
                        grad_scheme: str = "arena",
                        compress: bool = False) -> Callable:
     """``step(state, batch, error_state) -> (new_state, {"loss", "lr"},
-    new_error_state)`` with an explicit gradient collective.
+    new_error_state)``: replicated-params data parallelism with an explicit
+    gradient collective, single-controller over a mesh (:func:`dp_mesh`:
+    ``dp_size`` positions of ``device``, or a :class:`NamedMesh` with a
+    ``data`` axis, as the reference's ``mesh`` argument).
 
     grad_scheme:
       ``pertensor``  one all-reduce per gradient leaf (the per-leaf deep
                      copy);
       ``arena``      gradients packed into per-dtype buckets planned by
-                     :func:`grad_arena_spec` (128-element aligned), one
-                     reduce-scatter + all-gather per bucket;
+                     :func:`grad_arena_spec`, one reduce-scatter + one
+                     all-gather per bucket (marshalling on the wire);
     compress=True    int8 + error feedback on the arena payload with one
                      shared per-chunk scale (arena only).
 
-    At dp 1 every collective (sum, max, reduce-scatter, all-gather) is the
-    identity; the packing, the compression and the error feedback run as
-    in the reference.  ``dp_size > 1`` raises ``NotImplementedError``."""
+    The global batch splits along dim 0 over the ``data`` axis; each
+    position takes the gradient of its own copy of the params on its
+    slice, the gradients are summed over the axis (not averaged, as in the
+    reference) by :func:`sync_gradients`, the loss is the ``pmean``, and
+    each position applies the update to its own copy, dropping its
+    references to that position's old state once it is updated (a caller
+    that hands over its only references to the state and the error state
+    then holds one state and one position's update at a time, not two
+    states).  On a mesh of K > 1
+    positions the state and the error buffers come back replicated
+    (:func:`~repro_torch.core.sharded.replicated`, every position's params
+    and optimizer state equal bit for bit; each position keeps its own
+    error buffers, as the reference's unchecked replicated outputs do); a
+    plain state is accepted and moved to every position.  The metrics are
+    position 0's (every position's loss is the same pmean)."""
     if compress and grad_scheme != "arena":
         raise ValueError("compression requires the arena scheme")
     if grad_scheme not in ("pertensor", "arena"):
         raise ValueError(f"unknown grad_scheme {grad_scheme!r}")
-    grad_spec = grad_arena_spec(_check_dp(dp_size))
-
-    def grad_sync(grads, error_state):
-        if grad_scheme == "pertensor":
-            return grads, error_state       # one identity all-reduce a leaf
-        layout = engine_lib.get_session().plan(grads, grad_spec)
-        buffers = engine_lib.pack_traced(grads, layout)
-        if not compress:
-            # reduce-scatter + all-gather per bucket: identities at dp 1
-            return engine_lib.unpack_traced(buffers, layout), error_state
-        C = compression.CHUNK
-        synced, new_err = {}, {}
-        for bucket, buf in buffers.items():
-            if bucket not in error_state:
-                synced[bucket] = buf
-                continue
-            n = buf.shape[0]
-            corrected = compression._pad_to(buf.to(F32), C) \
-                + error_state[bucket]
-            chunks = corrected.reshape(-1, C)
-            scale = chunks.abs().amax(dim=1) / 127.0 + 1e-12
-            q = torch.clamp(torch.round(chunks / scale[:, None]), -127, 127)
-            qsum = q.to(torch.int32)        # the int8 all-reduce
-            out = (qsum.to(F32) * scale[:, None]).reshape(-1)
-            synced[bucket] = out[:n].to(buf.dtype)
-            new_err[bucket] = (chunks - q * scale[:, None]).reshape(-1)
-        return engine_lib.unpack_traced(synced, layout), new_err
+    fixed = dp_mesh(dp_size, device)
 
     def step_fn(state, batch, error_state):
-        params = state["params"]
-        batch = _batch_on(batch, _device_of(params))
-        loss, _, grads = value_and_grad(api.loss_fn, params, batch)
-        grads, error_state = grad_sync(grads, error_state)
-        lr = lr_schedule(state["step"])
-        new_params, new_opt = optimizer.update(grads, state["opt"], params,
-                                               lr)
-        return ({"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}, {"loss": loss, "lr": lr},
-                error_state)
+        mesh = fixed or _one_position(state["params"])
+        states = per_position(state, mesh)
+        batches = _split_batch(batch, mesh)
+        errors = per_position(error_state, mesh)
+        del state, error_state     # the positions' trees hold the leaves
+        losses, grads = [], []
+        for st, b in zip(states, batches):
+            loss, _, g = value_and_grad(api.loss_fn, st["params"], b)
+            losses.append(loss)
+            grads.append(g)
+        grads, errors = sync_gradients(grads, errors, mesh, grad_scheme,
+                                       compress)
+        loss = collectives.pmean(losses, mesh, "data")
+        out, lrs = [], []
+        for p in range(mesh.size):
+            st, states[p] = states[p], None
+            lr = lr_schedule(st["step"])
+            new_params, new_opt = optimizer.update(grads[p], st["opt"],
+                                                   st["params"], lr)
+            grads[p] = None
+            out.append({"params": new_params, "opt": new_opt,
+                        "step": st["step"] + 1})
+            lrs.append(lr)
+            del st, new_params, new_opt
+        return (from_positions(out), {"loss": loss[0], "lr": lrs[0]},
+                {b: from_positions([e[b] for e in errors])
+                 for b in errors[0]})
 
     return step_fn
 
@@ -234,16 +420,38 @@ def state_transfer_policy(dp_size: int = 1):
         "opt/**=marshal+delta; **=marshal")
 
 
-def replicate_state(state: Any, num_devices: int) -> Any:
-    """The elastic-restore hand-off onto ``num_devices`` devices: the
-    identity on one device (the staged tree is already one consistent
-    placement); more devices raise ``NotImplementedError`` until
-    multi-device training is ported."""
+def replicate_state(state: Any, num_devices: int,
+                    device: MeshLike = None) -> Any:
+    """The elastic-restore hand-off: every leaf becomes ``num_devices``
+    real copies, one on each of the first ``num_devices`` positions of
+    ``device``'s mesh (``"cpu"``, a sequence of devices, or by default the
+    CPU when the state lies there and the default card mesh otherwise), as
+    a :class:`~repro_torch.core.sharded.ShardedTensor` whose pieces each
+    cover the whole leaf.  A sharded leaf (a policy's staged params) is
+    assembled from its pieces.  The identity on one device.  Replication
+    is a copy, not arithmetic, so a resumed trajectory stays
+    bit-identical."""
     if num_devices <= 1:
         return state
-    raise NotImplementedError(
-        f"replicating the train state over {num_devices} devices is not yet "
-        f"ported to the PyTorch package")
+    leaves, treedef = tree_flatten(state)
+    if device is None:
+        first = leaves[0]
+        first = first.pieces[0].tensor if isinstance(first, ShardedTensor) \
+            else torch.as_tensor(first)
+        device = "cpu" if first.device.type == "cpu" else None
+    mesh = resolve_mesh(device, num_devices)
+
+    def whole(leaf, dev: torch.device) -> torch.Tensor:
+        if not isinstance(leaf, ShardedTensor):
+            return torch.as_tensor(leaf).to(dev, copy=True)
+        out = torch.empty(leaf.numel(), dtype=leaf.dtype, device=dev)
+        for p in leaf.covering():
+            # lint: allow=DC201 -- replication assembles device pieces on each position (the reference's device_put to a replicated sharding)
+            out[p.lo:p.hi].copy_(p.tensor.reshape(-1), non_blocking=True)
+        return out.view(leaf.shape)
+
+    return treedef.unflatten([replicated([whole(leaf, dev) for dev in mesh])
+                              for leaf in leaves])
 
 
 def compile_state_program(state: Dict[str, Any], dp_size: int = 1,
@@ -290,16 +498,23 @@ class StatePrefetcher:
         return future.result()
 
 
-def init_error_state(api: ModelApi, compress: bool, dp_size: int = 1,
-                     device: DeviceLike = None) -> Dict[str, Any]:
+def init_error_state(api: ModelApi, compress: bool,
+                     dp_size: Union[int, NamedMesh] = 1,
+                     device: MeshLike = None) -> Dict[str, Any]:
     """Zero error-feedback buffers, one per gradient bucket, padded to
-    whole compression chunks, on ``device`` (the card unless ``"cpu"``);
-    empty without compression."""
+    whole compression chunks (the plan padded for the dp degree, as the
+    step plans it), on ``device`` (the card unless ``"cpu"``); replicated
+    over the mesh's positions when it has more than one (``dp_size`` as
+    in :func:`make_dp_train_step`).  Empty without compression."""
     if not compress:
         return {}
-    dev = resolve_device(device)
+    mesh = dp_mesh(dp_size, device)
+    dp = mesh.shape["data"] if mesh is not None else 1
     layout = engine_lib.get_session().plan(api.abstract(),
-                                           grad_arena_spec(_check_dp(dp_size)))
+                                           grad_arena_spec(dp))
     pad = lambda n: -(-n // compression.CHUNK) * compression.CHUNK
-    return {b: torch.zeros((pad(n),), dtype=F32, device=dev)
+    positions = mesh.positions if mesh is not None \
+        else (resolve_device(device),)
+    return {b: from_positions([torch.zeros((pad(n),), dtype=F32, device=d)
+                               for d in positions])
             for b, n in layout.bucket_sizes.items()}

@@ -1271,3 +1271,87 @@ def test_sharded_policy_scenario_on_the_card(cuda, executor):
             assert m.ok and m.motion_ok and m.syncs == 1
             led = m.regions["params/**"]
             assert led["h2d_calls_by_device"] == {str(s): 1 for s in range(4)}
+
+
+# -- data parallelism over positions of the card -----------------------------
+
+def _named(cuda, shape):
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    return make_debug_mesh(*shape, device=_mesh(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_collectives_on_the_card_equal_their_plain_versions(cuda, dtype):
+    """Each collective over card positions against the same arithmetic on
+    one device: sums in position order, bit for bit."""
+    from repro_torch.core import collectives as C
+
+    mesh = _named(cuda, (2, 2))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xs = [torch.randn(8, 6, generator=gen, device=cuda).to(dtype)
+          .to(d) for d in mesh.positions]
+    for axes in ("data", "model", ("data", "model")):
+        summed = C.psum(xs, mesh, axes)
+        mx = C.pmax(xs, mesh, axes)
+        mean = C.pmean(xs, mesh, axes)
+        parts = C.psum_scatter(xs, mesh, axes)
+        gathered = C.all_gather(parts, mesh, axes)
+        a2a = C.all_to_all(xs, mesh, axes, split_axis=0, concat_axis=1)
+        for g in mesh.groups(axes):
+            n = len(g)
+            total = xs[g[0]]
+            for p in g[1:]:
+                total = total + xs[p].to(total.device)
+            for i, p in enumerate(g):
+                assert summed[p].device == mesh.positions[p]
+                assert torch.equal(summed[p].cpu(), total.cpu())
+                assert torch.equal(mean[p].cpu(), (total / n).cpu())
+                assert torch.equal(mx[p].cpu(), torch.stack(
+                    [xs[q].cpu() for q in g]).amax(0))
+                assert torch.equal(parts[p].cpu(), total.chunk(n)[i].cpu())
+                assert torch.equal(gathered[p].cpu(), total.cpu())
+                assert torch.equal(a2a[p].cpu(), torch.cat(
+                    [xs[q].cpu().chunk(n)[i] for q in g], dim=1))
+
+
+def test_dp2_step_on_the_card_sums_the_positions_gradients(cuda):
+    """A dp-2 step on two positions of the card, smoke llama in bf16,
+    SGD with momentum: the delivered gradient (the momentum from zero) is
+    the sum of the positions' halves, close to twice the dp-1 gradient
+    over the whole batch (each half's mean over equal tokens); arena
+    equals pertensor bit for bit; both positions' params equal."""
+    import dataclasses
+    from repro_torch.core.sharded import replica
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import train
+
+    base = registry.get("llama3.2-1b", smoke=True).cfg
+    api = registry.get_model(dataclasses.replace(
+        base, param_dtype="bfloat16", compute_dtype="bfloat16"))
+    opt = make_optimizer("sgdm")
+    mesh = (cuda, cuda)
+    data = SyntheticLM(api.cfg.vocab_size, 16, 4)
+    batch = data.batch(0)
+    outs = {}
+    for scheme in ("pertensor", "arena"):
+        state = train.train_state(api, opt, torch.Generator(
+            device=cuda).manual_seed(0), device=cuda)
+        step = train.make_dp_train_step(api, opt, constant(1e-2), 2,
+                                        device=mesh, grad_scheme=scheme)
+        new, _, _ = step(state, batch, {})
+        outs[scheme] = [[replica(l, p) for l in tree_leaves(new)]
+                        for p in range(2)]
+    for a, b in zip(outs["pertensor"][0], outs["arena"][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs["pertensor"][0], outs["pertensor"][1]):
+        assert torch.equal(a, b)
+    whole = {k: torch.as_tensor(v).to(cuda) for k, v in batch.items()}
+    _, _, g1 = train.value_and_grad(api.loss_fn, state["params"], whole)
+    mu = [replica(m, 0) for m in tree_leaves(new["opt"]["mu"])]
+    for got, want in zip(mu, tree_leaves(g1)):
+        want = 2 * want.float()
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2e-2 * top + 1e-6

@@ -164,10 +164,26 @@ def test_arctic_block_adds_the_dense_residual_as_the_reference():
 
 
 def test_sharded_moe_is_not_ported():
+    """The expert-parallel path is ported (this test pinned its refusal):
+    on a (2, 1) CPU mesh without expert TP, each position routes its own
+    batch slice with the local capacity and the all-to-alls only move its
+    slots, so its output slice equals the plain layer on that slice; the
+    aux loss is the mean of the two slices'.  The reference is held in
+    tests/test_torch_moe_sharded.py."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
     cfg = p_registry.get("moonshot-v1-16b-a3b", smoke=True).cfg
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        p_moe.apply_moe_sharded(cfg, {}, torch.zeros(1, 1, cfg.d_model),
-                                None, "data", None)
+    p = _layer_params("moonshot-v1-16b-a3b")[1]["moe"]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 8, cfg.d_model)).astype(np.float32))
+    mesh = make_debug_mesh(2, 1, device=CPU)
+    out, aux = p_moe.apply_moe_sharded(cfg, p, x, mesh, "data", None)
+    halves = [p_moe.apply_moe(cfg, p, x[i:i + 2]) for i in (0, 2)]
+    torch.testing.assert_close(out, torch.cat([h[0] for h in halves]),
+                               **MODEL_TOL)
+    torch.testing.assert_close(
+        aux["moe_aux_loss"],
+        (halves[0][1]["moe_aux_loss"] + halves[1][1]["moe_aux_loss"]) / 2)
 
 
 # ------------------------------------------------------------ no host read

@@ -54,6 +54,7 @@ from repro_torch.convert import (from_reference_tree, train_state_from_reference
 from repro_torch.core import TransferSession, arena as p_arena
 from repro_torch.core import engine as p_engine
 from repro_torch.core import tree_leaves
+from repro_torch.core.sharded import replica
 from repro_torch.models import lm as p_lm
 from repro_torch.models import registry as p_registry
 from repro_torch.optim import compression as p_comp
@@ -263,15 +264,46 @@ def test_dp_train_step_at_dp1_equals_the_reference(scheme, compress):
 
 
 def test_dp_above_one_and_bad_arguments_raise():
+    """dp above one runs now (this test pinned its refusal): a dp-2 step on
+    two CPU positions sums the positions' gradients (as the reference's,
+    not their mean), so from a zero momentum its delivered gradient is
+    the sum of the two batch halves' gradients; and ``replicate_state``
+    makes one real copy a position.  The bad arguments
+    still raise: compression without the arena, dp < 1, a mesh with fewer
+    positions than dp."""
     _, p_api = _pair("llama3.2-1b")
-    opt = make_optimizer("adamw")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        p_train.make_dp_train_step(p_api, opt, constant(1e-2), 2)
+    opt = make_optimizer("sgdm")
+    state = p_train.train_state(p_api, opt, torch.Generator().manual_seed(0),
+                                device=CPU)
+    batch = _batch(257, seed=7)
+    step = p_train.make_dp_train_step(p_api, opt, constant(1e-2), 2,
+                                      device=CPU, grad_scheme="pertensor")
+    new, met, err = step(state, batch, {})
+    got = [replica(m, 1) for m in tree_leaves(new["opt"]["mu"])]
+    halves = [p_train.value_and_grad(
+        p_api.loss_fn, state["params"],
+        {k: torch.as_tensor(v)[i:i + 2] for k, v in batch.items()})[2]
+        for i in (0, 2)]
+    want = [a + b for a, b in zip(tree_leaves(halves[0]),
+                                  tree_leaves(halves[1]))]
+    _close(got, want, "dp-2 delivered gradient", rtol=GRAD_RTOL,
+           per_leaf=True)
+    assert err == {}
+    assert int(replica(new["step"], 0)) == 1
+    x = torch.arange(3.0)
+    rep = p_train.replicate_state({"x": x}, 2, device=CPU)["x"]
+    assert [p.tensor.data_ptr() != x.data_ptr() for p in rep.pieces] == \
+        [True, True]
+    assert all(torch.equal(replica(rep, i), x) for i in range(2))
     with pytest.raises(ValueError, match="arena"):
         p_train.make_dp_train_step(p_api, opt, constant(1e-2), 1,
                                    grad_scheme="pertensor", compress=True)
-    with pytest.raises(NotImplementedError):
-        p_train.replicate_state({"x": torch.zeros(1)}, 2)
+    with pytest.raises(ValueError, match=">= 1"):
+        p_train.make_dp_train_step(p_api, opt, constant(1e-2), 0,
+                                   device=CPU)
+    with pytest.raises(ValueError, match="stale"):
+        p_train.make_dp_train_step(p_api, opt, constant(1e-2), 4,
+                                   device=(torch.device("cpu"),) * 2)
     state = {"x": torch.zeros(1)}
     assert p_train.replicate_state(state, 1) is state
 

@@ -295,7 +295,7 @@ def test_prefetcher_propagates_errors():
 
 # ------------------------------------------------------------------- CLI
 
-def test_cli_smoke_on_the_cpu(tmp_path, capsys):
+def test_cli_smoke_on_the_cpu(tmp_path, capsys, monkeypatch):
     from repro_torch.launch import train as cli
 
     res = cli.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
@@ -307,10 +307,34 @@ def test_cli_smoke_on_the_cpu(tmp_path, capsys):
     assert int(res.state["step"]) == 6
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
         "step_00000003", "step_00000006"]
+    seen = {}
+    real_run = cli.loop_mod.run
+    real_step = cli.make_dp_train_step
+
+    def spy_run(*a, **kw):
+        seen["state_policy"] = kw["state_policy"]
+        return real_run(*a, **kw)
+
+    def spy_step(api, opt, lr, mesh, **kw):
+        seen["mesh"] = mesh
+        return real_step(api, opt, lr, mesh, **kw)
+
+    monkeypatch.setattr(cli.loop_mod, "run", spy_run)
+    monkeypatch.setattr(cli, "make_dp_train_step", spy_step)
     res = cli.main(["--smoke", "--device", "cpu", "--steps", "3", "--batch",
                     "2", "--seq", "16", "--log-every", "0", "--dp-shardmap",
                     "--compress"])
     assert int(res.state["step"]) == 3
+    # the dp path: a (visible devices, 1) mesh, restores without a policy
+    assert seen["state_policy"] is None
+    assert seen["mesh"].shape == {"data": 1, "model": 1}
+    assert seen["mesh"].positions == (torch.device("cpu"),)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert cli.visible_positions(torch.device("cuda", 0)) == 3
+    assert cli.visible_positions(torch.device("cpu")) == 1
+    cli.main(["--smoke", "--device", "cpu", "--steps", "1", "--batch", "2",
+              "--seq", "16", "--log-every", "0"])
+    assert seen["state_policy"] is not None    # the plain path keeps it
     with pytest.raises(NotImplementedError, match="XLA"):
         cli.main(["--smoke", "--device", "cpu", "--production-mesh"])
 
