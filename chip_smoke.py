@@ -225,6 +225,33 @@ Phases, each of which raises on failure:
      checkpoint restored through the survivor's policy and replicated
      onto m positions equal to it bit for bit on each; the restore split
      printed.
+ 20. launch      — after phase 19, on four positions of phase 18's mesh (one
+     card: not multi-GPU), under deterministic algorithms: (a) the
+     production-mesh step (``make_sharded_train_step``) on a (2, 2) mesh:
+     llama3.2-1b at full width cut to LAUNCH_LAYERS layers, bf16, AdamW at
+     LAUNCH_LR, batch 8 x 128, 3 steps from a seeded state: the predicted
+     peak printed first, the losses within LAUNCH_LOSS_TOL of
+     make_train_step's on one position from the same state, the model
+     axis's replicas bit-equal after every step, every block equal to its
+     block of the gathered state, launches exactly 4 x kernel_launches a
+     step; before it, f32 at 2 layers under SGD-momentum within 1e-5
+     (losses) and DP_GRAD_TOL (leaves) of one position; (b) (a)'s state
+     saved, then restored with ``restore(shardings=)`` onto (4, 1) and
+     (1, 4) under each mesh's train rules: every block equal to the
+     host's bit for bit, the blocks' bytes equal, exactly, to the dry
+     run's placement summed over the positions (the allocator's growth
+     printed); (c) placed prefill and decode (``runtime.placed``),
+     llama3.2-1b at full size on (2, 2): phase 8's first 8 prompts each
+     prefilled into its slot of an 8 x 2048 cache (batch over data, its
+     sequence over model), 8 decode steps fed the one-position run's
+     greedy tokens: every logit within BF16_TOL of the one-position run's
+     (batch-1 prefills stacked into 8 slots), launches exact; (d) the four
+     ``examples/torch_*.py`` through ``main(argv)`` at small sizes:
+     quickstart's transfers and bytes equal to its tree's closed forms,
+     the demo's DMAs and MB equal to its CPU run's, serve completes 8
+     requests, train restarts once; (e) the dry run's llama3.2-1b train_4k
+     cell on both production meshes (meta positions, host counts): 2/2
+     ok, the probe identity exact.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -248,11 +275,14 @@ forward, and under remat the blocks' 2L and L again in the backward
 (llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again); the
 dp phase launches a train step's count on every position of every step
 (4 x 33 rmsnorm and 4 x 16 flash a dp step at 8 layers; each of an elastic
-survivor's m positions a step's count) and nothing in the MoE layer.
+survivor's m positions a step's count) and nothing in the MoE layer;
+the launch phase's sharded step launches 4 x a train step's count a step
+and its placed prefill and decode what kernel_launches gives for 2 x the
+prompts (the slot's two holders) and 4 x the steps.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line (launches summed over the serve phases 8-12 and 17, and per phase,
-the train runs, the serve CLI, the sharded phase and the dp phase under
-``launches_by_phase``) and
+the train runs, the serve CLI, the sharded phase, the dp phase and the
+launch phase under ``launches_by_phase``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 2 and prints no result.
 
@@ -264,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -487,6 +518,32 @@ ELASTIC_LAYERS = 2
 ELASTIC_BATCH, ELASTIC_SEQ = 4, 32
 ELASTIC_STEPS, ELASTIC_CRASH, ELASTIC_EVERY = 8, 6, 4
 ELASTIC_EPISODES = ((4, 2), (2, 4))
+
+# phase 20 (launch): the production-mesh tooling on four positions of
+# phase 18's mesh.  (a) the sharded step on a (2, 2) mesh: llama3.2-1b at
+# full width cut to LAUNCH_LAYERS of its 16 layers (at 16 the save of (b)
+# alone took 30.38 s: 12.36 GB at 0.41 GB/s), bf16, AdamW at LAUNCH_LR,
+# batch LAUNCH_BATCH x LAUNCH_SEQ, LAUNCH_STEPS steps; its f32 check at
+# TRAIN_CHECK_LAYERS layers under SGD-momentum (AdamW's first update is lr
+# * g / |g|, which turns float32 noise into lr-sized differences), held
+# as phase 19 holds its f32 gradient identity at 2 layers: losses within
+# LAUNCH_F32_LOSS_RTOL, every leaf within DP_GRAD_TOL of its largest
+# element (two row counts' products round apart on the card).  (b)
+# restores onto LAUNCH_RESTORE_MESHES.  (c) LAUNCH_PROMPTS of phase 8's
+# prompts prefilled into the slots of a placed cache, LAUNCH_NEW decode
+# steps.  (d) the four examples at small sizes.  (e) the dry run's
+# llama3.2-1b train_4k cell on both production meshes.
+LAUNCH_MESH = (2, 2)
+LAUNCH_LAYERS = 8                        # of 16: the script's wall (PERF.md)
+LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS = 8, 128, 3
+LAUNCH_LR = 3e-4
+LAUNCH_LOSS_TOL = 2e-2                   # bf16 sharded vs one position,
+                                         # as _close: atol + rtol
+LAUNCH_F32_LOSS_RTOL = 1e-5             # f32 losses; the leaves: DP_GRAD_TOL
+LAUNCH_PEAK_LIMIT = 70e9
+LAUNCH_RESTORE_MESHES = ((4, 1), (1, 4))
+LAUNCH_PROMPTS, LAUNCH_NEW = 8, 8
+CUDA_ALLOC_GRANULE = 512                 # the caching allocator's rounding
 
 
 def say(*parts) -> None:
@@ -3892,6 +3949,474 @@ def dp_phase(kernels: dict, smi: str) -> dict:
     return {k: dp[k] + elastic[k] for k in dp}
 
 
+# -- phase 20: the launch tooling on four positions ---------------------------
+
+def _model_replicas_equal(state, mesh, what: str) -> None:
+    """Positions that differ only on ``model`` hold bit-equal blocks of
+    every leaf whose spec does not name ``model``."""
+    import torch
+    from repro_torch.core import tree_leaves
+    from repro_torch.core.placement import entry_axes
+
+    for i, leaf in enumerate(tree_leaves(state)):
+        if any("model" in entry_axes(e) for e in leaf.placement.spec):
+            continue
+        for group in mesh.groups("model"):
+            for p in group[1:]:
+                if not torch.equal(leaf.blocks[p], leaf.blocks[group[0]]):
+                    fail(f"{what}: leaf {i}'s block on position {p} differs "
+                         f"from position {group[0]}'s (model replicas)")
+
+
+def _blocks_equal_whole(state, what: str, host=None) -> None:
+    """Every block equals its block of the whole leaf, bit for bit: the
+    leaf gathered on the card, or ``host``'s leaf moved there."""
+    import torch
+    from repro_torch.core import tree_leaves
+
+    hosts = tree_leaves(host) if host is not None else None
+    for i, leaf in enumerate(tree_leaves(state)):
+        dev = leaf.blocks[0].device
+        whole = leaf.gather(dev) if hosts is None else hosts[i].to(dev)
+        for p, block in enumerate(leaf.blocks):
+            if not torch.equal(block, whole[leaf.placement.index(
+                    p, leaf.shape)]):
+                fail(f"{what}: leaf {i}'s block on position {p} is not its "
+                     f"block of the whole leaf")
+        del whole
+
+
+def _predict_sharded_peak(api, opt, mesh, shardings) -> float:
+    """The sharded step's predicted peak bytes on the card: the placed
+    state, every position's gathered params, every position's gradients
+    and one position's f32 logits (B/n x S x V) with their gradient."""
+    from repro_torch.core import tree_leaves
+    from repro_torch.core.placement import position_bytes
+    from repro_torch.runtime import train
+
+    state_abs = train.abstract_train_state(api, opt)
+    placed = mesh.size * position_bytes(
+        [(v.shape, v.dtype, pl) for v, pl in zip(
+            tree_leaves(state_abs), tree_leaves(shardings))])
+    params = sum(math.prod(v.shape) * 2 for v in tree_leaves(api.abstract()))
+    rows = LAUNCH_BATCH // mesh.shape["data"]
+    logits = 2 * rows * LAUNCH_SEQ * api.cfg.vocab_size * 4
+    return placed + 2 * mesh.size * params + logits
+
+
+def launch_sharded_step(kernels: dict, smi: str):
+    """Part (a): the production-mesh step on a (2, 2) mesh.  First the
+    f32 check at TRAIN_CHECK_LAYERS layers (SGD-momentum, 2 steps): losses
+    within LAUNCH_F32_LOSS_RTOL and every gathered leaf within DP_GRAD_TOL
+    of its largest element against make_train_step on one position.  Then llama3.2-1b at LAUNCH_LAYERS layers, bf16,
+    AdamW: make_train_step's LAUNCH_STEPS losses on one position, then the
+    sharded step's from the same seeded state: losses within
+    LAUNCH_LOSS_TOL of them, model replicas bit-equal after every step,
+    launches exactly mesh.size x kernel_launches(train_steps=1) a step,
+    every block equal to its block of the gathered state.  All under
+    deterministic algorithms: the embedding's index backward accumulates
+    in a racy order otherwise, and the replicas would part by rounding.
+    Returns the counts, the placed state, the api and the optimizer."""
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.runtime import train
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _launch_sharded_runs(kernels, smi, synchronize, train)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
+    import dataclasses
+    import torch
+    from repro_torch.core import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import constant, make_optimizer
+
+    mesh = _dp_mesh(LAUNCH_MESH)
+    dev = mesh.positions[0]
+    base = registry.get("llama3.2-1b").cfg
+    data = SyntheticLM(base.vocab_size, LAUNCH_SEQ, LAUNCH_BATCH)
+
+    # the f32 check
+    t_f32 = time.perf_counter()
+    f32 = dataclasses.replace(base, num_layers=TRAIN_CHECK_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    api = registry.get_model(f32)
+    opt = make_optimizer("sgdm")
+    lr = constant(1e-2)
+    a = train.train_state(api, opt, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    b = train.make_sharded_train_step(api, opt, lr, mesh).place(a)
+    plain = train.make_train_step(api, opt, lr)
+    sharded = train.make_sharded_train_step(api, opt, lr, mesh)
+    worst = 0.0
+    for i in range(2):
+        a, ma = plain(a, data.batch(i))
+        b, mb = sharded(b, data.batch(i))
+        la, lb = float(ma["loss"]), float(mb["loss"])
+        if abs(la - lb) > LAUNCH_F32_LOSS_RTOL * abs(la):
+            fail(f"[launch] (a) f32: sharded loss {lb} vs one position's "
+                 f"{la} at step {i}")
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+        top = float(x.float().abs().max()) if x.numel() else 0.0
+        err = float((y.gather(dev).float() - x.float()).abs().max()) \
+            if x.numel() else 0.0
+        worst = max(worst, err / max(top, 1e-30))
+        if err > DP_GRAD_TOL * top + 1e-6:
+            fail(f"[launch] (a) f32: leaf {i} {err} vs max {top}")
+    del a, b, plain, sharded
+    t_f32 = time.perf_counter() - t_f32
+    say(f"[launch] (a) f32 in {t_f32:.2f} s at {TRAIN_CHECK_LAYERS} layers, "
+        f"full width, "
+        f"SGD-momentum, 2 steps on {dict(mesh.shape)}: losses within rtol "
+        f"{LAUNCH_F32_LOSS_RTOL}, every leaf within {DP_GRAD_TOL} "
+        f"of its largest element of make_train_step on one position "
+        f"(worst {worst:.3g})")
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(base, num_layers=LAUNCH_LAYERS)
+    api = registry.get_model(cfg)
+    opt = make_optimizer("adamw")
+    lr = constant(LAUNCH_LR)
+    step = train.make_sharded_train_step(api, opt, lr, mesh)
+    predicted = _predict_sharded_peak(api, opt, mesh, step.shardings)
+    say(f"[launch] (a) predicted peak of the sharded step: "
+        f"{predicted / 1e9:.2f} GB (the placed state, {mesh.size} "
+        f"positions' gathered params and gradients, one position's f32 "
+        f"logits and their gradient); limit {LAUNCH_PEAK_LIMIT / 1e9:.0f} "
+        f"GB; {cfg.num_layers} layers")
+    if predicted >= LAUNCH_PEAK_LIMIT:
+        fail(f"[launch] (a) predicted peak {predicted / 1e9:.2f} GB: cut "
+             f"LAUNCH_LAYERS")
+    fresh = lambda: train.train_state(
+        api, opt, torch.Generator(device=dev).manual_seed(0), device=dev)
+    plain = train.make_train_step(api, opt, lr)
+    t_ref = time.perf_counter()
+    s = fresh()
+    ref = []
+    for i in range(LAUNCH_STEPS):
+        s, m = plain(s, data.batch(i))
+        ref.append(float(m["loss"]))
+    del s, plain
+    t_ref = time.perf_counter() - t_ref
+    torch.cuda.empty_cache()
+    state = step.place(fresh())
+    synchronize(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+    losses, walls = [], []
+    for i in range(LAUNCH_STEPS):
+        synchronize(dev)
+        t = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t)
+        _model_replicas_equal(state, mesh, f"[launch] (a) step {i}")
+    counts = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    one = registry.kernel_launches(cfg, train_steps=1)
+    want = {"gather_tiles": 0, **{k: LAUNCH_STEPS * mesh.size * v
+                                  for k, v in one.items()}}
+    if counts != want:
+        fail(f"[launch] (a) launched {counts}, expected {want}")
+    for i, (x, y) in enumerate(zip(ref, losses)):
+        # _close's bf16 convention: atol and rtol LAUNCH_LOSS_TOL
+        if not abs(x - y) <= LAUNCH_LOSS_TOL * (1 + abs(x)):
+            fail(f"[launch] (a) step {i}: sharded loss {y} vs one "
+                 f"position's {x}")
+    _blocks_equal_whole(state, "[launch] (a)")
+    tokens = LAUNCH_BATCH * LAUNCH_SEQ
+    say(f"[launch] (a) sharded step, llama3.2-1b {cfg.num_layers} layers "
+        f"bf16 AdamW lr {LAUNCH_LR}, batch {LAUNCH_BATCH} x {LAUNCH_SEQ} on "
+        f"{dict(mesh.shape)} ({mesh.size} positions on "
+        f"{sorted({str(d) for d in mesh.positions})}): losses {losses} vs "
+        f"one position's {ref} (within {LAUNCH_LOSS_TOL} x (1 + |loss|)); "
+        f"model replicas "
+        f"bit-equal after every step; every block == its block of the "
+        f"gathered state; launches {counts} == {mesh.size} x "
+        f"kernel_launches a step; step wall {_spread_ms(walls)} "
+        f"({tokens / (sum(walls[1:]) / max(1, len(walls) - 1)):.1f} "
+        f"tokens/s after the first); peak {peak / 1e9:.2f} GB (predicted "
+        f"{predicted / 1e9:.2f} GB); the one-position run {t_ref:.2f} s; "
+        f"{smi}")
+    return counts, state, api, opt
+
+
+def launch_restore(state, api, opt, root: Path, smi: str) -> None:
+    """Part (b): save (a)'s placed state, restore it onto each of
+    LAUNCH_RESTORE_MESHES with that mesh's train rules: every block equal
+    to the host's block bit for bit, and the bytes the restore allocated
+    (its blocks' storages) equal, exactly, to the dry run's placement
+    summed over the positions.  The caching allocator's growth is
+    printed: at least that sum with each block rounded up to
+    CUDA_ALLOC_GRANULE, more where it hands out a cached block without
+    splitting it."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch._device import synchronize
+    from repro_torch.core import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import rules_for, tree_shardings
+    from repro_torch.runtime import train
+
+    dev = tree_leaves(state)[0].blocks[0].device
+    nbytes = sum(x.numel() * x.blocks[0].element_size()
+                 for x in tree_leaves(state))
+    t = time.perf_counter()
+    checkpoint.save(state, str(root), LAUNCH_STEPS)
+    t_save = time.perf_counter() - t
+    del state
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    host = checkpoint.load(str(root))
+    t_load = time.perf_counter() - t
+    say(f"[launch] (b) save of (a)'s placed state ({nbytes} B gathered): "
+        f"{t_save:.2f} s ({nbytes / t_save / 1e9:.2f} GB/s); load "
+        f"{t_load:.2f} s")
+    state_abs = train.abstract_train_state(api, opt)
+    for shape in LAUNCH_RESTORE_MESHES:
+        mesh = _dp_mesh(shape)
+        sh = tree_shardings(mesh, train.train_state_axes(api, opt),
+                            rules_for(api.cfg, mesh, "train"), state_abs)
+        predicted = dryrun._placed_bytes(state_abs, sh) * mesh.size
+        allocated = (lambda: torch.cuda.memory_allocated(dev)) \
+            if dev.type == "cuda" else (lambda: 0)
+        synchronize(dev)
+        before = allocated()
+        t = time.perf_counter()
+        out = checkpoint.restore(str(root), shardings=sh)
+        synchronize(dev)
+        wall = time.perf_counter() - t
+        grown = allocated() - before
+        blocks = [b for x in tree_leaves(out) for b in x.blocks]
+        storage = sum(b.untyped_storage().nbytes() for b in blocks)
+        granules = sum(-(-b.numel() * b.element_size() // CUDA_ALLOC_GRANULE)
+                       * CUDA_ALLOC_GRANULE for b in blocks)
+        if storage != predicted:
+            fail(f"[launch] (b) restore onto {shape}: blocks hold {storage} "
+                 f"B, the dry run's placement gives {predicted} B")
+        if dev.type == "cuda" and grown < granules:
+            fail(f"[launch] (b) restore onto {shape}: the allocator grew "
+                 f"{grown} B, less than the blocks rounded to "
+                 f"{CUDA_ALLOC_GRANULE} B ({granules} B)")
+        _blocks_equal_whole(out, f"[launch] (b) restore onto {shape}", host)
+        say(f"[launch] (b) restore onto {dict(mesh.shape)}: {wall:.2f} s "
+            f"({storage / wall / 1e9:.2f} GB/s of blocks); blocks hold "
+            f"{storage} B == the dry run's placement summed over "
+            f"{mesh.size} positions; the allocator grew {grown} B, "
+            f"{grown - granules} B above the blocks rounded to "
+            f"{CUDA_ALLOC_GRANULE} B (a cached block it does not split); "
+            f"every block == the host's block bit for bit; {smi}")
+        del out, blocks
+        torch.cuda.empty_cache()
+
+
+def launch_placed_serve(kernels: dict, smi: str) -> dict:
+    """Part (c): llama3.2-1b at full size, LAUNCH_PROMPTS of phase 8's
+    prompts.  On one position: each prompt prefilled at batch 1, the
+    caches stacked into the slots, LAUNCH_NEW greedy decode steps.  Placed
+    on a (2, 2) mesh (the decode rules: batch over data, the cache's
+    sequence over model): each prompt prefilled into its slot (the two
+    positions that hold the row compute), then the decode steps fed the
+    one-position run's tokens.  Every logit within BF16_TOL of the
+    one-position run's, the launches exactly kernel_launches(prefills=2 x
+    prompts, steps=4 x steps).  Returns the counts."""
+    import torch
+    from repro_torch._device import synchronize
+    from repro_torch.launch.mesh import adapt_batch_rule, rules_for
+    from repro_torch.models import registry
+    from repro_torch.runtime.placed import PlacedServe
+
+    api = registry.get("llama3.2-1b")
+    cfg = api.cfg
+    mesh = _dp_mesh(LAUNCH_MESH)
+    dev = mesh.positions[0]
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = [torch.as_tensor(p[None], device=dev)
+               for p in serve_prompts(cfg.vocab_size)[:LAUNCH_PROMPTS]]
+    n = len(prompts)
+    pre, caches = [], []
+    for tok in prompts:
+        logits, c = api.prefill(params, tok, api.init_cache(
+            1, SERVE_MAX_SEQ, device=dev))
+        pre.append(logits)
+        caches.append(c)
+    cache = {k: torch.cat([c[k] for c in caches], dim=0 if k == "pos"
+                          else 1) for k in caches[0]}
+    del caches
+    feed = [torch.cat([lg[:, -1].argmax(-1, keepdim=True) for lg in pre])
+            .to(torch.int32)]
+    dec = []
+    for _ in range(LAUNCH_NEW):
+        logits, cache = api.decode_step(params, feed[-1], cache)
+        dec.append(logits)
+        feed.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    del cache
+    rules = adapt_batch_rule(rules_for(cfg, mesh, "decode"), mesh, n)
+    serve = PlacedServe(api, mesh, rules)
+    placed = serve.place_params(params)
+    del params
+    pcache = serve.place_cache(api.init_cache(n, SERVE_MAX_SEQ, device=dev))
+    synchronize(dev)
+    for k in kernels.values():
+        k.launches = 0
+    err, t_pre, t_dec = 0.0, [], []
+    for r, tok in enumerate(prompts):
+        t = time.perf_counter()
+        logits, pcache = serve.prefill(placed, tok, pcache, slot=r)
+        synchronize(dev)
+        t_pre.append(time.perf_counter() - t)
+        err = max(err, _close(logits, pre[r], f"[launch] (c) prefill {r}"))
+    for i in range(LAUNCH_NEW):
+        t = time.perf_counter()
+        logits, pcache = serve.decode_step(placed, feed[i], pcache)
+        synchronize(dev)
+        t_dec.append(time.perf_counter() - t)
+        err = max(err, _close(logits.gather(dev), dec[i],
+                              f"[launch] (c) decode step {i}"))
+    counts = {name: k.launches for name, k in kernels.items()}
+    holders = mesh.size // mesh.shape["data"]
+    want = {"gather_tiles": 0, **registry.kernel_launches(
+        cfg, prefills=holders * n, steps=mesh.size * LAUNCH_NEW)}
+    if counts != want:
+        fail(f"[launch] (c) launched {counts}, expected {want}")
+    say(f"[launch] (c) placed prefill + decode, llama3.2-1b full size on "
+        f"{dict(mesh.shape)}: {n} prompts of "
+        f"{[int(p.shape[1]) for p in prompts]} tokens into the slots of an "
+        f"{n} x {SERVE_MAX_SEQ} cache (batch over data, its sequence over "
+        f"model), {LAUNCH_NEW} decode steps: logits within {BF16_TOL} of "
+        f"one position's (max |diff| {err}); launches {counts} exact; "
+        f"prefill per prompt {_spread_ms(t_pre)}; decode step "
+        f"{_spread_ms(t_dec)}; {smi}")
+    return counts
+
+
+def _run_example(name: str, argv) -> str:
+    """``examples/torch_<name>.py``'s ``main(argv)``; its printed text."""
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(argv))
+    return buf.getvalue()
+
+
+def launch_examples(root: Path) -> None:
+    """Part (d): the four examples through ``main(argv)`` on the card at
+    small sizes.  quickstart's transfers and bytes equal the closed forms
+    of its tree; the demo's DMAs, MB and checks equal its CPU run's; serve
+    completes every request; train restarts once from its checkpoint."""
+    import re
+
+    t0 = time.perf_counter()
+    out = _run_example("quickstart", [])
+    pos = 1024 * 3 * 4                      # positions: 1024 x 3 f32
+    whole = 3 * pos + 4 + 9 * 4             # traits, N, box
+    for line in (f"uvm           H2D: 1 transfer(s), {pos / 1e3:8.1f} KB",
+                 f"marshal       H2D: 2 transfer(s), {whole / 1e3:8.1f} KB",
+                 f"pointerchain  H2D: 1 transfer(s), {pos / 1e3:8.1f} KB",
+                 f"requestList: 5 slots, {whole / 1e3:.1f} KB total"):
+        if line not in out:
+            fail(f"[launch] (d) quickstart printed no {line!r}:\n{out}")
+    pat = re.compile(r"^\s+(\S.*?)\s+wall .*H2D\s+(\d+) DMAs /\s+([\d.]+) MB"
+                     r"\s+check=(\w+)", re.M)
+    args = ["--k", "3", "--n", "1000", "--q", "3"]
+    card = pat.findall(_run_example("deepcopy_demo", args))
+    cpu = pat.findall(_run_example("deepcopy_demo", args + ["--device",
+                                                            "cpu"]))
+    if card != cpu or len(card) != 10 or any(c[3] != "ok" for c in card):
+        fail(f"[launch] (d) deepcopy demo: card {card} vs cpu {cpu}")
+    out = _run_example("serve_lm", [])
+    if "served 8 requests, 96 tokens" not in out or "completed 8" not in out:
+        fail(f"[launch] (d) serve example:\n{out}")
+    out = _run_example("train_lm", ["--steps", "4", "--batch", "2", "--seq",
+                                    "32", "--fail-at", "2", "--ckpt-dir",
+                                    str(root / "train_lm")])
+    if "restarts: 1" not in out or "nan" in out:
+        fail(f"[launch] (d) train example:\n{out}")
+    say(f"[launch] (d) examples/torch_quickstart.py (transfers and bytes == "
+        f"the closed forms), torch_deepcopy_demo.py (10 cells' DMAs and MB "
+        f"== its CPU run's, checks ok), torch_serve_lm.py (8 requests, 96 "
+        f"tokens), torch_train_lm.py (4 steps, a failure at step 2, one "
+        f"restart) on the card in {time.perf_counter() - t0:.2f} s")
+
+
+def launch_dryrun() -> None:
+    """Part (e): ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
+    --shape train_4k --mesh both`` on meta positions (host counts, not
+    card measurements): 2/2 cells ok, the probe identity exact."""
+    import io
+    from repro_torch.launch import dryrun
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        results = dryrun.main(["--arch", "llama3.2-1b", "--shape",
+                               "train_4k", "--mesh", "both"])
+    out = buf.getvalue()
+    if "[dryrun] 2/2 cells ok" not in out:
+        fail(f"[launch] (e) dry run:\n{out}")
+    for r in results:
+        if not r["probe_check"]["exact"]:
+            fail(f"[launch] (e) {r['mesh_name']}: the probe identity fails "
+                 f"{r['probe_check']}")
+        say(f"[launch] (e) dry run llama3.2-1b|train_4k|{r['mesh_name']} "
+            f"({r['mesh']} meta positions, counted on this host): arguments "
+            f"{r['memory']['argument_size_in_bytes']} B a position, "
+            f"{r['flops']:.6g} FLOPs and {r['bytes_accessed']:.6g} B a "
+            f"position's step, collectives "
+            f"{r['collectives']['total_count']} calls / "
+            f"{r['collectives']['total_bytes']} B, trace {r['trace_s']} s; "
+            f"step == layers x body + layer-free exactly")
+    say(f"[launch] (e) {out.strip().splitlines()[-1]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def launch_phase(kernels: dict, smi: str) -> dict:
+    """Phase 20: (a) the sharded step, (b) save and restore onto other
+    meshes, (c) placed prefill and decode, (d) the four examples, (e) the
+    dry run.  Returns the launch counts of (a) and (c) summed."""
+    import shutil
+    import torch
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "phase20_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    marks = [t0]
+    try:
+        trained, state, api, opt = launch_sharded_step(kernels, smi)
+        marks.append(time.perf_counter())
+        launch_restore(state, api, opt, root, smi)
+        del state
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        served = launch_placed_serve(kernels, smi)
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        launch_examples(root)
+        marks.append(time.perf_counter())
+        launch_dryrun()
+        marks.append(time.perf_counter())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parts = ", ".join(f"({c}) {b - a:.2f} s" for c, a, b in
+                      zip("abcde", marks, marks[1:]))
+    say(f"[launch] phase 20 ok in {marks[-1] - t0:.2f} s ({parts})")
+    return {k: trained[k] + served[k] for k in trained}
+
+
 def main() -> int:
     import dataclasses
     import torch
@@ -4106,6 +4631,11 @@ def main() -> int:
     # data parallelism on the mesh's positions (phase 19): each run resets
     # the counters just before and reads them just after
     served["dp"] = dp_phase(kernels, smi)
+
+    # the launch tooling on the mesh's positions (phase 20): the sharded
+    # step's and the placed serve's runs each reset the counters just
+    # before and read them just after
+    served["launch"] = launch_phase(kernels, smi)
 
     src = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     rows = [dict(name="gather_tiles", route="cuda",

@@ -2,7 +2,8 @@
 
 The device comes from the caller, never from what happens to be present:
 ``None`` means the CUDA card (``cuda:N`` when a spec says ``@devN``), and the
-CPU is used only when the caller passes ``device="cpu"`` (as the tests do).
+CPU is used only when the caller passes ``device="cpu"`` (as the tests do);
+the meta device only when the caller passes ``device="meta"`` (the dry run).
 Without a card, a call that did not ask for the CPU raises instead of
 quietly running there.
 """
@@ -26,6 +27,8 @@ def resolve_device(device: DeviceLike = None,
     ``device`` is what the caller passed (``None``, ``"cpu"``, ``"cuda"``,
     ``"cuda:1"``, an int or a ``torch.device``); ``index`` is a spec's
     ``@devN`` placement, used when the caller named no CUDA index.
+    ``"meta"`` (the dry run's positions: shapes without data) is
+    accepted only when passed; nothing resolves to it otherwise.
     """
     if device is None:
         dev = torch.device("cuda", index or 0)
@@ -33,11 +36,11 @@ def resolve_device(device: DeviceLike = None,
         dev = torch.device("cuda", device)
     else:
         dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}; use a CUDA device or "
-                         f"device='cpu'")
+        raise ValueError(f"unsupported device {dev}; use a CUDA device, "
+                         f"device='cpu' or (for the dry run) device='meta'")
     if dev.index is None:
         dev = torch.device("cuda", index or 0)
     if not torch.cuda.is_available():

@@ -20,7 +20,8 @@ Save   = arena-pack the state tree, stream each bucket to
          renamed aside first and removed after, see :func:`_commit`).
 Restore= attach: rebuild leaf views from offsets.  ``selective_restore``
          reads ONLY the byte ranges of the requested chains (``np.memmap``).
-         ``restore(device=...)`` places the tree on a device leaf by leaf;
+         ``restore(device=...)`` places the tree on a device leaf by leaf,
+         ``restore(shardings=...)`` in per-dim blocks on a named mesh;
          ``runtime.loop`` stages it through a TransferProgram instead.
 
 :class:`AsyncCheckpointer` snapshots device state without stalling the
@@ -43,6 +44,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core import arena as arena_lib
+from ..core.placement import PlacedTensor, place_tree
 from ..core.sharded import replica
 from ..core.treepath import TreePath, leaf_paths, tree_flatten, tree_map
 from ..faultpoints import CKPT_COMMIT, CKPT_GC, CKPT_PACK, CKPT_WRITE
@@ -199,11 +201,16 @@ def _write_step(host_state: Any, buffers: Dict[str, torch.Tensor],
 def _one_copy(leaf: Any) -> torch.Tensor:
     """A leaf as one tensor: position 0's copy of a replicated leaf (a
     replicated state saves once, as the reference's ``device_get`` of a
-    replicated array reads one copy)."""
+    replicated array reads one copy), a placed leaf's blocks assembled on
+    position 0's device."""
+    if isinstance(leaf, PlacedTensor):
+        return leaf.gather(leaf.blocks[0].device)
     return arena_lib.as_tensor(replica(leaf, 0))
 
 
 def _host(leaf: Any) -> torch.Tensor:
+    if isinstance(leaf, PlacedTensor):
+        return leaf.gather()
     return _one_copy(leaf).detach().cpu()
 
 
@@ -312,11 +319,51 @@ def selective_restore(directory: str, paths: Sequence[Union[str, TreePath]],
     return out
 
 
+def _tree_mismatch(host: Any, shardings: Any) -> Optional[str]:
+    """None when the trees match, else the reference's description of
+    their first divergence."""
+    tdef_h = tree_flatten(host)[1]
+    tdef_s = tree_flatten(shardings)[1]
+    if tdef_s == tdef_h:
+        return None
+    # leaf-count equality is NOT structural equality: a different tree
+    # with the same number of leaves would silently zip shardings onto
+    # the wrong arrays.  Name the first diverging path.
+    paths_h = [str(p) for p in leaf_paths(host)]
+    paths_s = [str(p) for p in leaf_paths(shardings)]
+    diverge = next(
+        (f"checkpoint has {a!r}, shardings have {b!r}"
+         for a, b in zip(paths_h, paths_s) if a != b), None)
+    if diverge is None:
+        if len(paths_h) != len(paths_s):
+            longer = paths_h if len(paths_h) > len(paths_s) else paths_s
+            side = "checkpoint" if longer is paths_h else "shardings"
+            diverge = (f"{side} side has extra leaf "
+                       f"{longer[min(len(paths_h), len(paths_s))]!r}")
+        else:  # same printed paths, different containers (dict vs list)
+            diverge = (f"same leaf paths but different container "
+                       f"structure ({tdef_h} vs {tdef_s})")
+    return diverge
+
+
 def restore(directory: str, step: Optional[int] = None, *,
+            shardings: Optional[Any] = None,
             device: DeviceLike = None) -> Any:
-    """Load a step and place every leaf on ``device``: the card unless the
-    caller passes ``"cpu"`` (then the host tree itself)."""
+    """Load a step and place it: with ``shardings`` (a tree of
+    :class:`~repro_torch.core.placement.Placement`s matching the
+    checkpoint's tree, the reference's reshard onto the current mesh)
+    every leaf cut into its placement's blocks on the mesh positions; a
+    tree that differs raises ``ValueError`` naming the first diverging
+    path.  Without, every leaf on ``device``: the card unless the caller
+    passes ``"cpu"`` (then the host tree itself)."""
     host = load(directory, step)
+    if shardings is not None:
+        diverge = _tree_mismatch(host, shardings)
+        if diverge is not None:
+            raise ValueError(
+                f"sharding tree does not match checkpoint tree: first "
+                f"divergence — {diverge}")
+        return place_tree(host, shardings)
     dev = resolve_device(device)
     if dev.type == "cpu":
         return host

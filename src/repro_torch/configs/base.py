@@ -83,7 +83,9 @@ class ModelConfig:
 
     @property
     def is_encdec(self) -> bool:
-        return self.enc_layers > 0
+        # the family as well: a layer-free copy (the dry run's probe
+        # check) keeps its encoder-decoder structure
+        return self.enc_layers > 0 or self.family == "encdec"
 
     @property
     def supports_long_context(self) -> bool:

@@ -26,6 +26,9 @@ orders them.
     ``all_to_all``'s gradient is the inverse ``all_to_all``, exact.
   * ``psum_scatter``, ``all_gather`` and ``all_to_all`` are tiled, as the
     reference calls them: the split dimension divides by the group size.
+  * On meta positions (the dry run's: shapes without data) a call's
+    result is computed once and every position gets that tensor; the
+    call is counted as on a device.
 
 :data:`STATS` counts calls and bytes per kind, the port's counterpart of
 the reference's emitted collectives (``jax.make_jaxpr``'s ``psum``
@@ -159,11 +162,22 @@ def _check(xs: Sequence[torch.Tensor], mesh: NamedMesh, kind: str) -> None:
     STATS.add(kind, xs[0])
 
 
+def _on_meta(xs: Sequence[torch.Tensor]) -> bool:
+    """Whether every position holds a meta tensor (the dry run's
+    positions): a result, a shape without data, is then computed once for
+    the whole call, and every member of every group gets that tensor."""
+    return all(x.device.type == "meta" for x in xs)
+
+
 def _reduce(xs, mesh, axes, kind, op) -> List[torch.Tensor]:
     _check(xs, mesh, kind)
     out: List[torch.Tensor] = list(xs)
     with torch.profiler.record_function(f"collective.{kind}"):
-        for g in mesh.groups(axes):
+        groups = mesh.groups(axes)
+        if _on_meta(xs) and len(groups[0]) > 1:
+            acc = op(xs[0], xs[0])
+            return [acc] * mesh.size
+        for g in groups:
             if len(g) == 1:
                 continue
             acc = xs[g[0]]
@@ -221,17 +235,22 @@ def psum_scatter(xs: Sequence[torch.Tensor], mesh: NamedMesh, axes: Axes
     return out
 
 
-def all_gather(xs: Sequence[torch.Tensor], mesh: NamedMesh, axes: Axes
-               ) -> List[torch.Tensor]:
-    """All-gather over ``axes`` along dim 0 (tiled): every member gets the
-    members' tensors concatenated in group order."""
+def all_gather(xs: Sequence[torch.Tensor], mesh: NamedMesh, axes: Axes,
+               axis: int = 0) -> List[torch.Tensor]:
+    """All-gather over ``axes`` along dim ``axis`` (tiled, as
+    ``jax.lax.all_gather(..., axis=axis, tiled=True)``): every member gets
+    the members' tensors concatenated in group order."""
     _check(xs, mesh, "all_gather")
     out: List[torch.Tensor] = list(xs)
     with torch.profiler.record_function("collective.all_gather"):
-        for g in mesh.groups(axes):
+        groups = mesh.groups(axes)
+        if _on_meta(xs):
+            return [torch.cat([xs[src] for src in groups[0]], dim=axis)] \
+                * mesh.size
+        for g in groups:
             for dst in g:
                 out[dst] = torch.cat([_send(xs[src], mesh, src, dst)
-                                      for src in g], dim=0)
+                                      for src in g], dim=axis)
     return out
 
 

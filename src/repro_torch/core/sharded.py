@@ -28,7 +28,7 @@ passes:
     :class:`~repro_torch.core.spec.UnsupportedSpecError`, a ``ValueError``),
     which ``TransferPolicy.reshard``'s recovery relies on;
   * ``"cpu"``: K positions on the CPU (the counterpart of the reference's
-    forced host device count);
+    forced host device count); ``"meta"``: K meta positions (the dry run);
   * a sequence of devices: the mesh as given, repeats included (its first K
     positions; a shorter one raises the stale-mesh error).
 
@@ -47,6 +47,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from .arena import ArenaLayout, as_tensor, shard_ranges
 from .chainref import slot_slices
+from .placement import PlacedTensor
 from .spec import UnsupportedSpecError
 
 MeshLike = Union[DeviceLike, Sequence[DeviceLike]]
@@ -67,7 +68,7 @@ def resolve_mesh(device: MeshLike, k: int) -> Mesh:
             raise _stale(k, len(device))
         return tuple(resolve_device(d) for d in device[:k])
     dev = resolve_device(device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return (dev,) * k
     visible = torch.cuda.device_count()
     if k > visible:
@@ -195,8 +196,8 @@ def replica_count(tree_leaves: Sequence[Any]) -> int:
 
 
 def to_host(x: Any) -> torch.Tensor:
-    """A device value (plain or sharded) as one host tensor."""
-    if isinstance(x, ShardedTensor):
+    """A device value (plain, sharded or placed) as one host tensor."""
+    if isinstance(x, (ShardedTensor, PlacedTensor)):
         return x.gather()
     return as_tensor(x).cpu()
 

@@ -19,7 +19,7 @@ design.
 
 :func:`decode_attention` launches the kernels for CUDA tensors (or raises)
 and runs the plain version (:func:`~.ref.decode_ref`) only for CPU
-tensors.  ``decode_attention.launches`` counts the wrapper's launches (one
+or meta tensors (meta: the dry run's counting).  ``decode_attention.launches`` counts the wrapper's launches (one
 per call, for the two kernels).
 """
 from __future__ import annotations
@@ -92,7 +92,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if not (q.device == k.device == v.device == valid_len.device):
         raise ValueError("q, k, v and valid_len must be on one device")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return ref.decode_ref(q, k, v, valid_len, scale=scale,
                               block_k=block_k)
     if q.device.type != "cuda":

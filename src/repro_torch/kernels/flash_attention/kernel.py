@@ -23,7 +23,7 @@ are TF32.  See the source for both designs.
 
 :func:`flash_attention` launches the kernel for CUDA tensors (or raises)
 and runs the plain version (:func:`~.ref.attention_ref`) only for CPU
-tensors.  ``flash_attention.launches`` counts the kernel's launches.
+or meta tensors (meta: the dry run's counting).  ``flash_attention.launches`` counts the kernel's launches.
 
 On the card the call is a ``torch.autograd.Function``: the forward is the
 kernel, the backward is plain PyTorch — the gradient of
@@ -134,7 +134,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = _per_batch(kv_len, B, q.device, "kv_len")
     q_offset = _per_batch(q_offset, B, q.device, "q_offset")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return ref.attention_ref(q, k, v, causal=causal, scale=scale,
                                  kv_len=kv_len, q_offset=q_offset)
     if q.device.type != "cuda":

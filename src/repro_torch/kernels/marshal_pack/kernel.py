@@ -15,7 +15,8 @@ flight; see the source for the design.  It is built with ``nvcc`` at first
 use and bound with ``ctypes`` (:mod:`repro_torch.kernels._build`).
 
 :func:`gather_tiles` launches the kernel for a CUDA tensor (or raises) and
-runs the plain version (:func:`~.ref.pack_ref`) only for a CPU tensor.
+runs the plain version (:func:`~.ref.pack_ref`) only for a CPU or a
+meta tensor (meta: the dry run's counting).
 ``gather_tiles.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -84,7 +85,7 @@ def gather_tiles(src: torch.Tensor, tile_map: torch.Tensor) -> torch.Tensor:
         raise ValueError("src and tile_map must be contiguous")
     n_src = src.shape[0] // SUBLANE
     n_dst = tile_map.shape[0]
-    if src.device.type == "cpu":
+    if src.device.type in ("cpu", "meta"):
         return ref.pack_ref(src.reshape(-1), tile_map, TILE).reshape(-1, LANE)
     if src.device.type != "cuda":
         raise ValueError(f"gather_tiles runs on CUDA (or the CPU), "

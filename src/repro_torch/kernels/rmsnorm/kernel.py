@@ -8,7 +8,8 @@ bandwidth.  The kernel (``csrc/rmsnorm.cu``) runs one block per row with
 16-byte loads and a warp-shuffle reduction; see the source for the design.
 
 :func:`rmsnorm` launches the kernel for a CUDA tensor (or raises) and runs
-the plain version (:func:`~.ref.rmsnorm_ref`) only for a CPU tensor.
+the plain version (:func:`~.ref.rmsnorm_ref`) only for a CPU or a
+meta tensor (meta: the dry run's counting).
 ``rmsnorm.launches`` counts the kernel's launches.
 
 On the card the call is a ``torch.autograd.Function``: the forward is the
@@ -78,7 +79,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"scale must be ({D},), got {tuple(scale.shape)}")
     if scale.device != x.device:
         raise ValueError(f"scale on {scale.device}, x on {x.device}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ref.rmsnorm_ref(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on CUDA (or the CPU), got {x.device}")

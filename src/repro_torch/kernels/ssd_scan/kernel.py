@@ -16,7 +16,8 @@ forms the chunk states from x·w split the same way; float32 keeps f32 FMA
 kernels on the CUDA cores.  See the source for the design.
 
 :func:`ssd_chunks` launches the kernel for CUDA tensors (or raises) and
-runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU tensors.
+runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU or
+meta tensors (meta: the dry run's counting).
 ``ssd_chunks.launches`` counts the wrapper's launches (one per call,
 whichever of the source's kernels it runs).
 
@@ -80,7 +81,7 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
                          f"form one chunked scan")
     if not all(t.device == x.device for t in (dt, dtA, Bm, Cm)):
         raise ValueError("x, dt, dtA, Bm and Cm must be on one device")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ref.ssd_chunks_ref(x, dt, dtA, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunks runs on CUDA (or the CPU), got "

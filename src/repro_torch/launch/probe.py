@@ -1,0 +1,236 @@
+"""Per-layer cost probes: the port's counterpart of
+``repro/launch/probe.py``.
+
+The reference lowers one layer body a kind because XLA's
+``cost_analysis`` counts a ``while`` body once whatever its trip count,
+and corrects the step's terms by ``(trips - 1) * body``.  Eager PyTorch
+dispatches every trip of the layer loop, so the port's step count is
+already whole.  :func:`layer_bodies` still runs each distinct layer body
+once, on meta tensors at one position's shapes (its rows of the batch at
+full width, the port having no tensor parallelism), under the op counter
+(``hlo_analysis.OpCounter``): forward and backward with the config's
+remat for a train shape, the forward with the per-layer cache traffic for
+prefill and decode.  The dry run uses the bodies as a check: the step's
+FLOPs equal the sum of trips times each body's plus the FLOPs of the same
+step with the layers removed (:func:`layer_free_flops`).
+
+Kinds, as the reference's: ``attn_block`` (dense, moe, vlm), ``ssm_block``
+and, for the hybrid, ``shared_attn`` (one a shared-block application),
+``enc_block`` and ``dec_block`` for the encoder-decoder.  One divergence:
+a train step's first encoder block takes no input gradient (the frames
+take none), so it is its own kind, ``enc_block_in``, and ``enc_block``
+has ``enc_layers - 1`` trips.  The port gathers the stacked params once a
+step, outside the layer loop, so a body runs no collective of its own
+(its ``collective_*`` are 0).  :func:`corrected_terms` is the reference's
+pure function, kept for its callers; the dry run reports the raw count as
+``corrected``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, List
+
+import torch
+
+from ..configs.base import InputShape
+from ..core.placement import entry_axes
+from ..core.treepath import tree_leaves, tree_map
+from ..models import encdec as encdec_mod
+from ..models import lm as lm_mod
+from ..models import registry
+from ..models.registry import ModelApi
+from ..models.specs import abstract_params, torch_dtype
+from . import hlo_analysis
+
+META = torch.device("meta")
+
+
+def _meta(shape, dtype, grad: bool = False) -> torch.Tensor:
+    t = torch.empty(tuple(shape), dtype=dtype, device=META)
+    return t.requires_grad_() if grad else t
+
+
+def _meta_tree(abstract: Any, grad: bool = False) -> Any:
+    return tree_map(lambda s: _meta(s.shape, s.dtype, grad), abstract)
+
+
+def position_rows(shape: InputShape, mesh, rules: Dict) -> int:
+    """One position's rows of the batch (the batch rule as given, already
+    adapted to the batch size)."""
+    return shape.global_batch // mesh.axis_size(
+        entry_axes(rules.get("batch")))
+
+
+def _cost(fn: Callable, *args) -> Dict[str, Any]:
+    counter = hlo_analysis.OpCounter()
+    with counter:
+        fn(*args)
+    return {"flops": float(counter.total_flops),
+            "bytes": float(counter.total_bytes),
+            "collective_bytes": 0.0, "collective_count": 0}
+
+
+def _grad_probe(apply_fn: Callable, cfg, n_grad: int) -> Callable:
+    """Forward and backward of a body under the config's remat: the
+    gradients of the summed output (and the MoE aux loss) with respect to
+    the params and the first ``n_grad - 1`` tensor arguments."""
+    apply_fn = lm_mod._remat(cfg, apply_fn)
+
+    def probe(p, *args):
+        out = apply_fn(p, *args)
+        y, aux = out if isinstance(out, tuple) else (out, None)
+        loss = torch.sum(y.to(torch.float32))
+        if aux is not None:
+            loss = loss + aux
+        wrt = tree_leaves(p) + list(args[:n_grad - 1])
+        torch.autograd.grad(loss, wrt, allow_unused=True)
+    return probe
+
+
+def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
+                 ) -> List[Dict[str, Any]]:
+    """Each distinct layer body run once on meta tensors; returns
+    ``[{kind, trips, flops, bytes, collective_bytes, collective_count}]``
+    (one position's counts)."""
+    cfg = api.cfg
+    mode = shape.mode
+    train = mode == "train"
+    B = position_rows(shape, mesh, rules)
+    S = 1 if mode == "decode" else shape.seq_len
+    S_cache = shape.seq_len
+    cdt = torch_dtype(cfg.compute_dtype)
+    pdt = cfg.param_dtype
+    out: List[Dict[str, Any]] = []
+
+    def record(kind, trips, fn, *args):
+        out.append({"kind": kind, "trips": trips, **_cost(fn, *args)})
+
+    def x_in(grad=train):
+        return _meta((B, S, cfg.d_model), cdt, grad)
+
+    def positions():
+        return _meta((B, S), torch.int64)
+
+    def kv_cache():
+        kv = (B, S_cache, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": _meta(kv, cdt), "v": _meta(kv, cdt)}
+
+    def valid():
+        return _meta((B,), torch.int32)
+
+    def attn_body(kind, spec, trips):
+        p = _meta_tree(abstract_params(spec, pdt), train)
+        block = functools.partial(lm_mod._attn_block, cfg)
+        if train:
+            record(kind, trips, _grad_probe(
+                lambda p, x, pos: block(p, x, positions=pos, cache=None,
+                                        kv_valid_len=None), cfg, 2),
+                p, x_in(), positions())
+        else:
+            record(kind, trips, lambda p, x, pos, c, v: block(
+                p, x, positions=pos, cache=c, kv_valid_len=v),
+                p, x_in(), positions(), kv_cache(), valid())
+
+    if cfg.family in lm_mod.ATTN_STACKS:
+        attn_body("attn_block", lm_mod._attn_block_specs(cfg),
+                  cfg.num_layers)
+    elif cfg.family in ("ssm", "hybrid"):
+        p = _meta_tree(abstract_params(lm_mod._ssm_block_specs(cfg), pdt),
+                       train)
+        block = functools.partial(lm_mod._ssm_block, cfg)
+        if train:
+            record("ssm_block", cfg.num_layers, _grad_probe(
+                lambda p, x: block(p, x, cache=None)[0], cfg, 2), p, x_in())
+        else:
+            c = {"state": _meta((B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                 cfg.ssm_state), torch.float32),
+                 "conv": _meta((B, cfg.ssm_conv_width - 1, cfg.d_inner),
+                               cdt)}
+            record("ssm_block", cfg.num_layers,
+                   lambda p, x, c: block(p, x, cache=c), p, x_in(), c)
+        if cfg.family == "hybrid":
+            attn_body("shared_attn", lm_mod._attn_block_specs(cfg),
+                      lm_mod._n_shared_apps(cfg))
+    elif cfg.is_encdec:
+        tree = encdec_mod.spec_tree(cfg)
+        unstack = lambda t: tree_map(
+            lambda s: dataclasses.replace(s, shape=s.shape[1:],
+                                          axes=s.axes[1:]), t)
+        src = max(1, S_cache // cfg.src_ratio)
+        xe = lambda grad: _meta((B, src, cfg.d_model), cdt, grad)
+        spos = lambda: _meta((1, src), torch.int64)
+        enc_abs = abstract_params(unstack(tree["enc_blocks"]), pdt)
+        enc = functools.partial(encdec_mod._enc_block, cfg)
+        enc_fn = lambda p, x, pos: enc(p, x, positions=pos)
+        if train:
+            record("enc_block_in", 1, _grad_probe(enc_fn, cfg, 1),
+                   _meta_tree(enc_abs, True), xe(False), spos())
+            record("enc_block", cfg.enc_layers - 1,
+                   _grad_probe(enc_fn, cfg, 2),
+                   _meta_tree(enc_abs, True), xe(True), spos())
+        elif mode == "prefill":
+            # the encoder runs once at prefill; decode never re-runs it
+            record("enc_block", cfg.enc_layers, enc_fn,
+                   _meta_tree(enc_abs), xe(False), spos())
+        dec_abs = abstract_params(unstack(tree["dec_blocks"]), pdt)
+        dec = functools.partial(encdec_mod._dec_block, cfg)
+        if train:
+            record("dec_block", cfg.num_layers, _grad_probe(
+                lambda p, x, e, pos: dec(p, x, e, positions=pos, cache=None,
+                                         kv_valid_len=None), cfg, 3),
+                _meta_tree(dec_abs, True), x_in(), xe(True), positions())
+        else:
+            record("dec_block", cfg.num_layers,
+                   lambda p, x, e, pos, c, v: dec(
+                       p, x, e, positions=pos, cache=c, kv_valid_len=v),
+                   _meta_tree(dec_abs), x_in(), xe(False), positions(),
+                   kv_cache(), valid())
+    return out
+
+
+def layer_free_flops(api: ModelApi, shape: InputShape, mesh, rules: Dict
+                     ) -> int:
+    """The FLOPs of one position's step with the layers removed: the
+    embedding, the final norm, the unembedding and the loss (and their
+    gradients for a train shape; the optimizer's elementwise update counts
+    none), on meta tensors at the position's rows."""
+    from ..runtime.train import loss_and_grads
+
+    # no blocks and no encoder blocks, so no shared-block applications
+    free = registry.get_model(dataclasses.replace(api.cfg, num_layers=0,
+                                                  enc_layers=0))
+    local = dataclasses.replace(shape, global_batch=position_rows(
+        shape, mesh, rules))
+    params = _meta_tree(free.abstract())
+    inputs = {k: _meta(v.shape, v.dtype)
+              for k, v in free.input_specs(local).items()}
+    counter = hlo_analysis.OpCounter()
+    with counter:
+        if shape.mode == "train":
+            loss_and_grads(free, params, inputs)
+        else:
+            cache = _meta_tree(free.abstract_cache(local))
+            fn = free.prefill if shape.mode == "prefill" else \
+                free.decode_step
+            fn(params, inputs.pop("tokens"), cache, **inputs)
+    return counter.total_flops
+
+
+def corrected_terms(raw: Dict[str, Any], bodies: List[Dict[str, Any]]
+                    ) -> Dict[str, float]:
+    """The reference's correction: ``raw + (trips - 1) * body`` a term."""
+    out = {"flops": float(raw.get("flops", 0.0)),
+           "bytes": float(raw.get("bytes_accessed", 0.0)),
+           "collective_bytes": float(
+               raw.get("collectives", {}).get("total_bytes", 0.0))}
+    for b in bodies:
+        extra = max(0, b["trips"] - 1)
+        out["flops"] += extra * b["flops"]
+        out["bytes"] += extra * b["bytes"]
+        out["collective_bytes"] += extra * b["collective_bytes"]
+    return out
+
+
+__all__ = ["layer_bodies", "layer_free_flops", "corrected_terms",
+           "position_rows"]

@@ -35,7 +35,7 @@ from ..core.deepcopy import ShapeDtype
 from ..core.treepath import tree_map
 from . import layers as L
 from .lm import _kv_slot, _remat, _stack, cross_entropy
-from .specs import init_params, torch_dtype
+from .specs import abstract_params, init_params, param_axes, torch_dtype
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -68,28 +68,34 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def abstract(cfg: ModelConfig) -> Any:
     """The params' shapes and dtypes, without data."""
-    dtype = torch_dtype(cfg.param_dtype)
-    return tree_map(lambda s: ShapeDtype(s.shape, s.dtype or dtype),
-                    spec_tree(cfg))
+    return abstract_params(spec_tree(cfg), cfg.param_dtype)
+
+
+def axes(cfg: ModelConfig) -> Any:
+    """The params' logical axes (tuples), for the sharding rules."""
+    return param_axes(spec_tree(cfg))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The decoder's KV cache, its positions and the encoder memory."""
+               device: DeviceLike = None, abstract_only: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """The decoder's KV cache, its positions and the encoder memory; with
+    ``abstract_only`` their :class:`ShapeDtype`s (no device, no data)."""
     _check_family(cfg)
-    dev = resolve_device(device)
     kv_dtype = torch_dtype(cfg.compute_dtype)
+    if abstract_only:
+        mk = lambda shape, dtype: ShapeDtype(tuple(shape), dtype)
+    else:
+        dev = resolve_device(device)
+        mk = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev)
     kvhd = (cfg.num_kv_heads, cfg.resolved_head_dim)
     src = max(1, max_seq // cfg.src_ratio)
     return {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "k": torch.zeros((cfg.num_layers, batch, max_seq) + kvhd,
-                         dtype=kv_dtype, device=dev),
-        "v": torch.zeros((cfg.num_layers, batch, max_seq) + kvhd,
-                         dtype=kv_dtype, device=dev),
+        "pos": mk((batch,), torch.int32),
+        "k": mk((cfg.num_layers, batch, max_seq) + kvhd, kv_dtype),
+        "v": mk((cfg.num_layers, batch, max_seq) + kvhd, kv_dtype),
         # encoder memory, filled at prefill, read by cross-attention
-        "enc_out": torch.zeros((batch, src, cfg.d_model), dtype=kv_dtype,
-                               device=dev),
+        "enc_out": mk((batch, src, cfg.d_model), kv_dtype),
     }
 
 

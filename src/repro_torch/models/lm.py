@@ -57,7 +57,8 @@ from ..core.treepath import tree_leaves, tree_map
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
-from .specs import ParamSpec, init_params, torch_dtype
+from .specs import (ParamSpec, abstract_params, init_params, param_axes,
+                    torch_dtype)
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 ATTN_STACKS = ("dense", "moe", "vlm")   # the families of _run_attn_stack
@@ -119,9 +120,12 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def abstract(cfg: ModelConfig) -> Any:
     """The params' shapes and dtypes, without data."""
-    dtype = torch_dtype(cfg.param_dtype)
-    return tree_map(lambda s: ShapeDtype(s.shape, s.dtype or dtype),
-                    spec_tree(cfg))
+    return abstract_params(spec_tree(cfg), cfg.param_dtype)
+
+
+def axes(cfg: ModelConfig) -> Any:
+    """The params' logical axes (tuples), for the sharding rules."""
+    return param_axes(spec_tree(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -133,14 +137,21 @@ def _n_shared_apps(cfg: ModelConfig) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Serve-state tree: the pointer-chain tree the decode step touches."""
+               device: DeviceLike = None, abstract_only: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """Serve-state tree: the pointer-chain tree the decode step touches;
+    with ``abstract_only`` its :class:`ShapeDtype` leaves (no device, no
+    data)."""
     _check_family(cfg)
-    dev = resolve_device(device)
     kv_dtype = torch_dtype(cfg.compute_dtype)
+    if abstract_only:
+        def zeros(*shape, dtype=kv_dtype):
+            return ShapeDtype(tuple(shape), dtype)
+    else:
+        dev = resolve_device(device)
 
-    def zeros(*shape, dtype=kv_dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        def zeros(*shape, dtype=kv_dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
 
     kvhd = (cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {"pos": zeros(batch, dtype=torch.int32)}
@@ -304,7 +315,9 @@ def _run_ssm_stack(cfg, params, x, *, positions, cache, kv_valid_len):
             convs.append(new_c["conv"])
     if cache is None:
         return x, None
-    new_cache = {"state": torch.stack(states), "conv": torch.stack(convs)}
+    new_cache = ({"state": torch.stack(states), "conv": torch.stack(convs)}
+                 if states else {"state": cache["state"],
+                                 "conv": cache["conv"]})
     if hybrid:
         new_cache.update(k=cache["k"], v=cache["v"])
     return x, new_cache

@@ -7,9 +7,14 @@ axes as plain data (the entries the reference puts in a
 ``PartitionSpec``).  ``models/moe.py`` reads the context to take the
 expert-parallel path.
 
-Divergence by design: :func:`constrain` is the identity.  PyTorch has no
-GSPMD partitioner to hand a sharding constraint to; the port's sharded
-computations split and move their pieces themselves.
+Divergence by design: :func:`constrain` is the identity on values.
+PyTorch has no GSPMD partitioner to hand a sharding constraint to: the
+port's sharded computations split and move their pieces themselves, and
+each position computes on its own rows, so no constraint has anything to
+move.  Under an active context it checks what
+``with_sharding_constraint`` checks of the call itself, that the axes
+name one entry per dim of ``x``, and raises otherwise; outside a context
+it does nothing, as the reference's does.
 """
 from __future__ import annotations
 
@@ -67,7 +72,13 @@ def logical_to_spec(axes, rules: dict) -> Tuple[Any, ...]:
 
 
 def constrain(x: Any, *axes) -> Any:
-    """The identity (see the module docstring)."""
+    """``x`` as it is; under an active context a rank mismatch between
+    ``axes`` and ``x`` raises ``ValueError`` (see the module
+    docstring)."""
+    if getattr(_tls, "ctx", None) is not None and len(axes) != x.dim():
+        raise ValueError(f"constrain: {len(axes)} logical axes {axes} for "
+                         f"a rank-{x.dim()} value of shape "
+                         f"{tuple(x.shape)}")
     return x
 
 

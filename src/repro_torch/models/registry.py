@@ -6,7 +6,9 @@ decoder-only families through ``lm.py``, the encoder-decoder through
 ``encdec.py``.  Every id of the reference's registry is ported.
 :meth:`ModelApi.inputs` gives the reference's ``input_specs`` as the
 shapes and dtypes of a step's data (``patches`` for the vlm, ``frames``
-for the encdec).
+for the encdec); :meth:`ModelApi.input_specs`, ``input_axes``,
+``abstract_cache`` and ``cache_axes`` give the reference's stand-ins and
+logical axes, which the placements and the dry run read.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..configs.base import InputShape, ModelConfig
+from ..core.deepcopy import ShapeDtype
 from . import encdec, lm
 from .specs import torch_dtype
 
@@ -46,9 +49,10 @@ class ModelApi:
     """``init(generator, device=None)``, ``forward(params, tokens, **kw)``,
     ``prefill(params, tokens, cache, **kw)`` (``patches=`` for the vlm,
     ``frames=`` for the encdec), ``decode_step(params, tokens, cache)``,
-    ``init_cache(batch, max_seq, device=None)``, ``loss_fn(params,
-    batch)`` and ``abstract()`` (the params' shapes and dtypes), each
-    closed over ``cfg``."""
+    ``init_cache(batch, max_seq, device=None, abstract_only=False)``,
+    ``loss_fn(params, batch)``, ``abstract()`` (the params' shapes and
+    dtypes) and ``axes()`` (their logical axes), each closed over
+    ``cfg``."""
 
     cfg: ModelConfig
     init: Callable
@@ -58,6 +62,7 @@ class ModelApi:
     init_cache: Callable
     loss_fn: Callable
     abstract: Callable
+    axes: Callable
 
     def inputs(self, shape: InputShape) -> Dict[str, Tuple[tuple,
                                                            torch.dtype]]:
@@ -88,6 +93,41 @@ class ModelApi:
             out["patches"] = patches
         return out
 
+    def input_specs(self, shape: InputShape) -> Dict[str, ShapeDtype]:
+        """:meth:`inputs` as :class:`ShapeDtype`s (the reference's
+        ``input_specs``)."""
+        return {k: ShapeDtype(tuple(sh), dt)
+                for k, (sh, dt) in self.inputs(shape).items()}
+
+    def input_axes(self, shape: InputShape) -> Dict[str, Tuple]:
+        """The inputs' logical axes: the batch dim, the rest unnamed."""
+        return {k: ("batch",) + (None,) * (len(v.shape) - 1)
+                for k, v in self.input_specs(shape).items()}
+
+    def abstract_cache(self, shape: InputShape) -> Dict[str, ShapeDtype]:
+        """The serve cache at ``shape`` (batch, max_seq = seq_len) as
+        :class:`ShapeDtype`s."""
+        return self.init_cache(shape.global_batch, shape.seq_len,
+                               abstract_only=True)
+
+    def cache_axes(self, shape: InputShape) -> Dict[str, Tuple]:
+        """The cache leaves' logical axes, as the reference names them."""
+        out: Dict[str, Tuple] = {}
+        for k, v in self.abstract_cache(shape).items():
+            if k in ("k", "v"):
+                out[k] = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            elif k == "state":
+                out[k] = ("layers", "batch", "ssm_heads", None, "ssm_state")
+            elif k == "conv":
+                out[k] = ("layers", "batch", None, "ssm_inner")
+            elif k == "enc_out":
+                out[k] = ("batch", None, None)
+            elif k == "pos":
+                out[k] = ("batch",)
+            else:
+                out[k] = (None,) * len(v.shape)
+        return out
+
 
 def _module(cfg: ModelConfig):
     return encdec if cfg.is_encdec else lm
@@ -115,9 +155,11 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             cfg, params, tokens, cache, **kw),
         decode_step=lambda params, tokens, cache: m.decode_step(
             cfg, params, tokens, cache),
-        init_cache=lambda b, s, device=None: m.init_cache(cfg, b, s, device),
+        init_cache=lambda b, s, device=None, abstract_only=False:
+            m.init_cache(cfg, b, s, device, abstract_only),
         loss_fn=lambda params, batch: m.loss_fn(cfg, params, batch),
         abstract=lambda: m.abstract(cfg),
+        axes=lambda: m.axes(cfg),
     )
 
 

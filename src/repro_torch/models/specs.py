@@ -2,7 +2,8 @@
 
 The port's counterpart of ``repro/models/specs.py``.  Models build a tree
 of :class:`ParamSpec`; :func:`init_params` materializes it on a device from
-an explicit ``torch.Generator`` (the values are not ``jax.random``'s: tests
+an explicit ``torch.Generator``, :func:`abstract_params` gives its shapes
+and dtypes and :func:`param_axes` its logical axes (the values are not ``jax.random``'s: tests
 carry the reference's weights across with
 :func:`repro_torch.convert.params_from_reference` instead).
 """
@@ -15,6 +16,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..core.deepcopy import ShapeDtype
 from ..core.treepath import tree_leaves, tree_map
 
 DTYPES = {"float64": torch.float64, "float32": torch.float32,
@@ -68,6 +70,20 @@ def init_params(spec_tree: Any, generator: torch.Generator,
     dtype = torch_dtype(param_dtype)
     return tree_map(lambda s: _materialize(s, generator, dtype, dev),
                     spec_tree)
+
+
+def abstract_params(spec_tree: Any, param_dtype: Any = torch.float32) -> Any:
+    """Every spec as a :class:`~repro_torch.core.deepcopy.ShapeDtype` (its
+    shape and dtype, no data: the dry run's arguments)."""
+    dtype = torch_dtype(param_dtype)
+    return tree_map(lambda s: ShapeDtype(tuple(s.shape), s.dtype or dtype),
+                    spec_tree)
+
+
+def param_axes(spec_tree: Any) -> Any:
+    """Every spec's logical axes: a tree of tuples, the sharding rules'
+    input."""
+    return tree_map(lambda s: tuple(s.axes), spec_tree)
 
 
 def param_count(spec_tree: Any) -> int:

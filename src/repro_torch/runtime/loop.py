@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..checkpoint import AsyncCheckpointer, latest_step, load
-from ..core.sharded import MeshLike, live_mesh
+from ..checkpoint import AsyncCheckpointer, latest_step, load, restore
+from ..core.sharded import MeshLike, live_mesh, to_host
 from ..core.treepath import tree_map
 from . import faults as faults_lib
 
@@ -58,7 +58,7 @@ def _restored_step(host: Any) -> int:
             f"different state schema — run metadata belongs in extra_meta, "
             f"which does not restore into the state tree")
     try:
-        arr = np.asarray(host["step"])
+        arr = np.asarray(to_host(host["step"]))
         if arr.size != 1:
             raise ValueError(f"shape {arr.shape} is not a scalar")
         return int(arr.reshape(-1)[0])
@@ -114,6 +114,7 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
         ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
         failure_injector: Optional[Callable[[int], None]] = None,
         max_restarts: int = 3,
+        state_shardings: Optional[Any] = None,
         state_policy: Optional[Any] = None,
         mesh_size: Optional[Any] = None,
         watchdog: Optional[StragglerWatchdog] = None,
@@ -132,13 +133,19 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
     restore's wall is split into load (disk -> host) / reshard (policy
     re-derivation + program compile) / h2d (program pass and the
     replication onto the survivors) in
-    ``result.restore_splits``."""
+    ``result.restore_splits``.  ``state_shardings`` (a tree of
+    :class:`~repro_torch.core.placement.Placement`s, as
+    ``launch.mesh.tree_shardings`` gives them) restores through
+    ``checkpoint.restore(shardings=)`` instead, every leaf in its blocks
+    on the mesh; it is exclusive with ``state_policy``."""
     if isinstance(device, (list, tuple)):
         mesh = tuple(resolve_device(d) for d in device)
         dev, n_live = mesh[0], len(mesh)
     else:
         dev = resolve_device(device)
         mesh, n_live = live_mesh(dev), live_devices(dev)
+    if state_policy is not None and state_shardings is not None:
+        raise ValueError("state_policy and state_shardings are exclusive")
     watchdog = watchdog or StragglerWatchdog()
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     restarts = 0
@@ -183,6 +190,15 @@ def run(train_step: Callable, init_state_fn: Callable[[], Any],
         from .train import StatePrefetcher, replicate_state
 
         t0 = time.perf_counter()
+        if state_shardings is not None:
+            # the checkpoint layer places every leaf in its blocks
+            state = restore(ckpt_dir, shardings=state_shardings)
+            step0 = _restored_step(state)
+            restore_splits.append(dict(
+                step=step0, policy="", resharded=False,
+                load_s=time.perf_counter() - t0, reshard_s=0.0, h2d_s=0.0,
+                phase="restore"))
+            return state, step0
         host = load(ckpt_dir)
         step0 = _restored_step(host)
         t_load = time.perf_counter() - t0

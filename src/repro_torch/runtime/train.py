@@ -16,8 +16,14 @@ The port's counterpart of ``repro/runtime/train.py``:
                           a mesh of K positions (``launch/mesh.py``), its
                           collectives those of ``core/collectives.py``; at
                           dp 1 every collective is the identity.
+``make_sharded_train_step`` — the production-mesh step: the state in 2-D
+                          placements on a named mesh (the reference's
+                          jitted step under ``tree_shardings``), params
+                          gathered, gradients summed over the batch
+                          axes, each position updating its own blocks
+                          (:class:`ShardedTrainStep`).
 
-Both are functional: a step returns a new state and writes none of its
+All are functional: a step returns a new state and writes none of its
 arguments in place.  Gradients are taken with ``torch.autograd.grad`` on
 ``detach().requires_grad_()`` aliases of the param leaves, so a param that
 is a view of a retained transfer bucket (a restored state) is read, never
@@ -28,6 +34,7 @@ each.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -38,6 +45,8 @@ from ..core import collectives
 from ..core import engine as engine_lib
 from ..core.collectives import NamedMesh
 from ..core.deepcopy import ShapeDtype
+from ..core.placement import (PlacedTensor, block_of, entry_axes,
+                              gather_blocks, place_tree)
 from ..core.sharded import (MeshLike, ShardedTensor, replica, replica_count,
                             replicated, resolve_mesh)
 from ..core.spec import TransferSpec
@@ -69,6 +78,13 @@ def abstract_train_state(api: ModelApi, optimizer: Optimizer
     params = api.abstract()
     return {"params": params, "opt": optimizer.abstract(params),
             "step": ShapeDtype((), torch.int32)}
+
+
+def train_state_axes(api: ModelApi, optimizer: Optimizer) -> Dict[str, Any]:
+    """The train state's logical axes: the params', the optimizer
+    state's (``optimizer.axes``) and ``()`` for the step."""
+    axes = api.axes()
+    return {"params": axes, "opt": optimizer.axes(axes), "step": ()}
 
 
 def _device_of(tree: Any) -> torch.device:
@@ -133,32 +149,39 @@ def make_train_step(api: ModelApi, optimizer: Optimizer,
     def one_step(state, batch):
         params = state["params"]
         batch = _batch_on(batch, _device_of(params))
-        if m > 1:
-            treedef = tree_flatten(params)[1]
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                  device=p.device), params)
-            lsum = torch.zeros((), dtype=F32, device=_device_of(params))
-            for i in range(m):
-                mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                loss, _, g = value_and_grad(api.loss_fn, params, mb)
-                gsum = tree_unflatten(treedef, [
-                    a + b for a, b in zip(tree_leaves(gsum), tree_leaves(g))])
-                lsum = lsum + loss
-            grads = tree_map(lambda g: g / m, gsum)
-            loss = lsum / m
-            metrics = {"loss": loss}
-        else:
-            loss, metrics, grads = value_and_grad(api.loss_fn, params, batch)
+        loss, grads = loss_and_grads(api, params, batch)
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(grads, state["opt"], params,
                                                lr)
-        out = {"loss": metrics.get("loss", loss), "lr": lr,
-               "grad_norm": _grad_norm(grads)}
+        out = {"loss": loss, "lr": lr, "grad_norm": _grad_norm(grads)}
         return ({"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}, out)
 
     return train_step
+
+
+def loss_and_grads(api: ModelApi, params: Any, batch: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Any]:
+    """The loss and the gradients of one batch, under the config's
+    micro-batch loop: with ``micro_batches = m > 1`` the batch splits into
+    m equal slices along its first axis, the slices' gradients are summed
+    in float32 and divided by m, and the loss is the slices' mean."""
+    m = api.cfg.micro_batches
+    if m <= 1:
+        loss, metrics, grads = value_and_grad(api.loss_fn, params, batch)
+        return metrics.get("loss", loss), grads
+    treedef = tree_flatten(params)[1]
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                          device=p.device), params)
+    lsum = torch.zeros((), dtype=F32, device=_device_of(params))
+    for i in range(m):
+        mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+              for k, v in batch.items()}
+        loss, _, g = value_and_grad(api.loss_fn, params, mb)
+        gsum = tree_unflatten(treedef, [
+            a + b for a, b in zip(tree_leaves(gsum), tree_leaves(g))])
+        lsum = lsum + loss
+    return lsum / m, tree_map(lambda g: g / m, gsum)
 
 
 # ---------------------------------------------------------------------------
@@ -226,14 +249,15 @@ def from_positions(trees: Sequence[Any]) -> Any:
     return treedef.unflatten([replicated(copies) for copies in zip(*leaves)])
 
 
-def _split_batch(batch: Dict[str, Any], mesh: NamedMesh
-                 ) -> List[Dict[str, torch.Tensor]]:
-    """The global batch split along dim 0 over the ``data`` axis (the
-    reference's ``P("data")``), each position's slice on its device."""
-    n = mesh.shape["data"]
+def _split_batch(batch: Dict[str, Any], mesh: NamedMesh,
+                 axes: Any = "data") -> List[Dict[str, torch.Tensor]]:
+    """The global batch split along dim 0 over ``axes`` (the reference's
+    ``P("data")`` by default; no axes: the whole batch on every
+    position), each position's slice on its device."""
+    n = mesh.axis_size(axes)
     out = []
     for p, dev in enumerate(mesh.positions):
-        i = mesh.index(p, "data")
+        i = mesh.index(p, axes)
         part = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
@@ -398,6 +422,195 @@ def make_dp_train_step(api: ModelApi, optimizer: Optimizer,
                  for b in errors[0]})
 
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# the production-mesh step: the state in 2-D placements on a named mesh
+# ---------------------------------------------------------------------------
+
+# optimizers whose update of a leaf is elementwise: a block's update is the
+# whole leaf's update cut to the block
+_ELEMENTWISE = ("adamw", "sgdm")
+
+
+class ShardedTrainStep:
+    """``step(state, batch) -> (new_state, {"loss", "lr", "grad_norm"})``
+    on a named mesh, the state held in the placements of
+    ``tree_shardings(mesh, train_state_axes(...), rules, abstract)``
+    (:attr:`shardings`; a plain state is placed on the first call): the
+    port's counterpart of the reference's ``jax.jit(make_train_step(...),
+    in_shardings=tree_shardings(...))``.
+
+    A step, single-controller over the mesh's positions:
+
+      * each position gathers the whole params from their blocks
+        (``core.collectives.all_gather``, one a sharded dim);
+      * each position takes the loss and gradients of its rows of the
+        batch (the batch rule adapted to its size, ``adapt_batch_rule``),
+        under the config's micro-batch loop (:func:`loss_and_grads`);
+      * the gradients, each divided by the number of row blocks, are
+        summed over the batch axes with ``psum`` in position order;
+      * each position updates only its own blocks of the params and the
+        optimizer state (an elementwise optimizer, AdamW or SGD-momentum,
+        on the blocks; another, Adafactor, on the gathered leaves, cut to
+        the block after), dropping its old blocks as it goes.
+
+    The port has no tensor parallelism: positions that share a batch
+    index compute the same rows at full width, so the model axis
+    replicates compute (their blocks of a leaf the spec replicates stay
+    bit-equal when the backward is deterministic,
+    ``torch.use_deterministic_algorithms``: the embedding's index backward
+    accumulates in a racy order otherwise); it shards only the state.  The loss is a mean over
+    the row blocks of each block's mean, which is the global mean when
+    every block has as many unmasked labels (MoE aux losses are then the
+    blocks' mean, where the reference's is over the global batch).
+    """
+
+    def __init__(self, api: ModelApi, optimizer: Optimizer,
+                 lr_schedule: Callable, mesh: NamedMesh,
+                 rules: Optional[Dict] = None):
+        from ..launch.mesh import rules_for, tree_shardings
+
+        self.api, self.optimizer, self.lr_schedule = api, optimizer, \
+            lr_schedule
+        self.mesh = mesh
+        self.rules = dict(rules) if rules is not None \
+            else rules_for(api.cfg, mesh, "train")
+        self.shardings = tree_shardings(
+            mesh, train_state_axes(api, optimizer), self.rules,
+            abstract_train_state(api, optimizer))
+
+    def place(self, state: Any) -> Any:
+        """``state`` in :attr:`shardings` (placed leaves already there are
+        kept)."""
+        return place_tree(state, self.shardings)
+
+    def batch_axes(self, global_batch: int) -> Tuple[str, ...]:
+        """The mesh axes the batch's rows split over at this size."""
+        from ..launch.mesh import adapt_batch_rule
+
+        rule = adapt_batch_rule(self.rules, self.mesh, global_batch)["batch"]
+        return entry_axes(rule)
+
+    def __call__(self, state: Any, batch: Dict[str, Any]):
+        return self._step(state, batch, traced=False,
+                          count=contextlib.nullcontext)
+
+    def trace(self, state: Any, batch: Dict[str, Any],
+              count: Callable = contextlib.nullcontext):
+        """The dry run's step: the gathers and sums over every position,
+        but one position's (position 0's) loss, gradients and update,
+        each under ``count()``; the other positions' slots of the sums
+        take position 0's gradients (on meta positions there are no
+        values to differ).  Returns position 0's metrics."""
+        return self._step(state, batch, traced=True, count=count)[1]
+
+    def _step(self, state, batch, *, traced: bool, count: Callable):
+        mesh, opt = self.mesh, self.optimizer
+        k = mesh.size
+        state = self.place(state)
+        p_leaves, p_def = tree_flatten(state["params"])
+        o_leaves, o_def = tree_flatten(state["opt"])
+        step = state["step"]
+        del state
+        p_meta = [(x.shape, x.dtype, x.placement) for x in p_leaves]
+        o_meta = [(x.shape, x.dtype, x.placement) for x in o_leaves]
+        p_pl = [m[2] for m in p_meta]
+        o_pl = [m[2] for m in o_meta]
+        elementwise = opt.name in _ELEMENTWISE
+        full = [gather_blocks(x) for x in p_leaves]
+        full_opt = None if elementwise else [gather_blocks(x)
+                                             for x in o_leaves]
+        rows = next(iter(batch.values())).shape[0]
+        axes = self.batch_axes(rows)
+        n = mesh.axis_size(axes)
+        batches = _split_batch(batch, mesh, axes)
+        computed = [0] if traced else range(k)
+        losses: List[Any] = [None] * k
+        grads: List[Any] = [None] * k
+        for p in computed:
+            with count():
+                loss, g = loss_and_grads(
+                    self.api, p_def.unflatten([f[p] for f in full]),
+                    batches[p])
+                g = [t / n for t in tree_leaves(g)] if n > 1 \
+                    else tree_leaves(g)
+            losses[p], grads[p], batches[p] = loss, g, None
+            if elementwise:
+                for f in full:
+                    f[p] = None
+        if traced:
+            losses = [losses[0]] * k
+            grads = [grads[0]] * k
+        if axes:
+            loss = collectives.pmean(losses, mesh, axes)
+            for i in range(len(p_leaves)):
+                out = collectives.psum([g[i] for g in grads], mesh, axes)
+                for p in range(k):
+                    grads[p][i] = out[p]
+        else:
+            loss = losses
+        metrics = {"loss": loss[0], "grad_norm": _grad_norm(grads[0])}
+        old_p = [list(x.blocks) for x in p_leaves]
+        old_o = [list(x.blocks) for x in o_leaves]
+        del p_leaves, o_leaves
+        new_p: List[List[Any]] = [[None] * k for _ in p_pl]
+        new_o: List[List[Any]] = [[None] * k for _ in o_pl]
+        new_step: List[Any] = [None] * k
+        for p in computed:
+            with count():
+                lr = self.lr_schedule(step.blocks[p])
+                if elementwise:
+                    g = [block_of(t, pl, p) for t, pl in zip(grads[p], p_pl)]
+                    params = [b[p] for b in old_p]
+                    ostate = [b[p] for b in old_o]
+                else:
+                    g = grads[p]
+                    params = [f[p] for f in full]
+                    ostate = [f[p] for f in full_opt]
+                new_params, new_opt = opt.update(
+                    p_def.unflatten(g), o_def.unflatten(ostate),
+                    p_def.unflatten(params), lr)
+                new_params, new_opt = (tree_leaves(new_params),
+                                       tree_leaves(new_opt))
+                if not elementwise:
+                    new_params = [block_of(t, pl, p).clone() for t, pl in
+                                  zip(new_params, p_pl)]
+                    new_opt = [block_of(t, pl, p).clone() for t, pl in
+                               zip(new_opt, o_pl)]
+                    for f in full + full_opt:
+                        f[p] = None
+            grads[p] = None
+            for i, t in enumerate(new_params):
+                new_p[i][p], old_p[i][p] = t, None
+            for i, t in enumerate(new_opt):
+                new_o[i][p], old_o[i][p] = t, None
+            new_step[p] = step.blocks[p] + 1
+            if p == 0:
+                metrics["lr"] = lr
+            del g, params, ostate, new_params, new_opt
+        if traced:
+            return None, metrics
+
+        def placed(blocks, meta):
+            shape, dtype, pl = meta
+            return PlacedTensor(shape, dtype, pl, blocks)
+
+        return ({"params": p_def.unflatten([placed(b, m) for b, m in
+                                            zip(new_p, p_meta)]),
+                 "opt": o_def.unflatten([placed(b, m) for b, m in
+                                         zip(new_o, o_meta)]),
+                 "step": placed(new_step, (step.shape, step.dtype,
+                                           step.placement))}, metrics)
+
+
+def make_sharded_train_step(api: ModelApi, optimizer: Optimizer,
+                            lr_schedule: Callable, mesh: NamedMesh,
+                            rules: Optional[Dict] = None
+                            ) -> ShardedTrainStep:
+    """The production-mesh train step (:class:`ShardedTrainStep`) over
+    ``mesh`` with ``rules`` (default: ``rules_for(cfg, mesh, "train")``)."""
+    return ShardedTrainStep(api, optimizer, lr_schedule, mesh, rules)
 
 
 def grad_arena_spec(dp_size: int = 1) -> TransferSpec:

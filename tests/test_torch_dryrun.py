@@ -1,0 +1,297 @@
+"""The port's dry run (``python -m repro_torch.launch.dryrun``) over every
+arch x shape x mesh at ``--smoke`` on meta positions, and its op counter.
+
+One child process with ``XLA_FLAGS=--xla_force_host_platform_device_count=
+512`` (set in the child only) gives the oracle values: for every cell, the
+reference's skip reason, and the bytes one device holds of the cell's
+arguments, the sum over the argument leaves of their ``NamedSharding``'s
+``shard_shape`` bytes under the reference's ``tree_shardings`` (the train
+state and batch; the params, cache and inputs of a prefill or decode).
+The reference's own dry run fails on this JAX version (ROADMAP R3), so its
+output is not an oracle.
+
+The port's grid runs once per module in this process (about 50 s).  Per
+cell, exactly:
+
+  * ok, or skipped with the reference's reason;
+  * ``memory.argument_size_in_bytes`` equal to the reference child's sum;
+  * the probe identity in FLOPs: the step's count equals the sum over the
+    layer bodies of trips times the body's count plus the count of the
+    same step with the layers removed;
+  * a train cell's FLOPs, times the position's share of the batch, inside
+    ``test_launch.py::test_model_flops_sane``'s band, 0.5x to 3x
+    ``benchmarks.roofline.model_flops``;
+  * the collectives: one all-gather a sharded dim of each param leaf, and
+    on a train cell whose batch splits, one all-reduce a gradient leaf and
+    the loss's.
+
+And the op counter on its own: a matmul's FLOPs are 2MNK and its bytes
+its operands' and output's; the collectives' kinds map onto the
+reference's names; the kernel wrappers take their plain path on meta
+tensors (and launch nothing), and ``"meta"`` resolves only when passed.
+"""
+import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from benchmarks.roofline import model_flops
+from repro.configs.shapes import SHAPES as R_SHAPES
+from repro.models import registry as r_registry
+
+from repro_torch import resolve_device
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.core import collectives as C
+from repro_torch.core.placement import entry_axes
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.launch import mesh as p_mesh
+from repro_torch.models import registry as p_registry
+from repro_torch.optim import make_optimizer
+from repro_torch.runtime import train as p_train
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCHS = p_registry.ARCH_IDS
+MESHES = ("single", "multi")
+CELLS = [(a, s, m) for m in MESHES for a in ARCHS for s in SHAPES]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads while this module runs: the suite runs in
+    several processes on one host, and more threads than cores spin."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(2, n))
+    yield
+    torch.set_num_threads(n)
+
+_CHILD = r'''
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+import jax, numpy as np
+from repro.configs.shapes import SHAPES, skip_reason
+from repro.launch.mesh import (adapt_batch_rule, make_production_mesh,
+                               rules_for, tree_shardings)
+from repro.models import registry
+from repro.optim import make_optimizer
+from repro.runtime.train import abstract_train_state, train_state_axes
+
+def nbytes(axes, abs_tree, mesh, rules):
+    shs = tree_shardings(mesh, axes, rules, abs_tree)
+    return sum(int(np.prod(sh.shard_shape(a.shape))) * a.dtype.itemsize
+               for sh, a in zip(jax.tree_util.tree_leaves(shs),
+                                jax.tree_util.tree_leaves(abs_tree)))
+
+out = {}
+for mname in ("single", "multi"):
+    mesh = make_production_mesh(multi_pod=mname == "multi")
+    for arch in registry.ARCH_IDS:
+        api = registry.get(arch, smoke=True)
+        cfg = api.cfg
+        for sname, full in SHAPES.items():
+            key = "%s|%s|%s" % (arch, sname, mname)
+            reason = skip_reason(cfg, sname)
+            if reason:
+                out[key] = {"skipped": reason}
+                continue
+            shape = full.smoke()
+            rules = adapt_batch_rule(rules_for(cfg, mesh, shape.mode), mesh,
+                                     shape.global_batch)
+            total = nbytes(api.input_axes(shape), api.input_specs(shape),
+                           mesh, rules)
+            if shape.mode == "train":
+                opt = make_optimizer(cfg.optimizer)
+                total += nbytes(train_state_axes(api, opt),
+                                abstract_train_state(api, opt), mesh, rules)
+            else:
+                total += nbytes(api.axes(), api.abstract(), mesh, rules)
+                total += nbytes(api.cache_axes(shape),
+                                api.abstract_cache(shape), mesh, rules)
+            out[key] = {"argument_bytes": total}
+json.dump(out, open(sys.argv[1], "w"))
+print("ok")
+'''
+
+
+@functools.lru_cache(maxsize=None)
+def reference_arguments(path: str) -> dict:
+    """The reference's skip reasons and per-device argument bytes on a
+    forced 512-device host, run once per process."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=512",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _CHILD, path], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(path) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return reference_arguments(
+        str(tmp_path_factory.mktemp("dryrun_reference") / "ref.json"))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid():
+    results = dryrun.run_grid(list(ARCHS), list(SHAPES), list(MESHES), None,
+                              smoke=True)
+    return {f"{r['arch']}|{r['shape']}|{r['mesh_name']}": r
+            for r in results}
+
+
+def test_the_entry_point_prints_the_references_lines(capsys):
+    dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                 "--mesh", "both", "--smoke"])
+    out = capsys.readouterr().out
+    assert "[dryrun] llama3.2-1b|decode_32k|single: ok" in out
+    assert "[dryrun] llama3.2-1b|decode_32k|multi: ok" in out
+    assert "[dryrun] 2/2 cells ok" in out
+
+
+@pytest.mark.parametrize("arch,shape,mesh", CELLS)
+def test_every_cell_against_the_reference(ref, arch, shape, mesh):
+    key = f"{arch}|{shape}|{mesh}"
+    res, want = _grid()[key], ref[key]
+    assert "error" not in res, res.get("traceback")
+    if "skipped" in want:
+        assert res["skipped"] == want["skipped"]
+        return
+    assert res["memory"]["argument_size_in_bytes"] == want["argument_bytes"]
+    check = res["probe_check"]
+    assert check["exact"], check
+    assert check["step_flops"] == check["layer_free_flops"] + \
+        sum(b["trips"] * b["flops"] for b in res["bodies"])
+    api = p_registry.get(arch, smoke=True)
+    cfg = api.cfg
+    full = SHAPES[shape]
+    m = p_mesh.make_production_mesh(multi_pod=mesh == "multi",
+                                    device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(cfg, m, full.mode), m,
+                                    full.smoke().global_batch)
+    blocks = m.axis_size(entry_axes(rules["batch"]))
+    coll = res["collectives"]["per_op"]
+    params = p_mesh.tree_shardings(m, api.axes(), rules, api.abstract())
+    gathers = sum(1 for pl in _leaves(params) for e in pl.spec
+                  if entry_axes(e))
+    if full.mode == "train":
+        opt = make_optimizer(cfg.optimizer)
+        if opt.name not in p_train._ELEMENTWISE:
+            # the optimizer state is gathered too (updated whole)
+            opt_sh = p_train.make_sharded_train_step(
+                api, opt, None, m, rules).shardings["opt"]
+            gathers += sum(1 for pl in _leaves(opt_sh) for e in pl.spec
+                           if entry_axes(e))
+        mf = model_flops(r_registry.get(arch, smoke=True).cfg,
+                         R_SHAPES[shape].smoke())
+        assert 0.5 * mf < res["flops"] * blocks < 3 * mf
+        assert coll["all-gather"]["count"] == gathers
+        n_leaves = len(_leaves(params))
+        assert coll["all-reduce"]["count"] == \
+            ((n_leaves + 1) if blocks > 1 else 0)
+    else:
+        assert coll["all-gather"]["count"] >= gathers
+    assert res["corrected"]["flops"] == res["flops"]
+
+
+def _leaves(tree):
+    from repro_torch.core.treepath import tree_leaves
+    return tree_leaves(tree)
+
+
+def test_op_counter_prices_a_matmul_and_its_bytes():
+    a = torch.empty(4, 8, device="meta")
+    b = torch.empty(8, 16, device="meta")
+    counter = hlo_analysis.OpCounter()
+    with counter:
+        c = a @ b
+        d = c + 1
+    assert counter.flops["aten.mm"] == 2 * 4 * 8 * 16
+    assert counter.bytes["aten.mm"] == (4 * 8 + 8 * 16 + 4 * 16) * 4
+    assert counter.calls["aten.add"] == 1 and counter.flops["aten.add"] == 0
+    assert hlo_analysis.cost_dict(counter) == {
+        "flops": float(2 * 4 * 8 * 16),
+        "bytes accessed": float(counter.total_bytes)}
+    assert list(hlo_analysis.op_census(counter, top=1)) in (["aten.mm"],
+                                                            ["aten.add"])
+    assert d.shape == (4, 16)
+    assert hlo_analysis.memory_dict(10) == {"argument_size_in_bytes": 10}
+    assert hlo_analysis.memory_dict() == {}
+
+
+def test_collective_stats_map_onto_the_references_names():
+    mesh = p_mesh.make_debug_mesh(2, 2, device="cpu")
+    xs = [torch.ones(4, 2) for _ in range(4)]
+    before = hlo_analysis.stats_snapshot()
+    C.psum(xs, mesh, "data")
+    C.pmean(xs, mesh, "data")
+    C.all_gather(xs, mesh, "model", axis=1)
+    C.psum_scatter(xs, mesh, "data")
+    C.all_to_all(xs, mesh, "model", 0, 1)
+    st = hlo_analysis.collective_stats(before)
+    per = st["per_op"]
+    assert per["all-reduce"] == {"count": 2, "bytes": 2 * 32}
+    assert per["all-gather"] == {"count": 1, "bytes": 32}
+    assert per["reduce-scatter"]["count"] == 1
+    assert per["all-to-all"]["count"] == 1
+    assert per["collective-permute"]["count"] == 0
+    assert st["total_count"] == 5 and st["total_bytes"] == 5 * 32
+    # meta positions: one result a call, every position given it
+    meta = p_mesh.make_debug_mesh(2, 2, device="meta")
+    ms = [torch.empty(4, 2, device="meta") for _ in range(4)]
+    out = C.all_gather(ms, meta, "data", axis=1)
+    assert out[0] is out[2] and out[0].shape == (4, 4)
+
+
+def test_kernels_take_their_plain_path_on_meta():
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.marshal_pack import kernel as mk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    before = (rk.rmsnorm.launches, fk.flash_attention.launches,
+              dk.decode_attention.launches, sk.ssd_chunks.launches,
+              mk.gather_tiles.launches)
+    m = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device="meta")
+    assert rk.rmsnorm(m(2, 8), m(8)).device.type == "meta"
+    assert fk.flash_attention(m(1, 4, 2, 16), m(1, 4, 2, 16),
+                              m(1, 4, 2, 16)).shape == (1, 4, 2, 16)
+    assert dk.decode_attention(m(1, 2, 16), m(1, 2, 8, 16), m(1, 2, 8, 16),
+                               m(1, dt=torch.int32)).shape == (1, 2, 16)
+    y, states, cum = sk.ssd_chunks(m(1, 2, 2, 4, 8), m(1, 2, 2, 1, 4),
+                                   m(1, 2, 2, 1, 4), m(1, 2, 4, 8),
+                                   m(1, 2, 4, 8))
+    assert y.device.type == "meta"
+    assert mk.gather_tiles(m(16, 128), m(2, dt=torch.int32)).shape == \
+        (16, 128)
+    assert (rk.rmsnorm.launches, fk.flash_attention.launches,
+            dk.decode_attention.launches, sk.ssd_chunks.launches,
+            mk.gather_tiles.launches) == before
+    assert resolve_device("meta").type == "meta"
+
+
+def test_sharded_step_trace_counts_one_position():
+    """The dry run's trace: one position's compute under the counter,
+    the collectives over every position."""
+    api = p_registry.get("llama3.2-1b", smoke=True)
+    opt = make_optimizer("adamw")
+    mesh = p_mesh.make_debug_mesh(2, 2, device="meta")
+    step = p_train.make_sharded_train_step(api, opt, lambda s: s * 0.0,
+                                           mesh)
+    state = p_train.abstract_train_state(api, opt)
+    batch = {k: torch.empty((4, 16), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    counter = hlo_analysis.OpCounter()
+    before = hlo_analysis.stats_snapshot()
+    step.trace(step.place(state), batch, lambda: counter)
+    one = counter.total_flops
+    assert one > 0
+    st = hlo_analysis.collective_stats(before)
+    assert st["per_op"]["all-reduce"]["count"] > 0

@@ -467,9 +467,14 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching(llama):
     port.decode_step(pp, torch.tensor([[4]], dtype=torch.int32), cache)
     assert (RK.rmsnorm.launches, FK.flash_attention.launches,
             DK.decode_attention.launches) == before
+    # a meta tensor (the dry run's) takes the plain version too; a scale
+    # on another device than x still raises
+    out = RK.rmsnorm(torch.ones(2, 4, device="meta"),
+                     torch.ones(4, device="meta"))
+    assert out.device.type == "meta"
+    assert RK.rmsnorm.launches == before[0]
     with pytest.raises(ValueError):
-        RK.rmsnorm(torch.ones(2, 4, device="meta"),
-                   torch.ones(4, device="meta"))
+        RK.rmsnorm(torch.ones(2, 4, device="meta"), torch.ones(4))
 
 
 # ------------------------------------------------ plain versions vs Pallas

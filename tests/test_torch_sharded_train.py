@@ -1,0 +1,379 @@
+"""The production-mesh train step (``runtime.train.ShardedTrainStep``), its
+loop and its CLI, on CPU positions, held to the JAX package's jitted step
+under ``tree_shardings``.
+
+The reference runs once per module in a child process with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4`` (set in the child
+only): llama3.2-1b smoke (float32), SGD-momentum, ``constant(1e-3)``,
+``SyntheticLM(vocab, 16, 8)``, three steps from ``PRNGKey(0)`` of
+``jax.jit(make_train_step(...), in_shardings=(tree_shardings(mesh,
+train_state_axes, rules, abstract), <the batch's>))`` on a (2, 2) mesh
+under ``pspec.activate``.  Its mesh's axes are ``Auto``: ``jax.make_mesh``
+makes ``Explicit`` axes in this JAX version, on which the model's
+``with_sharding_constraint`` raises (ROADMAP R3).  The child writes each
+step's input and output state and the loss.  SGD-momentum, as in
+``test_torch_dp.py``: AdamW's first update is ``lr * g / |g|`` an element,
+which turns the float32 noise of a near-zero gradient into a difference of
+up to ``lr`` between any two implementations (1.1e-4 at lr 1e-3 in a leaf
+whose largest element is 0.44); the step updates blocks by the same code
+for both elementwise optimizers.
+
+The port steps from the reference's input state of each step, on a (2, 2)
+mesh of CPU positions (the batch of 8 rows over ``data``), and is held:
+
+  * the loss within rtol 1e-5;
+  * every leaf of the new state, gathered, within 2e-4 of the leaf's
+    largest element (two float32 implementations summing in different
+    orders);
+  * positions that share a data index hold bit-equal blocks of every leaf
+    the spec replicates over ``model`` (under deterministic algorithms:
+    the embedding's index backward accumulates in a racy order otherwise);
+    every block equals its block of the gathered state;
+  * Adafactor (not elementwise: updated on the gathered leaves) against
+    ``make_train_step`` on one position, within the same tolerances;
+  * ``loop.run(state_shardings=)``: a run with a crash and a restore ends
+    bit-identical to one without; ``state_policy`` with it raises;
+  * ``launch.train --production-mesh --device cpu --smoke`` on a (2, 2)
+    mesh (the production mesh patched to that size), and the stale-mesh
+    error without the cards;
+  * placed prefill and decode (``runtime.placed``) on a (2, 2) mesh equal
+    to the model on one position, also a slot prefill a row at a time.
+"""
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import train_state_from_reference
+from repro_torch.core import UnsupportedSpecError, tree_flatten, tree_leaves
+from repro_torch.core.placement import PlacedTensor, block_of
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import mesh as p_mesh
+from repro_torch.launch import train as p_launch_train
+from repro_torch.models import registry as p_registry
+from repro_torch.optim import constant, make_optimizer
+from repro_torch.runtime import loop as p_loop
+from repro_torch.runtime import train as p_train
+
+ROOT = Path(__file__).resolve().parent.parent
+CPU = "cpu"
+LOSS_RTOL = 1e-5
+STATE_RTOL, ATOL = 2e-4, 1e-6
+STEPS = 3
+LR = 1e-3
+OPT = "sgdm"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads while this module runs: the suite runs in
+    several processes on one host, and more threads than cores spin."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(2, n))
+    yield
+    torch.set_num_threads(n)
+
+_CHILD = r'''
+import sys
+import jax, jax.numpy as jnp
+import numpy as np
+from jax.sharding import AxisType
+from repro.data import SyntheticLM
+from repro.launch.mesh import rules_for, tree_shardings
+from repro.models import pspec, registry
+from repro.optim import constant, make_optimizer
+from repro.runtime.train import (abstract_train_state, make_train_step,
+                                 train_state, train_state_axes)
+
+api = registry.get("llama3.2-1b", smoke=True)
+opt = make_optimizer("OPT")
+data = SyntheticLM(api.cfg.vocab_size, 16, 8)
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto, AxisType.Auto))
+rules = rules_for(api.cfg, mesh, "train")
+out = {}
+with pspec.activate(mesh, rules):
+    state_abs = abstract_train_state(api, opt)
+    state_sh = tree_shardings(mesh, train_state_axes(api, opt), rules,
+                              state_abs)
+    batch = data.batch(0)
+    specs = {k: jax.ShapeDtypeStruct(v.shape, jnp.int32)
+             for k, v in batch.items()}
+    batch_sh = tree_shardings(mesh, {k: ("batch", None) for k in batch},
+                              rules, specs)
+    step = jax.jit(make_train_step(api, opt, constant(LR)),
+                   in_shardings=(state_sh, batch_sh),
+                   out_shardings=(state_sh, None))
+    state = train_state(api, opt, jax.random.PRNGKey(0))
+    for s in range(STEPS):
+        for i, l in enumerate(jax.tree_util.tree_leaves(state)):
+            out["%d/in/%d" % (s, i)] = np.asarray(l)
+        batch = {k: jnp.asarray(v, jnp.int32) for k, v in
+                 data.batch(s).items()}
+        state, metrics = step(state, batch)
+        out["%d/loss" % s] = np.asarray(metrics["loss"])
+        for i, l in enumerate(jax.tree_util.tree_leaves(state)):
+            out["%d/out/%d" % (s, i)] = np.asarray(l)
+np.savez(sys.argv[1], **out)
+print("ok")
+'''
+
+
+@functools.lru_cache(maxsize=None)
+def reference_sharded_steps(path: str) -> dict:
+    """The reference's jitted steps under its shardings on a forced
+    4-device host, run once per process."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(ROOT / "src"))
+    code = _CHILD.replace("STEPS", str(STEPS)).replace("LR", repr(LR)) \
+        .replace("OPT", OPT)
+    proc = subprocess.run([sys.executable, "-c", code, path], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=180)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(path) as f:
+        return dict(f)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return reference_sharded_steps(
+        str(tmp_path_factory.mktemp("sharded_reference") / "ref.npz"))
+
+
+@pytest.fixture(autouse=True)
+def deterministic():
+    """Positions that share a data index compute the same rows; their
+    results are bit-equal only if the backward is deterministic (the
+    embedding's index backward accumulates in a racy order otherwise)."""
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@functools.lru_cache(maxsize=None)
+def _api():
+    return p_registry.get("llama3.2-1b", smoke=True)
+
+
+def _mesh():
+    return p_mesh.make_debug_mesh(2, 2, device=CPU)
+
+
+def _ref_state(ref, prefix, opt):
+    template = p_train.abstract_train_state(_api(), opt)
+    leaves_t, treedef = tree_flatten(template)
+    return train_state_from_reference(treedef.unflatten(
+        [ref[f"{prefix}/{i}"] for i in range(len(leaves_t))]), CPU)
+
+
+def _close(got, want, what):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    top = float(np.abs(want).max(initial=0.0))
+    err = float(np.abs(got - want).max(initial=0.0))
+    assert err <= ATOL + STATE_RTOL * top, f"{what}: {err} vs max {top}"
+
+
+def _check_blocks(state, mesh):
+    """Blocks equal their block of the gathered state; positions that
+    differ only on ``model`` hold equal blocks where the spec replicates
+    over it."""
+    for leaf in tree_leaves(state):
+        assert isinstance(leaf, PlacedTensor)
+        whole = leaf.gather()
+        for p in range(mesh.size):
+            assert torch.equal(leaf.blocks[p],
+                               block_of(whole, leaf.placement, p))
+        if not any("model" in (e if isinstance(e, tuple) else (e,))
+                   for e in leaf.placement.spec):
+            for group in mesh.groups("model"):
+                for p in group[1:]:
+                    assert torch.equal(leaf.blocks[p], leaf.blocks[group[0]])
+
+
+@pytest.mark.parametrize("s", range(STEPS))
+def test_sharded_step_matches_the_references_jitted_step(ref, s):
+    opt = make_optimizer(OPT)
+    mesh = _mesh()
+    step = p_train.make_sharded_train_step(_api(), opt, constant(LR), mesh)
+    data = SyntheticLM(_api().cfg.vocab_size, 16, 8)
+    state, metrics = step(_ref_state(ref, f"{s}/in", opt), data.batch(s))
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(ref[f"{s}/loss"]), rtol=LOSS_RTOL)
+    for i, leaf in enumerate(tree_leaves(state)):
+        _close(leaf.gather(), ref[f"{s}/out/{i}"], f"step {s} leaf {i}")
+    _check_blocks(state, mesh)
+    # the state stays in the step's placements
+    assert [x.placement for x in tree_leaves(state)] == \
+        tree_leaves(step.shardings)
+
+
+def test_adafactor_updates_gathered_leaves_as_one_position():
+    api = _api()
+    opt = make_optimizer("adafactor")
+    mesh = _mesh()
+    sharded = p_train.make_sharded_train_step(api, opt, constant(LR), mesh)
+    plain = p_train.make_train_step(api, opt, constant(LR))
+    data = SyntheticLM(api.cfg.vocab_size, 16, 8)
+    a = p_train.train_state(api, opt, torch.Generator().manual_seed(0),
+                            device=CPU)
+    b = a
+    for s in range(2):
+        a, ma = plain(a, data.batch(s))
+        b, mb = sharded(b, data.batch(s))
+        np.testing.assert_allclose(float(mb["loss"]), float(ma["loss"]),
+                                   rtol=LOSS_RTOL)
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+        _close(y.gather(), x, f"adafactor leaf {i}")
+    _check_blocks(b, mesh)
+
+
+def _run(step, tmp=None, injector=None, **kw):
+    api = _api()
+    opt = make_optimizer("adamw")
+    data = SyntheticLM(api.cfg.vocab_size, 16, 8)
+    return p_loop.run(
+        step, lambda: p_train.train_state(
+            api, opt, torch.Generator().manual_seed(0), device=CPU),
+        data.batch, 4, ckpt_dir=tmp, ckpt_every=2,
+        failure_injector=injector, device=CPU, **kw)
+
+
+def test_loop_restores_onto_the_placements_bit_identical(tmp_path):
+    step = p_train.make_sharded_train_step(
+        _api(), make_optimizer("adamw"), constant(LR), _mesh())
+    clean = _run(step, state_shardings=step.shardings)
+    fired = []
+
+    def injector(s):
+        if s == 3 and not fired:
+            fired.append(s)
+            raise p_loop.NodeFailure("injected")
+
+    crashed = _run(step, str(tmp_path), injector,
+                   state_shardings=step.shardings)
+    assert crashed.restarts == 1
+    assert crashed.restore_splits[0]["step"] == 2
+    for x, y in zip(tree_leaves(clean.state), tree_leaves(crashed.state)):
+        assert torch.equal(x.gather(), y.gather())
+    with pytest.raises(ValueError, match="exclusive"):
+        _run(step, state_shardings=step.shardings,
+             state_policy=p_train.state_transfer_policy())
+
+
+def test_cli_production_mesh_on_cpu_positions(monkeypatch, tmp_path):
+    made = []
+
+    def debug_size(*, multi_pod=False, device=None):
+        mesh = p_mesh.make_debug_mesh(2, 2, pod=2 if multi_pod else 0,
+                                      device=device)
+        made.append(mesh)
+        return mesh
+
+    monkeypatch.setattr(p_launch_train, "make_production_mesh", debug_size)
+    res = p_launch_train.main(["--smoke", "--device", CPU, "--steps", "3",
+                               "--batch", "8", "--seq", "16",
+                               "--ckpt-dir", str(tmp_path),
+                               "--ckpt-every", "2", "--production-mesh"])
+    assert made and made[0].shape == {"data": 2, "model": 2}
+    assert all(isinstance(x, PlacedTensor) for x in tree_leaves(res.state))
+    assert all(np.isfinite(m["loss"]) for m in res.metrics_history)
+    res = p_launch_train.main(["--smoke", "--device", CPU, "--steps", "1",
+                               "--batch", "8", "--seq", "16",
+                               "--production-mesh", "--multi-pod"])
+    assert made[-1].shape == {"pod": 2, "data": 2, "model": 2}
+
+
+def test_cli_production_mesh_needs_the_cards(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(UnsupportedSpecError, match="dp256"):
+        p_launch_train.main(["--smoke", "--steps", "1",
+                             "--production-mesh"])
+    with pytest.raises(UnsupportedSpecError, match="dp512"):
+        p_launch_train.main(["--smoke", "--steps", "1",
+                             "--production-mesh", "--multi-pod"])
+
+
+PLACED_ARCHS = ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b",
+                "seamless-m4t-medium", "phi-3-vision-4.2b")
+
+
+@pytest.mark.parametrize("arch", PLACED_ARCHS)
+def test_placed_prefill_and_decode_equal_one_position(arch):
+    """``runtime.placed.PlacedServe`` on a (2, 2) mesh (decode rules: the
+    batch over data, the cache's sequence over model) against the model
+    on one position: logits and every cache leaf within float32 noise
+    (2e-5 absolute: other row counts' products), the placed logits a
+    value over the batch axes."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.runtime.placed import PlacedServe
+
+    api = p_registry.get(arch, smoke=True)
+    cfg = api.cfg
+    params = api.init(torch.Generator().manual_seed(0), device=CPU)
+    mesh = _mesh()
+    B, S, M = 4, 8, 32
+    serve = PlacedServe(api, mesh, p_mesh.adapt_batch_rule(
+        p_mesh.rules_for(cfg, mesh, "decode"), mesh, B))
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    P = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    extra = {k: torch.randn(sh, generator=g).to(dt) for k, (sh, dt) in
+             api.inputs(InputShape("p", seq_len=S + P, global_batch=B,
+                                   mode="prefill")).items()
+             if k != "tokens"}
+    if "frames" in extra:
+        extra["frames"] = torch.randn(B, max(1, M // cfg.src_ratio),
+                                      cfg.d_model, generator=g)
+    cache = api.init_cache(B, M + P, device=CPU)
+    want, want_c = api.prefill(params, tok, {k: v.clone() for k, v in
+                                             cache.items()}, **extra)
+    got, placed = serve.prefill(params, tok, serve.place_cache(cache),
+                                **extra)
+    assert got.placement.spec == ("data",)
+    torch.testing.assert_close(got.gather(), want, rtol=0, atol=2e-5)
+    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
+    want, want_c = api.decode_step(params, nxt, want_c)
+    got, placed = serve.decode_step(params, nxt, placed)
+    torch.testing.assert_close(got.gather(), want, rtol=0, atol=2e-5)
+    for k, v in want_c.items():
+        torch.testing.assert_close(placed[k].gather(), v, rtol=0, atol=2e-5)
+
+
+def test_slot_prefill_fills_its_row_as_a_batch_one_prefill():
+    """Prompts of different lengths, each prefilled into its row of a
+    placed 4-slot cache (only the row's holders compute), equal batch-1
+    prefills stacked into the slots; a decode step over the slots equals
+    one position's."""
+    from repro_torch.runtime.placed import PlacedServe
+
+    api = _api()
+    cfg = api.cfg
+    params = api.init(torch.Generator().manual_seed(0), device=CPU)
+    mesh = _mesh()
+    serve = PlacedServe(api, mesh, p_mesh.adapt_batch_rule(
+        p_mesh.rules_for(cfg, mesh, "decode"), mesh, 4))
+    placed = serve.place_cache(api.init_cache(4, 32, device=CPU))
+    g = torch.Generator().manual_seed(2)
+    caches = []
+    for r, n in enumerate((3, 7, 5, 9)):
+        tok = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
+        want, c = api.prefill(params, tok, api.init_cache(1, 32, device=CPU))
+        got, placed = serve.prefill(params, tok, placed, slot=r)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        caches.append(c)
+    ref = {k: torch.cat([c[k] for c in caches], dim=0 if k == "pos" else 1)
+           for k in caches[0]}
+    for k, v in ref.items():
+        torch.testing.assert_close(placed[k].gather(), v, rtol=0, atol=0)
+    nxt = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
+    want, _ = api.decode_step(params, nxt, ref)
+    got, _ = serve.decode_step(params, nxt, placed)
+    torch.testing.assert_close(got.gather(), want, rtol=0, atol=2e-5)
