@@ -16,7 +16,13 @@ Phases, each of which raises on failure:
      grid up to 2^18 + 7, 4 KiB and 2 KiB tiles, maps with repeated and
      with out-of-range entries); rmsnorm, flash_attention and
      decode_attention in bf16 within tests/test_kernels.py's tolerance
-     (2e-2) at the serve phases' shapes, with ragged lengths, flash also
+     (2e-2) at the serve phases' shapes, with ragged lengths (rmsnorm
+     also at 8, the longest prompt's, 1024 and 4096 rows by widths 2048,
+     2560 and 3072 in bf16 and at (1024, 2048) in f32, there also bit for
+     bit against its strided path (the old kernel), whose reduction order
+     it keeps, each timed in turns with the old kernel on inputs rotated
+     over 128 MiB, beside the launch floor: an empty kernel through the
+     same ctypes path), flash also
      at per-batch query offsets (a prefill at a nonzero cache position)
      and at zamba2's head dim 80; ssd_chunks at every prompt length of
      the serve run padded as apply_ssm pads it, at mamba2's and zamba2's
@@ -229,12 +235,15 @@ Phases, each of which raises on failure:
      card: not multi-GPU), under deterministic algorithms: (a) the
      production-mesh step (``make_sharded_train_step``) on a (2, 2) mesh:
      llama3.2-1b at full width cut to LAUNCH_LAYERS layers, bf16, AdamW at
-     LAUNCH_LR, batch 8 x 128, 3 steps from a seeded state: the predicted
+     LAUNCH_LR, batch 8 x 128, 3 steps from a seeded state, and apart
+     from them one step from that state on labels masked unevenly over
+     the row blocks (block 0 all masked, half of block 1): the predicted
      peak printed first, the losses within LAUNCH_LOSS_TOL of
      make_train_step's on one position from the same state, the model
      axis's replicas bit-equal after every step, every block equal to its
      block of the gathered state, launches exactly 4 x kernel_launches a
-     step; before it, f32 at 2 layers under SGD-momentum within 1e-5
+     step; before it, f32 at 2 layers under SGD-momentum, 2 steps and
+     apart from them a masked one, within 1e-5
      (losses) and DP_GRAD_TOL (leaves) of one position; (b) (a)'s state
      saved, then restored with ``restore(shardings=)`` onto (4, 1) and
      (1, 4) under each mesh's train rules: every block equal to the
@@ -293,6 +302,7 @@ reduction flag is left at its default and printed.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -319,6 +329,7 @@ REAL_CLOSED = {"dense": {"marshal": (1226836552, 2), "uvm": (2097180, 8),
 GIB_TILES = 262144                       # 262144 f32 tiles of 4 KiB = 1 GiB
 H100_SXM_BANDWIDTH = 3.35e12             # bytes/s, NVIDIA's H100 SXM data sheet
 H100_SXM_BF16_FLOPS = 989e12             # dense bf16 tensor-core FLOP/s, same sheet
+H100_SXM_F32_FLOPS = 67e12               # f32 outside the tensor cores, same sheet
 BF16_TOL = 2e-2                          # tests/test_kernels.py's bf16 tolerance
 SSD_F32_TOL = 1e-3                       # ssd_chunks' f32 states and cum
 
@@ -405,6 +416,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 12, 3e-4
 # fresh batches
 TRAIN_SPREAD_BATCHES = 8
 TRAIN_NORM_ROWS = 1024                   # (a): rmsnorm on (1024, 2048)
+RMS_TRAIN_ROWS = 1024                    # phase 3: llama's 8 x 128 train step
+RMS_FAMILY_ROWS = 4096                   # mamba2 / zamba2 / moonshot 8 x 512
+RMS_ROTATE_BYTES = 128 << 20             # phase 3: rmsnorm's inputs, > L2's 50 MB
 TRAIN_F32_TOL = 1e-5                     # (a): f32 gradients vs plain
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 2, 2   # (b): full width, f32
 # (b): each gradient leaf, card vs CPU, of the leaf's largest |grad|: two
@@ -567,7 +581,8 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     events on the card.  The device is held busy (``torch.cuda._sleep``)
     while the host queues the timed calls, so a call whose launch costs
     the host more than the kernel costs the card is timed on the card, not
-    by the host's dispatch rate."""
+    by the host's dispatch rate; Python's garbage collector is off while
+    they are queued."""
     import torch
 
     for _ in range(warmup):
@@ -584,12 +599,20 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # ~2e9 cycles a second: hold the card for twice the queueing time
-    torch.cuda._sleep(int(min(2.0, 2 * iters * host_s + 1e-3) * 2e9))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    # no collection while queueing: a pause longer than the hold below
+    # would leave the card idle inside the timed span
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        # ~2e9 cycles a second: hold the card for twice the queueing time
+        torch.cuda._sleep(int(min(2.0, 2 * iters * host_s + 1e-3) * 2e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    finally:
+        if collecting:
+            gc.enable()
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -869,18 +892,24 @@ def build_kernels(sources) -> None:
 # -- phase 3: the model kernels ----------------------------------------------
 
 def _trio(device, fns, iters: int) -> dict:
-    """Kernel, plain and library call timed in turns (plain, kernel,
-    library, library, kernel, plain); the mean of each pair, in ms."""
-    times = {"kernel": [], "plain": [], "library": []}
-    for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+    """Kernel, plain and library call (and the old kernel, where ``fns``
+    has ``"old"``) timed in turns (plain, kernel, library, old, old,
+    library, kernel, plain); the mean of each pair, in ms."""
+    names = [n for n in ("plain", "kernel", "library", "old") if n in fns]
+    times = {n: [] for n in names}
+    for name in names + names[::-1]:
         times[name].append(time_ms(fns[name], device, iters=iters))
-    return {"ms": sum(times["kernel"]) / 2, "plain_ms": sum(times["plain"]) / 2,
-            "library_ms": sum(times["library"]) / 2}
+    out = {"ms": sum(times["kernel"]) / 2, "plain_ms": sum(times["plain"]) / 2,
+           "library_ms": sum(times["library"]) / 2}
+    if "old" in times:
+        out["old_ms"] = sum(times["old"]) / 2
+    return out
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _bound(nbytes: float, flops: float,
+           rate: float = H100_SXM_BF16_FLOPS) -> dict:
     t_bytes = nbytes / H100_SXM_BANDWIDTH * 1e3
-    t_ops = flops / H100_SXM_BF16_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -917,30 +946,110 @@ def rmsnorm_err(device, serve_rows, D: int) -> float:
     return err
 
 
-def check_rmsnorm(device, serve_rows, big_rows: int, D: int) -> dict:
+def rmsnorm_grid(prompt_rows: int, widths):
+    """phase 3's rmsnorm shapes, (label, rows, D, dtype): bf16 at the rows
+    the path launches it with (a decode step's slots, the longest serve
+    prompt, llama's 8 x 128 train step, the other families' 8 x 512) at
+    every width it runs at, and f32 at the 2-layer checks' (1024, 2048)."""
+    import torch
+
+    out = [(f"bf16 {rows}x{D}", rows, D, torch.bfloat16)
+           for D in widths
+           for rows in (SERVE_SLOTS, prompt_rows, RMS_TRAIN_ROWS,
+                        RMS_FAMILY_ROWS)]
+    return out + [(f"f32 {RMS_TRAIN_ROWS}x{widths[0]}", RMS_TRAIN_ROWS,
+                   widths[0], torch.float32)]
+
+
+def rmsnorm_floor_ms(device, iters: int = 200) -> float:
+    """The launch floor: an empty kernel from rmsnorm's library, through
+    the same ctypes path, timed as the kernel is (``time_ms``), twice."""
+    from repro_torch.kernels.rmsnorm import kernel as RK
+
+    return sum(time_ms(lambda: RK.empty_launch(device), device, iters=iters)
+               for _ in range(2)) / 2
+
+
+def rmsnorm_strided(x, w):
+    """rmsnorm forced onto its strided path: the one-block-a-row kernel
+    the row path replaced (256 threads at most, 16-byte words when
+    aligned), whose reduction order the row path keeps."""
+    from repro_torch.kernels.rmsnorm import kernel as RK
+
+    return RK._launch(x, w, 1e-6, strided=True)
+
+
+def _rotating(fn, xs):
+    """A call of ``fn`` on each of ``xs`` in turn, its output kept until
+    its turn comes round again: the inputs and the outputs each rotate
+    over ``len(xs)`` buffers, so a timed loop reads and writes HBM, not
+    what the call before left in L2.  One pass over ``xs`` is made first,
+    so the allocator holds every output's block before any call is timed
+    (a new segment's cudaMalloc would stall the queue)."""
+    import itertools
+
+    outs = [fn(x) for x in xs]
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % len(xs)
+        outs[i] = fn(xs[i])
+    return call
+
+
+def check_rmsnorm(device, serve_rows, grid) -> dict:
+    """rmsnorm against its plain version at every serve row count and at
+    every shape of ``grid`` (``rmsnorm_grid``), and there bit for bit
+    against its strided path (the old kernel, whose reduction order it
+    keeps), each timed in turns with the old kernel, its plain version and
+    ``F.rms_norm`` on inputs rotated over RMS_ROTATE_BYTES (``_rotating``:
+    every time reads x from HBM, none from the 50 MB L2), beside its bound;
+    the launch floor timed before and after the grid.  ``serve`` is the
+    decode step's bf16 (8, D) and ``large`` bf16 (4096, D), D the first
+    width."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as RK, ref
 
-    err = rmsnorm_err(device, serve_rows, D)
+    D0 = grid[0][2]
+    err = rmsnorm_err(device, serve_rows, D0)
     gen = torch.Generator(device=device).manual_seed(1)
-    w = torch.randn(D, generator=gen, device=device).to(torch.bfloat16)
-    out = {}
-    for label, rows, iters in (("serve", SERVE_SLOTS, 200),
-                               ("large", big_rows, 50)):
-        x = torch.randn(rows, D, generator=gen, device=device).to(torch.bfloat16)
-        err = max(err, _close(RK.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
-                              f"rmsnorm {rows}x{D}"))
+    floors = [rmsnorm_floor_ms(device)]
+    rows_out = []
+    for label, rows, D, dtype in grid:
+        w = torch.randn(D, generator=gen, device=device).to(dtype)
+        item = torch.tensor([], dtype=dtype).element_size()
+        copies = -(-RMS_ROTATE_BYTES // (rows * D * item))
+        pool = torch.randn(copies * rows, D, generator=gen,
+                           device=device).to(dtype)
+        xs = list(pool.split(rows))
+        x = xs[0]
+        got = RK.rmsnorm(x, w)
+        err = max(err, _close(got, ref.rmsnorm_ref(x, w), f"rmsnorm {label}"))
+        if not torch.equal(got, rmsnorm_strided(x, w)):
+            fail(f"rmsnorm {label}: the row path differs from the strided "
+                 f"loop (the one-block-a-row kernel's reduction)")
         m = _trio(device, {
-            "kernel": lambda: RK.rmsnorm(x, w),
-            "plain": lambda: ref.rmsnorm_ref(x, w),
-            "library": lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6)},
-            iters)
-        m.update(_bound((2 * rows * D + D) * 2, 4.0 * rows * D))
-        m["shape"] = f"({rows}, {D}) bf16"
-        out[label] = m
-    out["max_abs_err"] = err
-    return out
+            "kernel": _rotating(lambda x: RK.rmsnorm(x, w), xs),
+            "plain": _rotating(lambda x: ref.rmsnorm_ref(x, w), xs),
+            "library": _rotating(
+                lambda x: F.rms_norm(x, (D,), weight=w, eps=1e-6), xs),
+            "old": _rotating(lambda x: rmsnorm_strided(x, w), xs)},
+            200 if rows * D <= 2 ** 22 else 50)
+        m.update(_bound((2 * rows * D + D) * item, 4.0 * rows * D,
+                        H100_SXM_F32_FLOPS))
+        m["shape"] = f"({rows}, {D}) {str(dtype).split('.')[-1]}"
+        m["rotated_over"] = copies
+        rows_out.append(m)
+        del x, xs, pool, got, w
+    floors.append(rmsnorm_floor_ms(device))
+    floor = sum(floors) / 2
+    for m in rows_out:
+        m["floor_ms"] = floor
+    by_shape = {(r, D, dt): m for (_, r, D, dt), m in zip(grid, rows_out)}
+    return {"serve": by_shape[(SERVE_SLOTS, D0, torch.bfloat16)],
+            "large": by_shape[(RMS_FAMILY_ROWS, D0, torch.bfloat16)],
+            "grid": rows_out, "floor_ms": floor, "max_abs_err": err}
 
 
 def _bf16_randn(gen, device, *shape):
@@ -1331,6 +1440,8 @@ def report_kernel(name: str, m: dict) -> None:
     rows = [(label, m.get(label))
             for label in ("serve", "large", "zamba2", "phi3", "seamless_cross")]
     rows += sorted(m.get("hd128", {}).items())
+    if "grid" in m:     # it holds serve and large
+        rows = [("grid", r) for r in m["grid"]]
     for label, r in rows:
         if r is None:
             continue
@@ -1339,7 +1450,12 @@ def report_kernel(name: str, m: dict) -> None:
         say(f"[kernels] {name} {label} {r['shape']}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound"
+            + (f", launch floor {r['floor_ms']:.4f} ms = "
+               f"{r['ms'] / r['floor_ms']:.2f}x" if "floor_ms" in r else "")
+            + (f", old kernel {r['old_ms']:.4f} ms = "
+               f"{r['old_ms'] / r['ms']:.3f}x, inputs rotated over "
+               f"{r['rotated_over']}" if "old_ms" in r else ""))
     say(f"[kernels] {name}: max |kernel - plain| {m['max_abs_err']} "
         f"(tolerance {BF16_TOL}, bf16)")
 
@@ -4004,6 +4120,21 @@ def _predict_sharded_peak(api, opt, mesh, shardings) -> float:
     return placed + 2 * mesh.size * params + logits
 
 
+def masked_batch(batch: dict, blocks: int) -> dict:
+    """``batch`` with its labels masked unevenly over ``blocks`` equal row
+    blocks: block 0's all masked, the first half of block 1's (in row
+    order, so whole rows of it), the others' none."""
+    import numpy as np
+
+    out = {k: np.array(v) for k, v in batch.items()}
+    labels = out["labels"]
+    r = labels.shape[0] // blocks
+    labels[:r] = -1
+    if blocks > 1:
+        labels[r:2 * r].reshape(-1)[:labels[r:2 * r].size // 2] = -1
+    return out
+
+
 def launch_sharded_step(kernels: dict, smi: str):
     """Part (a): the production-mesh step on a (2, 2) mesh.  First the
     f32 check at TRAIN_CHECK_LAYERS layers (SGD-momentum, 2 steps): losses
@@ -4013,7 +4144,10 @@ def launch_sharded_step(kernels: dict, smi: str):
     sharded step's from the same seeded state: losses within
     LAUNCH_LOSS_TOL of them, model replicas bit-equal after every step,
     launches exactly mesh.size x kernel_launches(train_steps=1) a step,
-    every block equal to its block of the gathered state.  All under
+    every block equal to its block of the gathered state.  In both
+    parts, apart from the run, one step from the seeded state on both
+    sides on labels masked unevenly over the row blocks
+    (``masked_batch``), held as the run's steps are.  All under
     deterministic algorithms: the embedding's index backward accumulates
     in a racy order otherwise, and the replicas would part by rounding.
     Returns the counts, the placed state, the api and the optimizer."""
@@ -4049,34 +4183,46 @@ def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
     api = registry.get_model(f32)
     opt = make_optimizer("sgdm")
     lr = constant(1e-2)
-    a = train.train_state(api, opt, torch.Generator(device=dev).manual_seed(
-        0), device=dev)
-    b = train.make_sharded_train_step(api, opt, lr, mesh).place(a)
     plain = train.make_train_step(api, opt, lr)
     sharded = train.make_sharded_train_step(api, opt, lr, mesh)
     worst = 0.0
-    for i in range(2):
-        a, ma = plain(a, data.batch(i))
-        b, mb = sharded(b, data.batch(i))
-        la, lb = float(ma["loss"]), float(mb["loss"])
-        if abs(la - lb) > LAUNCH_F32_LOSS_RTOL * abs(la):
-            fail(f"[launch] (a) f32: sharded loss {lb} vs one position's "
-                 f"{la} at step {i}")
-    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
-        top = float(x.float().abs().max()) if x.numel() else 0.0
-        err = float((y.gather(dev).float() - x.float()).abs().max()) \
-            if x.numel() else 0.0
-        worst = max(worst, err / max(top, 1e-30))
-        if err > DP_GRAD_TOL * top + 1e-6:
-            fail(f"[launch] (a) f32: leaf {i} {err} vs max {top}")
-    del a, b, plain, sharded
+    blocks = mesh.shape["data"]
+    # two steps, then apart from them one step on labels masked unevenly
+    # over the row blocks; each run from the seeded state on both sides,
+    # so the masked step's gap is only its own rounding
+    f32_losses = []
+    for run in ([data.batch(0), data.batch(1)],
+                [masked_batch(data.batch(0), blocks)]):
+        a = train.train_state(api, opt, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        b = sharded.place(a)
+        for i, batch in enumerate(run):
+            a, ma = plain(a, batch)
+            b, mb = sharded(b, batch)
+            la, lb = float(ma["loss"]), float(mb["loss"])
+            f32_losses.append((lb, la))
+            if abs(la - lb) > LAUNCH_F32_LOSS_RTOL * abs(la):
+                fail(f"[launch] (a) f32: sharded loss {lb} vs one "
+                     f"position's {la} at step {i} of {len(run)}")
+        for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+            top = float(x.float().abs().max()) if x.numel() else 0.0
+            err = float((y.gather(dev).float() - x.float()).abs().max()) \
+                if x.numel() else 0.0
+            worst = max(worst, err / max(top, 1e-30))
+            if err > DP_GRAD_TOL * top + 1e-6:
+                fail(f"[launch] (a) f32: leaf {i} {err} vs max {top} "
+                     f"after {len(run)} step(s)")
+        del a, b
+    del plain, sharded
     t_f32 = time.perf_counter() - t_f32
     say(f"[launch] (a) f32 in {t_f32:.2f} s at {TRAIN_CHECK_LAYERS} layers, "
         f"full width, "
-        f"SGD-momentum, 2 steps on {dict(mesh.shape)}: losses within rtol "
-        f"{LAUNCH_F32_LOSS_RTOL}, every leaf within {DP_GRAD_TOL} "
-        f"of its largest element of make_train_step on one position "
-        f"(worst {worst:.3g})")
+        f"SGD-momentum, 2 steps, then from the seeded state again one on "
+        f"labels masked unevenly over the {blocks} row blocks, on "
+        f"{dict(mesh.shape)}: losses (sharded, one position) {f32_losses} "
+        f"within rtol {LAUNCH_F32_LOSS_RTOL}, every leaf within "
+        f"{DP_GRAD_TOL} of its largest element of make_train_step on one "
+        f"position (worst {worst:.3g})")
     torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(base, num_layers=LAUNCH_LAYERS)
@@ -4096,6 +4242,21 @@ def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
     fresh = lambda: train.train_state(
         api, opt, torch.Generator(device=dev).manual_seed(0), device=dev)
     plain = train.make_train_step(api, opt, lr)
+    # apart from the run: one step from the seeded state on both sides on
+    # labels masked unevenly over the row blocks (equal params: the gap
+    # is the masked mean's own rounding)
+    masked = masked_batch(data.batch(0), blocks)
+    s, m = plain(fresh(), masked)
+    masked_ref = float(m["loss"])
+    del s
+    s, m = step(step.place(fresh()), masked)
+    masked_loss = float(m["loss"])
+    _model_replicas_equal(s, mesh, "[launch] (a) the masked step")
+    del s
+    if not abs(masked_ref - masked_loss) <= \
+            LAUNCH_LOSS_TOL * (1 + abs(masked_ref)):
+        fail(f"[launch] (a) the masked step: sharded loss {masked_loss} vs "
+             f"one position's {masked_ref}")
     t_ref = time.perf_counter()
     s = fresh()
     ref = []
@@ -4136,8 +4297,11 @@ def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
     say(f"[launch] (a) sharded step, llama3.2-1b {cfg.num_layers} layers "
         f"bf16 AdamW lr {LAUNCH_LR}, batch {LAUNCH_BATCH} x {LAUNCH_SEQ} on "
         f"{dict(mesh.shape)} ({mesh.size} positions on "
-        f"{sorted({str(d) for d in mesh.positions})}): losses {losses} vs "
-        f"one position's {ref} (within {LAUNCH_LOSS_TOL} x (1 + |loss|)); "
+        f"{sorted({str(d) for d in mesh.positions})}): losses "
+        f"{losses} vs one position's {ref}, and apart from the run one "
+        f"step from the seeded state on labels masked unevenly over the "
+        f"{blocks} row blocks: {masked_loss} vs {masked_ref} (each within "
+        f"{LAUNCH_LOSS_TOL} x (1 + |loss|)); "
         f"model replicas "
         f"bit-equal after every step; every block == its block of the "
         f"gathered state; launches {counts} == {mesh.size} x "
@@ -4468,7 +4632,11 @@ def main() -> int:
     hd = cfg.resolved_head_dim
     prompts = serve_prompts(cfg.vocab_size)
     lens = [len(p) for p in prompts]
-    rms = check_rmsnorm(device, lens + [SERVE_SLOTS], 4096, cfg.d_model)
+    rms_widths = (cfg.d_model,
+                  registry.get("zamba2-2.7b").cfg.d_model,
+                  registry.get("phi-3-vision-4.2b").cfg.d_model)
+    rms = check_rmsnorm(device, lens + [SERVE_SLOTS],
+                        rmsnorm_grid(max(lens), rms_widths))
     report_kernel("rmsnorm", rms)
     flash = check_flash(device, lens, 4096, cfg.num_heads, cfg.num_kv_heads,
                         hd)
@@ -4651,7 +4819,8 @@ def main() -> int:
             ("ssd_chunks", ssd, "ssd_scan", "ssd_scan/kernel.py:56")):
         serve_m = m["serve"]
         extra = {k: m[k] for k in ("zamba2", "phi3", "seamless_cross",
-                                   "hd128", "max_abs_err_vs_split")
+                                   "hd128", "max_abs_err_vs_split", "grid",
+                                   "floor_ms")
                  if k in m}
         rows.append(dict(
             name=kname, route="cuda", source=src.format(pkg, kname),

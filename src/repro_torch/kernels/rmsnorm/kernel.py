@@ -4,8 +4,12 @@ Replaces ``repro/kernels/rmsnorm/kernel.py::rmsnorm`` (a Pallas kernel for
 the TPU): ``x * rsqrt(mean(x^2, -1) + eps) * scale`` with f32 inside and the
 result cast back.  On the H100 it is bound by memory: each row is read and
 written once, ``(2 * rows * D + D) * itemsize`` bytes at the card's
-bandwidth.  The kernel (``csrc/rmsnorm.cu``) runs one block per row with
-16-byte loads and a warp-shuffle reduction; see the source for the design.
+bandwidth.  The kernel (``csrc/rmsnorm.cu``) makes one pass with the row
+in registers, a CTA a row on a persistent grid (a strided block a row for
+rows that are not 16-byte aligned), and keeps the reduction order of the
+one-block-a-row kernel it replaced, so its results are that kernel's bit
+for bit; :func:`_plan` picks the path and the launch shape (see the
+source for the design).
 
 :func:`rmsnorm` launches the kernel for a CUDA tensor (or raises) and runs
 the plain version (:func:`~.ref.rmsnorm_ref`) only for a CPU or a
@@ -21,7 +25,9 @@ path).  The backward launches nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -31,23 +37,109 @@ from . import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_THREADS = 256
+_PATHS = {"row": 0, "strided": 1}
+H100_SMS = 132
+MAX_THREADS = 256                 # the reduction's threads: the old kernel's
+FOLDS = (1, 2)                    # its threads a thread: the source's instances
+WORDS = (1, 2, 4, 8)              # 16-byte words a reduction thread: likewise
+MAX_THREAD_WORDS = 8              # F x W, the row and the scale in registers
+FEW_ROWS = 256                    # up to here: F = 1, the most threads a row
+MANY_ROWS = 2048                  # above: F = 2, also for rows of W > 1
+WARPS_PER_SM = 64                 # the persistent grid's aim
+
+
+class Plan(NamedTuple):
+    """One launch: the source's path, F (the reduction's threads a thread)
+    and W (16-byte words a reduction thread: at most; 0 on the strided
+    path), threads a CTA and CTAs."""
+    path: str
+    fold: int
+    words: int
+    threads: int
+    grid: int
+
+
+def _plan(rows: int, D: int, itemsize: int, aligned: bool,
+          sms: int = H100_SMS) -> Plan:
+    """The launch for ``rows`` rows of ``D`` elements of ``itemsize``
+    bytes; ``aligned``: x, the scale and y start on 16-byte boundaries.
+
+    The reduction is the old kernel's, of ``V = min(256, 32 * ceil(n /
+    32))`` threads (n the row's 16-byte words, or its elements on the
+    strided path), each summing every V-th of them.  Aligned rows whose
+    ``W = ceil(words / V)`` fits go a CTA a row: ``V / F`` threads, each
+    playing F of the V, F x W words in registers (at most 8).  Up to
+    :data:`FEW_ROWS` rows F = 1 (the most threads a row: one row's latency
+    is the whole time).  Above, F = 2 where a thread would hold one word
+    (two words in flight a thread, not one), and for every row width above
+    :data:`MANY_ROWS` rows; rows of W > 1 keep F = 1 up to there, as a
+    thread already holds two words (``PERF.md`` says how these were
+    chosen).  The grid stops at about :data:`WARPS_PER_SM`
+    warps an SM, the CTAs looping over the rest.  Other rows (not 16-byte
+    aligned, or longer) go the old way, a block of V threads a row over a
+    strided loop."""
+    if rows < 1 or D < 1:
+        raise ValueError(f"rmsnorm plans at least one row of one element, "
+                         f"got {rows} x {D}")
+    row_bytes = D * itemsize
+    vec = aligned and row_bytes % 16 == 0
+    n = row_bytes // 16 if vec else D
+    V = _threads(n)
+    need = -(-n // V)
+    if vec and need <= MAX_THREAD_WORDS:
+        W = next(w for w in WORDS if w >= need)
+        fold = 1
+        if rows > FEW_ROWS and (W == 1 or rows > MANY_ROWS) and \
+                V % 64 == 0 and 2 * W <= MAX_THREAD_WORDS:
+            fold = 2
+        t = V // fold
+        return Plan("row", fold, W, t,
+                    min(rows, sms * max(1, WARPS_PER_SM // (t // 32))))
+    return Plan("strided", 1, 0, V, rows)
+
+
+def _threads(n: int) -> int:
+    """The one-block-a-row kernel's threads for a row of ``n`` 16-byte
+    words (or elements, unaligned): 32 a word, at most 256."""
+    return max(32, min(MAX_THREADS, -(-n // 32) * 32))
 
 
 _FN = None
 
 
+def _library():
+    return _build.load(SOURCE)
+
+
 def _entry_point():
     global _FN
     if _FN is None:
-        fn = _build.load(SOURCE).rmsnorm
+        fn = _library().rmsnorm
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def empty_launch(device: torch.device) -> None:
+    """One empty kernel from the same library, through the same ctypes
+    path: the launch floor rmsnorm's times are read against.  Not counted
+    in ``rmsnorm.launches``."""
+    fn = _library().rmsnorm_empty
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = _build.launch(fn, device)
+    if err:
+        raise RuntimeError(f"empty launch failed with CUDA error {err}")
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -91,8 +183,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return _launch(x, scale, float(eps))
 
 
-def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """One launch of the kernel on checked CUDA tensors."""
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            strided: bool = False) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors; ``strided``
+    forces the strided path, the one-block-a-row kernel that the row path
+    keeps the reduction order of (its results are the row path's bit for
+    bit; the card's tests and ``chip_smoke.py`` compare and time the
+    two)."""
     D = x.shape[-1]
     xm = x.contiguous()
     w = scale.contiguous()
@@ -103,13 +200,18 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if rows >= 2 ** 31:
         raise ValueError("rmsnorm takes fewer than 2^31 rows")
     item = xm.element_size()
-    vec = int(D * item % 16 == 0 and xm.data_ptr() % 16 == 0
-              and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    words = D * item // 16 if vec else D
-    threads = max(32, min(_MAX_THREADS, -(-words // 32) * 32))
+    aligned = (xm.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+               and out.data_ptr() % 16 == 0)
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    vec = int(aligned and D * item % 16 == 0)
+    plan = Plan("strided", 1, 0, _threads(D * item // 16 if vec else D),
+                rows) if strided else _plan(rows, D, item, aligned,
+                                            _sm_count(index))
     err = _build.launch(_entry_point(), x.device, xm.data_ptr(), w.data_ptr(),
                         out.data_ptr(), rows, D, float(eps), _DTYPES[x.dtype],
-                        vec, threads)
+                        _PATHS[plan.path], vec, plan.fold, plan.words,
+                        plan.threads, plan.grid)
     if err:
         raise RuntimeError(f"rmsnorm launch failed with CUDA error {err}")
     rmsnorm.launches += 1

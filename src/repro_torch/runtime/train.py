@@ -160,16 +160,37 @@ def make_train_step(api: ModelApi, optimizer: Optimizer,
     return train_step
 
 
-def loss_and_grads(api: ModelApi, params: Any, batch: Dict[str, Any]
-                   ) -> Tuple[torch.Tensor, Any]:
+def loss_and_grads(api: ModelApi, params: Any, batch: Dict[str, Any],
+                   weights: Optional[torch.Tensor] = None,
+                   aux_weight: float = 0.0) -> Tuple[torch.Tensor, Any]:
     """The loss and the gradients of one batch, under the config's
     micro-batch loop: with ``micro_batches = m > 1`` the batch splits into
     m equal slices along its first axis, the slices' gradients are summed
-    in float32 and divided by m, and the loss is the slices' mean."""
-    m = api.cfg.micro_batches
-    if m <= 1:
-        loss, metrics, grads = value_and_grad(api.loss_fn, params, batch)
-        return metrics.get("loss", loss), grads
+    in float32 and divided by m, and the loss is the slices' mean.
+
+    With ``weights`` (m of them) the objective is instead the sum over
+    the slices of ``weights[j]`` x slice j's cross-entropy (``loss_fn``'s
+    ``"loss"``) plus ``aux_weight`` x what the model adds to it (its first
+    value less the cross-entropy: 0.01 x the MoE aux loss), and nothing is
+    divided by m.  The loss returned is then the weighted cross-entropy at
+    m = 1 and the objective at m > 1."""
+    m = max(1, api.cfg.micro_batches)
+
+    def fn(j):
+        if weights is None:
+            return api.loss_fn
+
+        def weighted(p, mb):
+            total, metrics = api.loss_fn(p, mb)
+            ce = metrics["loss"]
+            return weights[j] * ce + aux_weight * (total - ce), metrics
+        return weighted
+
+    if m == 1:
+        loss, metrics, grads = value_and_grad(fn(0), params, batch)
+        if weights is None:
+            return metrics.get("loss", loss), grads
+        return weights[0] * metrics["loss"], grads
     treedef = tree_flatten(params)[1]
     gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
                                           device=p.device), params)
@@ -177,10 +198,12 @@ def loss_and_grads(api: ModelApi, params: Any, batch: Dict[str, Any]
     for i in range(m):
         mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
               for k, v in batch.items()}
-        loss, _, g = value_and_grad(api.loss_fn, params, mb)
+        loss, _, g = value_and_grad(fn(i), params, mb)
         gsum = tree_unflatten(treedef, [
             a + b for a, b in zip(tree_leaves(gsum), tree_leaves(g))])
         lsum = lsum + loss
+    if weights is not None:
+        return lsum, gsum
     return lsum / m, tree_map(lambda g: g / m, gsum)
 
 
@@ -447,9 +470,10 @@ class ShardedTrainStep:
         (``core.collectives.all_gather``, one a sharded dim);
       * each position takes the loss and gradients of its rows of the
         batch (the batch rule adapted to its size, ``adapt_batch_rule``),
-        under the config's micro-batch loop (:func:`loss_and_grads`);
-      * the gradients, each divided by the number of row blocks, are
-        summed over the batch axes with ``psum`` in position order;
+        each of its micro-slices weighted so that their sum over the
+        positions is the reference's masked mean (:func:`_label_weights`);
+      * the weighted losses and gradients are summed over the batch axes
+        with ``psum`` in position order;
       * each position updates only its own blocks of the params and the
         optimizer state (an elementwise optimizer, AdamW or SGD-momentum,
         on the blocks; another, Adafactor, on the gathered leaves, cut to
@@ -460,10 +484,18 @@ class ShardedTrainStep:
     replicates compute (their blocks of a leaf the spec replicates stay
     bit-equal when the backward is deterministic,
     ``torch.use_deterministic_algorithms``: the embedding's index backward
-    accumulates in a racy order otherwise); it shards only the state.  The loss is a mean over
-    the row blocks of each block's mean, which is the global mean when
-    every block has as many unmasked labels (MoE aux losses are then the
-    blocks' mean, where the reference's is over the global batch).
+    accumulates in a racy order otherwise); it shards only the state.
+
+    The cross-entropy is the reference's, however the masked labels
+    (below 0) fall over the row blocks: the mean over the batch's
+    ``micro_batches`` slices, in the reference's slicing, of each slice's
+    masked mean, from the label counts known before any forward pass.
+    The reported loss is the reference's metric: the masked mean at one
+    micro-batch, the slices' mean of loss + 0.01 x aux at more.  What the
+    model adds to the cross-entropy (the MoE aux loss, 0.01 x aux) is
+    taken per micro-slice of a row block and averaged over them, as is
+    MoE capacity, where the reference routes the global batch: a
+    documented divergence.
     """
 
     def __init__(self, api: ModelApi, optimizer: Optimizer,
@@ -524,17 +556,20 @@ class ShardedTrainStep:
         rows = next(iter(batch.values())).shape[0]
         axes = self.batch_axes(rows)
         n = mesh.axis_size(axes)
+        m = max(1, self.api.cfg.micro_batches)
+        weights = _label_weights(torch.as_tensor(batch["labels"]), n, m)
         batches = _split_batch(batch, mesh, axes)
         computed = [0] if traced else range(k)
         losses: List[Any] = [None] * k
         grads: List[Any] = [None] * k
         for p in computed:
+            b = mesh.index(p, axes)
+            w = weights[b * m:(b + 1) * m].to(batches[p]["labels"].device)
             with count():
                 loss, g = loss_and_grads(
                     self.api, p_def.unflatten([f[p] for f in full]),
-                    batches[p])
-                g = [t / n for t in tree_leaves(g)] if n > 1 \
-                    else tree_leaves(g)
+                    batches[p], w, 1.0 / (n * m))
+                g = tree_leaves(g)
             losses[p], grads[p], batches[p] = loss, g, None
             if elementwise:
                 for f in full:
@@ -543,7 +578,7 @@ class ShardedTrainStep:
             losses = [losses[0]] * k
             grads = [grads[0]] * k
         if axes:
-            loss = collectives.pmean(losses, mesh, axes)
+            loss = collectives.psum(losses, mesh, axes)
             for i in range(len(p_leaves)):
                 out = collectives.psum([g[i] for g in grads], mesh, axes)
                 for p in range(k):
@@ -602,6 +637,23 @@ class ShardedTrainStep:
                                          zip(new_o, o_meta)]),
                  "step": placed(new_step, (step.shape, step.dtype,
                                            step.placement))}, metrics)
+
+
+def _label_weights(labels: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """The reference's masked mean as weights on groups of rows.
+
+    The batch's rows, cut in order into ``n * m`` equal groups, are the
+    micro-slices of the ``n`` row blocks: block b's slice j is group
+    ``g = b * m + j``, and it lies inside the reference's micro-slice
+    ``i = g // n`` (its ``m`` equal slices of the whole batch).  Group g's
+    masked mean, weighted by ``max(T_g, 1) / (m * max(T_i, 1))`` (T the
+    unmasked labels, ``labels >= 0``, of the group and of its slice), sums
+    over the groups to the mean over the reference's slices of each
+    slice's masked mean.  Returns the ``n * m`` float32 weights on
+    ``labels``' device."""
+    t = (labels >= 0).reshape(n * m, -1).sum(1).to(F32)
+    per_slice = t.reshape(m, n).sum(1).clamp(min=1)
+    return t.clamp(min=1) / (m * per_slice).repeat_interleave(n)
 
 
 def make_sharded_train_step(api: ModelApi, optimizer: Optimizer,

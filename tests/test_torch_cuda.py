@@ -337,6 +337,70 @@ def test_rmsnorm_kernel_equals_plain_version(cuda, shape, dtype):
                                **_tol(dtype))
 
 
+# the rows and widths the main path launches rmsnorm with (chip_smoke
+# phase 3's grid), then the edges of its launch plan: 1 row, rows that are
+# not a multiple of a CTA's rows, rows that are not 16-byte aligned, rows
+# above 8 KB (a CTA a row) and above 64 KB (the strided loop)
+RMS_PATH_SHAPES = [((r, d), torch.bfloat16) for d in (2048, 2560, 3072)
+                   for r in (8, 938, 1024, 4096)] + [((1024, 2048),
+                                                      torch.float32)]
+RMS_EDGE_SHAPES = [((1, 2048), torch.bfloat16), ((939, 2560), torch.bfloat16),
+                   ((5, 2047), torch.bfloat16), ((3, 2050), torch.float32),
+                   ((7, 8192), torch.bfloat16), ((300, 5120), torch.float32),
+                   ((2, 65536), torch.bfloat16)]
+RMS_BF16_MAX_ERR = 0.03125      # one bf16 ulp at [4, 8)
+
+
+@pytest.mark.parametrize("shape,dtype", RMS_PATH_SHAPES + RMS_EDGE_SHAPES)
+def test_rmsnorm_at_the_path_shapes_and_the_plans_edges(cuda, shape, dtype):
+    rng = np.random.default_rng(11)
+    x = _randn(rng, shape, dtype, cuda)
+    w = _randn(rng, shape[-1:], dtype, cuda)
+    before = RK.rmsnorm.launches
+    got = RK.rmsnorm(x, w)
+    torch.cuda.synchronize(cuda)
+    assert RK.rmsnorm.launches == before + 1
+    want = RR.rmsnorm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == torch.bfloat16:
+        assert float((got.float() - want.float()).abs().max()) \
+            <= RMS_BF16_MAX_ERR
+
+
+@pytest.mark.parametrize("shape,dtype", RMS_PATH_SHAPES)
+def test_rmsnorm_row_path_equals_the_strided_loop_bit_for_bit(
+        cuda, shape, dtype):
+    """The row path keeps the reduction order of the one-block-a-row
+    kernel, which the strided path still is: forced onto the strided path,
+    the same inputs give the same bits."""
+    rng = np.random.default_rng(13)
+    x = _randn(rng, shape, dtype, cuda)
+    w = _randn(rng, shape[-1:], dtype, cuda)
+    item = x.element_size()
+    assert RK._plan(x.numel() // shape[-1], shape[-1], item, True).path \
+        == "row"
+    got = RK.rmsnorm(x, w)
+    assert torch.equal(got, RK._launch(x, w, 1e-6, strided=True))
+
+
+def test_rmsnorm_on_a_pointer_off_16_bytes(cuda):
+    """A contiguous x that starts 2 bytes past a 16-byte boundary takes
+    the strided scalar path and equals the plain version."""
+    rng = np.random.default_rng(12)
+    rows, D = 9, 2048
+    flat = _randn(rng, (rows * D + 8,), torch.bfloat16, cuda)
+    x = flat[1:1 + rows * D].view(rows, D)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert RK._plan(rows, D, 2, False).path == "strided"
+    w = _randn(rng, (D,), torch.bfloat16, cuda)
+    got = RK.rmsnorm(x, w)
+    want = RR.rmsnorm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    assert float((got.float() - want.float()).abs().max()) \
+        <= RMS_BF16_MAX_ERR
+
+
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [
     (2, 4, 2, 256, 256, 64),
     (1, 8, 8, 128, 384, 128),

@@ -18,8 +18,13 @@ up to ``lr`` between any two implementations (1.1e-4 at lr 1e-3 in a leaf
 whose largest element is 0.44); the step updates blocks by the same code
 for both elementwise optimizers.
 
+The child also takes one step from the initial state on a batch whose
+labels are masked unevenly over the row blocks of a (4, 1) mesh, at
+``micro_batches`` 1 and 2 (``dataclasses.replace`` of the smoke config).
+
 The port steps from the reference's input state of each step, on a (2, 2)
-mesh of CPU positions (the batch of 8 rows over ``data``), and is held:
+mesh of CPU positions (the batch of 8 rows over ``data``), and on the
+masked batch on a (4, 1) mesh, and is held:
 
   * the loss within rtol 1e-5;
   * every leaf of the new state, gathered, within 2e-4 of the leaf's
@@ -79,6 +84,7 @@ def few_threads():
     torch.set_num_threads(n)
 
 _CHILD = r'''
+import dataclasses
 import sys
 import jax, jax.numpy as jnp
 import numpy as np
@@ -110,6 +116,7 @@ with pspec.activate(mesh, rules):
                    in_shardings=(state_sh, batch_sh),
                    out_shardings=(state_sh, None))
     state = train_state(api, opt, jax.random.PRNGKey(0))
+    state0 = state
     for s in range(STEPS):
         for i, l in enumerate(jax.tree_util.tree_leaves(state)):
             out["%d/in/%d" % (s, i)] = np.asarray(l)
@@ -119,9 +126,44 @@ with pspec.activate(mesh, rules):
         out["%d/loss" % s] = np.asarray(metrics["loss"])
         for i, l in enumerate(jax.tree_util.tree_leaves(state)):
             out["%d/out/%d" % (s, i)] = np.asarray(l)
+# one step from the initial state on a batch whose labels are masked
+# unevenly over the four row blocks of a (4, 1) mesh, at 1 and 2 micro-batches
+masked = {k: np.array(v) for k, v in data.batch(0).items()}
+masked["labels"][0:2] = -1
+masked["labels"][2, :12] = -1
+masked["labels"][3, :4] = -1
+mesh4 = jax.make_mesh((4, 1), ("data", "model"),
+                      axis_types=(AxisType.Auto, AxisType.Auto))
+for m in (1, 2):
+    api_m = registry.get_model(dataclasses.replace(api.cfg, micro_batches=m))
+    rules4 = rules_for(api_m.cfg, mesh4, "train")
+    with pspec.activate(mesh4, rules4):
+        state_sh = tree_shardings(mesh4, train_state_axes(api_m, opt), rules4,
+                                  abstract_train_state(api_m, opt))
+        batch_sh = tree_shardings(mesh4, {k: ("batch", None) for k in masked},
+                                  rules4, specs)
+        step = jax.jit(make_train_step(api_m, opt, constant(LR)),
+                       in_shardings=(state_sh, batch_sh),
+                       out_shardings=(state_sh, None))
+        state, metrics = step(state0, {k: jnp.asarray(v, jnp.int32)
+                                       for k, v in masked.items()})
+    out["masked%d/loss" % m] = np.asarray(metrics["loss"])
+    for i, l in enumerate(jax.tree_util.tree_leaves(state)):
+        out["masked%d/out/%d" % (m, i)] = np.asarray(l)
 np.savez(sys.argv[1], **out)
 print("ok")
 '''
+
+
+def _masked_batch(batch):
+    """The child's masked batch: of a data axis of 4, row block 0 (rows
+    0-1) all masked, block 1 (rows 2-3) half masked and unevenly over its
+    two rows, blocks 2 and 3 not masked."""
+    masked = {k: np.array(v) for k, v in batch.items()}
+    masked["labels"][0:2] = -1
+    masked["labels"][2, :12] = -1
+    masked["labels"][3, :4] = -1
+    return masked
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,6 +255,34 @@ def test_sharded_step_matches_the_references_jitted_step(ref, s):
     # the state stays in the step's placements
     assert [x.placement for x in tree_leaves(state)] == \
         tree_leaves(step.shardings)
+
+
+@pytest.mark.parametrize("micro_batches", [1, 2])
+def test_sharded_step_matches_the_reference_on_masked_labels(ref,
+                                                             micro_batches):
+    """Labels masked unevenly over the row blocks of a (4, 1) mesh (one
+    block all masked, one half masked, two not): the loss and every leaf
+    of the new state equal the reference's jitted step on the whole batch,
+    whose loss is the masked mean over the batch (over each of its
+    micro-slices at ``micro_batches`` 2), not the blocks' mean."""
+    import dataclasses
+
+    opt = make_optimizer(OPT)
+    mesh = p_mesh.make_debug_mesh(4, 1, device=CPU)
+    api = p_registry.get_model(dataclasses.replace(
+        _api().cfg, micro_batches=micro_batches))
+    step = p_train.make_sharded_train_step(api, opt, constant(LR), mesh)
+    batch = _masked_batch(SyntheticLM(api.cfg.vocab_size, 16, 8).batch(0))
+    assert [int((batch["labels"][r:r + 2] >= 0).sum())
+            for r in range(0, 8, 2)] == [0, 16, 32, 32]
+    state, metrics = step(_ref_state(ref, "0/in", opt), batch)
+    want = ref[f"masked{micro_batches}/loss"]
+    np.testing.assert_allclose(float(metrics["loss"]), float(want),
+                               rtol=LOSS_RTOL)
+    for i, leaf in enumerate(tree_leaves(state)):
+        _close(leaf.gather(), ref[f"masked{micro_batches}/out/{i}"],
+               f"masked m={micro_batches} leaf {i}")
+    _check_blocks(state, mesh)
 
 
 def test_adafactor_updates_gathered_leaves_as_one_position():
