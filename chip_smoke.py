@@ -131,9 +131,9 @@ Phases, each of which raises on failure:
      with a StatePrefetcher (region ledgers == closed forms, the state
      equal bit for bit) and one OffloadedOptimizer step under marshal
      (ledger == closed form, params == the resident AdamW's); (d) under
-     deterministic algorithms, 12 steps of the model cut to 3 layers
+     deterministic algorithms, 8 steps of the model cut to 3 layers
      uninterrupted against a run with a checkpoint every 4 steps and a
-     NodeFailure at step 9: trajectory_diff empty, final states equal bit
+     NodeFailure at step 6: trajectory_diff empty, final states equal bit
      for bit; (e) after (c)'s save, the serve CLI (``python -m
      repro_torch.launch.serve``'s ``main``) at full size with its defaults
      (16 requests, 4 slots, max_seq 128, 16 new tokens) and ``--ckpt-dir``
@@ -142,11 +142,11 @@ Phases, each of which raises on failure:
      launches equal to those of a Server built on the in-memory params
      over the same requests; (f) the other families at full width, each
      on one batch repeated with (c)'s optimizer, peak lr and schedule
-     shape: mamba2-1.3b at full depth (48 layers, batch 8 x seq 512, so
+     shape: mamba2-1.3b cut to 24 of its 48 layers (batch 8 x seq 512, so
      two 256-token chunks a sequence, 8 steps), zamba2-2.7b cut to 12
      layers and moonshot-v1-16b-a3b cut to 2 (4 steps each): each update
      with a nonzero lr lowering the loss, launches exactly
-     kernel_launches(train_steps=) (ssd_chunks 48 x 2 a mamba2 step:
+     kernel_launches(train_steps=) (ssd_chunks 24 x 2 a mamba2 step:
      forward and recompute); then each of the three at 2 layers in f32,
      card vs CPU as (b).  (a) also holds ssd_chunks' autograd Function
      (y_diag, states and cum each carrying a gradient) against autograd
@@ -233,7 +233,9 @@ Phases, each of which raises on failure:
      printed.
  20. launch      — after phase 19, on four positions of phase 18's mesh (one
      card: not multi-GPU), under deterministic algorithms: (a) the
-     production-mesh step (``make_sharded_train_step``) on a (2, 2) mesh:
+     production-mesh step (``make_sharded_train_step``) on a (2, 2) mesh,
+     tensor-parallel over its model axis (each position computes its 16
+     of the 32 heads, half of d_ff and half of the vocab, ``models/tp.py``):
      llama3.2-1b at full width cut to LAUNCH_LAYERS layers, bf16, AdamW at
      LAUNCH_LR, batch 8 x 128, 3 steps from a seeded state, and apart
      from them one step from that state on labels masked unevenly over
@@ -242,7 +244,9 @@ Phases, each of which raises on failure:
      make_train_step's on one position from the same state, the model
      axis's replicas bit-equal after every step, every block equal to its
      block of the gathered state, launches exactly 4 x kernel_launches a
-     step; before it, f32 at 2 layers under SGD-momentum, 2 steps and
+     step; the median step wall and the peak, then apart from the run one
+     step's wall and, profiled, its device time and the device's idle
+     share, printed; before it, f32 at 2 layers under SGD-momentum, 2 steps and
      apart from them a masked one, within 1e-5
      (losses) and DP_GRAD_TOL (leaves) of one position; (b) (a)'s state
      saved, then restored with ``restore(shardings=)`` onto (4, 1) and
@@ -432,9 +436,10 @@ TRAIN_STEP_TOL = 2e-3
 TRAIN_STATE_LEDGERS = {"params/**": (2471628800, 1),
                        "opt/**": (9886515204, 2), "**": (4, 1)}
 OFFLOAD_LEDGER = (9886515204, 2)
-# (d): full width cut to 3 of 16 layers (4.45 GB a checkpoint, 4 saves:
-# steps 4, 8, 12 and the final one), a NodeFailure at step 9
-RESTART_LAYERS, RESTART_EVERY, RESTART_FAIL = 3, 4, 9
+# (d): full width cut to 3 of 16 layers (4.45 GB a checkpoint), 8 steps
+# (saves at steps 4 and 8; the script's wall sets the count), a
+# NodeFailure at step 6
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 3, 8, 4, 6
 # the sanitizer phase (16): passes per real-size spec (a cold and a steady
 # one; three until PR 24, cut to keep the script's wall as phase 19 came
 # in); the overhead tree (2^28 f32, 1 GiB) and its alternating rounds; the
@@ -446,19 +451,22 @@ SAN_MUTANT_N, SAN_HOLD_S = 2 ** 26, 1.0
 # (e): the serve CLI's defaults (repro_torch/launch/serve.py, the
 # reference's): requests, slots, max_seq and new tokens a request
 SERVE_CLI = {"requests": 16, "slots": 4, "max_seq": 128, "max_new": 16}
-# (f): the other families trained at full width.  mamba2-1.3b at full
-# depth, 8 steps; batch 8 x seq 512, so each sequence spans two 256-token
-# chunks and the inter-chunk recurrence carries gradient; then zamba2-2.7b
-# at its serve depth (12 of 54 layers) and moonshot-v1-16b-a3b cut to 2 of
-# 48 layers, 4 steps each; AdamW at the CLI's peak lr with the CLI's
-# schedule shape, one batch repeated.  moonshot at its serve depth of 4
+# (f): the other families trained at full width.  mamba2-1.3b cut to
+# MAMBA_TRAIN_LAYERS of its 48 layers (for the script's wall), 8 steps;
+# batch 8 x seq 512, so each sequence spans two 256-token chunks and the
+# inter-chunk recurrence carries gradient; then zamba2-2.7b at its serve
+# depth (12 of 54 layers) and moonshot-v1-16b-a3b cut to 2 of 48 layers,
+# 4 steps each; AdamW at the CLI's peak lr with the CLI's schedule shape,
+# one batch repeated.  moonshot at its serve depth of 4
 # layers (2953332736 params) does not fit: the functional AdamW holds the
 # old and the new f32 moments (2 x 23.6 GB) at once beside the params and
 # gradients, and such a run went out of memory in its first update with
 # 69.45 GB allocated (H100 80GB HBM3)
 FAMILY_BATCH, FAMILY_SEQ = 8, 512
 MOONSHOT_TRAIN_LAYERS = 2
-FAMILY_RUNS = (("mamba2-1.3b", None, 8), ("zamba2-2.7b", ZAMBA_LAYERS, 4),
+MAMBA_TRAIN_LAYERS = 24
+FAMILY_RUNS = (("mamba2-1.3b", MAMBA_TRAIN_LAYERS, 8),
+               ("zamba2-2.7b", ZAMBA_LAYERS, 4),
                ("moonshot-v1-16b-a3b", MOONSHOT_TRAIN_LAYERS, 4))
 # (f)'s card-vs-CPU check of each family at full width cut to 2 layers in
 # f32 (part (b)'s tolerance): batch 2 x seq 512 for the Mamba2 models (two
@@ -3265,7 +3273,7 @@ def train_phase(device, kernels: dict) -> dict:
                           OFFLOAD_LEDGER)
         cut = dataclasses.replace(cfg, num_layers=RESTART_LAYERS)
         restart = train_restart(device, kernels, cut, TRAIN_BATCH, TRAIN_SEQ,
-                                TRAIN_STEPS, RESTART_EVERY, RESTART_FAIL,
+                                RESTART_STEPS, RESTART_EVERY, RESTART_FAIL,
                                 root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4102,22 +4110,27 @@ def _blocks_equal_whole(state, what: str, host=None) -> None:
         del whole
 
 
-def _predict_sharded_peak(api, opt, mesh, shardings) -> float:
-    """The sharded step's predicted peak bytes on the card: the placed
-    state, every position's gathered params, every position's gradients
-    and one position's f32 logits (B/n x S x V) with their gradient."""
+def _predict_sharded_peak(step) -> float:
+    """The sharded step's predicted peak bytes on the card, the larger of
+    its two phases: the compute (the placed state, every position's
+    gathered params, its blocks of the leaves the step splits over the
+    model axis, ``gathered_param_bytes``, every position's gradients of
+    them, and one model group's f32 logits, B/n x S x V over its members,
+    with their gradient), and the update (the caller's state and the new
+    one beside every position's gradients)."""
     from repro_torch.core import tree_leaves
     from repro_torch.core.placement import position_bytes
     from repro_torch.runtime import train
 
-    state_abs = train.abstract_train_state(api, opt)
+    api, mesh = step.api, step.mesh
+    state_abs = train.abstract_train_state(api, step.optimizer)
     placed = mesh.size * position_bytes(
         [(v.shape, v.dtype, pl) for v, pl in zip(
-            tree_leaves(state_abs), tree_leaves(shardings))])
-    params = sum(math.prod(v.shape) * 2 for v in tree_leaves(api.abstract()))
+            tree_leaves(state_abs), tree_leaves(step.shardings))])
     rows = LAUNCH_BATCH // mesh.shape["data"]
     logits = 2 * rows * LAUNCH_SEQ * api.cfg.vocab_size * 4
-    return placed + 2 * mesh.size * params + logits
+    gathered = mesh.size * step.gathered_param_bytes()
+    return max(placed + 2 * gathered + logits, 2 * placed + gathered)
 
 
 def masked_batch(batch: dict, blocks: int) -> dict:
@@ -4164,6 +4177,7 @@ def launch_sharded_step(kernels: dict, smi: str):
 
 def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
     import dataclasses
+    import statistics
     import torch
     from repro_torch.core import tree_leaves
     from repro_torch.data import SyntheticLM
@@ -4216,7 +4230,7 @@ def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
     del plain, sharded
     t_f32 = time.perf_counter() - t_f32
     say(f"[launch] (a) f32 in {t_f32:.2f} s at {TRAIN_CHECK_LAYERS} layers, "
-        f"full width, "
+        f"full width, tensor-parallel over the model axis, "
         f"SGD-momentum, 2 steps, then from the seeded state again one on "
         f"labels masked unevenly over the {blocks} row blocks, on "
         f"{dict(mesh.shape)}: losses (sharded, one position) {f32_losses} "
@@ -4230,12 +4244,19 @@ def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
     opt = make_optimizer("adamw")
     lr = constant(LAUNCH_LR)
     step = train.make_sharded_train_step(api, opt, lr, mesh)
-    predicted = _predict_sharded_peak(api, opt, mesh, step.shardings)
+    if step.tp is None or not (step.tp.heads and step.tp.mlp
+                               and step.tp.vocab):
+        fail(f"[launch] (a) the step does not split heads, d_ff and vocab "
+             f"over the model axis: {step.tp}")
+    predicted = _predict_sharded_peak(step)
     say(f"[launch] (a) predicted peak of the sharded step: "
-        f"{predicted / 1e9:.2f} GB (the placed state, {mesh.size} "
-        f"positions' gathered params and gradients, one position's f32 "
-        f"logits and their gradient); limit {LAUNCH_PEAK_LIMIT / 1e9:.0f} "
-        f"GB; {cfg.num_layers} layers")
+        f"{predicted / 1e9:.2f} GB (the larger of the compute: the placed "
+        f"state, {mesh.size} positions' gathered params, "
+        f"{step.gathered_param_bytes() / 1e9:.3f} GB each: their blocks of "
+        f"heads, d_ff and vocab over the model axis, and gradients, one "
+        f"model group's f32 logits and their gradient; and the update: the "
+        f"old and new state beside the gradients); limit "
+        f"{LAUNCH_PEAK_LIMIT / 1e9:.0f} GB; {cfg.num_layers} layers")
     if predicted >= LAUNCH_PEAK_LIMIT:
         fail(f"[launch] (a) predicted peak {predicted / 1e9:.2f} GB: cut "
              f"LAUNCH_LAYERS")
@@ -4293,7 +4314,18 @@ def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):
             fail(f"[launch] (a) step {i}: sharded loss {y} vs one "
                  f"position's {x}")
     _blocks_equal_whole(state, "[launch] (a)")
+    # apart from the counted run: one step timed, then one under
+    # torch.profiler (the device ops' self time) on the same inputs
+    prof = profile_device_ms(dev, lambda: step(state, data.batch(0)),
+                             calls=1)
     tokens = LAUNCH_BATCH * LAUNCH_SEQ
+    say(f"[launch] (a) sharded step, tensor-parallel over the model axis "
+        f"(heads, d_ff and vocab), median wall "
+        f"{statistics.median(walls) * 1e3:.2f} ms, peak {peak / 1e9:.2f} GB;"
+        f" one step apart: wall {prof['wall_ms']:.2f} ms, device time "
+        f"{prof['device_ms']:.2f} ms (idle "
+        f"{100 * (1 - prof['device_ms'] / prof['wall_ms']):.1f} %), top "
+        f"{prof['top']}; {smi}")
     say(f"[launch] (a) sharded step, llama3.2-1b {cfg.num_layers} layers "
         f"bf16 AdamW lr {LAUNCH_LR}, batch {LAUNCH_BATCH} x {LAUNCH_SEQ} on "
         f"{dict(mesh.shape)} ({mesh.size} positions on "
@@ -4542,7 +4574,9 @@ def launch_dryrun() -> None:
             f"{r['flops']:.6g} FLOPs and {r['bytes_accessed']:.6g} B a "
             f"position's step, collectives "
             f"{r['collectives']['total_count']} calls / "
-            f"{r['collectives']['total_bytes']} B, trace {r['trace_s']} s; "
+            f"{r['collectives']['total_bytes']} B, gathered params "
+            f"{r['gathered_param_bytes']} B a position, trace "
+            f"{r['trace_s']} s; "
             f"step == layers x body + layer-free exactly")
     say(f"[launch] (e) {out.strip().splitlines()[-1]} in "
         f"{time.perf_counter() - t0:.2f} s")

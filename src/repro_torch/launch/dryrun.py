@@ -23,12 +23,21 @@ No card is needed: the mesh is ``make_production_mesh(device="meta")``,
     and ``bytes_accessed`` are that position's dispatched aten ops
     (``torch.utils.flop_counter``'s formulas; each op's inputs and outputs
     once);
-  * ``bodies`` are ``probe.layer_bodies``; eager PyTorch counts every
-    layer trip, so ``corrected`` is the raw count, and ``probe_check``
-    holds the step's FLOPs against the sum of trips times each body's
-    plus the FLOPs of the same step with the layers removed;
-  * ``gathered_param_bytes`` is the whole params, which every position
-    gathers for its step (the model axis replicates compute);
+    A dense train step is tensor-parallel over the model axis where
+    the placements split heads, d_ff or vocab (``models/tp.py``):
+    position 0 computes its blocks with its model group's other members
+    standing in (its tensors in their slots of the group's ``psum`` /
+    ``pmax``, which count in ``collectives``); the other families and
+    the placed prefill / decode replicate compute over the model axis;
+  * ``bodies`` are ``probe.layer_bodies`` (at the tensor-parallel widths
+    where the step splits); eager PyTorch counts every layer trip, so
+    ``corrected`` is the raw count, and ``probe_check`` holds the step's
+    FLOPs against the sum of trips times each body's plus the FLOPs of
+    the same step with the layers removed;
+  * ``gathered_param_bytes`` is the params one position gathers for its
+    step: a tensor-parallel step's blocks of the split leaves (whole
+    over the data axes) and the other leaves whole; elsewhere the whole
+    params;
   * ``trace_s`` stands where the reference reports ``lower_s`` and
     ``compile_s``; ``temp_size_in_bytes`` and ``peak_memory_in_bytes`` are
     not given (meta tensors hold no memory).
@@ -92,6 +101,7 @@ def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
                                 mesh, rules)
         state_abs = abstract_train_state(api, opt)
         arg_bytes = _placed_bytes(state_abs, step.shardings) + in_bytes
+        gathered = step.gathered_param_bytes()
         step.trace(place_tree(state_abs, step.shardings), inputs, count)
     else:
         serve = PlacedServe(api, mesh, rules)
@@ -99,6 +109,8 @@ def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
         cache_sh = tree_shardings(mesh, api.cache_axes(shape), rules,
                                   cache_abs)
         params_abs = api.abstract()
+        gathered = sum(math.prod(v.shape) * torch.empty(
+            (), dtype=v.dtype).element_size() for v in tree_leaves(params_abs))
         arg_bytes = (_placed_bytes(params_abs, serve.param_shardings)
                      + _placed_bytes(cache_abs, cache_sh) + in_bytes)
         params = place_tree(params_abs, serve.param_shardings)
@@ -112,7 +124,7 @@ def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
                               count=count)
     return {"counter": counter,
             "collectives": hlo_analysis.collective_stats(before),
-            "argument_bytes": arg_bytes}
+            "argument_bytes": arg_bytes, "gathered_param_bytes": gathered}
 
 
 def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
@@ -143,12 +155,12 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
         "flops": float(counter.total_flops),
         "bytes_accessed": float(counter.total_bytes),
         "memory": hlo_analysis.memory_dict(traced["argument_bytes"]),
-        # what a position holds once its step has gathered the params:
-        # the port replicates compute over the model axis (no tensor
-        # parallelism), so every position gathers the whole params
-        "gathered_param_bytes": sum(
-            math.prod(v.shape) * torch.empty((), dtype=v.dtype)
-            .element_size() for v in tree_leaves(api.abstract())),
+        # what a position holds once its step has gathered the params: a
+        # dense train step's blocks of the leaves it splits over the model
+        # axis, whole over the data axes, and the other leaves whole; the
+        # other families and the placed prefill / decode, which replicate
+        # compute over the model axis, gather the whole params
+        "gathered_param_bytes": traced["gathered_param_bytes"],
         "collectives": traced["collectives"],
         "census": hlo_analysis.op_census(counter),
         "bodies": [],

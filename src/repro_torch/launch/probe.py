@@ -6,13 +6,15 @@ The reference lowers one layer body a kind because XLA's
 and corrects the step's terms by ``(trips - 1) * body``.  Eager PyTorch
 dispatches every trip of the layer loop, so the port's step count is
 already whole.  :func:`layer_bodies` still runs each distinct layer body
-once, on meta tensors at one position's shapes (its rows of the batch at
-full width, the port having no tensor parallelism), under the op counter
-(``hlo_analysis.OpCounter``): forward and backward with the config's
-remat for a train shape, the forward with the per-layer cache traffic for
-prefill and decode.  The dry run uses the bodies as a check: the step's
-FLOPs equal the sum of trips times each body's plus the FLOPs of the same
-step with the layers removed (:func:`layer_free_flops`).
+once, on meta tensors at one position's shapes (its rows of the batch;
+for a dense train step that splits over the model axis, its blocks of
+the split leaves with its group's other members standing in, as the
+step's trace runs them, ``models/tp.py``; else at full width), under
+the op counter (``hlo_analysis.OpCounter``): forward and backward with
+the config's remat for a train shape, the forward with the per-layer
+cache traffic for prefill and decode.  The dry run uses the bodies as a
+check: the step's FLOPs equal the sum of trips times each body's plus the
+FLOPs of the same step with the layers removed (:func:`layer_free_flops`).
 
 Kinds, as the reference's: ``attn_block`` (dense, moe, vlm), ``ssm_block``
 and, for the hybrid, ``shared_attn`` (one a shared-block application),
@@ -20,7 +22,8 @@ and, for the hybrid, ``shared_attn`` (one a shared-block application),
 a train step's first encoder block takes no input gradient (the frames
 take none), so it is its own kind, ``enc_block_in``, and ``enc_block``
 has ``enc_layers - 1`` trips.  The port gathers the stacked params once a
-step, outside the layer loop, so a body runs no collective of its own
+step, outside the layer loop; a tensor-parallel body's sums over its
+model group are counted with the step's collectives, not the body's
 (its ``collective_*`` are 0).  :func:`corrected_terms` is the reference's
 pure function, kept for its callers; the dry run reports the raw count as
 ``corrected``.
@@ -39,6 +42,7 @@ from ..core.treepath import tree_leaves, tree_map
 from ..models import encdec as encdec_mod
 from ..models import lm as lm_mod
 from ..models import registry
+from ..models import tp as TP
 from ..models.registry import ModelApi
 from ..models.specs import abstract_params, torch_dtype
 from . import hlo_analysis
@@ -88,6 +92,33 @@ def _grad_probe(apply_fn: Callable, cfg, n_grad: int) -> Callable:
     return probe
 
 
+def tp_plan(api: ModelApi, mesh, rules: Dict):
+    """The train step's tensor-parallel plan (``models/tp.py``) of
+    ``api`` on ``mesh`` under ``rules``, or None."""
+    from .mesh import tree_shardings
+
+    return TP.plan(api.cfg, mesh, tree_shardings(
+        mesh, api.axes(), rules, api.abstract()), rules.get("batch"))
+
+
+def _member_tree(api: ModelApi, plan, mesh, grad: bool = False,
+                 blocks: bool = False) -> Any:
+    """Member 0's params on meta tensors at its blocks of the split
+    leaves (with ``blocks``, one layer of the stacked ``blocks``)."""
+    tree: Dict[Any, Any] = {}
+    for path, shape, dtype in plan.member_shapes(api.abstract(),
+                                                 mesh.shape[TP.AXIS]):
+        if blocks and path[0] != "blocks":
+            continue
+        if blocks:
+            path, shape = path[1:], shape[1:]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _meta(shape, dtype, grad)
+    return tree
+
+
 def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
                  ) -> List[Dict[str, Any]]:
     """Each distinct layer body run once on meta tensors; returns
@@ -132,7 +163,15 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
                 p, x, positions=pos, cache=c, kv_valid_len=v),
                 p, x_in(), positions(), kv_cache(), valid())
 
-    if cfg.family in lm_mod.ATTN_STACKS:
+    plan = tp_plan(api, mesh, rules) if train else None
+    if plan is not None:
+        group = plan.stand_in(mesh)
+        block = functools.partial(lm_mod._attn_block_tp, cfg, group)
+        record("attn_block", cfg.num_layers, _grad_probe(
+            lambda p, x, pos: block([p], [x], positions=[pos])[0], cfg, 2),
+            _member_tree(api, plan, mesh, True, blocks=True), x_in(),
+            positions())
+    elif cfg.family in lm_mod.ATTN_STACKS:
         attn_body("attn_block", lm_mod._attn_block_specs(cfg),
                   cfg.num_layers)
     elif cfg.family in ("ssm", "hybrid"):
@@ -205,10 +244,15 @@ def layer_free_flops(api: ModelApi, shape: InputShape, mesh, rules: Dict
     params = _meta_tree(free.abstract())
     inputs = {k: _meta(v.shape, v.dtype)
               for k, v in free.input_specs(local).items()}
+    plan = tp_plan(free, mesh, rules) if shape.mode == "train" else None
     counter = hlo_analysis.OpCounter()
     with counter:
-        if shape.mode == "train":
-            loss_and_grads(free, params, inputs)
+        if plan is not None:
+            weights = _meta((max(1, free.cfg.micro_batches),), torch.float32)
+            loss_and_grads(free, [_member_tree(free, plan, mesh)], [inputs],
+                           [weights], 0.0, plan.stand_in(mesh))
+        elif shape.mode == "train":
+            loss_and_grads(free, [params], [inputs])
         else:
             cache = _meta_tree(free.abstract_cache(local))
             fn = free.prefill if shape.mode == "prefill" else \

@@ -17,6 +17,11 @@ versions:
     the encoder's self-attention and every cross-attention (a one-token
     decode step's too, at Sq = 1) go through it non-causal.
 
+``multihead_attention(heads=)`` and ``apply_mlp(partial=True)`` are a
+tensor-parallel member's share of the attention and of the MLP, which
+``lm._attn_block_tp`` sums over a model group (``models/tp.py``) before
+:func:`mlp_bias`.
+
 The matmuls stay ``torch.matmul``: they are products outside any kernel of
 the reference.  So do LayerNorm (f32, biased variance, eps 1e-5), the qkv
 biases (added before rope) and the non-gated MLP, whose GeLU is the tanh
@@ -140,12 +145,43 @@ def _self_qkv(cfg, p, x, positions):
     return q, k, _project(x, p["wv"], p.get("bv"))
 
 
+def head_slice(cfg: ModelConfig, rank: int, count: int
+               ) -> Tuple[int, int, int, int]:
+    """Member ``rank`` of ``count`` that split the query heads: its query
+    heads [h0, h1) and the kv heads [k0, k1) their groups read."""
+    h = cfg.num_heads // count
+    g = cfg.num_heads // cfg.num_kv_heads
+    h0 = rank * h
+    return h0, h0 + h, h0 // g, (h0 + h - 1) // g + 1
+
+
+def _local_qkv(cfg, p, x, positions, heads):
+    """:func:`_self_qkv` for member ``heads = (rank, count)`` of a group
+    that splits the heads: ``p``'s ``wq`` / ``bq`` are its block, and the
+    replicated ``wk`` / ``wv`` / ``bk`` / ``bv`` are cut to the kv heads
+    its query heads read.  k and v come back with one head a query head
+    where the local heads do not map onto them as ``j // (h / kv)``."""
+    h0, h1, k0, k1 = head_slice(cfg, *heads)
+    g = cfg.num_heads // cfg.num_kv_heads
+    kv = {n: p[n][..., k0:k1, :] for n in ("wk", "wv", "bk", "bv") if n in p}
+    q = rope(_project(x, p["wq"], p.get("bq")), positions, cfg.rope_theta)
+    k = rope(_project(x, kv["wk"], kv.get("bk")), positions, cfg.rope_theta)
+    v = _project(x, kv["wv"], kv.get("bv"))
+    h, n = h1 - h0, k1 - k0
+    idx = [(h0 + j) // g - k0 for j in range(h)]
+    if h % n or idx != [j // (h // n) for j in range(h)]:
+        at = torch.tensor(idx, device=x.device)
+        k, v = k.index_select(2, at), v.index_select(2, at)
+    return q, k, v
+
+
 def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
                         positions: torch.Tensor,
                         kv_cache: Optional[Dict[str, Any]] = None,
                         causal: bool = True,
                         kv_x: Optional[torch.Tensor] = None,
-                        kv_valid_len: Optional[torch.Tensor] = None
+                        kv_valid_len: Optional[torch.Tensor] = None,
+                        heads: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """GQA attention.
 
@@ -156,13 +192,28 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     ``positions`` (index writes, where the reference blends a new cache
     with ``where`` over all of S_max); the values equal the reference's.
     The returned cache holds the same tensors.
+
+    ``heads = (rank, count)``: the self-attention of member ``rank`` of a
+    tensor-parallel group of ``count`` (``models/tp.py``), without a
+    cache: ``p``'s ``wq`` / ``bq`` / ``wo`` are its block of the heads,
+    the kv heads its heads read are cut from the replicated ones
+    (:func:`head_slice`), and the output is its partial sum over its
+    heads, which the group sums.
     """
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     offset = positions.expand(B, S)[:, 0]       # positions run offset + s
 
     new_cache = None
-    if kv_x is not None:
+    if heads is not None:
+        if kv_x is not None or kv_cache is not None:
+            raise ValueError("a tensor-parallel attention takes neither a "
+                             "cache nor cross-attention keys")
+        h = cfg.num_heads // heads[1]
+        q, k, v = _local_qkv(cfg, p, x, positions, heads)
+        ctx = mha(q, k, v, causal=causal, kv_len=kv_valid_len,
+                  q_offset=offset)
+    elif kv_x is not None:
         q = _project(x, p["wq"], p.get("bq"))
         ctx = mha(q, _project(kv_x, p["wk"]), _project(kv_x, p["wv"]),
                   causal=False, q_offset=offset)
@@ -208,15 +259,27 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
             "b_down": ParamSpec((d,), ("embed",), init="zeros")}
 
 
-def apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
+              partial: bool = False) -> torch.Tensor:
+    """The MLP; with ``partial`` a tensor-parallel member's partial sum
+    over its block of d_ff (``p``'s ``w_gate`` / ``w_up`` / ``b_up`` /
+    ``w_down`` blocks), without ``b_down``, which the group adds once to
+    the sum (:func:`mlp_bias`)."""
     if cfg.gated_mlp:
         gate = F.silu(x @ p["w_gate"].to(x.dtype))
         up = x @ p["w_up"].to(x.dtype)
-        return (gate * up) @ p["w_down"].to(x.dtype)
-    h = x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype)
-    # jax.nn.gelu's default is the tanh approximation, not the erf form
-    h = F.gelu(h, approximate="tanh")
-    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+        out = (gate * up) @ p["w_down"].to(x.dtype)
+    else:
+        h = x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype)
+        # jax.nn.gelu's default is the tanh approximation, not the erf form
+        h = F.gelu(h, approximate="tanh")
+        out = h @ p["w_down"].to(x.dtype)
+    return out if partial else mlp_bias(p, out)
+
+
+def mlp_bias(p: Dict[str, Any], out: torch.Tensor) -> torch.Tensor:
+    """``out`` plus the MLP's ``b_down``, where it has one."""
+    return out + p["b_down"].to(out.dtype) if "b_down" in p else out
 
 
 # ---------------------------------------------------------------------------

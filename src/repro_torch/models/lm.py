@@ -37,6 +37,10 @@ matmul outputs (``aten.mm``, ``aten.addmm``: the dots without batch
 dimensions that the reference's ``dots_with_no_batch_dims_saveable``
 keeps) and recomputes the rest, the kernels included.
 
+``loss_fn(..., group=)`` runs a dense model tensor-parallel over a model
+group of a mesh, its members in lock step (:func:`_forward_tp`,
+``models/tp.py``): the production-mesh train step's path.
+
 ``prefill`` and ``decode_step`` write the KV caches they are given in
 place (see :func:`~repro_torch.models.layers.multihead_attention`; a
 write at a fixed position repeats identically), and return new ``state``
@@ -57,6 +61,7 @@ from ..core.treepath import tree_leaves, tree_map
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
+from . import tp as TP
 from .specs import (ParamSpec, abstract_params, init_params, param_axes,
                     torch_dtype)
 
@@ -246,21 +251,63 @@ def _remat(cfg: ModelConfig, fn):
     return wrapped
 
 
-def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
-    """One attention block; returns (x, the block's MoE aux loss, or None
-    for a block without experts)."""
-    h = L.apply_norm(cfg, p["ln1"], x)
-    attn_out, _ = L.multihead_attention(cfg, p["attn"], h, positions=positions,
-                                        kv_cache=cache,
-                                        kv_valid_len=kv_valid_len)
-    x = x + attn_out
-    h = L.apply_norm(cfg, p["ln2"], x)
+def _attention(cfg, p, h, **kw):
+    """The attention sublayer on the normed input ``h`` (``kw``:
+    :func:`layers.multihead_attention`'s)."""
+    return L.multihead_attention(cfg, p["attn"], h, **kw)[0]
+
+
+def _ffn(cfg, p, h, partial=False):
+    """The MLP sublayer on the normed input ``h``: the MLP, or for moe the
+    experts and the dense residual MLP; returns (out, the block's MoE aux
+    loss, or None for a block without experts).  ``partial``: a
+    tensor-parallel member's share of a dense MLP, ``b_down`` left out."""
     if cfg.family != "moe":
-        return x + L.apply_mlp(cfg, p["mlp"], h), None
+        return L.apply_mlp(cfg, p["mlp"], h, partial=partial), None
     out, aux = MOE.apply_moe(cfg, p["moe"], h)
     if cfg.moe_dense_residual:
         out = out + L.apply_mlp(cfg, p["mlp"], h)
-    return x + out, aux["moe_aux_loss"]
+    return out, aux["moe_aux_loss"]
+
+
+def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
+    """One attention block; returns (x, the block's MoE aux loss, or None
+    for a block without experts)."""
+    x = x + _attention(cfg, p, L.apply_norm(cfg, p["ln1"], x),
+                       positions=positions, kv_cache=cache,
+                       kv_valid_len=kv_valid_len)
+    out, aux = _ffn(cfg, p, L.apply_norm(cfg, p["ln2"], x))
+    return x + out, aux
+
+
+def _attn_block_tp(cfg, group, ps, xs, *, positions):
+    """:func:`_attn_block` (dense, no cache) on the members of a
+    tensor-parallel model group in lock step (``models/tp.py``): ``ps``,
+    ``xs`` and ``positions`` hold one entry a computed member.  The norms
+    and the residual stream run on every member's copy, and each sublayer
+    on its share (``group.share``) between :func:`tp.enter` and
+    :func:`tp.leave`: its block of the heads or of d_ff where the region
+    splits (``group.heads``, ``group.mlp``), the whole where it does not.
+    ``b_down`` is added once, to the sum.  The replicated kv projections
+    enter the attention too: a member reads only the kv heads its query
+    heads use, so their gradients are the group's sum."""
+    split = group.heads
+    hs = TP.enter(group, [L.apply_norm(cfg, p["ln1"], x)
+                          for p, x in zip(ps, xs)], split)
+    kv = [n for n in ("wk", "wv", "bk", "bv") if n in ps[0]["attn"]]
+    shared = [TP.enter(group, [p["attn"][n] for p in ps], split) for n in kv]
+    ps_kv = [dict(p, attn=dict(p["attn"], **{n: s[j]
+                                             for n, s in zip(kv, shared)}))
+             for j, p in enumerate(ps)]
+    outs = TP.leave(group, [
+        _attention(cfg, p, h, positions=pos, heads=group.share(split, r))
+        for r, p, h, pos in zip(group.ranks, ps_kv, hs, positions)], split)
+    xs = [x + o for x, o in zip(xs, outs)]
+    hs = TP.enter(group, [L.apply_norm(cfg, p["ln2"], x)
+                          for p, x in zip(ps, xs)], group.mlp)
+    outs = TP.leave(group, [_ffn(cfg, p, h, partial=True)[0]
+                            for p, h in zip(ps, hs)], group.mlp)
+    return [x + L.mlp_bias(p["mlp"], o) for p, x, o in zip(ps, xs, outs)]
 
 
 def _ssm_block(cfg, p, x, *, cache):
@@ -359,6 +406,26 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     return logits, new_cache, aux
 
 
+def _forward_tp(cfg: ModelConfig, group, params, tokens):
+    """:func:`forward` of a dense model (no cache) on the members of a
+    tensor-parallel model group in lock step: ``params`` (each member's
+    blocks of the split leaves, the others whole) and ``tokens`` one a
+    computed member; returns each member's f32 logits, its block of the
+    vocab where ``group.vocab`` (the embedding vocab-parallel too), else
+    whole."""
+    xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
+                  L.dtype_of(cfg))
+    positions = [torch.arange(x.shape[1], device=x.device)[None, :]
+                 for x in xs]
+    block = _remat(cfg, functools.partial(_attn_block_tp, cfg, group))
+    for i in range(cfg.num_layers):
+        ps = [tree_map(lambda t: t[i], p["blocks"]) for p in params]
+        xs = block(ps, xs, positions=positions)
+    xs = TP.enter(group, [L.apply_norm(cfg, p["final_norm"], x)
+                          for p, x in zip(params, xs)], group.vocab)
+    return [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     """The reference's masked mean NLL (f32 ``log_softmax`` and gather,
     labels below 0 masked) and the count of unmasked labels."""
@@ -371,16 +438,37 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     return loss, torch.sum(mask)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+def loss_fn(cfg: ModelConfig, params, batch, rng=None, group=None):
     """Cross-entropy LM loss.  batch: {"tokens", "labels"} (B, S) integer
     tensors on the params' device, and for a vlm model optionally
     "patches" (B, P, d_model).  Returns (loss + 0.01 * aux, metrics
-    {"loss", "aux_loss", "tokens"})."""
+    {"loss", "aux_loss", "tokens"}).
+
+    With ``group`` (a dense model's tensor-parallel model group,
+    ``models/tp.py``) ``params`` and ``batch`` hold one tree a computed
+    member and so does what comes back: each member's copy of the loss
+    (the cross-entropy vocab-parallel where ``group.vocab``)."""
+    if group is not None:
+        return _loss_tp(cfg, group, params, batch)
     logits, _, aux = forward(cfg, params, batch["tokens"],
                              patches=batch.get("patches"))
     loss, tokens = cross_entropy(logits, batch["labels"])
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux, "tokens": tokens}
+
+
+def _loss_tp(cfg: ModelConfig, group, params, batch):
+    if cfg.family != "dense":
+        raise ValueError(f"tensor parallelism runs the dense family, not "
+                         f"{cfg.family!r}")
+    logits = _forward_tp(cfg, group, params, [b["tokens"] for b in batch])
+    ces = TP.cross_entropy(group, logits, [b["labels"] for b in batch])
+    totals, metrics = [], []
+    for x, (loss, tokens) in zip(logits, ces):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        totals.append(loss + 0.01 * aux)
+        metrics.append({"loss": loss, "aux_loss": aux, "tokens": tokens})
+    return totals, metrics
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,

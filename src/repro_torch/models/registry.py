@@ -157,7 +157,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             cfg, params, tokens, cache),
         init_cache=lambda b, s, device=None, abstract_only=False:
             m.init_cache(cfg, b, s, device, abstract_only),
-        loss_fn=lambda params, batch: m.loss_fn(cfg, params, batch),
+        loss_fn=lambda params, batch, **kw: m.loss_fn(cfg, params, batch,
+                                                   **kw),
         abstract=lambda: m.abstract(cfg),
         axes=lambda: m.axes(cfg),
     )

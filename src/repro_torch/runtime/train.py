@@ -19,9 +19,10 @@ The port's counterpart of ``repro/runtime/train.py``:
 ``make_sharded_train_step`` — the production-mesh step: the state in 2-D
                           placements on a named mesh (the reference's
                           jitted step under ``tree_shardings``), params
-                          gathered, gradients summed over the batch
-                          axes, each position updating its own blocks
-                          (:class:`ShardedTrainStep`).
+                          gathered, the dense family tensor-parallel
+                          over the model axis, gradients summed over the
+                          batch axes, each position updating its own
+                          blocks (:class:`ShardedTrainStep`).
 
 All are functional: a step returns a new state and writes none of its
 arguments in place.  Gradients are taken with ``torch.autograd.grad`` on
@@ -35,6 +36,7 @@ each.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -51,6 +53,7 @@ from ..core.sharded import (MeshLike, ShardedTensor, replica, replica_count,
                             replicated, resolve_mesh)
 from ..core.spec import TransferSpec
 from ..core.treepath import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..models import tp as TP
 from ..models.registry import ModelApi
 from ..optim import compression
 from ..optim.optimizers import Optimizer
@@ -101,15 +104,39 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any
     """``(loss, metrics), grads`` of ``loss_fn(params, batch)`` with
     respect to every param leaf, in the leaf's dtype (zeros for a leaf the
     loss does not reach).  Nothing of ``params`` is written."""
-    leaves, treedef = tree_flatten(params)
-    alias = [leaf.detach().requires_grad_() for leaf in leaves]
+    losses, metrics, grads = _members_value_and_grad(
+        lambda ps, bs: tuple([v] for v in loss_fn(ps[0], bs[0])), [params],
+        [batch])
+    return losses[0], metrics[0], grads[0]
+
+
+def _members_value_and_grad(fn: Callable, params: List[Any],
+                            batches: List[Any]):
+    """:func:`value_and_grad` over members that compute together (the
+    positions of a tensor-parallel model group in lock step, or one):
+    ``fn(params, batches)`` gives one loss and one metrics dict a member,
+    and the backward is seeded with each loss (every member's copy of the
+    loss flows back through its own graph, the group's sums joining
+    them).  Returns the losses, the metrics and the gradient trees, one a
+    member."""
+    flat = [tree_flatten(p) for p in params]
+    alias = [[leaf.detach().requires_grad_() for leaf in leaves]
+             for leaves, _ in flat]
     with torch.enable_grad():
-        loss, metrics = loss_fn(treedef.unflatten(alias), batch)
-        grads = torch.autograd.grad(loss, alias, allow_unused=True)
-    grads = [torch.zeros_like(a) if g is None else g
-             for a, g in zip(alias, grads)]
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            treedef.unflatten(grads))
+        losses, metrics = fn([d.unflatten(a)
+                              for (_, d), a in zip(flat, alias)], batches)
+        grads = torch.autograd.grad(
+            losses, [a for al in alias for a in al],
+            grad_outputs=[torch.ones_like(x) for x in losses],
+            allow_unused=True)
+    out, i = [], 0
+    for (_, treedef), al in zip(flat, alias):
+        gs = grads[i:i + len(al)]
+        i += len(al)
+        out.append(treedef.unflatten([torch.zeros_like(a) if g is None
+                                      else g for a, g in zip(al, gs)]))
+    return ([x.detach() for x in losses],
+            [{k: v.detach() for k, v in mt.items()} for mt in metrics], out)
 
 
 def _replicas(state: Any) -> Optional[List[Any]]:
@@ -149,7 +176,7 @@ def make_train_step(api: ModelApi, optimizer: Optimizer,
     def one_step(state, batch):
         params = state["params"]
         batch = _batch_on(batch, _device_of(params))
-        loss, grads = loss_and_grads(api, params, batch)
+        (loss, grads), = loss_and_grads(api, [params], [batch])
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(grads, state["opt"], params,
                                                lr)
@@ -160,51 +187,75 @@ def make_train_step(api: ModelApi, optimizer: Optimizer,
     return train_step
 
 
-def loss_and_grads(api: ModelApi, params: Any, batch: Dict[str, Any],
-                   weights: Optional[torch.Tensor] = None,
-                   aux_weight: float = 0.0) -> Tuple[torch.Tensor, Any]:
-    """The loss and the gradients of one batch, under the config's
-    micro-batch loop: with ``micro_batches = m > 1`` the batch splits into
-    m equal slices along its first axis, the slices' gradients are summed
-    in float32 and divided by m, and the loss is the slices' mean.
+def loss_and_grads(api: ModelApi, params: List[Any],
+                   batches: List[Dict[str, Any]],
+                   weights: Optional[List[torch.Tensor]] = None,
+                   aux_weight: float = 0.0, group: Any = None
+                   ) -> List[Tuple[torch.Tensor, Any]]:
+    """The loss and the gradients of a batch on each member that computes
+    it: one position (``group`` None: ``params`` and ``batches`` hold one
+    entry) or the computed members of a dense model's tensor-parallel
+    model group in lock step (``models/tp.py``: one entry a member, the
+    same rows on each).  Returns each member's (loss, gradients): under a
+    group its copy of the loss and its blocks of the split leaves'
+    gradients, the other leaves' whole.
 
-    With ``weights`` (m of them) the objective is instead the sum over
-    the slices of ``weights[j]`` x slice j's cross-entropy (``loss_fn``'s
-    ``"loss"``) plus ``aux_weight`` x what the model adds to it (its first
-    value less the cross-entropy: 0.01 x the MoE aux loss), and nothing is
-    divided by m.  The loss returned is then the weighted cross-entropy at
-    m = 1 and the objective at m > 1."""
+    Under the config's micro-batch loop, with ``micro_batches = m > 1``
+    the batch splits into m equal slices along its first axis, the slices'
+    gradients are summed in float32 and divided by m, and the loss is the
+    slices' mean.
+
+    With ``weights`` (one a member, m values each) the objective is
+    instead the sum over the slices of ``weights[j]`` x slice j's
+    cross-entropy (``loss_fn``'s ``"loss"``) plus ``aux_weight`` x what
+    the model adds to it (its first value less the cross-entropy: 0.01 x
+    the MoE aux loss), and nothing is divided by m.  The loss returned is
+    then the weighted cross-entropy at m = 1 and the objective at
+    m > 1."""
     m = max(1, api.cfg.micro_batches)
+    if group is None and len(params) != 1:
+        raise ValueError(f"{len(params)} members without a model group")
+
+    def loss_fn(ps, bs):
+        if group is not None:
+            return api.loss_fn(ps, bs, group=group)
+        return tuple([v] for v in api.loss_fn(ps[0], bs[0]))
 
     def fn(j):
         if weights is None:
-            return api.loss_fn
+            return loss_fn
 
-        def weighted(p, mb):
-            total, metrics = api.loss_fn(p, mb)
-            ce = metrics["loss"]
-            return weights[j] * ce + aux_weight * (total - ce), metrics
+        def weighted(ps, bs):
+            totals, metrics = loss_fn(ps, bs)
+            return [w[j] * mt["loss"] + aux_weight * (t - mt["loss"])
+                    for w, t, mt in zip(weights, totals, metrics)], metrics
         return weighted
 
     if m == 1:
-        loss, metrics, grads = value_and_grad(fn(0), params, batch)
+        losses, metrics, grads = _members_value_and_grad(fn(0), params,
+                                                         batches)
         if weights is None:
-            return metrics.get("loss", loss), grads
-        return weights[0] * metrics["loss"], grads
-    treedef = tree_flatten(params)[1]
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                          device=p.device), params)
-    lsum = torch.zeros((), dtype=F32, device=_device_of(params))
+            return [(mt.get("loss", x), g)
+                    for x, mt, g in zip(losses, metrics, grads)]
+        return [(w[0] * mt["loss"], g)
+                for w, mt, g in zip(weights, metrics, grads)]
+    treedef = tree_flatten(params[0])[1]
+    gsum = [tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                           device=p.device), ps)
+            for ps in params]
+    lsum = [torch.zeros((), dtype=F32, device=_device_of(ps))
+            for ps in params]
     for i in range(m):
-        mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
-              for k, v in batch.items()}
-        loss, _, g = value_and_grad(fn(i), params, mb)
-        gsum = tree_unflatten(treedef, [
-            a + b for a, b in zip(tree_leaves(gsum), tree_leaves(g))])
-        lsum = lsum + loss
+        mbs = [{k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+                for k, v in b.items()} for b in batches]
+        losses, _, gs = _members_value_and_grad(fn(i), params, mbs)
+        gsum = [tree_unflatten(treedef, [
+            a + b for a, b in zip(tree_leaves(s), tree_leaves(g))])
+            for s, g in zip(gsum, gs)]
+        lsum = [a + x for a, x in zip(lsum, losses)]
     if weights is not None:
-        return lsum, gsum
-    return lsum / m, tree_map(lambda g: g / m, gsum)
+        return list(zip(lsum, gsum))
+    return [(x / m, tree_map(lambda t: t / m, g)) for x, g in zip(lsum, gsum)]
 
 
 # ---------------------------------------------------------------------------
@@ -466,8 +517,10 @@ class ShardedTrainStep:
 
     A step, single-controller over the mesh's positions:
 
-      * each position gathers the whole params from their blocks
-        (``core.collectives.all_gather``, one a sharded dim);
+      * each position gathers the params from their blocks
+        (``core.collectives.all_gather``, one a sharded dim): the leaves
+        the step splits over the model axis (below) over the data axes
+        only, keeping its ``model`` block, the others whole;
       * each position takes the loss and gradients of its rows of the
         batch (the batch rule adapted to its size, ``adapt_batch_rule``),
         each of its micro-slices weighted so that their sum over the
@@ -476,15 +529,30 @@ class ShardedTrainStep:
         with ``psum`` in position order;
       * each position updates only its own blocks of the params and the
         optimizer state (an elementwise optimizer, AdamW or SGD-momentum,
-        on the blocks; another, Adafactor, on the gathered leaves, cut to
-        the block after), dropping its old blocks as it goes.
+        on the blocks; another, Adafactor, on the whole leaves, the split
+        ones gathered over the model axis too for it, cut to the block
+        after), dropping its old blocks as it goes.
 
-    The port has no tensor parallelism: positions that share a batch
-    index compute the same rows at full width, so the model axis
-    replicates compute (their blocks of a leaf the spec replicates stay
-    bit-equal when the backward is deterministic,
-    ``torch.use_deterministic_algorithms``: the embedding's index backward
-    accumulates in a racy order otherwise); it shards only the state.
+    Tensor parallelism (:attr:`tp`, ``models/tp.py``), as GSPMD
+    partitions the reference's step: for the ``dense`` family, where the
+    placements block ``heads`` (``wq``, ``bq``, ``wo``), ``mlp``
+    (``w_gate``, ``w_up``, ``b_up``, ``w_down``) or ``vocab`` (``tok``,
+    ``lm_head``) over ``model``, the positions of each model group run
+    their rows in lock step, each on its block of those leaves: its query
+    heads against the kv heads they read (``wk`` / ``wv`` stay whole, their
+    gradients summed over the group), its share of d_ff (``b_down`` added
+    once after the sum), its vocab rows of the embedding and of the
+    head's logits and cross-entropy; the norms and the residual stream
+    run on every position's copy.  A region whose leaves do not all
+    split (4 heads over 16) runs whole on every position of the group,
+    as do the other families (``moe``, ``vlm``, ``ssm``, ``hybrid``,
+    ``encdec``), the step on a mesh without a ``model`` axis of 2 or
+    more, and a batch whose rows split over ``model``: there the model
+    axis replicates compute and shards only the state.  A position's
+    blocks of a leaf the spec replicates over ``model`` stay bit-equal
+    over its group when the backward is deterministic
+    (``torch.use_deterministic_algorithms``: the embedding's index
+    backward accumulates in a racy order otherwise).
 
     The cross-entropy is the reference's, however the masked labels
     (below 0) fall over the row blocks: the mean over the batch's
@@ -511,6 +579,8 @@ class ShardedTrainStep:
         self.shardings = tree_shardings(
             mesh, train_state_axes(api, optimizer), self.rules,
             abstract_train_state(api, optimizer))
+        self.tp = TP.plan(api.cfg, mesh, self.shardings["params"],
+                          self.rules.get("batch"))
 
     def place(self, state: Any) -> Any:
         """``state`` in :attr:`shardings` (placed leaves already there are
@@ -534,8 +604,39 @@ class ShardedTrainStep:
         but one position's (position 0's) loss, gradients and update,
         each under ``count()``; the other positions' slots of the sums
         take position 0's gradients (on meta positions there are no
-        values to differ).  Returns position 0's metrics."""
+        values to differ).  Under tensor parallelism position 0's model
+        group runs with position 0 alone computed, its tensor standing in
+        for the other members' in the group's sums (``stand_in``), which
+        count as collectives.  Returns position 0's metrics."""
         return self._step(state, batch, traced=True, count=count)[1]
+
+    def _units(self, traced: bool) -> List[Tuple[List[int], Any]]:
+        """What the step computes at once, as (positions, model group):
+        each position alone (no group), or the members of each model
+        group in lock step (a :class:`tp.ModelGroup`); traced, position 0
+        or its group with member 0 computed."""
+        if self.tp is None:
+            return [([p], None)
+                    for p in ([0] if traced else range(self.mesh.size))]
+        units = []
+        for g in self.mesh.groups(TP.AXIS):
+            if traced and 0 not in g:
+                continue
+            group = self.tp.group(self.mesh, g, stand_in=traced)
+            units.append(([group.members[r] for r in group.ranks], group))
+        return units
+
+    def gathered_param_bytes(self) -> int:
+        """The bytes of params one position gathers for its step: its
+        blocks of the split leaves, whole over the data axes, and the
+        other leaves whole."""
+        out = 0
+        for i, v in enumerate(tree_leaves(self.api.abstract())):
+            n = math.prod(v.shape)
+            if self.tp is not None and self.tp.dims[i] is not None:
+                n //= self.mesh.shape[TP.AXIS]
+            out += n * torch.empty((), dtype=v.dtype).element_size()
+        return out
 
     def _step(self, state, batch, *, traced: bool, count: Callable):
         mesh, opt = self.mesh, self.optimizer
@@ -550,7 +651,9 @@ class ShardedTrainStep:
         p_pl = [m[2] for m in p_meta]
         o_pl = [m[2] for m in o_meta]
         elementwise = opt.name in _ELEMENTWISE
-        full = [gather_blocks(x) for x in p_leaves]
+        tp = self.tp
+        keep = [tp.keep(i) if tp else () for i in range(len(p_leaves))]
+        full = [gather_blocks(x, kp) for x, kp in zip(p_leaves, keep)]
         full_opt = None if elementwise else [gather_blocks(x)
                                              for x in o_leaves]
         rows = next(iter(batch.values())).shape[0]
@@ -559,21 +662,24 @@ class ShardedTrainStep:
         m = max(1, self.api.cfg.micro_batches)
         weights = _label_weights(torch.as_tensor(batch["labels"]), n, m)
         batches = _split_batch(batch, mesh, axes)
-        computed = [0] if traced else range(k)
         losses: List[Any] = [None] * k
         grads: List[Any] = [None] * k
-        for p in computed:
-            b = mesh.index(p, axes)
-            w = weights[b * m:(b + 1) * m].to(batches[p]["labels"].device)
+        for mine, group in self._units(traced):
+            b = mesh.index(mine[0], axes)
+            w = [weights[b * m:(b + 1) * m].to(batches[p]["labels"].device)
+                 for p in mine]
+            params = [p_def.unflatten([f[p] for f in full]) for p in mine]
             with count():
-                loss, g = loss_and_grads(
-                    self.api, p_def.unflatten([f[p] for f in full]),
-                    batches[p], w, 1.0 / (n * m))
-                g = tree_leaves(g)
-            losses[p], grads[p], batches[p] = loss, g, None
-            if elementwise:
-                for f in full:
-                    f[p] = None
+                out = loss_and_grads(self.api, params,
+                                     [batches[p] for p in mine], w,
+                                     1.0 / (n * m), group)
+                out = [(loss, tree_leaves(g)) for loss, g in out]
+            for p, (loss, g) in zip(mine, out):
+                losses[p], grads[p], batches[p] = loss, g, None
+                if elementwise:
+                    for f in full:
+                        f[p] = None
+            del params, out
         if traced:
             losses = [losses[0]] * k
             grads = [grads[0]] * k
@@ -585,18 +691,32 @@ class ShardedTrainStep:
                     grads[p][i] = out[p]
         else:
             loss = losses
-        metrics = {"loss": loss[0], "grad_norm": _grad_norm(grads[0])}
+        metrics = {"loss": loss[0],
+                   "grad_norm": _grad_norm(grads[0]) if tp is None
+                   else _split_grad_norm(grads, mesh, tp.dims)}
+        if tp is not None and not elementwise:
+            # the update runs on whole leaves: the split ones gathered
+            # over the model axis too, params and gradients
+            for i, d in enumerate(tp.dims):
+                if d is None:
+                    continue
+                full[i] = collectives.all_gather(full[i], mesh, TP.AXIS, d)
+                out = collectives.all_gather([g[i] for g in grads], mesh,
+                                             TP.AXIS, d)
+                for p in range(k):
+                    grads[p][i] = out[p]
         old_p = [list(x.blocks) for x in p_leaves]
         old_o = [list(x.blocks) for x in o_leaves]
         del p_leaves, o_leaves
         new_p: List[List[Any]] = [[None] * k for _ in p_pl]
         new_o: List[List[Any]] = [[None] * k for _ in o_pl]
         new_step: List[Any] = [None] * k
-        for p in computed:
+        for p in ([0] if traced else range(k)):
             with count():
                 lr = self.lr_schedule(step.blocks[p])
                 if elementwise:
-                    g = [block_of(t, pl, p) for t, pl in zip(grads[p], p_pl)]
+                    g = [block_of(t, pl, p, kp)
+                         for t, pl, kp in zip(grads[p], p_pl, keep)]
                     params = [b[p] for b in old_p]
                     ostate = [b[p] for b in old_o]
                 else:
@@ -637,6 +757,22 @@ class ShardedTrainStep:
                                          zip(new_o, o_meta)]),
                  "step": placed(new_step, (step.shape, step.dtype,
                                            step.placement))}, metrics)
+
+
+def _split_grad_norm(grads: List[List[torch.Tensor]], mesh: NamedMesh,
+                     dims: Sequence[Optional[int]]) -> torch.Tensor:
+    """The global gradient norm from each position's gradient leaves
+    under tensor parallelism: the squares of the split leaves' blocks
+    summed over the model axis, then the whole leaves' added (position
+    0's)."""
+    def squares(gs):
+        return sum((torch.sum(torch.square(g.to(F32))) for g in gs),
+                   torch.zeros((), dtype=F32, device=gs[0].device))
+    split = collectives.psum(
+        [squares([g for g, d in zip(gr, dims) if d is not None])
+         for gr in grads], mesh, TP.AXIS)
+    return torch.sqrt(split[0] + squares(
+        [g for g, d in zip(grads[0], dims) if d is None]))
 
 
 def _label_weights(labels: torch.Tensor, n: int, m: int) -> torch.Tensor:

@@ -182,22 +182,70 @@ def test_every_cell_against_the_reference(ref, arch, shape, mesh):
                   if entry_axes(e))
     if full.mode == "train":
         opt = make_optimizer(cfg.optimizer)
+        step = p_train.make_sharded_train_step(api, opt, None, m, rules)
+        plan = step.tp
+        split = 0 if plan is None else \
+            sum(d is not None for d in plan.dims)
+        # a split leaf is gathered over the data axes only
+        gathers -= split
         if opt.name not in p_train._ELEMENTWISE:
-            # the optimizer state is gathered too (updated whole)
-            opt_sh = p_train.make_sharded_train_step(
-                api, opt, None, m, rules).shardings["opt"]
-            gathers += sum(1 for pl in _leaves(opt_sh) for e in pl.spec
-                           if entry_axes(e))
-        mf = model_flops(r_registry.get(arch, smoke=True).cfg,
+            # the optimizer state is gathered too (updated whole), and a
+            # split leaf's params and gradients over the model axis
+            gathers += sum(1 for pl in _leaves(step.shardings["opt"])
+                           for e in pl.spec if entry_axes(e)) + 2 * split
+        r_cfg = r_registry.get(arch, smoke=True).cfg
+        mf = model_flops(_member_config(r_cfg, plan, m),
                          R_SHAPES[shape].smoke())
         assert 0.5 * mf < res["flops"] * blocks < 3 * mf
         assert coll["all-gather"]["count"] == gathers
         n_leaves = len(_leaves(params))
         assert coll["all-reduce"]["count"] == \
-            ((n_leaves + 1) if blocks > 1 else 0)
+            ((n_leaves + 1) if blocks > 1 else 0) + \
+            _tp_reductions(cfg, plan)
     else:
         assert coll["all-gather"]["count"] >= gathers
     assert res["corrected"]["flops"] == res["flops"]
+
+
+def _member_config(cfg, plan, mesh):
+    """``cfg`` cut to the work one member of a tensor-parallel model
+    group does (``None``: the whole model): its heads, the kv heads they
+    read, its share of d_ff and of the vocab.  The FLOPs band holds a
+    position's count, times the batch blocks, against this config's
+    ``model_flops``: the work is shared over the positions that split
+    it."""
+    import dataclasses
+
+    if plan is None:
+        return cfg
+    t = mesh.shape["model"]
+    h, g = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    kw = {"head_dim": cfg.resolved_head_dim}
+    if plan.heads:
+        kw.update(num_heads=h // t,
+                  num_kv_heads=(h // t - 1) // g + 1 if h // t >= g else 1)
+    if plan.mlp:
+        kw["d_ff"] = cfg.d_ff // t
+    if plan.vocab:
+        kw["vocab_size"] = cfg.vocab_size // t
+    return dataclasses.replace(cfg, **kw)
+
+
+def _tp_reductions(cfg, plan):
+    """The all-reduces a dense step's tensor parallelism adds (position
+    0's group, each micro-batch): per layer, the attention's exit psum
+    and, in the backward, its entry's and the kv projections' (wk, wv,
+    and bk, bv with qkv biases), the MLP's exit and entry psums, each
+    exit once more under remat; the vocab-parallel embedding's exit, the
+    head's entry, the cross-entropy's pmax and its two psums; then the
+    gradient norm's psum."""
+    if plan is None:
+        return 0
+    redo = cfg.remat != "none"
+    layer = plan.heads * (2 + redo + (4 if cfg.qkv_bias else 2)) + \
+        plan.mlp * (2 + redo)
+    head = plan.vocab * 5
+    return max(1, cfg.micro_batches) * (cfg.num_layers * layer + head) + 1
 
 
 def _leaves(tree):
@@ -295,3 +343,79 @@ def test_sharded_step_trace_counts_one_position():
     assert one > 0
     st = hlo_analysis.collective_stats(before)
     assert st["per_op"]["all-reduce"]["count"] > 0
+
+
+def test_a_dense_cells_gathered_bytes_are_its_model_blocks():
+    """A dense train cell's ``gathered_param_bytes``: each param leaf's
+    block over the model axis (where its placement blocks a dim over
+    ``model``), whole over the data axes, summed; the whole params where
+    nothing splits (a vlm cell)."""
+    import math
+
+    def whole_over_data(arch):
+        api = p_registry.get(arch, smoke=True)
+        m = p_mesh.make_production_mesh(device="meta")
+        rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, "train"),
+                                        m, SHAPES["train_4k"].smoke()
+                                        .global_batch)
+        out = 0
+        for v, pl in zip(_leaves(api.abstract()), _leaves(
+                p_mesh.tree_shardings(m, api.axes(), rules, api.abstract()))):
+            n = math.prod(v.shape)
+            if any(entry_axes(e) == ("model",) for e in pl.spec):
+                n //= m.shape["model"]
+            out += n * v.dtype.itemsize
+        return out, sum(math.prod(v.shape) * v.dtype.itemsize
+                        for v in _leaves(api.abstract()))
+
+    got = _grid()["llama3.2-1b|train_4k|single"]["gathered_param_bytes"]
+    want, whole = whole_over_data("llama3.2-1b")
+    assert got == want < whole
+    got = _grid()["phi-3-vision-4.2b|train_4k|single"]["gathered_param_bytes"]
+    assert got == whole_over_data("phi-3-vision-4.2b")[1]
+
+
+def test_tensor_parallel_trace_splits_the_matmuls():
+    """Position 0's traced step on a (2, 2) CPU mesh, llama3.2-1b smoke at
+    vocab 256 (heads, d_ff and vocab split over the model axis): its
+    ``aten.mm`` + ``aten.bmm`` FLOPs equal the closed form of a member's
+    matmuls (the q / o projections, the attention, the MLP and the head
+    at half their width, ``wk`` / ``wv`` at the one kv head its two query
+    heads read), each 3x (the forward and the two gradients' products),
+    which is half the replicated step's."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticLM
+
+    api = p_registry.get_model(dataclasses.replace(
+        p_registry.get("llama3.2-1b", smoke=True).cfg, vocab_size=256))
+    cfg = api.cfg
+    opt = make_optimizer("sgdm")
+    mesh = p_mesh.make_debug_mesh(2, 2, device="cpu")
+    step = p_train.make_sharded_train_step(api, opt, lambda s: s * 0.0,
+                                           mesh)
+    state = p_train.train_state(api, opt, torch.Generator().manual_seed(0),
+                                device="cpu")
+    B, S = 8, 16
+    counter = hlo_analysis.OpCounter()
+    before = hlo_analysis.stats_snapshot()
+    step.trace(step.place(state), SyntheticLM(256, S, B).batch(0),
+               lambda: counter)
+    got = counter.flops["aten.mm"] + counter.flops["aten.bmm"]
+
+    def closed(heads, kv_heads, d_ff, vocab):
+        b = B // mesh.shape["data"]
+        n, d, hd = b * S, cfg.d_model, cfg.resolved_head_dim
+        proj = 2 * n * d * hd * (2 * heads + 2 * kv_heads)
+        attn = 2 * 2 * b * heads * S * S * hd
+        mlp = 3 * 2 * n * d * d_ff
+        return 3 * (cfg.num_layers * (proj + attn + mlp) + 2 * n * d * vocab)
+
+    assert got == closed(cfg.num_heads // 2, 1, cfg.d_ff // 2,
+                         cfg.vocab_size // 2)
+    assert 2 * got == closed(cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+                             cfg.vocab_size)
+    coll = hlo_analysis.collective_stats(before)["per_op"]
+    n_leaves = len(_leaves(api.abstract()))
+    assert coll["all-reduce"]["count"] == n_leaves + 1 + \
+        _tp_reductions(cfg, step.tp)

@@ -70,6 +70,7 @@ CPU = "cpu"
 LOSS_RTOL = 1e-5
 STATE_RTOL, ATOL = 2e-4, 1e-6
 STEPS = 3
+SC2_STEPS = 2
 LR = 1e-3
 OPT = "sgdm"
 
@@ -101,55 +102,73 @@ opt = make_optimizer("OPT")
 data = SyntheticLM(api.cfg.vocab_size, 16, 8)
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(AxisType.Auto, AxisType.Auto))
-rules = rules_for(api.cfg, mesh, "train")
+batch = data.batch(0)
+specs = {k: jax.ShapeDtypeStruct(v.shape, jnp.int32)
+         for k, v in batch.items()}
 out = {}
-with pspec.activate(mesh, rules):
-    state_abs = abstract_train_state(api, opt)
-    state_sh = tree_shardings(mesh, train_state_axes(api, opt), rules,
-                              state_abs)
-    batch = data.batch(0)
-    specs = {k: jax.ShapeDtypeStruct(v.shape, jnp.int32)
-             for k, v in batch.items()}
-    batch_sh = tree_shardings(mesh, {k: ("batch", None) for k in batch},
-                              rules, specs)
-    step = jax.jit(make_train_step(api, opt, constant(LR)),
+
+
+def jitted(api_x, mesh_x):
+    rules_x = rules_for(api_x.cfg, mesh_x, "train")
+    with pspec.activate(mesh_x, rules_x):
+        state_sh = tree_shardings(mesh_x, train_state_axes(api_x, opt),
+                                  rules_x, abstract_train_state(api_x, opt))
+        batch_sh = tree_shardings(mesh_x, {k: ("batch", None) for k in specs},
+                                  rules_x, specs)
+    step = jax.jit(make_train_step(api_x, opt, constant(LR)),
                    in_shardings=(state_sh, batch_sh),
                    out_shardings=(state_sh, None))
-    state = train_state(api, opt, jax.random.PRNGKey(0))
-    state0 = state
-    for s in range(STEPS):
+
+    def call(state, batch):
+        with pspec.activate(mesh_x, rules_x):
+            return step(state, {k: jnp.asarray(v, jnp.int32)
+                                for k, v in batch.items()})
+    return call
+
+
+def run(tag, api_x, steps):
+    """``steps`` steps from PRNGKey(0) on the (2, 2) mesh; returns the
+    initial state."""
+    data_x = SyntheticLM(api_x.cfg.vocab_size, 16, 8)
+    step = jitted(api_x, mesh)
+    state = state0 = train_state(api_x, opt, jax.random.PRNGKey(0))
+    for s in range(steps):
         for i, l in enumerate(jax.tree_util.tree_leaves(state)):
-            out["%d/in/%d" % (s, i)] = np.asarray(l)
-        batch = {k: jnp.asarray(v, jnp.int32) for k, v in
-                 data.batch(s).items()}
-        state, metrics = step(state, batch)
-        out["%d/loss" % s] = np.asarray(metrics["loss"])
+            out["%s%d/in/%d" % (tag, s, i)] = np.asarray(l)
+        state, metrics = step(state, data_x.batch(s))
+        out["%s%d/loss" % (tag, s)] = np.asarray(metrics["loss"])
         for i, l in enumerate(jax.tree_util.tree_leaves(state)):
-            out["%d/out/%d" % (s, i)] = np.asarray(l)
-# one step from the initial state on a batch whose labels are masked
-# unevenly over the four row blocks of a (4, 1) mesh, at 1 and 2 micro-batches
-masked = {k: np.array(v) for k, v in data.batch(0).items()}
-masked["labels"][0:2] = -1
-masked["labels"][2, :12] = -1
-masked["labels"][3, :4] = -1
+            out["%s%d/out/%d" % (tag, s, i)] = np.asarray(l)
+    return state0
+
+
+def masked_steps(tag, api_x, mesh_x, state0):
+    """One step from ``state0`` on a batch whose labels are masked
+    unevenly over the row blocks, at 1 and 2 micro-batches."""
+    masked = {k: np.array(v) for k, v in
+              SyntheticLM(api_x.cfg.vocab_size, 16, 8).batch(0).items()}
+    masked["labels"][0:2] = -1
+    masked["labels"][2, :12] = -1
+    masked["labels"][3, :4] = -1
+    for m in (1, 2):
+        api_m = registry.get_model(dataclasses.replace(api_x.cfg,
+                                                       micro_batches=m))
+        state, metrics = jitted(api_m, mesh_x)(state0, masked)
+        out["%s%d/loss" % (tag, m)] = np.asarray(metrics["loss"])
+        for i, l in enumerate(jax.tree_util.tree_leaves(state)):
+            out["%s%d/out/%d" % (tag, m, i)] = np.asarray(l)
+
+
+state0 = run("", api, STEPS)
+# labels masked unevenly over the four row blocks of a (4, 1) mesh
 mesh4 = jax.make_mesh((4, 1), ("data", "model"),
                       axis_types=(AxisType.Auto, AxisType.Auto))
-for m in (1, 2):
-    api_m = registry.get_model(dataclasses.replace(api.cfg, micro_batches=m))
-    rules4 = rules_for(api_m.cfg, mesh4, "train")
-    with pspec.activate(mesh4, rules4):
-        state_sh = tree_shardings(mesh4, train_state_axes(api_m, opt), rules4,
-                                  abstract_train_state(api_m, opt))
-        batch_sh = tree_shardings(mesh4, {k: ("batch", None) for k in masked},
-                                  rules4, specs)
-        step = jax.jit(make_train_step(api_m, opt, constant(LR)),
-                       in_shardings=(state_sh, batch_sh),
-                       out_shardings=(state_sh, None))
-        state, metrics = step(state0, {k: jnp.asarray(v, jnp.int32)
-                                       for k, v in masked.items()})
-    out["masked%d/loss" % m] = np.asarray(metrics["loss"])
-    for i, l in enumerate(jax.tree_util.tree_leaves(state)):
-        out["masked%d/out/%d" % (m, i)] = np.asarray(l)
+masked_steps("masked", api, mesh4, state0)
+# the vocab split over the model axis too (257 does not divide by 2)
+api256 = registry.get_model(dataclasses.replace(api.cfg, vocab_size=256))
+masked_steps("v256masked", api256, mesh, run("v256/", api256, STEPS))
+# LayerNorm, the GeLU MLP with b_up / b_down, the qkv biases
+run("sc2/", registry.get("starcoder2-3b", smoke=True), SC2_STEPS)
 np.savez(sys.argv[1], **out)
 print("ok")
 '''
@@ -173,7 +192,8 @@ def reference_sharded_steps(path: str) -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=str(ROOT / "src"))
-    code = _CHILD.replace("STEPS", str(STEPS)).replace("LR", repr(LR)) \
+    code = _CHILD.replace("SC2_STEPS", str(SC2_STEPS)) \
+        .replace("STEPS", str(STEPS)).replace("LR", repr(LR)) \
         .replace("OPT", OPT)
     proc = subprocess.run([sys.executable, "-c", code, path], env=env,
                           cwd=ROOT, capture_output=True, text=True,
@@ -208,8 +228,8 @@ def _mesh():
     return p_mesh.make_debug_mesh(2, 2, device=CPU)
 
 
-def _ref_state(ref, prefix, opt):
-    template = p_train.abstract_train_state(_api(), opt)
+def _ref_state(ref, prefix, opt, api=None):
+    template = p_train.abstract_train_state(api or _api(), opt)
     leaves_t, treedef = tree_flatten(template)
     return train_state_from_reference(treedef.unflatten(
         [ref[f"{prefix}/{i}"] for i in range(len(leaves_t))]), CPU)
@@ -282,6 +302,73 @@ def test_sharded_step_matches_the_reference_on_masked_labels(ref,
     for i, leaf in enumerate(tree_leaves(state)):
         _close(leaf.gather(), ref[f"masked{micro_batches}/out/{i}"],
                f"masked m={micro_batches} leaf {i}")
+    _check_blocks(state, mesh)
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_api(tag):
+    """The tensor-parallel cases' models: llama3.2-1b smoke at vocab 256
+    (heads, d_ff and vocab all split over a model axis of 2), and
+    starcoder2-3b smoke (vocab 257 does not split; LayerNorm, the GeLU
+    MLP's b_up / b_down, qkv biases)."""
+    import dataclasses
+
+    if tag == "v256":
+        return p_registry.get_model(dataclasses.replace(_api().cfg,
+                                                        vocab_size=256))
+    return p_registry.get("starcoder2-3b", smoke=True)
+
+
+TP_CASES = [("v256", s) for s in range(STEPS)] + \
+    [("sc2", s) for s in range(SC2_STEPS)]
+
+
+@pytest.mark.parametrize("tag,s", TP_CASES)
+def test_tensor_parallel_step_matches_the_references_jitted_step(ref, tag,
+                                                                 s):
+    """The dense step tensor-parallel over the model axis of a (2, 2)
+    mesh (each position computes its heads, its share of d_ff and, at
+    vocab 256, of the vocab) against the reference's jitted step under
+    its shardings: the loss, every leaf and every block, at the
+    tolerances above."""
+    api = _tp_api(tag)
+    opt = make_optimizer(OPT)
+    mesh = _mesh()
+    step = p_train.make_sharded_train_step(api, opt, constant(LR), mesh)
+    assert (step.tp.heads, step.tp.mlp, step.tp.vocab) == \
+        (True, True, tag == "v256")
+    data = SyntheticLM(api.cfg.vocab_size, 16, 8)
+    state, metrics = step(_ref_state(ref, f"{tag}/{s}/in", opt, api),
+                          data.batch(s))
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               float(ref[f"{tag}/{s}/loss"]), rtol=LOSS_RTOL)
+    for i, leaf in enumerate(tree_leaves(state)):
+        _close(leaf.gather(), ref[f"{tag}/{s}/out/{i}"],
+               f"{tag} step {s} leaf {i}")
+    _check_blocks(state, mesh)
+
+
+@pytest.mark.parametrize("micro_batches", [1, 2])
+def test_tensor_parallel_step_on_masked_labels(ref, micro_batches):
+    """The masked batch (its labels masked unevenly over the row blocks)
+    at vocab 256 on a (2, 2) mesh, every region split over the model
+    axis, against the reference's jitted step on the whole batch."""
+    import dataclasses
+
+    opt = make_optimizer(OPT)
+    mesh = _mesh()
+    api = p_registry.get_model(dataclasses.replace(
+        _tp_api("v256").cfg, micro_batches=micro_batches))
+    step = p_train.make_sharded_train_step(api, opt, constant(LR), mesh)
+    assert step.tp.vocab
+    batch = _masked_batch(SyntheticLM(api.cfg.vocab_size, 16, 8).batch(0))
+    state, metrics = step(_ref_state(ref, "v256/0/in", opt, api), batch)
+    np.testing.assert_allclose(
+        float(metrics["loss"]), float(ref[f"v256masked{micro_batches}/loss"]),
+        rtol=LOSS_RTOL)
+    for i, leaf in enumerate(tree_leaves(state)):
+        _close(leaf.gather(), ref[f"v256masked{micro_batches}/out/{i}"],
+               f"v256 masked m={micro_batches} leaf {i}")
     _check_blocks(state, mesh)
 
 
