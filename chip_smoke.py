@@ -142,13 +142,13 @@ Phases, each of which raises on failure:
      launches equal to those of a Server built on the in-memory params
      over the same requests; (f) the other families at full width, each
      on one batch repeated with (c)'s optimizer, peak lr and schedule
-     shape: mamba2-1.3b cut to 24 of its 48 layers (batch 8 x seq 512, so
+     shape: mamba2-1.3b cut to 8 of its 48 layers (batch 8 x seq 512, so
      two 256-token chunks a sequence, 8 steps), zamba2-2.7b cut to 12
      layers and moonshot-v1-16b-a3b cut to 2 (4 steps each): each update
      with a nonzero lr lowering the loss, launches exactly
-     kernel_launches(train_steps=) (ssd_chunks 24 x 2 a mamba2 step:
-     forward and recompute); then each of the three at 2 layers in f32,
-     card vs CPU as (b).  (a) also holds ssd_chunks' autograd Function
+     kernel_launches(train_steps=) (ssd_chunks 8 x 2 a mamba2 step:
+     forward and recompute); then each of the three in f32 (mamba2 and
+     zamba2 at 2 layers, moonshot at 1), card vs CPU as (b).  (a) also holds ssd_chunks' autograd Function
      (y_diag, states and cum each carrying a gradient) against autograd
      of the plain version at mamba2's widths.  Printed: step wall,
      tokens/s, device time vs wall of one step, peak device memory,
@@ -233,10 +233,21 @@ Phases, each of which raises on failure:
      printed.
  20. launch      — after phase 19, on four positions of phase 18's mesh (one
      card: not multi-GPU), under deterministic algorithms: (a) the
-     production-mesh step (``make_sharded_train_step``) on a (2, 2) mesh,
-     tensor-parallel over its model axis (each position computes its 16
-     of the 32 heads, half of d_ff and half of the vocab, ``models/tp.py``):
-     llama3.2-1b at full width cut to LAUNCH_LAYERS layers, bf16, AdamW at
+     production-mesh step (``make_sharded_train_step``) tensor-parallel
+     over its model axis (``models/tp.py``), first for the vlm and the MoE
+     family: phi-3-vision-4.2b on (2, 2) (heads, d_ff and vocab split; 576
+     seeded patch embeddings a row) and moonshot-v1-16b-a3b on (1, 4)
+     (heads, every expert's d_ff and vocab split; the one row block routes
+     as one position does), each at full width cut to 2 layers, bf16,
+     AdamW, batch 8 x 128, 2 steps: the regions split as listed, the
+     predicted peak under the limit, the losses within LAUNCH_LOSS_TOL of
+     make_train_step's on one position, the replicas bit-equal, every
+     block equal to the gathered state's, launches exactly mesh size x
+     kernel_launches a step; the median wall, peak, gathered params and
+     one profiled step's device time and idle share printed.  Then on a
+     (2, 2) mesh (each position computes its 16 of the 32 heads, half of
+     d_ff and half of the vocab): llama3.2-1b at full width cut to
+     LAUNCH_LAYERS layers, bf16, AdamW at
      LAUNCH_LR, batch 8 x 128, 3 steps from a seeded state, and apart
      from them one step from that state on labels masked unevenly over
      the row blocks (block 0 all masked, half of block 1): the predicted
@@ -287,10 +298,10 @@ and requests launches; a train step launches rmsnorm 2L + 1 and flash L times pe
 forward, and under remat the blocks' 2L and L again in the backward
 (llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again); the
 dp phase launches a train step's count on every position of every step
-(4 x 33 rmsnorm and 4 x 16 flash a dp step at 8 layers; each of an elastic
+(4 x 17 rmsnorm and 4 x 8 flash a dp step at 4 layers; each of an elastic
 survivor's m positions a step's count) and nothing in the MoE layer;
-the launch phase's sharded step launches 4 x a train step's count a step
-and its placed prefill and decode what kernel_launches gives for 2 x the
+the launch phase's sharded steps launch 4 x a train step's count a step
+(llama, phi-3-vision and moonshot) and its placed prefill and decode what kernel_launches gives for 2 x the
 prompts (the slot's two holders) and 4 x the steps.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line (launches summed over the serve phases 8-12 and 17, and per phase,
@@ -464,15 +475,17 @@ SERVE_CLI = {"requests": 16, "slots": 4, "max_seq": 128, "max_new": 16}
 # 69.45 GB allocated (H100 80GB HBM3)
 FAMILY_BATCH, FAMILY_SEQ = 8, 512
 MOONSHOT_TRAIN_LAYERS = 2
-MAMBA_TRAIN_LAYERS = 24
+MAMBA_TRAIN_LAYERS = 8
 FAMILY_RUNS = (("mamba2-1.3b", MAMBA_TRAIN_LAYERS, 8),
                ("zamba2-2.7b", ZAMBA_LAYERS, 4),
                ("moonshot-v1-16b-a3b", MOONSHOT_TRAIN_LAYERS, 4))
-# (f)'s card-vs-CPU check of each family at full width cut to 2 layers in
-# f32 (part (b)'s tolerance): batch 2 x seq 512 for the Mamba2 models (two
-# chunks), 2 x 128 for moonshot
-FAMILY_CHECK_SEQ = {"mamba2-1.3b": 512, "zamba2-2.7b": 512,
-                    "moonshot-v1-16b-a3b": TRAIN_SEQ}
+# (f)'s card-vs-CPU check of each family at full width in f32 (part (b)'s
+# tolerance), (layers, seq) at batch 2: the Mamba2 models at 2 layers and
+# seq 512 (two chunks); moonshot at 1 layer (for the script's wall: at 2,
+# its 1.8e9 f32 params on the CPU took 35 s) and seq 128
+FAMILY_CHECK = {"mamba2-1.3b": (TRAIN_CHECK_LAYERS, 512),
+                "zamba2-2.7b": (TRAIN_CHECK_LAYERS, 512),
+                "moonshot-v1-16b-a3b": (1, TRAIN_SEQ)}
 # the multimodal phase (17): phi-3-vision-4.2b and seamless-m4t-medium at
 # full size.  The registry run: MM_REQUESTS requests of MM_PROMPT_RANGE
 # text tokens (numpy default_rng(17)), MM_NEW_TOKENS greedy tokens each;
@@ -520,23 +533,25 @@ SHARD_PASSES = 3
 SHARD_POLICY_N = 2 ** 25
 # the dp phase (19): SHARD_K positions of the same mesh.  (a) the dp step on
 # llama3.2-1b at full width cut to DP_LAYERS of 16 layers (PERF.md §4: four
-# replicas of params and AdamW moments, 7.5 GB each, and the update's new
-# set beside the old), batch DP_BATCH x DP_SEQ (two rows a position), AdamW
-# at the CLI's peak lr, DP_STEPS steps a scheme; the K slices' float32
+# replicas of params and AdamW moments and the update's new set beside the
+# old; the depth set by the script's wall), batch DP_BATCH x DP_SEQ (two
+# rows a position), AdamW at the CLI's peak lr, DP_STEPS steps a scheme;
+# the K slices' float32
 # gradients summed against K x the dp-1 gradient within DP_GRAD_TOL of each
 # leaf's largest element; int8's losses within DP_INT8_LOSS_TOL of
 # pertensor's (the reference's tests/test_distributed.py bound).  (b) one moonshot MoE layer
 # at full width, x (MOE_BATCH, MOE_SEQ, d).  (c) run_elastic over
 # ELASTIC_EPISODES on llama3.2-1b at full width cut to ELASTIC_LAYERS
-# layers (3.85 GB of train state a checkpoint), benchmarks/elastic_restart
-# .py's batch, steps, crash and checkpoint interval
+# layers (3.23 GB of train state a checkpoint; the depth set by the
+# script's wall), benchmarks/elastic_restart.py's batch, steps, crash and
+# checkpoint interval
 DP_K = SHARD_K
-DP_LAYERS = 8
+DP_LAYERS = 4
 DP_BATCH, DP_SEQ, DP_STEPS = 8, 128, 3
 DP_GRAD_TOL = 2e-2
 DP_INT8_LOSS_TOL = 0.1
 MOE_BATCH, MOE_SEQ = 8, 128
-ELASTIC_LAYERS = 2
+ELASTIC_LAYERS = 1
 ELASTIC_BATCH, ELASTIC_SEQ = 4, 32
 ELASTIC_STEPS, ELASTIC_CRASH, ELASTIC_EVERY = 8, 6, 4
 ELASTIC_EPISODES = ((4, 2), (2, 4))
@@ -556,7 +571,7 @@ ELASTIC_EPISODES = ((4, 2), (2, 4))
 # steps.  (d) the four examples at small sizes.  (e) the dry run's
 # llama3.2-1b train_4k cell on both production meshes.
 LAUNCH_MESH = (2, 2)
-LAUNCH_LAYERS = 8                        # of 16: the script's wall (PERF.md)
+LAUNCH_LAYERS = 4                        # of 16: the script's wall (PERF.md)
 LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS = 8, 128, 3
 LAUNCH_LR = 3e-4
 LAUNCH_LOSS_TOL = 2e-2                   # bf16 sharded vs one position,
@@ -565,6 +580,17 @@ LAUNCH_F32_LOSS_RTOL = 1e-5             # f32 losses; the leaves: DP_GRAD_TOL
 LAUNCH_PEAK_LIMIT = 70e9
 LAUNCH_RESTORE_MESHES = ((4, 1), (1, 4))
 LAUNCH_PROMPTS, LAUNCH_NEW = 8, 8
+# (a) also the vlm and the MoE family tensor-parallel over the model axis,
+# each at full width cut to LAUNCH_FAMILY_LAYERS layers, bf16, AdamW at
+# LAUNCH_LR, LAUNCH_BATCH x LAUNCH_SEQ text tokens, LAUNCH_FAMILY_STEPS
+# steps, against make_train_step on one position: phi-3-vision-4.2b on
+# (2, 2) with its 576 seeded patch embeddings a row; moonshot-v1-16b-a3b on
+# (1, 4), whose one row block is the whole batch, so routing, capacity
+# and the aux loss are one position's.  With the regions each must split.
+LAUNCH_FAMILIES = (("phi-3-vision-4.2b", (2, 2), ("heads", "mlp", "vocab")),
+                   ("moonshot-v1-16b-a3b", (1, 4),
+                    ("heads", "vocab", "experts")))
+LAUNCH_FAMILY_LAYERS, LAUNCH_FAMILY_STEPS = 2, 2
 CUDA_ALLOC_GRANULE = 512                 # the caching allocator's rounding
 
 
@@ -3286,12 +3312,11 @@ def train_phase(device, kernels: dict) -> dict:
         out[f"train-{arch.split('-')[0]}"] = train_family(
             device, kernels, fcfg, FAMILY_BATCH, FAMILY_SEQ, steps)
     for arch, _, _ in FAMILY_RUNS:
-        f32 = dataclasses.replace(registry.get(arch).cfg,
-                                  num_layers=TRAIN_CHECK_LAYERS,
+        layers, seq = FAMILY_CHECK[arch]
+        f32 = dataclasses.replace(registry.get(arch).cfg, num_layers=layers,
                                   param_dtype="float32",
                                   compute_dtype="float32")
-        train_card_vs_cpu(device, f32, TRAIN_CHECK_BATCH,
-                          FAMILY_CHECK_SEQ[arch], part="f")
+        train_card_vs_cpu(device, f32, TRAIN_CHECK_BATCH, seq, part="f")
     say(f"[train] phase 15 ok in {time.perf_counter() - t0:.2f} s")
     return out
 
@@ -4149,7 +4174,8 @@ def masked_batch(batch: dict, blocks: int) -> dict:
 
 
 def launch_sharded_step(kernels: dict, smi: str):
-    """Part (a): the production-mesh step on a (2, 2) mesh.  First the
+    """Part (a): the production-mesh step.  First the vlm and MoE runs
+    (``_launch_family_runs``).  Then, on a (2, 2) mesh, the
     f32 check at TRAIN_CHECK_LAYERS layers (SGD-momentum, 2 steps): losses
     within LAUNCH_F32_LOSS_RTOL and every gathered leaf within DP_GRAD_TOL
     of its largest element against make_train_step on one position.  Then llama3.2-1b at LAUNCH_LAYERS layers, bf16,
@@ -4163,16 +4189,151 @@ def launch_sharded_step(kernels: dict, smi: str):
     (``masked_batch``), held as the run's steps are.  All under
     deterministic algorithms: the embedding's index backward accumulates
     in a racy order otherwise, and the replicas would part by rounding.
-    Returns the counts, the placed state, the api and the optimizer."""
+    Returns the counts (the family runs' and llama's), llama's placed
+    state, its api and the optimizer."""
     import torch
     from repro_torch._device import synchronize
     from repro_torch.runtime import train
 
     torch.use_deterministic_algorithms(True)
     try:
-        return _launch_sharded_runs(kernels, smi, synchronize, train)
+        families = _launch_family_runs(kernels, smi, synchronize, train)
+        counts, state, api, opt = _launch_sharded_runs(kernels, smi,
+                                                       synchronize, train)
+        return ({k: counts[k] + families[k] for k in counts}, state, api,
+                opt)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def _family_batch(cfg, data, i: int) -> dict:
+    """``data``'s batch ``i``, with a vlm model's patch embeddings
+    (LAUNCH_BATCH, frontend_tokens, d_model) in its compute dtype, drawn
+    from a generator seeded with ``i`` (the shape ``ModelApi.inputs``
+    gives them)."""
+    import torch
+    from repro_torch.models.specs import torch_dtype
+
+    batch = data.batch(i)
+    if cfg.frontend == "vision":
+        g = torch.Generator().manual_seed(i)
+        batch["patches"] = torch.randn(
+            LAUNCH_BATCH, cfg.frontend_tokens, cfg.d_model,
+            generator=g).to(torch_dtype(cfg.compute_dtype))
+    return batch
+
+
+def _launch_family_runs(kernels: dict, smi: str, synchronize, train
+                        ) -> dict:
+    """Part (a)'s vlm and MoE runs (LAUNCH_FAMILIES): for each, the
+    sharded step must split exactly the regions listed; its predicted
+    peak is printed and must stay under LAUNCH_PEAK_LIMIT; then
+    make_train_step's LAUNCH_FAMILY_STEPS losses on one position, and the
+    sharded step's from the same seeded state: losses within
+    LAUNCH_LOSS_TOL x (1 + |loss|) of them, model replicas bit-equal
+    after every step, launches exactly mesh.size x kernel_launches a
+    step, every block equal to its block of the gathered state; its
+    median step wall, peak, gathered params a position and one profiled
+    step's device time and idle share printed.  Returns the runs' launch
+    counts summed."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import constant, make_optimizer
+
+    total = {name: 0 for name in kernels}
+    for arch, shape, regions in LAUNCH_FAMILIES:
+        t0 = time.perf_counter()
+        mesh = _dp_mesh(shape)
+        dev = mesh.positions[0]
+        cfg = dataclasses.replace(registry.get(arch).cfg,
+                                  num_layers=LAUNCH_FAMILY_LAYERS)
+        api = registry.get_model(cfg)
+        opt = make_optimizer("adamw")
+        lr = constant(LAUNCH_LR)
+        step = train.make_sharded_train_step(api, opt, lr, mesh)
+        split = tuple(r for r in ("heads", "mlp", "vocab", "experts")
+                      if step.tp is not None and getattr(step.tp, r))
+        if set(split) != set(regions):
+            fail(f"[launch] (a) {arch} on {shape}: the step splits {split} "
+                 f"over the model axis, not {regions}")
+        predicted = _predict_sharded_peak(step)
+        gathered = step.gathered_param_bytes()
+        say(f"[launch] (a) {arch}: predicted peak of the sharded step "
+            f"{predicted / 1e9:.2f} GB, {gathered / 1e9:.3f} GB of params "
+            f"gathered a position (its blocks of {', '.join(split)}); "
+            f"limit {LAUNCH_PEAK_LIMIT / 1e9:.0f} GB; {cfg.num_layers} "
+            f"layers")
+        if predicted >= LAUNCH_PEAK_LIMIT:
+            fail(f"[launch] (a) {arch}: predicted peak "
+                 f"{predicted / 1e9:.2f} GB: cut LAUNCH_FAMILY_LAYERS")
+        data = SyntheticLM(cfg.vocab_size, LAUNCH_SEQ, LAUNCH_BATCH)
+        batches = [_family_batch(cfg, data, i)
+                   for i in range(LAUNCH_FAMILY_STEPS)]
+        fresh = lambda: train.train_state(
+            api, opt, torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        plain = train.make_train_step(api, opt, lr)
+        s, ref = fresh(), []
+        for b in batches:
+            s, m = plain(s, b)
+            ref.append(float(m["loss"]))
+        del s, plain
+        torch.cuda.empty_cache()
+        state = step.place(fresh())
+        synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels.values():
+            k.launches = 0
+        losses, walls = [], []
+        for i, b in enumerate(batches):
+            synchronize(dev)
+            t = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t)
+            _model_replicas_equal(state, mesh,
+                                  f"[launch] (a) {arch} step {i}")
+        counts = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        one = registry.kernel_launches(cfg, train_steps=1)
+        want = {"gather_tiles": 0, **{k: LAUNCH_FAMILY_STEPS * mesh.size * v
+                                      for k, v in one.items()}}
+        if counts != want:
+            fail(f"[launch] (a) {arch} launched {counts}, expected {want}")
+        for i, (x, y) in enumerate(zip(ref, losses)):
+            if not abs(x - y) <= LAUNCH_LOSS_TOL * (1 + abs(x)):
+                fail(f"[launch] (a) {arch} step {i}: sharded loss {y} vs "
+                     f"one position's {x}")
+        _blocks_equal_whole(state, f"[launch] (a) {arch}")
+        prof = profile_device_ms(dev, lambda: step(state, batches[0]),
+                                 calls=1)
+        say(f"[launch] (a) {arch} {cfg.num_layers} layers bf16 AdamW lr "
+            f"{LAUNCH_LR}, batch {LAUNCH_BATCH} x {LAUNCH_SEQ} text tokens"
+            + (f" + {cfg.frontend_tokens} patches"
+               if cfg.frontend == "vision" else "")
+            + f" on {dict(mesh.shape)}, tensor-parallel over the model "
+            f"axis ({', '.join(split)}): losses {losses} vs one position's "
+            f"{ref} (each within {LAUNCH_LOSS_TOL} x (1 + |loss|)); model "
+            f"replicas bit-equal after every step; every block == its "
+            f"block of the gathered state; launches {counts} == "
+            f"{mesh.size} x kernel_launches a step; step wall "
+            f"{_spread_ms(walls)}, peak {peak / 1e9:.2f} GB (predicted {predicted / 1e9:.2f} "
+            f"GB), gathered params {gathered / 1e9:.3f} GB a position; one "
+            f"step apart: wall {prof['wall_ms']:.2f} ms, device time "
+            f"{prof['device_ms']:.2f} ms under the profiler (idle "
+            f"{max(0.0, 100 * (1 - prof['device_ms'] / prof['wall_ms'])):.1f}"
+            f" %), top {prof['top']}; in {time.perf_counter() - t0:.2f} s; "
+            f"{smi}")
+        for k in total:
+            total[k] += counts[k]
+        del state, step, batches
+        torch.cuda.empty_cache()
+    return total
 
 
 def _launch_sharded_runs(kernels: dict, smi: str, synchronize, train):

@@ -7,7 +7,7 @@ and corrects the step's terms by ``(trips - 1) * body``.  Eager PyTorch
 dispatches every trip of the layer loop, so the port's step count is
 already whole.  :func:`layer_bodies` still runs each distinct layer body
 once, on meta tensors at one position's shapes (its rows of the batch;
-for a dense train step that splits over the model axis, its blocks of
+for a train step that splits over the model axis, its blocks of
 the split leaves with its group's other members standing in, as the
 step's trace runs them, ``models/tp.py``; else at full width), under
 the op counter (``hlo_analysis.OpCounter``): forward and backward with
@@ -168,7 +168,8 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
         group = plan.stand_in(mesh)
         block = functools.partial(lm_mod._attn_block_tp, cfg, group)
         record("attn_block", cfg.num_layers, _grad_probe(
-            lambda p, x, pos: block([p], [x], positions=[pos])[0], cfg, 2),
+            lambda p, x, pos: tuple(out[0] for out in block(
+                [p], [x], positions=[pos])), cfg, 2),
             _member_tree(api, plan, mesh, True, blocks=True), x_in(),
             positions())
     elif cfg.family in lm_mod.ATTN_STACKS:

@@ -37,9 +37,10 @@ matmul outputs (``aten.mm``, ``aten.addmm``: the dots without batch
 dimensions that the reference's ``dots_with_no_batch_dims_saveable``
 keeps) and recomputes the rest, the kernels included.
 
-``loss_fn(..., group=)`` runs a dense model tensor-parallel over a model
-group of a mesh, its members in lock step (:func:`_forward_tp`,
-``models/tp.py``): the production-mesh train step's path.
+``loss_fn(..., group=)`` runs a dense, vlm or MoE model tensor-parallel
+over a model group of a mesh, its members in lock step
+(:func:`_forward_tp`, ``models/tp.py``): the production-mesh train
+step's path.
 
 ``prefill`` and ``decode_step`` write the KV caches they are given in
 place (see :func:`~repro_torch.models.layers.multihead_attention`; a
@@ -257,17 +258,40 @@ def _attention(cfg, p, h, **kw):
     return L.multihead_attention(cfg, p["attn"], h, **kw)[0]
 
 
-def _ffn(cfg, p, h, partial=False):
+def _ffn_parts(cfg, p, h, routing=None):
+    """The MLP sublayer's terms on the normed input ``h``, ``b_down``
+    left out: {"mlp": the MLP (dense, or moe's dense residual), "experts":
+    the experts combined}, and the block's MoE aux loss (None for a block
+    without experts).  A tensor-parallel member passes its inputs as they
+    enter the regions: ``h`` as the MLP's, ``routing`` (:func:`moe.route`
+    of its replicated input, with the input to dispatch and the gates as
+    they entered) for the experts; each term is then its share of its region where the region
+    splits (its blocks of d_ff).  Without ``routing`` the experts are
+    :func:`moe.apply_moe` of ``h`` (expert-parallel under an active
+    :mod:`pspec` context)."""
+    parts, aux = {}, None
+    if cfg.family == "moe":
+        if routing is None:
+            parts["experts"], aux = MOE.apply_moe(cfg, p["moe"], h)
+            aux = aux["moe_aux_loss"]
+        else:
+            parts["experts"], aux = MOE.share(cfg, p["moe"], routing), \
+                routing.aux
+    if cfg.family != "moe" or cfg.moe_dense_residual:
+        parts["mlp"] = L.apply_mlp(cfg, p["mlp"], h, partial=True)
+    return parts, aux
+
+
+def _ffn(cfg, p, h):
     """The MLP sublayer on the normed input ``h``: the MLP, or for moe the
     experts and the dense residual MLP; returns (out, the block's MoE aux
-    loss, or None for a block without experts).  ``partial``: a
-    tensor-parallel member's share of a dense MLP, ``b_down`` left out."""
-    if cfg.family != "moe":
-        return L.apply_mlp(cfg, p["mlp"], h, partial=partial), None
-    out, aux = MOE.apply_moe(cfg, p["moe"], h)
-    if cfg.moe_dense_residual:
-        out = out + L.apply_mlp(cfg, p["mlp"], h)
-    return out, aux["moe_aux_loss"]
+    loss, or None for a block without experts)."""
+    parts, aux = _ffn_parts(cfg, p, h)
+    out = parts.get("experts")
+    if "mlp" in parts:
+        mlp = L.mlp_bias(p["mlp"], parts["mlp"])
+        out = mlp if out is None else out + mlp
+    return out, aux
 
 
 def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
@@ -280,17 +304,34 @@ def _attn_block(cfg, p, x, *, positions, cache, kv_valid_len):
     return x + out, aux
 
 
+def _total(terms, start=None):
+    """The sum of ``terms`` in order after ``start`` (None: nothing)."""
+    for t in terms:
+        start = t if start is None else start + t
+    return start
+
+
 def _attn_block_tp(cfg, group, ps, xs, *, positions):
-    """:func:`_attn_block` (dense, no cache) on the members of a
-    tensor-parallel model group in lock step (``models/tp.py``): ``ps``,
-    ``xs`` and ``positions`` hold one entry a computed member.  The norms
-    and the residual stream run on every member's copy, and each sublayer
-    on its share (``group.share``) between :func:`tp.enter` and
+    """:func:`_attn_block` (no cache) on the members of a tensor-parallel
+    model group in lock step (``models/tp.py``): ``ps``, ``xs`` and
+    ``positions`` hold one entry a computed member.  Returns each
+    member's (x, the block's MoE aux loss or None).  The norms and the
+    residual stream run on every member's copy, and each sublayer on its
+    share (``group.share``) between :func:`tp.enter` and
     :func:`tp.leave`: its block of the heads or of d_ff where the region
-    splits (``group.heads``, ``group.mlp``), the whole where it does not.
-    ``b_down`` is added once, to the sum.  The replicated kv projections
-    enter the attention too: a member reads only the kv heads its query
-    heads use, so their gradients are the group's sum."""
+    splits (``group.heads``, ``group.mlp``, ``group.experts``), the whole
+    where it does not.  The replicated kv projections enter the attention
+    too: a member reads only the kv heads its query heads use, so their
+    gradients are the group's sum.
+
+    A MoE block routes each member's replicated normed input outside any
+    region (the router, the gates and the aux loss: the router's weight
+    does not enter, as the aux term's gradient is whole on every member),
+    then that input (to be dispatched) and the gates enter the experts'
+    region and each member runs its d_ff of every expert.  The split terms of
+    the sublayer (the experts, the dense residual MLP) leave in one sum;
+    a term whose region does not split is added whole after it, and
+    ``b_down`` once, to the sum."""
     split = group.heads
     hs = TP.enter(group, [L.apply_norm(cfg, p["ln1"], x)
                           for p, x in zip(ps, xs)], split)
@@ -303,11 +344,28 @@ def _attn_block_tp(cfg, group, ps, xs, *, positions):
         _attention(cfg, p, h, positions=pos, heads=group.share(split, r))
         for r, p, h, pos in zip(group.ranks, ps_kv, hs, positions)], split)
     xs = [x + o for x, o in zip(xs, outs)]
-    hs = TP.enter(group, [L.apply_norm(cfg, p["ln2"], x)
-                          for p, x in zip(ps, xs)], group.mlp)
-    outs = TP.leave(group, [_ffn(cfg, p, h, partial=True)[0]
-                            for p, h in zip(ps, hs)], group.mlp)
-    return [x + L.mlp_bias(p["mlp"], o) for p, x, o in zip(ps, xs, outs)]
+    hs = [L.apply_norm(cfg, p["ln2"], x) for p, x in zip(ps, xs)]
+    regions = {"mlp": group.mlp, "experts": group.experts}
+    routings = [None] * len(hs)
+    if cfg.family == "moe":
+        routings = [MOE.route(cfg, p["moe"], h) for p, h in zip(ps, hs)]
+        xs_in = TP.enter(group, hs, group.experts)
+        gates = TP.enter(group, [r.gates for r in routings], group.experts)
+        routings = [r._replace(x=x, gates=g)
+                    for r, x, g in zip(routings, xs_in, gates)]
+    hs = TP.enter(group, hs, group.mlp)
+    terms = [_ffn_parts(cfg, p, h, r)
+             for p, h, r in zip(ps, hs, routings)]
+    auxs = [aux for _, aux in terms]
+    outs = [None] * len(xs)
+    if any(regions[k] for k in terms[0][0]):
+        outs = TP.leave(group, [_total(v for k, v in t.items() if regions[k])
+                                for t, _ in terms])
+    outs = [_total((v for k, v in t.items() if not regions[k]), o)
+            for (t, _), o in zip(terms, outs)]
+    if "mlp" in terms[0][0]:
+        outs = [L.mlp_bias(p["mlp"], o) for p, o in zip(ps, outs)]
+    return [x + o for x, o in zip(xs, outs)], auxs
 
 
 def _ssm_block(cfg, p, x, *, cache):
@@ -406,24 +464,37 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     return logits, new_cache, aux
 
 
-def _forward_tp(cfg: ModelConfig, group, params, tokens):
-    """:func:`forward` of a dense model (no cache) on the members of a
-    tensor-parallel model group in lock step: ``params`` (each member's
-    blocks of the split leaves, the others whole) and ``tokens`` one a
-    computed member; returns each member's f32 logits, its block of the
-    vocab where ``group.vocab`` (the embedding vocab-parallel too), else
-    whole."""
+def _forward_tp(cfg: ModelConfig, group, params, tokens, patches=None):
+    """:func:`forward` of an attention stack (no cache) on the members of
+    a tensor-parallel model group in lock step: ``params`` (each member's
+    blocks of the split leaves, the others whole), ``tokens`` and a vlm
+    model's ``patches`` one a computed member.  The patches' projection
+    (``vision_proj``, whole on every member) runs on each member's copy
+    and is prepended to the vocab-parallel embedding.  Returns each
+    member's f32 logits over the text positions, its block of the vocab
+    where ``group.vocab`` (the embedding vocab-parallel too), else whole,
+    and its MoE aux loss summed over the layers."""
     xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
                   L.dtype_of(cfg))
+    vision = cfg.frontend == "vision" and patches is not None
+    if vision:
+        xs = [torch.cat([pt.to(x.dtype) @ p["vision_proj"]["w"].to(x.dtype),
+                         x], dim=1)
+              for p, pt, x in zip(params, patches, xs)]
     positions = [torch.arange(x.shape[1], device=x.device)[None, :]
                  for x in xs]
+    auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
+            for x in xs]
     block = _remat(cfg, functools.partial(_attn_block_tp, cfg, group))
     for i in range(cfg.num_layers):
         ps = [tree_map(lambda t: t[i], p["blocks"]) for p in params]
-        xs = block(ps, xs, positions=positions)
-    xs = TP.enter(group, [L.apply_norm(cfg, p["final_norm"], x)
-                          for p, x in zip(params, xs)], group.vocab)
-    return [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)]
+        xs, block_aux = block(ps, xs, positions=positions)
+        auxs = [a if b is None else a + b for a, b in zip(auxs, block_aux)]
+    xs = [L.apply_norm(cfg, p["final_norm"], x) for p, x in zip(params, xs)]
+    if vision:
+        xs = [x[:, pt.shape[1]:] for x, pt in zip(xs, patches)]
+    xs = TP.enter(group, xs, group.vocab)
+    return [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)], auxs
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
@@ -444,10 +515,11 @@ def loss_fn(cfg: ModelConfig, params, batch, rng=None, group=None):
     "patches" (B, P, d_model).  Returns (loss + 0.01 * aux, metrics
     {"loss", "aux_loss", "tokens"}).
 
-    With ``group`` (a dense model's tensor-parallel model group,
-    ``models/tp.py``) ``params`` and ``batch`` hold one tree a computed
-    member and so does what comes back: each member's copy of the loss
-    (the cross-entropy vocab-parallel where ``group.vocab``)."""
+    With ``group`` (a dense, vlm or MoE model's tensor-parallel model
+    group, ``models/tp.py``) ``params`` and ``batch`` hold one tree a
+    computed member and so does what comes back: each member's copy of
+    the loss (the cross-entropy vocab-parallel where ``group.vocab``, the
+    aux loss each member's own, from its replicated routing)."""
     if group is not None:
         return _loss_tp(cfg, group, params, batch)
     logits, _, aux = forward(cfg, params, batch["tokens"],
@@ -458,14 +530,16 @@ def loss_fn(cfg: ModelConfig, params, batch, rng=None, group=None):
 
 
 def _loss_tp(cfg: ModelConfig, group, params, batch):
-    if cfg.family != "dense":
-        raise ValueError(f"tensor parallelism runs the dense family, not "
-                         f"{cfg.family!r}")
-    logits = _forward_tp(cfg, group, params, [b["tokens"] for b in batch])
+    if cfg.family not in TP.FAMILIES:
+        raise ValueError(f"tensor parallelism runs the families "
+                         f"{TP.FAMILIES}, not {cfg.family!r}")
+    patches = [b.get("patches") for b in batch]
+    logits, auxs = _forward_tp(cfg, group, params,
+                               [b["tokens"] for b in batch],
+                               None if patches[0] is None else patches)
     ces = TP.cross_entropy(group, logits, [b["labels"] for b in batch])
     totals, metrics = [], []
-    for x, (loss, tokens) in zip(logits, ces):
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (loss, tokens), aux in zip(ces, auxs):
         totals.append(loss + 0.01 * aux)
         metrics.append({"loss": loss, "aux_loss": aux, "tokens": tokens})
     return totals, metrics

@@ -30,10 +30,19 @@ Expert parallelism (:func:`apply_moe_sharded`) runs the reference's
 driving them (``core/collectives.py``); :func:`apply_moe` takes it under
 an active :mod:`pspec` context whose ``expert`` rule divides the experts
 and the batch (``_sharded_config``, as the reference's).
+
+:func:`apply_moe` is :func:`route` (the router, the aux loss and each
+row's slot of the (E, C, D) buffer) then :func:`share` (the dispatch,
+the experts and the combine).  A tensor-parallel member of a model group
+(``lm._attn_block_tp``, ``models/tp.py``) routes its replicated input
+with :func:`route` and runs :func:`share` on its block of every expert's
+d_ff, the input and the gates entering the region (the input as (B, S,
+D), before the dispatch copies each row K times): its output is its
+partial sum, which the group sums.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,19 +102,23 @@ def _route_and_rank(cfg: ModelConfig, router_w: torch.Tensor,
     return flat_expert, pos, gate_vals, aux_loss
 
 
-def _dispatch(cfg: ModelConfig, xt: torch.Tensor, flat_expert, pos, C: int):
-    """Kept rows to their (expert, slot) of an (E, C, D) buffer, dropped
-    rows (rank >= C) to a spare row past it; returns the buffer and each
-    row's slot (E * C where dropped)."""
-    E, K = cfg.num_experts, cfg.experts_per_token
-    keep = pos < C
-    slot = torch.where(keep, flat_expert * C + pos,
+def _slots(cfg: ModelConfig, flat_expert, pos, C: int) -> torch.Tensor:
+    """Each (token, choice)'s row of the (E, C, D) buffer: its (expert,
+    rank) where the rank is below C, else E * C (dropped)."""
+    E = cfg.num_experts
+    return torch.where(pos < C, flat_expert * C + pos,
                        torch.full_like(pos, E * C))
+
+
+def _dispatch(cfg: ModelConfig, xt: torch.Tensor, slot, C: int):
+    """Each token's row, once a choice, to its slot of an (E, C, D)
+    buffer; dropped rows go to a spare row past it, thrown away."""
+    E, K = cfg.num_experts, cfg.experts_per_token
     src = xt.repeat_interleave(K, dim=0)                            # (N*K, D)
     buf = torch.zeros(E * C + 1, xt.shape[1], dtype=xt.dtype,
                       device=xt.device)
     buf.index_copy_(0, slot, src)
-    return buf[:E * C].view(E, C, -1), slot
+    return buf[:E * C].view(E, C, -1)
 
 
 def _experts(buf, w_gate, w_up, w_down):
@@ -173,7 +186,8 @@ def apply_moe_sharded(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               _tile(_tile(p["w_down"], 0, n_ep, e), 1, n_tp, t).to(dev))
         flat_expert, rank, gate_vals, aux = _route_and_rank(
             cfg, p["router"].to(dev), xt)
-        buf, slot = _dispatch(cfg, xt, flat_expert, rank, C_l)
+        slot = _slots(cfg, flat_expert, rank, C_l)
+        buf = _dispatch(cfg, xt, slot, C_l)
         bufs.append(buf)
         local.append(ws)
         routes.append((slot, gate_vals))
@@ -228,6 +242,40 @@ def _sharded_config(cfg: ModelConfig, x: torch.Tensor):
     return mesh, ep, tp
 
 
+class Routing(NamedTuple):
+    """One layer's routing of x (B, S, D): x itself (the rows the experts
+    take), each (token, choice)'s slot of the (E, C, D) buffer (E * C
+    where dropped), the renormalised gates (N, K) and the aux loss."""
+
+    x: torch.Tensor
+    slot: torch.Tensor
+    gates: torch.Tensor
+    aux: torch.Tensor
+
+
+def route(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> Routing:
+    """Top-k routing of x's B·S tokens with the router ``p["router"]``,
+    the aux loss, and each kept (token, choice)'s slot of the experts'
+    buffer (capacity from the token count)."""
+    B, S, D = x.shape
+    flat_expert, pos, gate_vals, aux_loss = _route_and_rank(
+        cfg, p["router"], x.reshape(B * S, D))
+    slot = _slots(cfg, flat_expert, pos, capacity(cfg, B * S))
+    return Routing(x, slot, gate_vals, aux_loss)
+
+
+def share(cfg: ModelConfig, p: Dict[str, Any], r: Routing) -> torch.Tensor:
+    """``r.x``'s rows dispatched to their slots, the experts on them,
+    and the rows combined with ``r.gates``: (B, S, D).  On a
+    tensor-parallel member's blocks of ``w_gate`` / ``w_up`` / ``w_down``
+    (its d_ff of every expert), its partial sum."""
+    B, S, D = r.x.shape
+    N = B * S
+    buf = _dispatch(cfg, r.x.reshape(N, D), r.slot, capacity(cfg, N))
+    out_buf = _experts(buf, p["w_gate"], p["w_up"], p["w_down"])
+    return _combine(cfg, out_buf, r.slot, r.gates, N).view(B, S, D)
+
+
 def apply_moe(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (B, S, D), {"moe_aux_loss": f32 scalar}.  Under a
@@ -236,13 +284,5 @@ def apply_moe(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
     sharded = _sharded_config(cfg, x)
     if sharded is not None:
         return apply_moe_sharded(cfg, p, x, *sharded)
-    B, S, D = x.shape
-    N = B * S
-    C = capacity(cfg, N)
-    xt = x.reshape(N, D)
-    flat_expert, pos, gate_vals, aux_loss = _route_and_rank(
-        cfg, p["router"], xt)
-    buf, slot = _dispatch(cfg, xt, flat_expert, pos, C)
-    out_buf = _experts(buf, p["w_gate"], p["w_up"], p["w_down"])
-    combined = _combine(cfg, out_buf, slot, gate_vals, N)
-    return combined.view(B, S, D), {"moe_aux_loss": aux_loss}
+    r = route(cfg, p, x)
+    return share(cfg, p, r), {"moe_aux_loss": r.aux}

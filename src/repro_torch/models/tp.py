@@ -1,11 +1,14 @@
-"""Tensor parallelism over a mesh's ``model`` axis for the dense stack.
+"""Tensor parallelism over a mesh's ``model`` axis for the attention
+stacks (the ``dense``, ``vlm`` and ``moe`` families).
 
 The reference never writes this out: its jitted train step puts ``heads``,
-``mlp`` and ``vocab`` on ``model`` (``launch/mesh.py``'s rules), keeps the
-residual stream at ``("batch", None, None)`` and the logits at
-``("batch", None, "vocab")``, and GSPMD partitions every projection, the
-MLP, the head and the cross-entropy over the model axis (Megatron-style
-tensor parallelism).  Here one controller drives the T members of a model
+``mlp``, ``vocab`` and the experts' ``expert_mlp`` on ``model``
+(``launch/mesh.py``'s rules), keeps the residual stream at ``("batch",
+None, None)`` and the logits at ``("batch", None, "vocab")``, and GSPMD
+partitions every projection, the MLP, each expert's d_ff, the head and the
+cross-entropy over the model axis (Megatron-style tensor parallelism;
+per-expert tensor parallelism for the experts, whose router stays
+replicated).  Here one controller drives the T members of a model
 group (:class:`ModelGroup`) in lock step: every value is a list with one
 tensor a computed member, on that member's device, and the members meet
 in ``core.collectives.psum`` / ``pmax`` over the group, in position
@@ -51,6 +54,8 @@ from ..core.placement import entry_axes
 from ..core.treepath import tree_flatten_with_path
 
 AXIS = "model"
+# the families whose train step splits over the model axis
+FAMILIES = ("dense", "vlm", "moe")
 
 # per region, the leaves it splits and the dim of each that ``model``
 # must block (the stacked leaves' dim 0 is the layer)
@@ -60,6 +65,9 @@ REGIONS = {
     "mlp": ((("blocks", "mlp", "w_gate"), 2), (("blocks", "mlp", "w_up"), 2),
             (("blocks", "mlp", "w_down"), 1), (("blocks", "mlp", "b_up"), 1)),
     "vocab": ((("embed", "tok"), 0), (("embed", "lm_head"), 1)),
+    "experts": ((("blocks", "moe", "w_gate"), 3),
+                (("blocks", "moe", "w_up"), 3),
+                (("blocks", "moe", "w_down"), 2)),
 }
 
 
@@ -67,11 +75,12 @@ class ModelGroup:
     """The T members of one model group of ``mesh`` (``members``: flat
     positions ordered by their index over ``model``), driven in lock step,
     and which regions of the block split over them (``heads``, ``mlp``,
-    ``vocab``).  :attr:`ranks` are the computed members' indices: all of
-    them, or member 0 alone with ``stand_in``."""
+    ``vocab``, ``experts``: each expert's d_ff).  :attr:`ranks` are the
+    computed members' indices: all of them, or member 0 alone with
+    ``stand_in``."""
 
     def __init__(self, mesh: NamedMesh, members: Sequence[int], *,
-                 heads: bool, mlp: bool, vocab: bool,
+                 heads: bool, mlp: bool, vocab: bool, experts: bool = False,
                  stand_in: bool = False):
         self.members = tuple(members)
         self.size = len(self.members)
@@ -79,6 +88,7 @@ class ModelGroup:
                               (self.size,), (AXIS,))
         self.ranks = (0,) if stand_in else tuple(range(self.size))
         self.heads, self.mlp, self.vocab = heads, mlp, vocab
+        self.experts = experts
 
     def _reduce(self, xs: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
         if len(xs) != len(self.ranks):
@@ -199,6 +209,7 @@ class Plan:
     mlp: bool
     vocab: bool
     dims: Tuple[Optional[int], ...]
+    experts: bool = False
 
     def keep(self, i: int) -> Tuple[str, ...]:
         """The axes leaf ``i`` keeps its block over when gathered."""
@@ -207,7 +218,8 @@ class Plan:
     def group(self, mesh: NamedMesh, members: Sequence[int],
               stand_in: bool = False) -> ModelGroup:
         return ModelGroup(mesh, members, heads=self.heads, mlp=self.mlp,
-                          vocab=self.vocab, stand_in=stand_in)
+                          vocab=self.vocab, experts=self.experts,
+                          stand_in=stand_in)
 
     def stand_in(self, mesh: NamedMesh) -> ModelGroup:
         """Position 0's group with member 0 alone computed (the dry
@@ -230,13 +242,14 @@ class Plan:
 
 def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
          ) -> Optional[Plan]:
-    """The dense stack's tensor-parallel plan over ``mesh``'s ``model``
-    axis from the params' ``placements``: a region splits where each of
-    its leaves' placements blocks its dim (:data:`REGIONS`) over
-    ``model`` alone.  None where nothing splits, the family is not
-    ``dense``, the axis is missing or of size 1, or the batch's rows
-    (``batch_rule``) split over it."""
-    if cfg.family != "dense" or AXIS not in mesh.axis_names \
+    """The attention stack's tensor-parallel plan over ``mesh``'s
+    ``model`` axis from the params' ``placements``: a region splits where
+    each of its leaves' placements blocks its dim (:data:`REGIONS`) over
+    ``model`` alone (arctic's 56 heads over 16 stay whole, as the
+    reference's ``_demote_spec`` leaves them).  None where nothing splits,
+    the family is not one of :data:`FAMILIES`, the axis is missing or of
+    size 1, or the batch's rows (``batch_rule``) split over it."""
+    if cfg.family not in FAMILIES or AXIS not in mesh.axis_names \
             or mesh.shape[AXIS] == 1 or AXIS in entry_axes(batch_rule):
         return None
     items = tree_flatten_with_path(placements)
@@ -251,8 +264,9 @@ def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
     dims = {path: d for region, leaves in REGIONS.items() if split[region]
             for path, d in leaves}
     return Plan(heads=split["heads"], mlp=split["mlp"], vocab=split["vocab"],
-                dims=tuple(dims.get(path) for path, _ in items))
+                dims=tuple(dims.get(path) for path, _ in items),
+                experts=split["experts"])
 
 
-__all__ = ["AXIS", "REGIONS", "ModelGroup", "Plan", "plan", "enter", "leave",
-           "embed", "cross_entropy"]
+__all__ = ["AXIS", "FAMILIES", "REGIONS", "ModelGroup", "Plan", "plan",
+           "enter", "leave", "embed", "cross_entropy"]

@@ -19,8 +19,9 @@ The port's counterpart of ``repro/runtime/train.py``:
 ``make_sharded_train_step`` — the production-mesh step: the state in 2-D
                           placements on a named mesh (the reference's
                           jitted step under ``tree_shardings``), params
-                          gathered, the dense family tensor-parallel
-                          over the model axis, gradients summed over the
+                          gathered, the dense, vlm and MoE families
+                          tensor-parallel over the model axis (the MoE's
+                          per-expert d_ff), gradients summed over the
                           batch axes, each position updating its own
                           blocks (:class:`ShardedTrainStep`).
 
@@ -194,8 +195,8 @@ def loss_and_grads(api: ModelApi, params: List[Any],
                    ) -> List[Tuple[torch.Tensor, Any]]:
     """The loss and the gradients of a batch on each member that computes
     it: one position (``group`` None: ``params`` and ``batches`` hold one
-    entry) or the computed members of a dense model's tensor-parallel
-    model group in lock step (``models/tp.py``: one entry a member, the
+    entry) or the computed members of a model's tensor-parallel model
+    group in lock step (``models/tp.py``: one entry a member, the
     same rows on each).  Returns each member's (loss, gradients): under a
     group its copy of the loss and its blocks of the split leaves'
     gradients, the other leaves' whole.
@@ -534,18 +535,21 @@ class ShardedTrainStep:
         after), dropping its old blocks as it goes.
 
     Tensor parallelism (:attr:`tp`, ``models/tp.py``), as GSPMD
-    partitions the reference's step: for the ``dense`` family, where the
-    placements block ``heads`` (``wq``, ``bq``, ``wo``), ``mlp``
-    (``w_gate``, ``w_up``, ``b_up``, ``w_down``) or ``vocab`` (``tok``,
-    ``lm_head``) over ``model``, the positions of each model group run
-    their rows in lock step, each on its block of those leaves: its query
-    heads against the kv heads they read (``wk`` / ``wv`` stay whole, their
-    gradients summed over the group), its share of d_ff (``b_down`` added
-    once after the sum), its vocab rows of the embedding and of the
-    head's logits and cross-entropy; the norms and the residual stream
+    partitions the reference's step: for the ``dense``, ``vlm`` and
+    ``moe`` families, where the placements block ``heads`` (``wq``,
+    ``bq``, ``wo``), ``mlp`` (``w_gate``, ``w_up``, ``b_up``, ``w_down``),
+    ``vocab`` (``tok``, ``lm_head``) or the experts' ``expert_mlp``
+    (``moe``'s ``w_gate``, ``w_up``, ``w_down``) over ``model``, the
+    positions of each model group run their rows in lock step, each on
+    its block of those leaves: its query heads against the kv heads they
+    read (``wk`` / ``wv`` stay whole, their gradients summed over the
+    group), its share of d_ff (``b_down`` added once after the sum) and
+    of every expert's d_ff, its vocab rows of the embedding and of the
+    head's logits and cross-entropy; the norms, the residual stream, a
+    vlm's patch projection and the MoE router (its gates and aux loss)
     run on every position's copy.  A region whose leaves do not all
-    split (4 heads over 16) runs whole on every position of the group,
-    as do the other families (``moe``, ``vlm``, ``ssm``, ``hybrid``,
+    split (arctic's 56 heads over 16) runs whole on every position of
+    the group, as do the other families (``ssm``, ``hybrid``,
     ``encdec``), the step on a mesh without a ``model`` axis of 2 or
     more, and a batch whose rows split over ``model``: there the model
     axis replicates compute and shards only the state.  A position's

@@ -1419,3 +1419,87 @@ def test_dp2_step_on_the_card_sums_the_positions_gradients(cuda):
         want = 2 * want.float()
         top = float(want.abs().max())
         assert float((got - want).abs().max()) <= 2e-2 * top + 1e-6
+
+
+# -- tensor parallelism of the MoE block on card positions -------------------
+
+@pytest.mark.parametrize("t", [2, 4])
+def test_moe_tensor_parallel_block_at_full_width(cuda, t):
+    """One moonshot-v1-16b-a3b block at full width (16 heads of 128, 64
+    experts top-6, d_ff 1408), float32, batch 2 x 128, over a model group
+    of ``t`` positions of the card (``lm._attn_block_tp``: the heads and
+    every expert's d_ff split, the router replicated) against the plain
+    block (``lm._attn_block``) on one position: each member's output and
+    aux loss, and the gradients (the aux loss seeded too) of every leaf,
+    each member's block of a split one, and of the input, within 1e-4 of
+    the largest element (float32 sums in other orders); the router's and
+    the input's gradients bit-equal over the members; each member runs
+    the block's two rmsnorm and one flash launches."""
+    from repro_torch.core.treepath import tree_flatten, tree_flatten_with_path
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm, registry
+    from repro_torch.models import tp as TP
+    from repro_torch.models.specs import init_params
+
+    cfg = registry.get("moonshot-v1-16b-a3b").cfg
+    specs = lm._attn_block_specs(cfg)
+    p = init_params(specs, torch.Generator(device=cuda).manual_seed(0),
+                    "float32", cuda)
+    leaves, treedef = tree_flatten(p)
+    paths = [path for path, _ in tree_flatten_with_path(p)]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 128, cfg.d_model, device=cuda, generator=g)
+    cot = torch.randn(2, 128, cfg.d_model, device=cuda, generator=g)
+    pos = torch.arange(128, device=cuda)[None, :]
+
+    whole = [v.clone().requires_grad_() for v in leaves]
+    xw = x.clone().requires_grad_()
+    want, want_aux = lm._attn_block(cfg, treedef.unflatten(whole), xw,
+                                    positions=pos, cache=None,
+                                    kv_valid_len=None)
+    ((want * cot).sum() + want_aux).backward()
+
+    mesh = make_debug_mesh(1, t, device=(cuda,) * t)
+    group = TP.ModelGroup(mesh, mesh.groups("model")[0], heads=True,
+                          mlp=False, vocab=False, experts=True)
+    dims = {path[1:]: d - 1 for region in ("heads", "experts")
+            for path, d in TP.REGIONS[region]}
+    members = []
+    for r in range(t):
+        mine = []
+        for path, v in zip(paths, leaves):
+            d = dims.get(path)
+            if d is not None:
+                n = v.shape[d] // t
+                v = v.narrow(d, r * n, n)
+            mine.append(v.clone().requires_grad_())
+        members.append(mine)
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    before = (RK.rmsnorm.launches, FK.flash_attention.launches)
+    outs, auxs = lm._attn_block_tp(cfg, group,
+                                   [treedef.unflatten(m) for m in members],
+                                   xs, positions=[pos] * t)
+    assert (RK.rmsnorm.launches - before[0],
+            FK.flash_attention.launches - before[1]) == (2 * t, t)
+    torch.autograd.backward([(o * cot).sum() + a
+                             for o, a in zip(outs, auxs)])
+
+    def close(got, want, what):
+        top = float(want.detach().abs().max())
+        err = float((got - want).detach().abs().max())
+        assert err <= 1e-4 * top + 1e-6, f"{what}: {err} vs max {top}"
+
+    for o, a in zip(outs, auxs):
+        close(o, want, "out")
+        close(a, want_aux, "aux")
+    for i, path in enumerate(paths):
+        grads = [m[i].grad for m in members]
+        d = dims.get(path)
+        got = torch.cat(grads, dim=d) if d is not None else grads[0]
+        if d is None:
+            for gr in grads[1:]:
+                assert torch.equal(gr, grads[0]), path
+        close(got, whole[i].grad, "/".join(path))
+    for xi in xs:
+        assert torch.equal(xi.grad, xs[0].grad)
+    close(xs[0].grad, xw.grad, "x")

@@ -224,7 +224,8 @@ def _member_config(cfg, plan, mesh):
     if plan.heads:
         kw.update(num_heads=h // t,
                   num_kv_heads=(h // t - 1) // g + 1 if h // t >= g else 1)
-    if plan.mlp:
+    if plan.mlp or plan.experts:
+        # the dense MLP and each expert share d_ff
         kw["d_ff"] = cfg.d_ff // t
     if plan.vocab:
         kw["vocab_size"] = cfg.vocab_size // t
@@ -232,18 +233,21 @@ def _member_config(cfg, plan, mesh):
 
 
 def _tp_reductions(cfg, plan):
-    """The all-reduces a dense step's tensor parallelism adds (position
-    0's group, each micro-batch): per layer, the attention's exit psum
-    and, in the backward, its entry's and the kv projections' (wk, wv,
-    and bk, bv with qkv biases), the MLP's exit and entry psums, each
-    exit once more under remat; the vocab-parallel embedding's exit, the
-    head's entry, the cross-entropy's pmax and its two psums; then the
-    gradient norm's psum."""
+    """The all-reduces a step's tensor parallelism adds (position 0's
+    group, each micro-batch): per layer, the attention's exit psum and,
+    in the backward, its entry's and the kv projections' (wk, wv, and bk,
+    bv with qkv biases); the MLP sublayer's one exit psum where the MLP or
+    the experts split, and in the backward the MLP's entry psum and the
+    experts' two (the dispatched buffer's and the gates'); each exit once
+    more under remat; the vocab-parallel embedding's exit, the head's
+    entry, the cross-entropy's pmax and its two psums; then the gradient
+    norm's psum."""
     if plan is None:
         return 0
     redo = cfg.remat != "none"
     layer = plan.heads * (2 + redo + (4 if cfg.qkv_bias else 2)) + \
-        plan.mlp * (2 + redo)
+        plan.mlp + 2 * plan.experts + \
+        (plan.mlp or plan.experts) * (1 + redo)
     head = plan.vocab * 5
     return max(1, cfg.micro_batches) * (cfg.num_layers * layer + head) + 1
 
@@ -346,10 +350,10 @@ def test_sharded_step_trace_counts_one_position():
 
 
 def test_a_dense_cells_gathered_bytes_are_its_model_blocks():
-    """A dense train cell's ``gathered_param_bytes``: each param leaf's
-    block over the model axis (where its placement blocks a dim over
-    ``model``), whole over the data axes, summed; the whole params where
-    nothing splits (a vlm cell)."""
+    """A dense or vlm train cell's ``gathered_param_bytes``: each param
+    leaf's block over the model axis (where its placement blocks a dim
+    over ``model``), whole over the data axes, summed; the whole params
+    where nothing splits (an ssm cell)."""
     import math
 
     def whole_over_data(arch):
@@ -372,7 +376,37 @@ def test_a_dense_cells_gathered_bytes_are_its_model_blocks():
     want, whole = whole_over_data("llama3.2-1b")
     assert got == want < whole
     got = _grid()["phi-3-vision-4.2b|train_4k|single"]["gathered_param_bytes"]
-    assert got == whole_over_data("phi-3-vision-4.2b")[1]
+    want, whole = whole_over_data("phi-3-vision-4.2b")
+    assert got == want < whole
+    got = _grid()["mamba2-1.3b|train_4k|single"]["gathered_param_bytes"]
+    assert got == whole_over_data("mamba2-1.3b")[1]
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "moonshot-v1-16b-a3b",
+                                  "arctic-480b"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_vlm_and_moe_cells_gather_the_plans_blocks(arch, mesh):
+    """A vlm or MoE train cell at smoke size gathers what the step's
+    tensor-parallel plan says a position holds
+    (``ShardedTrainStep.gathered_param_bytes``): d_ff (96) splits 16 ways,
+    the dense MLP's and every expert's, so less than the whole params."""
+    import math
+
+    api = p_registry.get(arch, smoke=True)
+    m = p_mesh.make_production_mesh(multi_pod=mesh == "multi",
+                                    device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, "train"),
+                                    m, SHAPES["train_4k"].smoke()
+                                    .global_batch)
+    step = p_train.make_sharded_train_step(
+        api, make_optimizer(api.cfg.optimizer), None, m, rules)
+    plan = step.tp
+    assert plan is not None and plan.mlp == (arch != "moonshot-v1-16b-a3b")
+    assert plan.experts == (api.cfg.family == "moe") and not plan.heads
+    whole = sum(math.prod(v.shape) * v.dtype.itemsize
+                for v in _leaves(api.abstract()))
+    got = _grid()[f"{arch}|train_4k|{mesh}"]["gathered_param_bytes"]
+    assert got == step.gathered_param_bytes() < whole
 
 
 def test_tensor_parallel_trace_splits_the_matmuls():

@@ -10,8 +10,21 @@ CPU positions, held to the model's one-position functions.
     ``lm.embed_tokens`` / ``lm.cross_entropy``, and their gradients
     (through ``enter`` / ``leave``) are each member's block of the whole
     gradient, bit-equal over the members where the value is replicated;
-  * ``tp.plan`` follows the placements: the regions a mesh splits, none
-    for another family, a model axis of 1 or a batch over ``model``.
+  * ``tp.plan`` follows the placements: the regions a mesh splits (for
+    vlm and moe too: arctic at full size on (16, 16) keeps its 56 heads
+    whole and splits the experts, the MLP and the vocab), none for the
+    ssm, hybrid and encdec families, a model axis of 1 or a batch over
+    ``model``;
+  * one MoE block over a group of 2 and 4 (moonshot, and arctic with its
+    dense residual, each of the experts' and the MLP's regions split or
+    whole): the members' outputs equal the whole block's, and the
+    gradients of every expert block, of the router and of the input are
+    the whole block's, the router's and the input's bit-equal over the
+    members (the aux loss enters no region, so its gradient is not taken
+    T times);
+  * the loss of a vlm (with patches) and a MoE model over a group of 2
+    equals the one-position loss, with each member's gradients its blocks
+    of the whole ones.
 """
 import dataclasses
 
@@ -146,24 +159,54 @@ def test_plan_follows_the_placements():
                      "blocks/mlp/w_up"]
     assert _plan("llama3.2-1b", 4, 1) is None
     assert _plan("llama3.2-1b", 2, 2, batch_over_model=True) is None
-    for arch in ("moonshot-v1-16b-a3b", "mamba2-1.3b", "phi-3-vision-4.2b"):
+    for arch in ("mamba2-1.3b", "zamba2-2.7b", "seamless-m4t-medium"):
         assert _plan(arch, 2, 2) is None
+    plan = _plan("phi-3-vision-4.2b", 2, 2)
+    assert (plan.heads, plan.mlp, plan.vocab, plan.experts) == \
+        (True, True, False, False)
+    plan = _plan("moonshot-v1-16b-a3b", 2, 2, vocab=256)
+    assert (plan.heads, plan.mlp, plan.vocab, plan.experts) == \
+        (True, False, True, True)
 
 
-def _split_block(p, r, t):
+@pytest.mark.parametrize("arch,regions", [
+    ("arctic-480b", (False, True, True, True)),
+    ("moonshot-v1-16b-a3b", (True, False, True, True)),
+    ("phi-3-vision-4.2b", (True, True, True, False))])
+def test_plan_at_full_size_on_the_production_mesh(arch, regions):
+    """At full size on (16, 16): arctic's 56 heads do not split 16 ways
+    (the placement keeps them whole, as the reference's ``_demote_spec``),
+    its experts' d_ff, dense-residual MLP and vocab do; moonshot has no
+    dense MLP; phi-3-vision has no experts.  The router is whole on every
+    member."""
+    api = p_registry.get(arch)
+    mesh = p_mesh.make_production_mesh(device="meta")
+    plan = p_train.make_sharded_train_step(
+        api, make_optimizer("sgdm"), None, mesh).tp
+    assert (plan.heads, plan.mlp, plan.vocab, plan.experts) == regions
+    paths = ["/".join(path) for path, _ in
+             TP.tree_flatten_with_path(api.abstract())]
+    split = {p for p, d in zip(paths, plan.dims) if d is not None}
+    want = {"/".join(path) for region, on in zip(
+        ("heads", "mlp", "vocab", "experts"), regions) if on
+        for path, _ in TP.REGIONS[region] if "/".join(path) in paths}
+    assert split == want
+    assert "blocks/moe/router" not in split
+
+
+def _split_block(p, r, t, regions=("heads", "mlp")):
     """Member ``r`` of ``t``'s view of one layer's params: its block of
-    the query heads' and d_ff's leaves, the others whole."""
-    def cut(x, dim):
-        n = x.shape[dim] // t
-        return x.narrow(dim, r * n, n)
-
-    attn = dict(p["attn"], wq=cut(p["attn"]["wq"], 1),
-                wo=cut(p["attn"]["wo"], 0))
-    if "bq" in attn:
-        attn["bq"] = cut(p["attn"]["bq"], 0)
-    mlp = {k: cut(v, 0 if k in ("w_down", "b_up") else 1)
-           if k != "b_down" else v for k, v in p["mlp"].items()}
-    return dict(p, attn=attn, mlp=mlp)
+    each leaf of ``regions`` (``TP.REGIONS``, the layer dim dropped), the
+    others whole."""
+    p = {k: dict(v) if isinstance(v, dict) else v for k, v in p.items()}
+    for region in regions:
+        for path, dim in TP.REGIONS[region]:
+            if path[0] != "blocks" or path[2] not in p.get(path[1], {}):
+                continue
+            x = p[path[1]][path[2]]
+            n = x.shape[dim - 1] // t
+            p[path[1]][path[2]] = x.narrow(dim - 1, r * n, n)
+    return p
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
@@ -197,12 +240,24 @@ def test_block_members_equal_the_whole_block(arch):
     members = [[t.clone().requires_grad_() for t in
                 tree_flatten(_split_block(p, r, 2))[0]] for r in range(2)]
     xs = [x.clone().requires_grad_() for _ in range(2)]
-    outs = lm._attn_block_tp(cfg, group,
-                             [treedef.unflatten(m) for m in members], xs,
-                             positions=[pos, pos])
+    outs, auxs = lm._attn_block_tp(cfg, group,
+                                   [treedef.unflatten(m) for m in members],
+                                   xs, positions=[pos, pos])
+    assert auxs == [None, None]
     torch.autograd.backward([(o * cot).sum() for o in outs])
     for o in outs:
         torch.testing.assert_close(o, want, rtol=TOL, atol=TOL)
+    _members_grads_are_blocks(specs, members, whole, xs, xw)
+
+
+def _members_grads_are_blocks(specs, members, whole, xs, xw):
+    """Each member's gradient of a split leaf is its block of the whole
+    gradient (the blocks concatenated over the group); of a whole leaf and
+    of the input, the whole gradient, bit-equal over the members."""
+    def close(got, want, what):
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL,
+                                   msg=lambda m: f"{what}: {m}")
+
     paths = [path for path, _ in TP.tree_flatten_with_path(specs)]
     for i, path in enumerate(paths):
         grads = [m[i].grad for m in members]
@@ -213,9 +268,134 @@ def test_block_members_equal_the_whole_block(arch):
             got = torch.cat(grads, dim=dim)
         else:
             got = grads[0]
-            assert torch.equal(grads[1], grads[0]), path
-        torch.testing.assert_close(got, whole[i].grad, rtol=TOL, atol=TOL,
-                                   msg=lambda m: f"{path}: {m}")
+            for g in grads[1:]:
+                assert torch.equal(g, grads[0]), path
+        close(got, whole[i].grad, path)
     for xi in xs:
-        torch.testing.assert_close(xi.grad, xw.grad, rtol=TOL, atol=TOL)
-    assert torch.equal(xs[0].grad, xs[1].grad)
+        close(xi.grad, xw.grad, "x")
+        assert torch.equal(xi.grad, xs[0].grad)
+
+
+MOE_CASES = [("moonshot-v1-16b-a3b", t, True, False) for t in (2, 4)] + \
+    [("arctic-480b", t, experts, mlp) for t in (2, 4)
+     for experts, mlp in ((True, True), (True, False), (False, True))]
+
+
+@pytest.mark.parametrize("arch,t,experts,mlp", MOE_CASES)
+def test_moe_block_members_equal_the_whole_block(arch, t, experts, mlp):
+    """One MoE layer (``lm._attn_block_tp``: attention, then the experts
+    and, for arctic, the dense residual MLP) over a group of ``t``
+    against ``lm._attn_block`` on one position, the heads split, the
+    experts' and the MLP's regions each split or whole.  Every member's
+    output and aux loss equal the whole block's (``b_down`` once, a whole
+    region's term not summed ``t`` times); the gradients, the loss seeded
+    with the aux loss too, of every expert block are the whole gradient's
+    blocks, and the router's and the input's equal the whole ones on
+    every member, bit-equal over the members (a router that entered the
+    region would take the aux loss's gradient ``t`` times)."""
+    from repro_torch.core.treepath import tree_flatten
+
+    cfg = p_registry.get(arch, smoke=True).cfg
+    g = torch.Generator().manual_seed(t * 4 + 2 * experts + mlp)
+    specs = lm._attn_block_specs(cfg)
+    leaves, treedef = tree_flatten(specs)
+    p = treedef.unflatten([0.1 * torch.randn(s.shape, generator=g)
+                           for s in leaves])
+    x = torch.randn(2, 6, cfg.d_model, generator=g)
+    cot = torch.randn(2, 6, cfg.d_model, generator=g)
+    pos = torch.arange(6)[None, :]
+
+    whole = [v.clone().requires_grad_() for v in tree_flatten(p)[0]]
+    xw = x.clone().requires_grad_()
+    want, want_aux = lm._attn_block(cfg, treedef.unflatten(whole), xw,
+                                    positions=pos, cache=None,
+                                    kv_valid_len=None)
+    ((want * cot).sum() + want_aux).backward()
+
+    group = _group(t, mlp=mlp, experts=experts)
+    regions = ["heads"] + ["experts"] * experts + ["mlp"] * mlp
+    members = [[v.clone().requires_grad_() for v in tree_flatten(
+        _split_block(p, r, t, regions))[0]] for r in range(t)]
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    outs, auxs = lm._attn_block_tp(cfg, group,
+                                   [treedef.unflatten(m) for m in members],
+                                   xs, positions=[pos] * t)
+    torch.autograd.backward([(o * cot).sum() + a
+                             for o, a in zip(outs, auxs)])
+    for o, a in zip(outs, auxs):
+        torch.testing.assert_close(o, want, rtol=TOL, atol=TOL)
+        assert torch.equal(a, auxs[0])
+        torch.testing.assert_close(a, want_aux, rtol=TOL, atol=TOL)
+    _members_grads_are_blocks(specs, members, whole, xs, xw)
+    router = [path for path, _ in TP.tree_flatten_with_path(specs)] \
+        .index(("moe", "router"))
+    assert whole[router].grad.abs().max() > 0
+
+
+def _member_params(params, plan, r, t):
+    """Member ``r`` of ``t``'s params: its block of each leaf ``plan``
+    splits."""
+    from repro_torch.core.treepath import tree_flatten
+
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for v, d in zip(leaves, plan.dims):
+        if d is not None:
+            n = v.shape[d] // t
+            v = v.narrow(d, r * n, n)
+        out.append(v.clone().requires_grad_())
+    return treedef.unflatten(out)
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "arctic-480b"])
+def test_vlm_and_moe_loss_over_a_group_equal_one_positions(arch):
+    """``loss_fn(group=)`` at vocab 256 over a group of 2 (every region
+    the placements split on a (1, 2) mesh), phi-3-vision with its patches:
+    each member's loss (+ 0.01 aux) and aux equal the one-position
+    ``loss_fn``'s, and its gradients are its blocks of the whole ones (a
+    whole leaf's bit-equal over the members)."""
+    from repro_torch.core.treepath import tree_flatten, tree_leaves
+
+    api = p_registry.get_model(dataclasses.replace(
+        p_registry.get(arch, smoke=True).cfg, vocab_size=256))
+    cfg = api.cfg
+    plan = _plan(arch, 1, 2, vocab=256)
+    assert plan.vocab and plan.mlp and plan.experts == (cfg.family == "moe")
+    params = api.init(torch.Generator().manual_seed(5), device="cpu")
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, 256, (2, 8), generator=g),
+             "labels": torch.randint(0, 256, (2, 8), generator=g)}
+    batch["labels"][0, :3] = -1
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(2, cfg.frontend_tokens, cfg.d_model,
+                                       generator=g)
+    whole = tree_flatten(params)[0]
+    whole = [v.clone().requires_grad_() for v in whole]
+    total, metrics = api.loss_fn(tree_flatten(params)[1].unflatten(whole),
+                                 batch)
+    total.backward()
+    group = TP.ModelGroup(p_mesh.make_debug_mesh(1, 2, device="cpu"),
+                          (0, 1), heads=plan.heads, mlp=plan.mlp,
+                          vocab=plan.vocab, experts=plan.experts)
+    members = [_member_params(params, plan, r, 2) for r in range(2)]
+    totals, ms = api.loss_fn(members, [batch, batch], group=group)
+    torch.autograd.backward(totals)
+    for tot, m in zip(totals, ms):
+        torch.testing.assert_close(tot, total, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(m["aux_loss"], metrics["aux_loss"],
+                                   rtol=TOL, atol=TOL)
+    for i, (w, d) in enumerate(zip(whole, plan.dims)):
+        grads = [tree_leaves(m)[i].grad for m in members]
+        got = torch.cat(grads, dim=d) if d is not None else grads[0]
+        if d is None:
+            assert torch.equal(grads[1], grads[0]), i
+        # float32 sums in other orders: within TOL of the leaf's largest
+        # element where that is above 1 (the embedding's, about 20)
+        top = float(w.grad.abs().max())
+        assert float((got - w.grad).abs().max()) <= TOL * max(1.0, top), i
+
+
+def test_other_families_are_refused():
+    api = p_registry.get("mamba2-1.3b", smoke=True)
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        lm.loss_fn(api.cfg, [None], [{}], group=_group(2))
