@@ -131,7 +131,7 @@ Phases, each of which raises on failure:
      with a StatePrefetcher (region ledgers == closed forms, the state
      equal bit for bit) and one OffloadedOptimizer step under marshal
      (ledger == closed form, params == the resident AdamW's); (d) under
-     deterministic algorithms, 8 steps of the model cut to 3 layers
+     deterministic algorithms, 8 steps of the model cut to 1 layer
      uninterrupted against a run with a checkpoint every 4 steps and a
      NodeFailure at step 6: trajectory_diff empty, final states equal bit
      for bit; (e) after (c)'s save, the serve CLI (``python -m
@@ -142,11 +142,11 @@ Phases, each of which raises on failure:
      launches equal to those of a Server built on the in-memory params
      over the same requests; (f) the other families at full width, each
      on one batch repeated with (c)'s optimizer, peak lr and schedule
-     shape: mamba2-1.3b cut to 8 of its 48 layers (batch 8 x seq 512, so
-     two 256-token chunks a sequence, 8 steps), zamba2-2.7b cut to 12
+     shape: mamba2-1.3b cut to 2 of its 48 layers (batch 8 x seq 512, so
+     two 256-token chunks a sequence, 8 steps), zamba2-2.7b cut to 7
      layers and moonshot-v1-16b-a3b cut to 2 (4 steps each): each update
      with a nonzero lr lowering the loss, launches exactly
-     kernel_launches(train_steps=) (ssd_chunks 8 x 2 a mamba2 step:
+     kernel_launches(train_steps=) (ssd_chunks 2 x 2 a mamba2 step:
      forward and recompute); then each of the three in f32 (mamba2 and
      zamba2 at 2 layers, moonshot at 1), card vs CPU as (b).  (a) also holds ssd_chunks' autograd Function
      (y_diag, states and cum each carrying a gradient) against autograd
@@ -234,11 +234,16 @@ Phases, each of which raises on failure:
  20. launch      — after phase 19, on four positions of phase 18's mesh (one
      card: not multi-GPU), under deterministic algorithms: (a) the
      production-mesh step (``make_sharded_train_step``) tensor-parallel
-     over its model axis (``models/tp.py``), first for the vlm and the MoE
-     family: phi-3-vision-4.2b on (2, 2) (heads, d_ff and vocab split; 576
-     seeded patch embeddings a row) and moonshot-v1-16b-a3b on (1, 4)
-     (heads, every expert's d_ff and vocab split; the one row block routes
-     as one position does), each at full width cut to 2 layers, bf16,
+     over its model axis (``models/tp.py``), first for the vlm, the MoE,
+     the ssm and the hybrid family: phi-3-vision-4.2b on (2, 2) (heads,
+     d_ff and vocab split; 576 seeded patch embeddings a row),
+     moonshot-v1-16b-a3b on (1, 4) (heads, every expert's d_ff and vocab
+     split; the one row block routes as one position does), mamba2-1.3b
+     on (2, 2) (each Mamba2 mixer's 64 heads, 32 a position, and their
+     channels; vocab 50280 splits by 2) and zamba2-2.7b on (1, 4) (20 of
+     the mixers' 80 heads a position, 8 of the shared block's 32 heads,
+     a quarter of its d_ff and of the vocab; at 2 layers the shared block
+     applies once), each at full width cut to 2 layers, bf16,
      AdamW, batch 8 x 128, 2 steps: the regions split as listed, the
      predicted peak under the limit, the losses within LAUNCH_LOSS_TOL of
      make_train_step's on one position, the replicas bit-equal, every
@@ -298,10 +303,12 @@ and requests launches; a train step launches rmsnorm 2L + 1 and flash L times pe
 forward, and under remat the blocks' 2L and L again in the backward
 (llama: 65 and 32 a step; a Mamba2 model's ssd_chunks L, and L again); the
 dp phase launches a train step's count on every position of every step
-(4 x 17 rmsnorm and 4 x 8 flash a dp step at 4 layers; each of an elastic
+(4 x 9 rmsnorm and 4 x 4 flash a dp step at 2 layers; each of an elastic
 survivor's m positions a step's count) and nothing in the MoE layer;
 the launch phase's sharded steps launch 4 x a train step's count a step
-(llama, phi-3-vision and moonshot) and its placed prefill and decode what kernel_launches gives for 2 x the
+(llama, phi-3-vision, moonshot, mamba2 and zamba2: ssd_chunks once a
+member a Mamba2 layer, on its heads) and its placed prefill and decode
+what kernel_launches gives for 2 x the
 prompts (the slot's two holders) and 4 x the steps.
 The last lines are the card's name and power limit, a ``kernels`` JSON
 line (launches summed over the serve phases 8-12 and 17, and per phase,
@@ -447,10 +454,11 @@ TRAIN_STEP_TOL = 2e-3
 TRAIN_STATE_LEDGERS = {"params/**": (2471628800, 1),
                        "opt/**": (9886515204, 2), "**": (4, 1)}
 OFFLOAD_LEDGER = (9886515204, 2)
-# (d): full width cut to 3 of 16 layers (4.45 GB a checkpoint), 8 steps
-# (saves at steps 4 and 8; the script's wall sets the count), a
+# (d): full width cut to 1 of 16 layers (3.23 GB a checkpoint; 3 before
+# phase 20 (a) took the ssm and hybrid runs, cut for the script's wall), 8
+# steps (saves at steps 4 and 8; the script's wall sets the count), a
 # NodeFailure at step 6
-RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 3, 8, 4, 6
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 1, 8, 4, 6
 # the sanitizer phase (16): passes per real-size spec (a cold and a steady
 # one; three until PR 24, cut to keep the script's wall as phase 19 came
 # in); the overhead tree (2^28 f32, 1 GiB) and its alternating rounds; the
@@ -465,19 +473,21 @@ SERVE_CLI = {"requests": 16, "slots": 4, "max_seq": 128, "max_new": 16}
 # (f): the other families trained at full width.  mamba2-1.3b cut to
 # MAMBA_TRAIN_LAYERS of its 48 layers (for the script's wall), 8 steps;
 # batch 8 x seq 512, so each sequence spans two 256-token chunks and the
-# inter-chunk recurrence carries gradient; then zamba2-2.7b at its serve
-# depth (12 of 54 layers) and moonshot-v1-16b-a3b cut to 2 of 48 layers,
-# 4 steps each; AdamW at the CLI's peak lr with the CLI's schedule shape,
-# one batch repeated.  moonshot at its serve depth of 4
+# inter-chunk recurrence carries gradient; then zamba2-2.7b cut to
+# ZAMBA_TRAIN_LAYERS of 54 layers and moonshot-v1-16b-a3b cut to 2 of 48
+# layers, 4 steps each; AdamW at the CLI's peak lr with the CLI's schedule
+# shape, one batch repeated.  moonshot at its serve depth of 4
 # layers (2953332736 params) does not fit: the functional AdamW holds the
 # old and the new f32 moments (2 x 23.6 GB) at once beside the params and
 # gradients, and such a run went out of memory in its first update with
 # 69.45 GB allocated (H100 80GB HBM3)
 FAMILY_BATCH, FAMILY_SEQ = 8, 512
 MOONSHOT_TRAIN_LAYERS = 2
-MAMBA_TRAIN_LAYERS = 8
+MAMBA_TRAIN_LAYERS = 2                   # of 48 (was 8): the script's wall
+ZAMBA_TRAIN_LAYERS = 7                   # of 54 (was 12): still 2 shared-
+                                         # block applications (layers 0, 6)
 FAMILY_RUNS = (("mamba2-1.3b", MAMBA_TRAIN_LAYERS, 8),
-               ("zamba2-2.7b", ZAMBA_LAYERS, 4),
+               ("zamba2-2.7b", ZAMBA_TRAIN_LAYERS, 4),
                ("moonshot-v1-16b-a3b", MOONSHOT_TRAIN_LAYERS, 4))
 # (f)'s card-vs-CPU check of each family at full width in f32 (part (b)'s
 # tolerance), (layers, seq) at batch 2: the Mamba2 models at 2 layers and
@@ -546,7 +556,7 @@ SHARD_POLICY_N = 2 ** 25
 # script's wall), benchmarks/elastic_restart.py's batch, steps, crash and
 # checkpoint interval
 DP_K = SHARD_K
-DP_LAYERS = 4
+DP_LAYERS = 2                            # of 16 (was 4): the script's wall
 DP_BATCH, DP_SEQ, DP_STEPS = 8, 128, 3
 DP_GRAD_TOL = 2e-2
 DP_INT8_LOSS_TOL = 0.1
@@ -580,16 +590,20 @@ LAUNCH_F32_LOSS_RTOL = 1e-5             # f32 losses; the leaves: DP_GRAD_TOL
 LAUNCH_PEAK_LIMIT = 70e9
 LAUNCH_RESTORE_MESHES = ((4, 1), (1, 4))
 LAUNCH_PROMPTS, LAUNCH_NEW = 8, 8
-# (a) also the vlm and the MoE family tensor-parallel over the model axis,
-# each at full width cut to LAUNCH_FAMILY_LAYERS layers, bf16, AdamW at
-# LAUNCH_LR, LAUNCH_BATCH x LAUNCH_SEQ text tokens, LAUNCH_FAMILY_STEPS
-# steps, against make_train_step on one position: phi-3-vision-4.2b on
-# (2, 2) with its 576 seeded patch embeddings a row; moonshot-v1-16b-a3b on
-# (1, 4), whose one row block is the whole batch, so routing, capacity
-# and the aux loss are one position's.  With the regions each must split.
+# (a) also the vlm, the MoE, the ssm and the hybrid family tensor-parallel
+# over the model axis, each at full width cut to LAUNCH_FAMILY_LAYERS
+# layers, bf16, AdamW at LAUNCH_LR, LAUNCH_BATCH x LAUNCH_SEQ text tokens,
+# LAUNCH_FAMILY_STEPS steps, against make_train_step on one position:
+# phi-3-vision-4.2b on (2, 2) with its 576 seeded patch embeddings a row;
+# moonshot-v1-16b-a3b on (1, 4), whose one row block is the whole batch,
+# so routing, capacity and the aux loss are one position's; mamba2-1.3b on
+# (2, 2), where the data axis splits the rows too; zamba2-2.7b on (1, 4),
+# its shared block applied once.  With the regions each must split.
 LAUNCH_FAMILIES = (("phi-3-vision-4.2b", (2, 2), ("heads", "mlp", "vocab")),
                    ("moonshot-v1-16b-a3b", (1, 4),
-                    ("heads", "vocab", "experts")))
+                    ("heads", "vocab", "experts")),
+                   ("mamba2-1.3b", (2, 2), ("ssm", "vocab")),
+                   ("zamba2-2.7b", (1, 4), ("ssm", "heads", "mlp", "vocab")))
 LAUNCH_FAMILY_LAYERS, LAUNCH_FAMILY_STEPS = 2, 2
 CUDA_ALLOC_GRANULE = 512                 # the caching allocator's rounding
 
@@ -4174,8 +4188,8 @@ def masked_batch(batch: dict, blocks: int) -> dict:
 
 
 def launch_sharded_step(kernels: dict, smi: str):
-    """Part (a): the production-mesh step.  First the vlm and MoE runs
-    (``_launch_family_runs``).  Then, on a (2, 2) mesh, the
+    """Part (a): the production-mesh step.  First the vlm, MoE, ssm and
+    hybrid runs (``_launch_family_runs``).  Then, on a (2, 2) mesh, the
     f32 check at TRAIN_CHECK_LAYERS layers (SGD-momentum, 2 steps): losses
     within LAUNCH_F32_LOSS_RTOL and every gathered leaf within DP_GRAD_TOL
     of its largest element against make_train_step on one position.  Then llama3.2-1b at LAUNCH_LAYERS layers, bf16,
@@ -4225,7 +4239,8 @@ def _family_batch(cfg, data, i: int) -> dict:
 
 def _launch_family_runs(kernels: dict, smi: str, synchronize, train
                         ) -> dict:
-    """Part (a)'s vlm and MoE runs (LAUNCH_FAMILIES): for each, the
+    """Part (a)'s vlm, MoE, ssm and hybrid runs (LAUNCH_FAMILIES): for
+    each, the
     sharded step must split exactly the regions listed; its predicted
     peak is printed and must stay under LAUNCH_PEAK_LIMIT; then
     make_train_step's LAUNCH_FAMILY_STEPS losses on one position, and the
@@ -4254,7 +4269,7 @@ def _launch_family_runs(kernels: dict, smi: str, synchronize, train
         opt = make_optimizer("adamw")
         lr = constant(LAUNCH_LR)
         step = train.make_sharded_train_step(api, opt, lr, mesh)
-        split = tuple(r for r in ("heads", "mlp", "vocab", "experts")
+        split = tuple(r for r in ("heads", "mlp", "vocab", "experts", "ssm")
                       if step.tp is not None and getattr(step.tp, r))
         if set(split) != set(regions):
             fail(f"[launch] (a) {arch} on {shape}: the step splits {split} "

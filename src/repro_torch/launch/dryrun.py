@@ -23,13 +23,13 @@ No card is needed: the mesh is ``make_production_mesh(device="meta")``,
     and ``bytes_accessed`` are that position's dispatched aten ops
     (``torch.utils.flop_counter``'s formulas; each op's inputs and outputs
     once);
-    A dense, vlm or MoE train step is tensor-parallel over the model
-    axis where the placements split heads, d_ff, the experts' d_ff or
-    vocab (``models/tp.py``): position 0 computes its blocks with its
-    model group's other members standing in (its tensors in their slots
-    of the group's ``psum`` / ``pmax``, which count in ``collectives``);
-    the other families and the placed prefill / decode replicate compute
-    over the model axis;
+    A decoder-only train step is tensor-parallel over the model axis
+    where the placements split heads, d_ff, the experts' d_ff, the Mamba2
+    mixers' heads or vocab (``models/tp.py``): position 0 computes its
+    blocks with its model group's other members standing in (its tensors
+    in their slots of the group's ``psum`` / ``pmax``, which count in
+    ``collectives``); the encoder-decoder and the placed prefill /
+    decode replicate compute over the model axis;
   * ``bodies`` are ``probe.layer_bodies`` (at the tensor-parallel widths
     where the step splits); eager PyTorch counts every layer trip, so
     ``corrected`` is the raw count, and ``probe_check`` holds the step's

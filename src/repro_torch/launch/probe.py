@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -102,16 +102,19 @@ def tp_plan(api: ModelApi, mesh, rules: Dict):
 
 
 def _member_tree(api: ModelApi, plan, mesh, grad: bool = False,
-                 blocks: bool = False) -> Any:
+                 under: Optional[str] = None) -> Any:
     """Member 0's params on meta tensors at its blocks of the split
-    leaves (with ``blocks``, one layer of the stacked ``blocks``)."""
+    leaves (with ``under``, the subtree there alone: one layer of the
+    stacked ``"blocks"``, or the hybrid's ``"shared_attn"``)."""
     tree: Dict[Any, Any] = {}
     for path, shape, dtype in plan.member_shapes(api.abstract(),
                                                  mesh.shape[TP.AXIS]):
-        if blocks and path[0] != "blocks":
-            continue
-        if blocks:
-            path, shape = path[1:], shape[1:]
+        if under is not None:
+            if path[0] != under:
+                continue
+            path = path[1:]
+            if under == "blocks":
+                shape = shape[1:]
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -166,12 +169,22 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
     plan = tp_plan(api, mesh, rules) if train else None
     if plan is not None:
         group = plan.stand_in(mesh)
-        block = functools.partial(lm_mod._attn_block_tp, cfg, group)
-        record("attn_block", cfg.num_layers, _grad_probe(
-            lambda p, x, pos: tuple(out[0] for out in block(
-                [p], [x], positions=[pos])), cfg, 2),
-            _member_tree(api, plan, mesh, True, blocks=True), x_in(),
-            positions())
+        attn = functools.partial(lm_mod._attn_block_tp, cfg, group)
+        attn_probe = _grad_probe(lambda p, x, pos: tuple(
+            out[0] for out in attn([p], [x], positions=[pos])), cfg, 2)
+        if cfg.family in lm_mod.ATTN_STACKS:
+            record("attn_block", cfg.num_layers, attn_probe,
+                   _member_tree(api, plan, mesh, True, under="blocks"),
+                   x_in(), positions())
+        else:
+            mixer = functools.partial(lm_mod._ssm_block_tp, cfg, group)
+            record("ssm_block", cfg.num_layers, _grad_probe(
+                lambda p, x: mixer([p], [x])[0], cfg, 2),
+                _member_tree(api, plan, mesh, True, under="blocks"), x_in())
+        if cfg.family == "hybrid":
+            record("shared_attn", lm_mod._n_shared_apps(cfg), attn_probe,
+                   _member_tree(api, plan, mesh, True, under="shared_attn"),
+                   x_in(), positions())
     elif cfg.family in lm_mod.ATTN_STACKS:
         attn_body("attn_block", lm_mod._attn_block_specs(cfg),
                   cfg.num_layers)

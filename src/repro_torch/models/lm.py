@@ -37,7 +37,7 @@ matmul outputs (``aten.mm``, ``aten.addmm``: the dots without batch
 dimensions that the reference's ``dots_with_no_batch_dims_saveable``
 keeps) and recomputes the rest, the kernels included.
 
-``loss_fn(..., group=)`` runs a dense, vlm or MoE model tensor-parallel
+``loss_fn(..., group=)`` runs a model of any family here tensor-parallel
 over a model group of a mesh, its members in lock step
 (:func:`_forward_tp`, ``models/tp.py``): the production-mesh train
 step's path.
@@ -374,6 +374,34 @@ def _ssm_block(cfg, p, x, *, cache):
     return x + out, new_cache
 
 
+def _ssm_block_tp(cfg, group, ps, xs):
+    """:func:`_ssm_block` (no cache) on the members of a tensor-parallel
+    model group in lock step, as :func:`_attn_block_tp`: ``ps`` and
+    ``xs`` one entry a computed member; returns each member's x.  ``ln1``
+    and the residual stream run on every member's copy, the mixer on its
+    share of the heads (``group.ssm``) between :func:`tp.enter` and
+    :func:`tp.leave`: ``wz`` / ``wx`` / ``wdt`` column-parallel, ``wo``
+    row-parallel.  ``wB`` and ``wC`` stay whole and enter the region, as
+    the kv projections enter the attention: every head reads the one
+    ``Bm`` / ``Cm``, so their gradients are the group's sum.  The gated
+    RMSNorm's sum of squares over d_inner is the group's sum
+    (:func:`tp.total`: its gradient too) divided by the whole
+    ``d_inner``."""
+    split = group.ssm
+    hs = TP.enter(group, [L.apply_norm(cfg, p["ln1"], x)
+                          for p, x in zip(ps, xs)], split)
+    wB = TP.enter(group, [p["ssm"]["wB"] for p in ps], split)
+    wC = TP.enter(group, [p["ssm"]["wC"] for p in ps], split)
+    mine = [dict(p["ssm"], wB=b, wC=c) for p, b, c in zip(ps, wB, wC)]
+    ys = [SSM.mix(cfg, p, h, heads=group.share(split, r))[0]
+          for r, p, h in zip(group.ranks, mine, hs)]
+    sums = TP.total(group, [y.float().square().sum(-1, keepdim=True)
+                            for y in ys], split)
+    outs = TP.leave(group, [SSM.gated_out(p, y, s / cfg.d_inner)
+                            for p, y, s in zip(mine, ys, sums)], split)
+    return [x + o for x, o in zip(xs, outs)]
+
+
 def _kv_slot(cache, i):
     return None if cache is None else {"k": cache["k"][i],
                                        "v": cache["v"][i]}
@@ -465,15 +493,19 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 
 
 def _forward_tp(cfg: ModelConfig, group, params, tokens, patches=None):
-    """:func:`forward` of an attention stack (no cache) on the members of
-    a tensor-parallel model group in lock step: ``params`` (each member's
-    blocks of the split leaves, the others whole), ``tokens`` and a vlm
-    model's ``patches`` one a computed member.  The patches' projection
+    """:func:`forward` (no cache) on the members of a tensor-parallel
+    model group in lock step: ``params`` (each member's blocks of the
+    split leaves, the others whole), ``tokens`` and a vlm model's
+    ``patches`` one a computed member.  The patches' projection
     (``vision_proj``, whole on every member) runs on each member's copy
-    and is prepended to the vocab-parallel embedding.  Returns each
-    member's f32 logits over the text positions, its block of the vocab
-    where ``group.vocab`` (the embedding vocab-parallel too), else whole,
-    and its MoE aux loss summed over the layers."""
+    and is prepended to the vocab-parallel embedding.  The hybrid's
+    shared block runs before layer ``i`` when ``i % attn_every == 0``,
+    as in :func:`_run_ssm_stack`, each application entering and leaving
+    its regions on its own (its leaves' gradients add up over the
+    applications).  Returns each member's f32 logits over the text
+    positions, its block of the vocab where ``group.vocab`` (the
+    embedding vocab-parallel too), else whole, and its MoE aux loss
+    summed over the layers."""
     xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
                   L.dtype_of(cfg))
     vision = cfg.frontend == "vision" and patches is not None
@@ -485,11 +517,20 @@ def _forward_tp(cfg: ModelConfig, group, params, tokens, patches=None):
                  for x in xs]
     auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
             for x in xs]
-    block = _remat(cfg, functools.partial(_attn_block_tp, cfg, group))
+    attn = _remat(cfg, functools.partial(_attn_block_tp, cfg, group))
+    mixer = _remat(cfg, functools.partial(_ssm_block_tp, cfg, group))
+    shared = cfg.family == "hybrid"
     for i in range(cfg.num_layers):
         ps = [tree_map(lambda t: t[i], p["blocks"]) for p in params]
-        xs, block_aux = block(ps, xs, positions=positions)
-        auxs = [a if b is None else a + b for a, b in zip(auxs, block_aux)]
+        if cfg.family in ATTN_STACKS:
+            xs, block_aux = attn(ps, xs, positions=positions)
+            auxs = [a if b is None else a + b
+                    for a, b in zip(auxs, block_aux)]
+            continue
+        if shared and i % cfg.attn_every == 0:
+            xs, _ = attn([p["shared_attn"] for p in params], xs,
+                         positions=positions)
+        xs = mixer(ps, xs)
     xs = [L.apply_norm(cfg, p["final_norm"], x) for p, x in zip(params, xs)]
     if vision:
         xs = [x[:, pt.shape[1]:] for x, pt in zip(xs, patches)]
@@ -515,11 +556,11 @@ def loss_fn(cfg: ModelConfig, params, batch, rng=None, group=None):
     "patches" (B, P, d_model).  Returns (loss + 0.01 * aux, metrics
     {"loss", "aux_loss", "tokens"}).
 
-    With ``group`` (a dense, vlm or MoE model's tensor-parallel model
-    group, ``models/tp.py``) ``params`` and ``batch`` hold one tree a
-    computed member and so does what comes back: each member's copy of
-    the loss (the cross-entropy vocab-parallel where ``group.vocab``, the
-    aux loss each member's own, from its replicated routing)."""
+    With ``group`` (the model's tensor-parallel model group,
+    ``models/tp.py``) ``params`` and ``batch`` hold one tree a computed
+    member and so does what comes back: each member's copy of the loss
+    (the cross-entropy vocab-parallel where ``group.vocab``, the aux loss
+    each member's own, from its replicated routing)."""
     if group is not None:
         return _loss_tp(cfg, group, params, batch)
     logits, _, aux = forward(cfg, params, batch["tokens"],

@@ -11,7 +11,11 @@ stay plain torch, as the reference computes them outside any kernel.
 
 :func:`apply_ssm` computes its new cache out of place and returns it (the
 reference's contract), so a decode step that is retried after a fault
-starts again from the same ``state`` and ``conv``.
+starts again from the same ``state`` and ``conv``.  It is two halves:
+:func:`mix`, which a tensor-parallel member runs on its share of the
+heads, and :func:`gated_out`, whose norm reads the whole d_inner's mean
+square; between them a model group sums its members' squares
+(``lm._ssm_block_tp``).
 """
 from __future__ import annotations
 
@@ -84,9 +88,29 @@ def apply_ssm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """The full Mamba2 mixer. x: (B, S, D).  cache: {"state": (B, nh, hd,
     N) f32, "conv": (B, W-1, di)}; with a cache, S == 1 takes the recurrent
-    step and a longer call the chunked scan from the cached state."""
+    step and a longer call the chunked scan from the cached state.  It is
+    :func:`mix`, then :func:`gated_out` on the mean square of the whole
+    d_inner."""
+    y, new_cache = mix(cfg, p, x, cache=cache)
+    yf = y.float()
+    return gated_out(p, y, yf.square().mean(-1, keepdim=True)), new_cache
+
+
+def mix(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
+        cache: Optional[Dict[str, Any]] = None,
+        heads: Tuple[int, int] = (0, 1)
+        ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """The mixer up to its gated RMSNorm: the projections, the causal
+    conv, the chunked scan (or the one-token step) and the gate; returns
+    (y (B, S, di), the new cache or None).  ``heads`` = (index, count) is
+    a tensor-parallel member's share: ``p`` holds its block of the head
+    leaves (``wdt``, ``dt_bias``, ``A_log``, ``D``) and of the channel
+    leaves (``wz``, ``wx``, ``conv_*``, ``out_norm``, ``wo``), its heads'
+    channels, and it runs ``ssm_heads / count`` heads on ``d_inner /
+    count`` channels (``wB`` / ``wC`` whole)."""
     B, S, _ = x.shape
-    nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    count = heads[1]
+    nh, hd = cfg.ssm_heads // count, cfg.ssm_head_dim
 
     z = x @ p["wz"].to(x.dtype)
     xi = x @ p["wx"].to(x.dtype)
@@ -121,18 +145,22 @@ def apply_ssm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
             xh = xh[:, :S]
 
     y = y + xh * p["D"].float()[None, None, :, None].to(y.dtype)
-    y = y.reshape(B, S, cfg.d_inner)
-    # gated RMSNorm (mamba2 style), inline as in the reference
-    y = y * F.silu(z)
-    yf = y.float()
-    y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
-         * p["out_norm"].float()).to(x.dtype)
-    out = y @ p["wo"].to(x.dtype)
-
+    y = y.reshape(B, S, nh * hd)
     new_cache = None
     if cache is not None:
         new_cache = {"state": new_state, "conv": new_conv}
-    return out, new_cache
+    return y * F.silu(z), new_cache
+
+
+def gated_out(p: Dict[str, Any], y: torch.Tensor, ms: torch.Tensor
+              ) -> torch.Tensor:
+    """The gated RMSNorm (mamba2 style, inline as in the reference) of
+    :func:`mix`'s ``y`` given the mean square ``ms`` (B, S, 1) f32 of the
+    whole d_inner, then the out projection; a tensor-parallel member's
+    ``y`` and ``p`` are its channels, and its output a partial sum."""
+    yf = y.float()
+    y = (yf * torch.rsqrt(ms + 1e-6) * p["out_norm"].float()).to(y.dtype)
+    return y @ p["wo"].to(y.dtype)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: Any = torch.float32,

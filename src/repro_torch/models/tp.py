@@ -1,24 +1,30 @@
-"""Tensor parallelism over a mesh's ``model`` axis for the attention
-stacks (the ``dense``, ``vlm`` and ``moe`` families).
+"""Tensor parallelism over a mesh's ``model`` axis for the decoder-only
+families (``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``).
 
 The reference never writes this out: its jitted train step puts ``heads``,
-``mlp``, ``vocab`` and the experts' ``expert_mlp`` on ``model``
-(``launch/mesh.py``'s rules), keeps the residual stream at ``("batch",
-None, None)`` and the logits at ``("batch", None, "vocab")``, and GSPMD
-partitions every projection, the MLP, each expert's d_ff, the head and the
-cross-entropy over the model axis (Megatron-style tensor parallelism;
-per-expert tensor parallelism for the experts, whose router stays
-replicated).  Here one controller drives the T members of a model
-group (:class:`ModelGroup`) in lock step: every value is a list with one
-tensor a computed member, on that member's device, and the members meet
-in ``core.collectives.psum`` / ``pmax`` over the group, in position
-order.
+``mlp``, ``vocab``, the experts' ``expert_mlp`` and the Mamba2 mixer's
+``ssm_inner`` and ``ssm_heads`` on ``model`` (``launch/mesh.py``'s
+rules), keeps the residual stream at ``("batch", None, None)`` and the
+logits at ``("batch", None, "vocab")``, and GSPMD partitions every
+projection, the MLP, each expert's d_ff, each Mamba2 mixer's heads and
+inner channels, the head and the cross-entropy over the model axis
+(Megatron-style tensor parallelism; per-expert tensor parallelism for the
+experts, whose router stays replicated; the mixer's ``wB`` / ``wC``,
+``ssm_state``, stay whole).  Here one controller drives the T members
+of a model group (:class:`ModelGroup`) in lock step: every value is a
+list with one tensor a computed member, on that member's device, and the
+members meet in ``core.collectives.psum`` / ``pmax`` over the group, in
+position order.
 
   * :func:`enter`, at a tensor-parallel region's entry: the identity
     forward, the ``psum`` of the replicated input's gradient backward
     (Megatron's f);
   * :func:`leave`, at its exit: the ``psum`` of the partial outputs forward,
     the identity backward (g);
+  * :func:`total`, a partial sum that every member's share reads on (the
+    gated RMSNorm's sum of squares over d_inner): :func:`leave`, then
+    :func:`enter`, so its gradient, partial on each member, is summed
+    too;
   * :func:`embed`: each member looks up the tokens in its vocab rows and
     gives zeros elsewhere, then :func:`leave` (exact: one term is
     nonzero);
@@ -55,19 +61,33 @@ from ..core.treepath import tree_flatten_with_path
 
 AXIS = "model"
 # the families whose train step splits over the model axis
-FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 # per region, the leaves it splits and the dim of each that ``model``
-# must block (the stacked leaves' dim 0 is the layer)
+# must block (the stacked leaves' dim 0 is the layer; the hybrid's
+# ``shared_attn`` is one block, unstacked).  ``ssm`` holds the Mamba2
+# mixer's head leaves and its channel leaves together, so a member's
+# block of d_inner is exactly its heads' channels
 REGIONS = {
     "heads": ((("blocks", "attn", "wq"), 2), (("blocks", "attn", "wo"), 1),
-              (("blocks", "attn", "bq"), 1)),
+              (("blocks", "attn", "bq"), 1),
+              (("shared_attn", "attn", "wq"), 1),
+              (("shared_attn", "attn", "wo"), 0),
+              (("shared_attn", "attn", "bq"), 0)),
     "mlp": ((("blocks", "mlp", "w_gate"), 2), (("blocks", "mlp", "w_up"), 2),
-            (("blocks", "mlp", "w_down"), 1), (("blocks", "mlp", "b_up"), 1)),
+            (("blocks", "mlp", "w_down"), 1), (("blocks", "mlp", "b_up"), 1),
+            (("shared_attn", "mlp", "w_gate"), 1),
+            (("shared_attn", "mlp", "w_up"), 1),
+            (("shared_attn", "mlp", "w_down"), 0),
+            (("shared_attn", "mlp", "b_up"), 0)),
     "vocab": ((("embed", "tok"), 0), (("embed", "lm_head"), 1)),
     "experts": ((("blocks", "moe", "w_gate"), 3),
                 (("blocks", "moe", "w_up"), 3),
                 (("blocks", "moe", "w_down"), 2)),
+    "ssm": tuple((("blocks", "ssm", n), d) for n, d in (
+        ("wz", 2), ("wx", 2), ("wdt", 2), ("conv_w", 2), ("conv_b", 1),
+        ("out_norm", 1), ("dt_bias", 1), ("A_log", 1), ("D", 1),
+        ("wo", 1))),
 }
 
 
@@ -75,20 +95,21 @@ class ModelGroup:
     """The T members of one model group of ``mesh`` (``members``: flat
     positions ordered by their index over ``model``), driven in lock step,
     and which regions of the block split over them (``heads``, ``mlp``,
-    ``vocab``, ``experts``: each expert's d_ff).  :attr:`ranks` are the
+    ``vocab``, ``experts``: each expert's d_ff, ``ssm``: each Mamba2
+    mixer's heads and their channels).  :attr:`ranks` are the
     computed members' indices: all of them, or member 0 alone with
     ``stand_in``."""
 
     def __init__(self, mesh: NamedMesh, members: Sequence[int], *,
                  heads: bool, mlp: bool, vocab: bool, experts: bool = False,
-                 stand_in: bool = False):
+                 ssm: bool = False, stand_in: bool = False):
         self.members = tuple(members)
         self.size = len(self.members)
         self.mesh = NamedMesh([mesh.positions[p] for p in self.members],
                               (self.size,), (AXIS,))
         self.ranks = (0,) if stand_in else tuple(range(self.size))
         self.heads, self.mlp, self.vocab = heads, mlp, vocab
-        self.experts = experts
+        self.experts, self.ssm = experts, ssm
 
     def _reduce(self, xs: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
         if len(xs) != len(self.ranks):
@@ -144,6 +165,14 @@ def leave(group: ModelGroup, xs: Sequence[torch.Tensor], split: bool = True
     splits (else its whole outputs, as they are); each partial takes its
     member's gradient of the sum as it is."""
     return list(_Leave.apply(group, *xs)) if split else list(xs)
+
+
+def total(group: ModelGroup, xs: Sequence[torch.Tensor], split: bool = True
+          ) -> List[torch.Tensor]:
+    """The members' partial sums summed over the group where ``split``,
+    forward and backward: a value each member's share goes on to read,
+    whose gradient each member holds only its part of."""
+    return enter(group, leave(group, xs, split), split)
 
 
 def _local(ids: torch.Tensor, rank: int, rows: int
@@ -210,6 +239,7 @@ class Plan:
     vocab: bool
     dims: Tuple[Optional[int], ...]
     experts: bool = False
+    ssm: bool = False
 
     def keep(self, i: int) -> Tuple[str, ...]:
         """The axes leaf ``i`` keeps its block over when gathered."""
@@ -219,7 +249,7 @@ class Plan:
               stand_in: bool = False) -> ModelGroup:
         return ModelGroup(mesh, members, heads=self.heads, mlp=self.mlp,
                           vocab=self.vocab, experts=self.experts,
-                          stand_in=stand_in)
+                          ssm=self.ssm, stand_in=stand_in)
 
     def stand_in(self, mesh: NamedMesh) -> ModelGroup:
         """Position 0's group with member 0 alone computed (the dry
@@ -242,11 +272,12 @@ class Plan:
 
 def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
          ) -> Optional[Plan]:
-    """The attention stack's tensor-parallel plan over ``mesh``'s
-    ``model`` axis from the params' ``placements``: a region splits where
-    each of its leaves' placements blocks its dim (:data:`REGIONS`) over
-    ``model`` alone (arctic's 56 heads over 16 stay whole, as the
-    reference's ``_demote_spec`` leaves them).  None where nothing splits,
+    """The model's tensor-parallel plan over ``mesh``'s ``model`` axis
+    from the params' ``placements``: a region splits where each of its
+    leaves' placements blocks its dim (:data:`REGIONS`) over ``model``
+    alone (arctic's 56 heads over 16 stay whole, as the reference's
+    ``_demote_spec`` leaves them; so does a Mamba2 mixer whose heads do
+    not divide, even where its d_inner does).  None where nothing splits,
     the family is not one of :data:`FAMILIES`, the axis is missing or of
     size 1, or the batch's rows (``batch_rule``) split over it."""
     if cfg.family not in FAMILIES or AXIS not in mesh.axis_names \
@@ -265,8 +296,8 @@ def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
             for path, d in leaves}
     return Plan(heads=split["heads"], mlp=split["mlp"], vocab=split["vocab"],
                 dims=tuple(dims.get(path) for path, _ in items),
-                experts=split["experts"])
+                experts=split["experts"], ssm=split["ssm"])
 
 
 __all__ = ["AXIS", "FAMILIES", "REGIONS", "ModelGroup", "Plan", "plan",
-           "enter", "leave", "embed", "cross_entropy"]
+           "enter", "leave", "total", "embed", "cross_entropy"]

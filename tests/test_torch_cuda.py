@@ -661,6 +661,8 @@ def _ssd_inputs(rng, B, S, nh, hd, N, dtype, device):
     (1, 512, 2, 128, 128, 256),       # hd 128
     (1, 512, 2, 64, 256, 256),        # N 256, the largest state
     (1, 512, 80, 64, 64, 256),        # zamba2's 80 heads: a partial group
+    (1, 512, 20, 64, 64, 256),        # zamba2's heads a member on (1, 4)
+    (1, 512, 5, 64, 64, 256),         # and on 16: a part-filled group
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_equals_plain_version(cuda, B, S, nh, hd, N, chunk, dtype):
@@ -1463,7 +1465,7 @@ def test_moe_tensor_parallel_block_at_full_width(cuda, t):
     group = TP.ModelGroup(mesh, mesh.groups("model")[0], heads=True,
                           mlp=False, vocab=False, experts=True)
     dims = {path[1:]: d - 1 for region in ("heads", "experts")
-            for path, d in TP.REGIONS[region]}
+            for path, d in TP.REGIONS[region] if path[0] == "blocks"}
     members = []
     for r in range(t):
         mine = []
@@ -1492,6 +1494,84 @@ def test_moe_tensor_parallel_block_at_full_width(cuda, t):
     for o, a in zip(outs, auxs):
         close(o, want, "out")
         close(a, want_aux, "aux")
+    for i, path in enumerate(paths):
+        grads = [m[i].grad for m in members]
+        d = dims.get(path)
+        got = torch.cat(grads, dim=d) if d is not None else grads[0]
+        if d is None:
+            for gr in grads[1:]:
+                assert torch.equal(gr, grads[0]), path
+        close(got, whole[i].grad, "/".join(path))
+    for xi in xs:
+        assert torch.equal(xi.grad, xs[0].grad)
+    close(xs[0].grad, xw.grad, "x")
+
+
+# -- tensor parallelism of the Mamba2 block on card positions ----------------
+
+@pytest.mark.parametrize("arch,t", [("mamba2-1.3b", 2), ("mamba2-1.3b", 4),
+                                    ("zamba2-2.7b", 4)])
+def test_ssm_tensor_parallel_block_at_full_width(cuda, arch, t):
+    """One Mamba2 block at full width (mamba2: 64 heads of 64, N 128;
+    zamba2: 80 heads, N 64, 20 a member on 4), float32, batch 2 x 512 (two
+    256-step chunks), over a model group of ``t`` positions of the card
+    (``lm._ssm_block_tp``: the mixer's heads and their channels split,
+    ``wB`` / ``wC`` whole) against the plain block (``lm._ssm_block``) on
+    one position: each member's output, and the gradients of every leaf,
+    each member's block of a split one, and of the input, within 1e-4 of
+    the largest element (float32 sums in other orders); the whole leaves'
+    and the input's gradients bit-equal over the members; each member
+    runs the block's one rmsnorm and one ssd_chunks launch."""
+    from repro_torch.core.treepath import tree_flatten, tree_flatten_with_path
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm, registry
+    from repro_torch.models import tp as TP
+    from repro_torch.models.specs import init_params
+
+    cfg = registry.get(arch).cfg
+    specs = lm._ssm_block_specs(cfg)
+    p = init_params(specs, torch.Generator(device=cuda).manual_seed(0),
+                    "float32", cuda)
+    leaves, treedef = tree_flatten(p)
+    paths = [path for path, _ in tree_flatten_with_path(p)]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 512, cfg.d_model, device=cuda, generator=g)
+    cot = torch.randn(2, 512, cfg.d_model, device=cuda, generator=g)
+
+    whole = [v.clone().requires_grad_() for v in leaves]
+    xw = x.clone().requires_grad_()
+    want, _ = lm._ssm_block(cfg, treedef.unflatten(whole), xw, cache=None)
+    (want * cot).sum().backward()
+
+    mesh = make_debug_mesh(1, t, device=(cuda,) * t)
+    group = TP.ModelGroup(mesh, mesh.groups("model")[0], heads=False,
+                          mlp=False, vocab=False, ssm=True)
+    dims = {path[1:]: d - 1 for path, d in TP.REGIONS["ssm"]}
+    members = []
+    for r in range(t):
+        mine = []
+        for path, v in zip(paths, leaves):
+            d = dims.get(path)
+            if d is not None:
+                n = v.shape[d] // t
+                v = v.narrow(d, r * n, n)
+            mine.append(v.clone().requires_grad_())
+        members.append(mine)
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    before = (RK.rmsnorm.launches, SK.ssd_chunks.launches)
+    outs = lm._ssm_block_tp(cfg, group,
+                            [treedef.unflatten(m) for m in members], xs)
+    assert (RK.rmsnorm.launches - before[0],
+            SK.ssd_chunks.launches - before[1]) == (t, t)
+    torch.autograd.backward([(o * cot).sum() for o in outs])
+
+    def close(got, want, what):
+        top = float(want.detach().abs().max())
+        err = float((got - want).detach().abs().max())
+        assert err <= 1e-4 * top + 1e-6, f"{what}: {err} vs max {top}"
+
+    for o in outs:
+        close(o, want, "out")
     for i, path in enumerate(paths):
         grads = [m[i].grad for m in members]
         d = dims.get(path)

@@ -234,22 +234,34 @@ def _member_config(cfg, plan, mesh):
 
 def _tp_reductions(cfg, plan):
     """The all-reduces a step's tensor parallelism adds (position 0's
-    group, each micro-batch): per layer, the attention's exit psum and,
-    in the backward, its entry's and the kv projections' (wk, wv, and bk,
-    bv with qkv biases); the MLP sublayer's one exit psum where the MLP or
-    the experts split, and in the backward the MLP's entry psum and the
-    experts' two (the dispatched buffer's and the gates'); each exit once
-    more under remat; the vocab-parallel embedding's exit, the head's
+    group, each micro-batch): per attention block (each layer of an
+    attention stack, each application of the hybrid's shared block), the
+    attention's exit psum and, in the backward, its entry's and the kv
+    projections' (wk, wv, and bk, bv with qkv biases); the MLP sublayer's
+    one exit psum where the MLP or the experts split, and in the backward
+    the MLP's entry psum and the experts' two (the dispatched buffer's and
+    the gates'); per Mamba2 layer where its mixer splits, the gated norm's
+    sum and the exit psum forward, and in the backward the entry's,
+    ``wB``'s, ``wC``'s and the norm's sum's; under remat each exit but a
+    block's last once more (the recompute stops at the last tensor the
+    backward saved); the vocab-parallel embedding's exit, the head's
     entry, the cross-entropy's pmax and its two psums; then the gradient
     norm's psum."""
     if plan is None:
         return 0
     redo = cfg.remat != "none"
-    layer = plan.heads * (2 + redo + (4 if cfg.qkv_bias else 2)) + \
-        plan.mlp + 2 * plan.experts + \
-        (plan.mlp or plan.experts) * (1 + redo)
+    attn = plan.heads * (2 + redo + (4 if cfg.qkv_bias else 2)) + \
+        plan.mlp + 2 * plan.experts + (plan.mlp or plan.experts)
+    ssm = plan.ssm * (6 + redo)
+    if cfg.family == "hybrid":
+        apps, mixers = -(-cfg.num_layers // cfg.attn_every), cfg.num_layers
+    elif cfg.family == "ssm":
+        apps, mixers = 0, cfg.num_layers
+    else:
+        apps, mixers = cfg.num_layers, 0
     head = plan.vocab * 5
-    return max(1, cfg.micro_batches) * (cfg.num_layers * layer + head) + 1
+    return max(1, cfg.micro_batches) * (apps * attn + mixers * ssm + head) \
+        + 1
 
 
 def _leaves(tree):
@@ -407,6 +419,39 @@ def test_vlm_and_moe_cells_gather_the_plans_blocks(arch, mesh):
                 for v in _leaves(api.abstract()))
     got = _grid()[f"{arch}|train_4k|{mesh}"]["gathered_param_bytes"]
     assert got == step.gathered_param_bytes() < whole
+
+
+@pytest.mark.parametrize("arch,regions", [
+    ("mamba2-1.3b", (False, False, False, True)),
+    ("zamba2-2.7b", (True, True, True, True))])
+def test_ssm_and_hybrid_full_size_cells_gather_the_plans_blocks(arch,
+                                                               regions):
+    """mamba2 and zamba2 at full size, train_4k on the (16, 16) mesh: the
+    step splits the mixers' heads over the model axis (4 and 5 a member;
+    zamba2 also its shared block's heads, d_ff and vocab), so position 0
+    gathers what the plan says it holds, less than the whole params; the
+    probe identity is exact, and the all-reduces are the batch's sums
+    plus what tensor parallelism adds under remat ``dots``."""
+    import math
+
+    api = p_registry.get(arch)
+    m = p_mesh.make_production_mesh(device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, "train"),
+                                    m, SHAPES["train_4k"].global_batch)
+    step = p_train.make_sharded_train_step(
+        api, make_optimizer(api.cfg.optimizer), None, m, rules)
+    plan = step.tp
+    assert (plan.heads, plan.mlp, plan.vocab, plan.ssm) == regions
+    res, = dryrun.run_grid([arch], ["train_4k"], ["single"], None,
+                           smoke=False)
+    assert "error" not in res, res.get("traceback")
+    assert res["probe_check"]["exact"], res["probe_check"]
+    whole = sum(math.prod(v.shape) * v.dtype.itemsize
+                for v in _leaves(api.abstract()))
+    assert res["gathered_param_bytes"] == step.gathered_param_bytes() < whole
+    n_leaves = len(_leaves(api.abstract()))
+    assert res["collectives"]["per_op"]["all-reduce"]["count"] == \
+        n_leaves + 1 + _tp_reductions(api.cfg, plan)
 
 
 def test_tensor_parallel_trace_splits_the_matmuls():

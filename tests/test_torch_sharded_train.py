@@ -22,6 +22,10 @@ The child also takes one step from the initial state on a batch whose
 labels are masked unevenly over the row blocks of a (4, 1) mesh, at
 ``micro_batches`` 1 and 2 (``dataclasses.replace`` of the smoke config).
 
+The child also steps, at vocab 256 for two steps each, the tensor-parallel
+families: phi-3-vision (with patches) and mamba2 on (2, 2), moonshot,
+arctic and zamba2 on (1, 4).
+
 The port steps from the reference's input state of each step, on a (2, 2)
 mesh of CPU positions (the batch of 8 rows over ``data``), and on the
 masked batch on a (4, 1) mesh, and is held:
@@ -184,9 +188,12 @@ masked_steps("v256masked", api256, mesh, run("v256/", api256, STEPS))
 run("sc2/", registry.get("starcoder2-3b", smoke=True), SC2_STEPS)
 # the vlm with its patches on (2, 2); the MoE family on (1, 4), where the
 # one row block is the whole batch and so routes as the reference does
+# the ssm family on (2, 2), the hybrid on (1, 4)
 for tag, arch, shape in (("vlm/", "phi-3-vision-4.2b", (2, 2)),
                          ("moonshot/", "moonshot-v1-16b-a3b", (1, 4)),
-                         ("arctic/", "arctic-480b", (1, 4))):
+                         ("arctic/", "arctic-480b", (1, 4)),
+                         ("mamba2/", "mamba2-1.3b", (2, 2)),
+                         ("zamba2/", "zamba2-2.7b", (1, 4))):
     api_x = registry.get_model(dataclasses.replace(
         registry.get(arch, smoke=True).cfg, vocab_size=256))
     run(tag, api_x, SC2_STEPS, jax.make_mesh(
@@ -218,7 +225,8 @@ def reference_sharded_steps(path: str) -> dict:
         .replace("STEPS", str(STEPS)).replace("LR", repr(LR)) \
         .replace("OPT", OPT)
     # a guard against a hung child, not a budget: the child takes about
-    # 75 s alone and about 180 s beside the rest of the suite on 6 workers
+    # 80 s alone and more than twice that beside the rest of the suite on
+    # 6 workers
     proc = subprocess.run([sys.executable, "-c", code, path], env=env,
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=600)
@@ -398,11 +406,14 @@ def test_tensor_parallel_step_on_masked_labels(ref, micro_batches):
 
 # the vlm with its patches on (2, 2); the MoE family on (1, 4), where the
 # row block is the whole batch, so routing, capacity and the aux loss are
-# the reference's; the regions each splits (heads, mlp, vocab, experts)
-VLM_MOE = {"vlm": ("phi-3-vision-4.2b", (2, 2), (True, True, True, False)),
+# the reference's; the regions each splits (heads, mlp, vocab, experts,
+# ssm)
+VLM_MOE = {"vlm": ("phi-3-vision-4.2b", (2, 2),
+                   (True, True, True, False, False)),
            "moonshot": ("moonshot-v1-16b-a3b", (1, 4),
-                        (True, False, True, True)),
-           "arctic": ("arctic-480b", (1, 4), (True, True, True, True))}
+                        (True, False, True, True, False)),
+           "arctic": ("arctic-480b", (1, 4),
+                      (True, True, True, True, False))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -433,13 +444,37 @@ def test_vlm_and_moe_tensor_parallel_steps_match_the_reference(ref, tag,
     over the model axis, against the reference's jitted step under its
     shardings on the same mesh: the loss (the aux loss in it), every leaf
     and every block, at the tolerances above."""
-    arch, shape, regions = VLM_MOE[tag]
+    _family_step_matches_the_reference(ref, tag, s, *VLM_MOE[tag])
+
+
+# mamba2 on (2, 2): its mixers (8 heads, 4 a member) and the vocab split;
+# zamba2 on (1, 4): its mixers (2 heads a member), its shared block's
+# heads and d_ff and the vocab; the regions each splits (heads, mlp,
+# vocab, experts, ssm)
+SSM_HYBRID = {"mamba2": ("mamba2-1.3b", (2, 2),
+                         (False, False, True, False, True)),
+              "zamba2": ("zamba2-2.7b", (1, 4),
+                         (True, True, True, False, True))}
+
+
+@pytest.mark.parametrize("tag,s", [(t, s) for t in SSM_HYBRID
+                                   for s in range(SC2_STEPS)])
+def test_ssm_and_hybrid_tensor_parallel_steps_match_the_reference(ref, tag,
+                                                                  s):
+    """mamba2 on (2, 2) and zamba2 on (1, 4) at vocab 256,
+    tensor-parallel over the model axis, against the reference's jitted
+    step under its shardings on the same mesh: the loss, every leaf, every
+    block, and the model axis' replicas bit-equal (``_check_blocks``)."""
+    _family_step_matches_the_reference(ref, tag, s, *SSM_HYBRID[tag])
+
+
+def _family_step_matches_the_reference(ref, tag, s, arch, shape, regions):
     api = _v256(arch)
     opt = make_optimizer(OPT)
     mesh = p_mesh.make_debug_mesh(*shape, device=CPU)
     step = p_train.make_sharded_train_step(api, opt, constant(LR), mesh)
     tp = step.tp
-    assert (tp.heads, tp.mlp, tp.vocab, tp.experts) == regions
+    assert (tp.heads, tp.mlp, tp.vocab, tp.experts, tp.ssm) == regions
     batch = _patched(api, SyntheticLM(256, 16, 8).batch(s), s)
     state, metrics = step(_ref_state(ref, f"{tag}/{s}/in", opt, api), batch)
     np.testing.assert_allclose(float(metrics["loss"]),

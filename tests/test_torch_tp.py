@@ -11,10 +11,11 @@ CPU positions, held to the model's one-position functions.
     (through ``enter`` / ``leave``) are each member's block of the whole
     gradient, bit-equal over the members where the value is replicated;
   * ``tp.plan`` follows the placements: the regions a mesh splits (for
-    vlm and moe too: arctic at full size on (16, 16) keeps its 56 heads
-    whole and splits the experts, the MLP and the vocab), none for the
-    ssm, hybrid and encdec families, a model axis of 1 or a batch over
-    ``model``;
+    vlm, moe, ssm and hybrid too: arctic at full size on (16, 16) keeps
+    its 56 heads whole and splits the experts, the MLP and the vocab;
+    the smoke mamba2's 8 heads keep its mixer whole over 16 though its
+    d_inner divides), none for the encdec family, a model axis of 1 or a
+    batch over ``model``;
   * one MoE block over a group of 2 and 4 (moonshot, and arctic with its
     dense residual, each of the experts' and the MLP's regions split or
     whole): the members' outputs equal the whole block's, and the
@@ -22,9 +23,15 @@ CPU positions, held to the model's one-position functions.
     the whole block's, the router's and the input's bit-equal over the
     members (the aux loss enters no region, so its gradient is not taken
     T times);
-  * the loss of a vlm (with patches) and a MoE model over a group of 2
-    equals the one-position loss, with each member's gradients its blocks
-    of the whole ones.
+  * one Mamba2 layer (``lm._ssm_block_tp``) over a group of 2 and 4, and
+    one zamba2 shared-block application followed by a Mamba2 layer: the
+    members' outputs equal the whole layer's, each split leaf's gradient
+    is its block of the whole gradient and ``wB``, ``wC`` and the input's
+    are whole (the gated norm's sum of squares and ``wB`` / ``wC`` must
+    sum their gradients over the group, or these are partial);
+  * the loss of a vlm (with patches), a MoE, an ssm and a hybrid model
+    over a group of 2 equals the one-position loss, with each member's
+    gradients its blocks of the whole ones.
 """
 import dataclasses
 
@@ -159,8 +166,21 @@ def test_plan_follows_the_placements():
                      "blocks/mlp/w_up"]
     assert _plan("llama3.2-1b", 4, 1) is None
     assert _plan("llama3.2-1b", 2, 2, batch_over_model=True) is None
-    for arch in ("mamba2-1.3b", "zamba2-2.7b", "seamless-m4t-medium"):
-        assert _plan(arch, 2, 2) is None
+    assert _plan("seamless-m4t-medium", 2, 2) is None
+    plan = _plan("mamba2-1.3b", 2, 2)
+    assert (plan.heads, plan.mlp, plan.vocab, plan.ssm) == \
+        (False, False, False, True)
+    api = p_registry.get("mamba2-1.3b", smoke=True)
+    paths = [path for path, _ in TP.tree_flatten_with_path(api.abstract())]
+    split = sorted(path[-1] for path, d in zip(paths, plan.dims)
+                   if d is not None)
+    assert split == sorted(path[-1] for path, _ in TP.REGIONS["ssm"])
+    # 8 heads do not split 16 ways, d_inner 128 would: the mixer stays
+    # whole, its heads' channels with them
+    assert _plan("mamba2-1.3b", 1, 16) is None
+    plan = _plan("zamba2-2.7b", 2, 2, vocab=256)
+    assert (plan.heads, plan.mlp, plan.vocab, plan.experts, plan.ssm) == \
+        (True, True, True, False, True)
     plan = _plan("phi-3-vision-4.2b", 2, 2)
     assert (plan.heads, plan.mlp, plan.vocab, plan.experts) == \
         (True, True, False, False)
@@ -170,28 +190,35 @@ def test_plan_follows_the_placements():
 
 
 @pytest.mark.parametrize("arch,regions", [
-    ("arctic-480b", (False, True, True, True)),
-    ("moonshot-v1-16b-a3b", (True, False, True, True)),
-    ("phi-3-vision-4.2b", (True, True, True, False))])
+    ("arctic-480b", (False, True, True, True, False)),
+    ("moonshot-v1-16b-a3b", (True, False, True, True, False)),
+    ("phi-3-vision-4.2b", (True, True, True, False, False)),
+    ("mamba2-1.3b", (False, False, False, False, True)),
+    ("zamba2-2.7b", (True, True, True, False, True))])
 def test_plan_at_full_size_on_the_production_mesh(arch, regions):
     """At full size on (16, 16): arctic's 56 heads do not split 16 ways
     (the placement keeps them whole, as the reference's ``_demote_spec``),
     its experts' d_ff, dense-residual MLP and vocab do; moonshot has no
-    dense MLP; phi-3-vision has no experts.  The router is whole on every
+    dense MLP; phi-3-vision has no experts; mamba2's 64 heads split (4 a
+    member), its vocab 50280 does not; zamba2's 80 Mamba2 heads (5 a
+    member), its shared block's 32 heads and d_ff and its vocab 32000
+    split.  The router and the mixers' ``wB`` / ``wC`` are whole on every
     member."""
     api = p_registry.get(arch)
     mesh = p_mesh.make_production_mesh(device="meta")
     plan = p_train.make_sharded_train_step(
         api, make_optimizer("sgdm"), None, mesh).tp
-    assert (plan.heads, plan.mlp, plan.vocab, plan.experts) == regions
+    assert (plan.heads, plan.mlp, plan.vocab, plan.experts, plan.ssm) == \
+        regions
     paths = ["/".join(path) for path, _ in
              TP.tree_flatten_with_path(api.abstract())]
     split = {p for p, d in zip(paths, plan.dims) if d is not None}
     want = {"/".join(path) for region, on in zip(
-        ("heads", "mlp", "vocab", "experts"), regions) if on
+        ("heads", "mlp", "vocab", "experts", "ssm"), regions) if on
         for path, _ in TP.REGIONS[region] if "/".join(path) in paths}
     assert split == want
-    assert "blocks/moe/router" not in split
+    assert not split & {"blocks/moe/router", "blocks/ssm/wB",
+                        "blocks/ssm/wC"}
 
 
 def _split_block(p, r, t, regions=("heads", "mlp")):
@@ -250,11 +277,20 @@ def test_block_members_equal_the_whole_block(arch):
     _members_grads_are_blocks(specs, members, whole, xs, xw)
 
 
-def _members_grads_are_blocks(specs, members, whole, xs, xw):
+def _members_grads_are_blocks(specs, members, whole, xs, xw,
+                              largest=False):
     """Each member's gradient of a split leaf is its block of the whole
     gradient (the blocks concatenated over the group); of a whole leaf and
-    of the input, the whole gradient, bit-equal over the members."""
+    of the input, the whole gradient, bit-equal over the members.  With
+    ``largest``, "equal" is within TOL of the leaf's largest element
+    where that is above 1, as for a whole model's loss (a Mamba2 layer's
+    gradients reach tens, summed over the group in other orders)."""
     def close(got, want, what):
+        if largest:
+            top = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            assert err <= TOL * top, f"{what}: {err} of {top}"
+            return
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL,
                                    msg=lambda m: f"{what}: {m}")
 
@@ -332,6 +368,92 @@ def test_moe_block_members_equal_the_whole_block(arch, t, experts, mlp):
     assert whole[router].grad.abs().max() > 0
 
 
+@pytest.mark.parametrize("t", [2, 4])
+def test_ssm_block_members_equal_the_whole_block(t):
+    """One mamba2 smoke layer (``lm._ssm_block_tp``, 8 heads: 4 and 2 a
+    member) against ``lm._ssm_block`` on one position, 12 steps over
+    chunks of 8 (a padded last chunk): each member's output equals the
+    layer's, its gradients of the mixer's split leaves are its blocks of
+    the whole ones, and the gradients of ``ln1``, of ``wB`` / ``wC`` (whole:
+    every head reads the one ``Bm`` / ``Cm``) and of the input are the
+    whole ones on every member, bit-equal over the members.  The gated
+    norm's sum of squares must sum its gradient over the group too
+    (``tp.total``), or every split leaf's gradient misses the other
+    members' terms; ``wB`` / ``wC`` must enter the region, or theirs and
+    the input's are partial."""
+    from repro_torch.core.treepath import tree_flatten
+
+    cfg = p_registry.get("mamba2-1.3b", smoke=True).cfg
+    g = torch.Generator().manual_seed(7 + t)
+    specs = lm._ssm_block_specs(cfg)
+    leaves, treedef = tree_flatten(specs)
+    p = treedef.unflatten([0.2 * torch.randn(s.shape, generator=g)
+                           for s in leaves])
+    x = torch.randn(2, 12, cfg.d_model, generator=g)
+    cot = torch.randn(2, 12, cfg.d_model, generator=g)
+
+    whole = [v.clone().requires_grad_() for v in tree_flatten(p)[0]]
+    xw = x.clone().requires_grad_()
+    want, _ = lm._ssm_block(cfg, treedef.unflatten(whole), xw, cache=None)
+    (want * cot).sum().backward()
+
+    group = _group(t, heads=False, mlp=False, vocab=False, ssm=True)
+    members = [[v.clone().requires_grad_() for v in tree_flatten(
+        _split_block(p, r, t, ("ssm",)))[0]] for r in range(t)]
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    outs = lm._ssm_block_tp(cfg, group,
+                            [treedef.unflatten(m) for m in members], xs)
+    torch.autograd.backward([(o * cot).sum() for o in outs])
+    for o in outs:
+        torch.testing.assert_close(o, want, rtol=TOL, atol=TOL)
+    _members_grads_are_blocks(specs, members, whole, xs, xw, largest=True)
+
+
+@pytest.mark.parametrize("t", [2, 4])
+def test_hybrid_shared_block_members_equal_the_whole(t):
+    """One application of zamba2's shared block, then a Mamba2 layer, as
+    the hybrid stack runs them (the smoke's 4 heads on 2 kv heads, d_ff
+    96 and 8 SSM heads over 2 and 4 members), against ``lm._attn_block``
+    and ``lm._ssm_block`` on one position: outputs equal, each split
+    leaf's gradient is its block of the whole one, ``wk`` / ``wv`` /
+    ``wB`` / ``wC``, the norms' and the input's whole."""
+    from repro_torch.core.treepath import tree_flatten
+
+    cfg = p_registry.get("zamba2-2.7b", smoke=True).cfg
+    g = torch.Generator().manual_seed(11 + t)
+    specs = {"layer": lm._ssm_block_specs(cfg),
+             "shared_attn": lm._attn_block_specs(cfg)}
+    leaves, treedef = tree_flatten(specs)
+    p = treedef.unflatten([0.2 * torch.randn(s.shape, generator=g)
+                           for s in leaves])
+    x = torch.randn(2, 12, cfg.d_model, generator=g)
+    cot = torch.randn(2, 12, cfg.d_model, generator=g)
+    pos = torch.arange(12)[None, :]
+
+    whole = [v.clone().requires_grad_() for v in tree_flatten(p)[0]]
+    xw = x.clone().requires_grad_()
+    w = treedef.unflatten(whole)
+    want, _ = lm._attn_block(cfg, w["shared_attn"], xw, positions=pos,
+                             cache=None, kv_valid_len=None)
+    want, _ = lm._ssm_block(cfg, w["layer"], want, cache=None)
+    (want * cot).sum().backward()
+
+    group = _group(t, vocab=False, ssm=True)
+    members = [[v.clone().requires_grad_() for v in tree_flatten({
+        "layer": _split_block(p["layer"], r, t, ("ssm",)),
+        "shared_attn": _split_block(p["shared_attn"], r, t)})[0]]
+        for r in range(t)]
+    ms = [treedef.unflatten(m) for m in members]
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    outs, _ = lm._attn_block_tp(cfg, group, [m["shared_attn"] for m in ms],
+                                xs, positions=[pos] * t)
+    outs = lm._ssm_block_tp(cfg, group, [m["layer"] for m in ms], outs)
+    torch.autograd.backward([(o * cot).sum() for o in outs])
+    for o in outs:
+        torch.testing.assert_close(o, want, rtol=TOL, atol=TOL)
+    _members_grads_are_blocks(specs, members, whole, xs, xw, largest=True)
+
+
 def _member_params(params, plan, r, t):
     """Member ``r`` of ``t``'s params: its block of each leaf ``plan``
     splits."""
@@ -354,13 +476,32 @@ def test_vlm_and_moe_loss_over_a_group_equal_one_positions(arch):
     each member's loss (+ 0.01 aux) and aux equal the one-position
     ``loss_fn``'s, and its gradients are its blocks of the whole ones (a
     whole leaf's bit-equal over the members)."""
+    plan = _loss_over_a_group(arch)
+    assert plan.vocab and plan.mlp and not plan.ssm
+    assert plan.experts == (arch == "arctic-480b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_and_hybrid_loss_over_a_group_equal_one_positions(arch):
+    """As the vlm and MoE losses: mamba2 (its mixers and the vocab split)
+    and zamba2 (also its shared block's heads and d_ff, applied before
+    each of its 2 layers' first: once at the smoke's 2 layers) at vocab
+    256 over a group of 2."""
+    plan = _loss_over_a_group(arch)
+    assert plan.vocab and plan.ssm and not plan.experts
+    assert plan.heads == plan.mlp == (arch == "zamba2-2.7b")
+
+
+def _loss_over_a_group(arch):
+    """``arch``'s smoke model at vocab 256: ``loss_fn(group=)`` over a
+    group of 2 against ``loss_fn`` on one position, the labels partly
+    masked; returns the plan."""
     from repro_torch.core.treepath import tree_flatten, tree_leaves
 
     api = p_registry.get_model(dataclasses.replace(
         p_registry.get(arch, smoke=True).cfg, vocab_size=256))
     cfg = api.cfg
     plan = _plan(arch, 1, 2, vocab=256)
-    assert plan.vocab and plan.mlp and plan.experts == (cfg.family == "moe")
     params = api.init(torch.Generator().manual_seed(5), device="cpu")
     g = torch.Generator().manual_seed(6)
     batch = {"tokens": torch.randint(0, 256, (2, 8), generator=g),
@@ -376,7 +517,8 @@ def test_vlm_and_moe_loss_over_a_group_equal_one_positions(arch):
     total.backward()
     group = TP.ModelGroup(p_mesh.make_debug_mesh(1, 2, device="cpu"),
                           (0, 1), heads=plan.heads, mlp=plan.mlp,
-                          vocab=plan.vocab, experts=plan.experts)
+                          vocab=plan.vocab, experts=plan.experts,
+                          ssm=plan.ssm)
     members = [_member_params(params, plan, r, 2) for r in range(2)]
     totals, ms = api.loss_fn(members, [batch, batch], group=group)
     torch.autograd.backward(totals)
@@ -393,9 +535,10 @@ def test_vlm_and_moe_loss_over_a_group_equal_one_positions(arch):
         # element where that is above 1 (the embedding's, about 20)
         top = float(w.grad.abs().max())
         assert float((got - w.grad).abs().max()) <= TOL * max(1.0, top), i
+    return plan
 
 
 def test_other_families_are_refused():
-    api = p_registry.get("mamba2-1.3b", smoke=True)
+    api = p_registry.get("seamless-m4t-medium", smoke=True)
     with pytest.raises(ValueError, match="tensor parallelism"):
         lm.loss_fn(api.cfg, [None], [{}], group=_group(2))
