@@ -243,13 +243,17 @@ Phases, each of which raises on failure:
      channels; vocab 50280 splits by 2) and zamba2-2.7b on (1, 4) (20 of
      the mixers' 80 heads a position, 8 of the shared block's 32 heads,
      a quarter of its d_ff and of the vocab; at 2 layers the shared block
-     applies once), each at full width cut to 2 layers, bf16,
-     AdamW, batch 8 x 128, 2 steps: the regions split as listed, the
-     predicted peak under the limit, the losses within LAUNCH_LOSS_TOL of
-     make_train_step's on one position, the replicas bit-equal, every
-     block equal to the gathered state's, launches exactly mesh size x
-     kernel_launches a step; the median wall, peak, gathered params and
-     one profiled step's device time and idle share printed.  Then on a
+     applies once), and the encoder-decoder, seamless-m4t-medium on (2,
+     2) (8 of the 16 heads of every self- and cross-attention, half of
+     both stacks' d_ff and of the vocab 256206; 32 seeded frames a row),
+     each at full width cut to 2 layers (seamless: 2 encoder + 2
+     decoder), bf16, AdamW, batch 8 x 128, 2 steps: the regions split as
+     listed, the predicted peak under the limit, the losses within
+     LAUNCH_LOSS_TOL of make_train_step's on one position, the replicas
+     bit-equal, every block equal to the gathered state's, launches
+     exactly mesh size x kernel_launches a step; the median wall, peak,
+     gathered params and one profiled step's device time and idle share
+     printed.  Then on a
      (2, 2) mesh (each position computes its 16 of the 32 heads, half of
      d_ff and half of the vocab): llama3.2-1b at full width cut to
      LAUNCH_LAYERS layers, bf16, AdamW at
@@ -307,7 +311,9 @@ dp phase launches a train step's count on every position of every step
 survivor's m positions a step's count) and nothing in the MoE layer;
 the launch phase's sharded steps launch 4 x a train step's count a step
 (llama, phi-3-vision, moonshot, mamba2 and zamba2: ssd_chunks once a
-member a Mamba2 layer, on its heads) and its placed prefill and decode
+member a Mamba2 layer, on its heads; seamless-m4t-medium at 2 + 2
+layers: flash 12 a member a step, on its heads, and no rmsnorm) and its
+placed prefill and decode
 what kernel_launches gives for 2 x the
 prompts (the slot's two holders) and 4 x the steps.
 The last lines are the card's name and power limit, a ``kernels`` JSON
@@ -598,12 +604,15 @@ LAUNCH_PROMPTS, LAUNCH_NEW = 8, 8
 # moonshot-v1-16b-a3b on (1, 4), whose one row block is the whole batch,
 # so routing, capacity and the aux loss are one position's; mamba2-1.3b on
 # (2, 2), where the data axis splits the rows too; zamba2-2.7b on (1, 4),
-# its shared block applied once.  With the regions each must split.
+# its shared block applied once; seamless-m4t-medium on (2, 2), both its
+# stacks cut to LAUNCH_FAMILY_LAYERS, with LAUNCH_SEQ / src_ratio seeded
+# frames a row.  With the regions each must split.
 LAUNCH_FAMILIES = (("phi-3-vision-4.2b", (2, 2), ("heads", "mlp", "vocab")),
                    ("moonshot-v1-16b-a3b", (1, 4),
                     ("heads", "vocab", "experts")),
                    ("mamba2-1.3b", (2, 2), ("ssm", "vocab")),
-                   ("zamba2-2.7b", (1, 4), ("ssm", "heads", "mlp", "vocab")))
+                   ("zamba2-2.7b", (1, 4), ("ssm", "heads", "mlp", "vocab")),
+                   ("seamless-m4t-medium", (2, 2), ("heads", "mlp", "vocab")))
 LAUNCH_FAMILY_LAYERS, LAUNCH_FAMILY_STEPS = 2, 2
 CUDA_ALLOC_GRANULE = 512                 # the caching allocator's rounding
 
@@ -4188,9 +4197,9 @@ def masked_batch(batch: dict, blocks: int) -> dict:
 
 
 def launch_sharded_step(kernels: dict, smi: str):
-    """Part (a): the production-mesh step.  First the vlm, MoE, ssm and
-    hybrid runs (``_launch_family_runs``).  Then, on a (2, 2) mesh, the
-    f32 check at TRAIN_CHECK_LAYERS layers (SGD-momentum, 2 steps): losses
+    """Part (a): the production-mesh step.  First the vlm, MoE, ssm,
+    hybrid and encdec runs (``_launch_family_runs``).  Then, on a (2, 2)
+    mesh, the f32 check at TRAIN_CHECK_LAYERS layers (SGD-momentum, 2 steps): losses
     within LAUNCH_F32_LOSS_RTOL and every gathered leaf within DP_GRAD_TOL
     of its largest element against make_train_step on one position.  Then llama3.2-1b at LAUNCH_LAYERS layers, bf16,
     AdamW: make_train_step's LAUNCH_STEPS losses on one position, then the
@@ -4222,25 +4231,29 @@ def launch_sharded_step(kernels: dict, smi: str):
 
 def _family_batch(cfg, data, i: int) -> dict:
     """``data``'s batch ``i``, with a vlm model's patch embeddings
-    (LAUNCH_BATCH, frontend_tokens, d_model) in its compute dtype, drawn
-    from a generator seeded with ``i`` (the shape ``ModelApi.inputs``
-    gives them)."""
+    (LAUNCH_BATCH, frontend_tokens, d_model) or an encoder-decoder's
+    frames (LAUNCH_BATCH, LAUNCH_SEQ / src_ratio, d_model) in its compute
+    dtype, drawn from a generator seeded with ``i`` (the shapes
+    ``ModelApi.inputs`` gives them)."""
     import torch
     from repro_torch.models.specs import torch_dtype
 
     batch = data.batch(i)
-    if cfg.frontend == "vision":
+    rows = {"patches": cfg.frontend_tokens} if cfg.frontend == "vision" \
+        else {"frames": max(1, LAUNCH_SEQ // cfg.src_ratio)} \
+        if cfg.is_encdec else {}
+    for key, n in rows.items():
         g = torch.Generator().manual_seed(i)
-        batch["patches"] = torch.randn(
-            LAUNCH_BATCH, cfg.frontend_tokens, cfg.d_model,
-            generator=g).to(torch_dtype(cfg.compute_dtype))
+        batch[key] = torch.randn(LAUNCH_BATCH, n, cfg.d_model,
+                                 generator=g).to(
+                                     torch_dtype(cfg.compute_dtype))
     return batch
 
 
 def _launch_family_runs(kernels: dict, smi: str, synchronize, train
                         ) -> dict:
-    """Part (a)'s vlm, MoE, ssm and hybrid runs (LAUNCH_FAMILIES): for
-    each, the
+    """Part (a)'s vlm, MoE, ssm, hybrid and encdec runs
+    (LAUNCH_FAMILIES): for each, the
     sharded step must split exactly the regions listed; its predicted
     peak is printed and must stay under LAUNCH_PEAK_LIMIT; then
     make_train_step's LAUNCH_FAMILY_STEPS losses on one position, and the
@@ -4263,8 +4276,10 @@ def _launch_family_runs(kernels: dict, smi: str, synchronize, train
         t0 = time.perf_counter()
         mesh = _dp_mesh(shape)
         dev = mesh.positions[0]
-        cfg = dataclasses.replace(registry.get(arch).cfg,
-                                  num_layers=LAUNCH_FAMILY_LAYERS)
+        cfg = registry.get(arch).cfg
+        cfg = dataclasses.replace(
+            cfg, num_layers=LAUNCH_FAMILY_LAYERS,
+            enc_layers=min(cfg.enc_layers, LAUNCH_FAMILY_LAYERS))
         api = registry.get_model(cfg)
         opt = make_optimizer("adamw")
         lr = constant(LAUNCH_LR)
@@ -4279,8 +4294,9 @@ def _launch_family_runs(kernels: dict, smi: str, synchronize, train
         say(f"[launch] (a) {arch}: predicted peak of the sharded step "
             f"{predicted / 1e9:.2f} GB, {gathered / 1e9:.3f} GB of params "
             f"gathered a position (its blocks of {', '.join(split)}); "
-            f"limit {LAUNCH_PEAK_LIMIT / 1e9:.0f} GB; {cfg.num_layers} "
-            f"layers")
+            f"limit {LAUNCH_PEAK_LIMIT / 1e9:.0f} GB; "
+            + (f"{cfg.enc_layers} encoder + " if cfg.is_encdec else "")
+            + f"{cfg.num_layers} layers")
         if predicted >= LAUNCH_PEAK_LIMIT:
             fail(f"[launch] (a) {arch}: predicted peak "
                  f"{predicted / 1e9:.2f} GB: cut LAUNCH_FAMILY_LAYERS")
@@ -4327,10 +4343,13 @@ def _launch_family_runs(kernels: dict, smi: str, synchronize, train
         _blocks_equal_whole(state, f"[launch] (a) {arch}")
         prof = profile_device_ms(dev, lambda: step(state, batches[0]),
                                  calls=1)
-        say(f"[launch] (a) {arch} {cfg.num_layers} layers bf16 AdamW lr "
+        extra = {k: v.shape[1] for k, v in batches[0].items()
+                 if k in ("patches", "frames")}
+        say(f"[launch] (a) {arch} "
+            + (f"{cfg.enc_layers} encoder + " if cfg.is_encdec else "")
+            + f"{cfg.num_layers} layers bf16 AdamW lr "
             f"{LAUNCH_LR}, batch {LAUNCH_BATCH} x {LAUNCH_SEQ} text tokens"
-            + (f" + {cfg.frontend_tokens} patches"
-               if cfg.frontend == "vision" else "")
+            + "".join(f" + {n} {k}" for k, n in extra.items())
             + f" on {dict(mesh.shape)}, tensor-parallel over the model "
             f"axis ({', '.join(split)}): losses {losses} vs one position's "
             f"{ref} (each within {LAUNCH_LOSS_TOL} x (1 + |loss|)); model "

@@ -23,13 +23,13 @@ No card is needed: the mesh is ``make_production_mesh(device="meta")``,
     and ``bytes_accessed`` are that position's dispatched aten ops
     (``torch.utils.flop_counter``'s formulas; each op's inputs and outputs
     once);
-    A decoder-only train step is tensor-parallel over the model axis
-    where the placements split heads, d_ff, the experts' d_ff, the Mamba2
-    mixers' heads or vocab (``models/tp.py``): position 0 computes its
-    blocks with its model group's other members standing in (its tensors
-    in their slots of the group's ``psum`` / ``pmax``, which count in
-    ``collectives``); the encoder-decoder and the placed prefill /
-    decode replicate compute over the model axis;
+    A train step is tensor-parallel over the model axis where the
+    placements split heads, d_ff, the experts' d_ff, the Mamba2 mixers'
+    heads or vocab (``models/tp.py``): position 0 computes its blocks
+    with its model group's other members standing in (its tensors in
+    their slots of the group's ``psum`` / ``pmax``, which count in
+    ``collectives``); the placed prefill / decode replicate compute over
+    the model axis;
   * ``bodies`` are ``probe.layer_bodies`` (at the tensor-parallel widths
     where the step splits); eager PyTorch counts every layer trip, so
     ``corrected`` is the raw count, and ``probe_check`` holds the step's
@@ -159,8 +159,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
         # what a position holds once its step has gathered the params: a
         # tensor-parallel train step's blocks of the leaves it splits over
         # the model axis, whole over the data axes, and the other leaves
-        # whole; the other families and the placed prefill / decode, which
-        # replicate compute over the model axis, gather the whole params
+        # whole; the placed prefill / decode, which replicate compute over
+        # the model axis, gather the whole params
         "gathered_param_bytes": traced["gathered_param_bytes"],
         "collectives": traced["collectives"],
         "census": hlo_analysis.op_census(counter),

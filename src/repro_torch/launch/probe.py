@@ -21,8 +21,10 @@ and, for the hybrid, ``shared_attn`` (one a shared-block application),
 ``enc_block`` and ``dec_block`` for the encoder-decoder.  One divergence:
 a train step's first encoder block takes no input gradient (the frames
 take none), so it is its own kind, ``enc_block_in``, and ``enc_block``
-has ``enc_layers - 1`` trips.  The port gathers the stacked params once a
-step, outside the layer loop; a tensor-parallel body's sums over its
+has ``enc_layers - 1`` trips (tensor-parallel, that block's attention
+entry still sums its normed input's gradient, which ``ln1`` reads).
+The port gathers the stacked params once a step, outside the layer
+loop; a tensor-parallel body's sums over its
 model group are counted with the step's collectives, not the body's
 (its ``collective_*`` are 0).  :func:`corrected_terms` is the reference's
 pure function, kept for its callers; the dry run reports the raw count as
@@ -105,7 +107,8 @@ def _member_tree(api: ModelApi, plan, mesh, grad: bool = False,
                  under: Optional[str] = None) -> Any:
     """Member 0's params on meta tensors at its blocks of the split
     leaves (with ``under``, the subtree there alone: one layer of the
-    stacked ``"blocks"``, or the hybrid's ``"shared_attn"``)."""
+    stacked ``"blocks"``, ``"enc_blocks"`` or ``"dec_blocks"``, or the
+    hybrid's ``"shared_attn"``)."""
     tree: Dict[Any, Any] = {}
     for path, shape, dtype in plan.member_shapes(api.abstract(),
                                                  mesh.shape[TP.AXIS]):
@@ -113,7 +116,7 @@ def _member_tree(api: ModelApi, plan, mesh, grad: bool = False,
             if path[0] != under:
                 continue
             path = path[1:]
-            if under == "blocks":
+            if under in TP.STACKED:
                 shape = shape[1:]
         node = tree
         for key in path[:-1]:
@@ -167,7 +170,7 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
                 p, x_in(), positions(), kv_cache(), valid())
 
     plan = tp_plan(api, mesh, rules) if train else None
-    if plan is not None:
+    if plan is not None and not cfg.is_encdec:
         group = plan.stand_in(mesh)
         attn = functools.partial(lm_mod._attn_block_tp, cfg, group)
         attn_probe = _grad_probe(lambda p, x, pos: tuple(
@@ -214,25 +217,41 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
         xe = lambda grad: _meta((B, src, cfg.d_model), cdt, grad)
         spos = lambda: _meta((1, src), torch.int64)
         enc_abs = abstract_params(unstack(tree["enc_blocks"]), pdt)
-        enc = functools.partial(encdec_mod._enc_block, cfg)
-        enc_fn = lambda p, x, pos: enc(p, x, positions=pos)
+        dec_abs = abstract_params(unstack(tree["dec_blocks"]), pdt)
+        if plan is not None:
+            # member 0's blocks, its group's other members standing in;
+            # the memory enters the decoder's regions once, outside the
+            # blocks (``encdec._decode_stack_tp``)
+            group = plan.stand_in(mesh)
+            enc_tp = functools.partial(encdec_mod._enc_block_tp, cfg, group)
+            dec_tp = functools.partial(encdec_mod._dec_block_tp, cfg, group)
+            enc_fn = lambda p, x, pos: enc_tp([p], [x], positions=[pos])[0]
+            dec_fn = lambda p, x, e, pos: dec_tp([p], [x], [e],
+                                                 positions=[pos])[0]
+            enc_p = lambda: _member_tree(api, plan, mesh, True,
+                                         under="enc_blocks")
+            dec_p = lambda: _member_tree(api, plan, mesh, True,
+                                         under="dec_blocks")
+        else:
+            enc = functools.partial(encdec_mod._enc_block, cfg)
+            dec = functools.partial(encdec_mod._dec_block, cfg)
+            enc_fn = lambda p, x, pos: enc(p, x, positions=pos)
+            dec_fn = lambda p, x, e, pos: dec(p, x, e, positions=pos,
+                                              cache=None, kv_valid_len=None)
+            enc_p = lambda: _meta_tree(enc_abs, True)
+            dec_p = lambda: _meta_tree(dec_abs, True)
         if train:
             record("enc_block_in", 1, _grad_probe(enc_fn, cfg, 1),
-                   _meta_tree(enc_abs, True), xe(False), spos())
+                   enc_p(), xe(False), spos())
             record("enc_block", cfg.enc_layers - 1,
-                   _grad_probe(enc_fn, cfg, 2),
-                   _meta_tree(enc_abs, True), xe(True), spos())
+                   _grad_probe(enc_fn, cfg, 2), enc_p(), xe(True), spos())
         elif mode == "prefill":
             # the encoder runs once at prefill; decode never re-runs it
             record("enc_block", cfg.enc_layers, enc_fn,
                    _meta_tree(enc_abs), xe(False), spos())
-        dec_abs = abstract_params(unstack(tree["dec_blocks"]), pdt)
-        dec = functools.partial(encdec_mod._dec_block, cfg)
         if train:
-            record("dec_block", cfg.num_layers, _grad_probe(
-                lambda p, x, e, pos: dec(p, x, e, positions=pos, cache=None,
-                                         kv_valid_len=None), cfg, 3),
-                _meta_tree(dec_abs, True), x_in(), xe(True), positions())
+            record("dec_block", cfg.num_layers, _grad_probe(dec_fn, cfg, 3),
+                   dec_p(), x_in(), xe(True), positions())
         else:
             record("dec_block", cfg.num_layers,
                    lambda p, x, e, pos, c, v: dec(

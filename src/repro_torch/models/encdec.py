@@ -21,6 +21,15 @@ autograd records it.
 ``prefill`` encodes ``frames`` when given and otherwise reads the cache's
 ``enc_out``, as the reference does; the new cache carries the encoder
 output it used.
+
+``loss_fn(..., group=)`` runs the model tensor-parallel over a model
+group of a mesh, its members in lock step (:func:`_forward_tp`,
+``models/tp.py``): the production-mesh train step's path.  Each member
+computes its query heads of every self- and cross-attention, its block
+of both stacks' d_ff and, where the vocab splits, its rows of the tied
+embedding and its block of the logits; the LayerNorms, the residual
+streams, ``wk`` / ``wv`` and the encoder memory are whole on every
+member.
 """
 from __future__ import annotations
 
@@ -34,7 +43,9 @@ from ..configs.base import ModelConfig
 from ..core.deepcopy import ShapeDtype
 from ..core.treepath import tree_map
 from . import layers as L
-from .lm import _kv_slot, _remat, _stack, cross_entropy
+from . import tp as TP
+from .lm import (_attention_tp, _ffn_tp, _kv_slot, _remat, _stack,
+                 _tp_losses, cross_entropy)
 from .specs import abstract_params, init_params, param_axes, torch_dtype
 
 
@@ -191,9 +202,109 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def loss_fn(cfg: ModelConfig, params, batch, rng=None):
+def _enc_block_tp(cfg, group, ps, xs, *, positions):
+    """:func:`_enc_block` on the members of a tensor-parallel model group
+    in lock step (``models/tp.py``): ``ps``, ``xs`` and ``positions`` one
+    entry a computed member; returns each member's x.  The non-causal
+    self-attention on the member's query heads and the MLP on its block
+    of d_ff, each between :func:`tp.enter` and :func:`tp.leave`
+    (``lm._attention_tp``, ``lm._ffn_tp``; ``b_down`` once after the
+    sum).  The first block's input, the frames, takes no gradient, but
+    its normed input does (``ln1``'s scale and bias read it), so the
+    attention's entry sums in the backward in every block, the first's
+    too."""
+    outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["ln1"], x)
+                                          for p, x in zip(ps, xs)],
+                         positions=positions, causal=False)
+    xs = [x + o for x, o in zip(xs, outs)]
+    return _ffn_tp(cfg, group, ps, xs)[0]
+
+
+def _encode_tp(cfg, group, params, frames):
+    """:func:`encode` on the members of a tensor-parallel model group:
+    each member's memory, whole."""
+    xs = [f.to(torch_dtype(cfg.compute_dtype)) for f in frames]
+    positions = [torch.arange(x.shape[1], device=x.device)[None, :]
+                 for x in xs]
+    block = _remat(cfg, functools.partial(_enc_block_tp, cfg, group))
+    for i in range(cfg.enc_layers):
+        ps = [tree_map(lambda t: t[i], p["enc_blocks"]) for p in params]
+        xs = block(ps, xs, positions=positions)
+    return [L.apply_norm(cfg, p["enc_norm"], x) for p, x in zip(params, xs)]
+
+
+def _dec_block_tp(cfg, group, ps, xs, enc_outs, *, positions):
+    """:func:`_dec_block` (no cache) on the members of a tensor-parallel
+    model group in lock step: the causal self-attention and the
+    cross-attention on the member's query heads, the MLP on its block of
+    d_ff (``lm._attention_tp``, ``lm._ffn_tp``).  The cross-attention's
+    keys and values are projected from the member's whole copy of the
+    memory ``enc_outs``, which has already entered the region
+    (:func:`_decode_stack_tp`)."""
+    outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["ln1"], x)
+                                          for p, x in zip(ps, xs)],
+                         positions=positions)
+    xs = [x + o for x, o in zip(xs, outs)]
+    outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["lnx"], x)
+                                          for p, x in zip(ps, xs)],
+                         positions=positions, name="xattn", kv_xs=enc_outs)
+    xs = [x + o for x, o in zip(xs, outs)]
+    return _ffn_tp(cfg, group, ps, xs)[0]
+
+
+def _decode_stack_tp(cfg, group, blocks, xs, enc_outs, *, positions):
+    """:func:`_decode_stack` (no cache) on the members of a
+    tensor-parallel model group: ``blocks`` each member's stacked
+    ``dec_blocks``.  Each member's cross-attentions read only its kv
+    heads' slice of the memory, so its gradient of the memory is partial.
+    The memory enters the heads' region once here, for every layer: the
+    backward sums the members' gradients, each already summed over the
+    layers, in one ``psum`` where one a layer would take ``num_layers``.
+    Once is exact: the sum is linear, and the memory has no consumer
+    outside the split cross-attentions, so nothing else adds a whole
+    gradient to it that the group would count T times."""
+    enc_outs = TP.enter(group, enc_outs, group.heads)
+    block = _remat(cfg, functools.partial(_dec_block_tp, cfg, group))
+    for i in range(cfg.num_layers):
+        ps = [tree_map(lambda t: t[i], b) for b in blocks]
+        xs = block(ps, xs, enc_outs, positions=positions)
+    return xs
+
+
+def _forward_tp(cfg: ModelConfig, group, params, tokens, frames):
+    """:func:`forward` on the members of a tensor-parallel model group in
+    lock step: ``params`` (each member's blocks of the split leaves, the
+    others whole), ``tokens`` and ``frames`` one a computed member.
+    Returns each member's f32 logits, its block of the vocab where
+    ``group.vocab`` (the embedding vocab-parallel too), else whole."""
+    enc_outs = _encode_tp(cfg, group, params, frames)
+    xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
+                  L.dtype_of(cfg))
+    positions = [torch.arange(x.shape[1], device=x.device)[None, :]
+                 for x in xs]
+    xs = _decode_stack_tp(cfg, group, [p["dec_blocks"] for p in params],
+                          xs, enc_outs, positions=positions)
+    xs = [L.apply_norm(cfg, p["final_norm"], x) for p, x in zip(params, xs)]
+    xs = TP.enter(group, xs, group.vocab)
+    return [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)]
+
+
+def loss_fn(cfg: ModelConfig, params, batch, rng=None, group=None):
     """batch: {"frames": (B, S_src, D), "tokens": (B, S), "labels": (B,
-    S)}.  Returns (loss, metrics {"loss", "aux_loss" (0), "tokens"})."""
+    S)}.  Returns (loss, metrics {"loss", "aux_loss" (0), "tokens"}).
+
+    With ``group`` (the model's tensor-parallel model group,
+    ``models/tp.py``) ``params`` and ``batch`` hold one tree a computed
+    member and so does what comes back: each member's copy of the loss
+    (the cross-entropy vocab-parallel where ``group.vocab``)."""
+    if group is not None:
+        _check_family(cfg)
+        logits = _forward_tp(cfg, group, params,
+                             [b["tokens"] for b in batch],
+                             [b["frames"] for b in batch])
+        return _tp_losses(group, logits, batch, [
+            torch.zeros((), dtype=torch.float32, device=x.device)
+            for x in logits])
     logits, _, aux = forward(cfg, params, batch["tokens"],
                              frames=batch["frames"])
     loss, tokens = cross_entropy(logits, batch["labels"])

@@ -17,10 +17,10 @@ versions:
     the encoder's self-attention and every cross-attention (a one-token
     decode step's too, at Sq = 1) go through it non-causal.
 
-``multihead_attention(heads=)`` and ``apply_mlp(partial=True)`` are a
-tensor-parallel member's share of the attention and of the MLP, which
-``lm._attn_block_tp`` sums over a model group (``models/tp.py``) before
-:func:`mlp_bias`.
+``multihead_attention(heads=)`` (a self- or cross-attention) and
+``apply_mlp(partial=True)`` are a tensor-parallel member's share of the
+attention and of the MLP, which ``lm._attention_tp`` / ``lm._ffn_tp``
+sum over a model group (``models/tp.py``) before :func:`mlp_bias`.
 
 The matmuls stay ``torch.matmul``: they are products outside any kernel of
 the reference.  So do LayerNorm (f32, biased variance, eps 1e-5), the qkv
@@ -155,18 +155,27 @@ def head_slice(cfg: ModelConfig, rank: int, count: int
     return h0, h0 + h, h0 // g, (h0 + h - 1) // g + 1
 
 
-def _local_qkv(cfg, p, x, positions, heads):
+def _local_qkv(cfg, p, x, positions, heads, kv_x=None):
     """:func:`_self_qkv` for member ``heads = (rank, count)`` of a group
     that splits the heads: ``p``'s ``wq`` / ``bq`` are its block, and the
     replicated ``wk`` / ``wv`` / ``bk`` / ``bv`` are cut to the kv heads
-    its query heads read.  k and v come back with one head a query head
-    where the local heads do not map onto them as ``j // (h / kv)``."""
+    its query heads read.  With ``kv_x`` the cross-attention's: k and v
+    projected from it, no biases on them and no rope on either side, as
+    :func:`multihead_attention` projects a whole one.  k and v come back
+    with one head a query head where the local heads do not map onto them
+    as ``j // (h / kv)``."""
     h0, h1, k0, k1 = head_slice(cfg, *heads)
     g = cfg.num_heads // cfg.num_kv_heads
     kv = {n: p[n][..., k0:k1, :] for n in ("wk", "wv", "bk", "bv") if n in p}
-    q = rope(_project(x, p["wq"], p.get("bq")), positions, cfg.rope_theta)
-    k = rope(_project(x, kv["wk"], kv.get("bk")), positions, cfg.rope_theta)
-    v = _project(x, kv["wv"], kv.get("bv"))
+    if kv_x is None:
+        q = rope(_project(x, p["wq"], p.get("bq")), positions,
+                 cfg.rope_theta)
+        k = rope(_project(x, kv["wk"], kv.get("bk")), positions,
+                 cfg.rope_theta)
+        v = _project(x, kv["wv"], kv.get("bv"))
+    else:
+        q = _project(x, p["wq"], p.get("bq"))
+        k, v = _project(kv_x, kv["wk"]), _project(kv_x, kv["wv"])
     h, n = h1 - h0, k1 - k0
     idx = [(h0 + j) // g - k0 for j in range(h)]
     if h % n or idx != [j // (h // n) for j in range(h)]:
@@ -193,12 +202,13 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     with ``where`` over all of S_max); the values equal the reference's.
     The returned cache holds the same tensors.
 
-    ``heads = (rank, count)``: the self-attention of member ``rank`` of a
-    tensor-parallel group of ``count`` (``models/tp.py``), without a
-    cache: ``p``'s ``wq`` / ``bq`` / ``wo`` are its block of the heads,
-    the kv heads its heads read are cut from the replicated ones
-    (:func:`head_slice`), and the output is its partial sum over its
-    heads, which the group sums.
+    ``heads = (rank, count)``: the self- or (with ``kv_x``)
+    cross-attention of member ``rank`` of a tensor-parallel group of
+    ``count`` (``models/tp.py``), without a cache: ``p``'s ``wq`` /
+    ``bq`` / ``wo`` are its block of the heads, the kv heads its heads
+    read are cut from the replicated ones (:func:`head_slice`; a
+    cross-attention's projected from the whole ``kv_x``), and the output
+    is its partial sum over its heads, which the group sums.
     """
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -206,13 +216,15 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
 
     new_cache = None
     if heads is not None:
-        if kv_x is not None or kv_cache is not None:
-            raise ValueError("a tensor-parallel attention takes neither a "
-                             "cache nor cross-attention keys")
+        if kv_cache is not None:
+            raise ValueError("a tensor-parallel attention takes no cache")
         h = cfg.num_heads // heads[1]
-        q, k, v = _local_qkv(cfg, p, x, positions, heads)
-        ctx = mha(q, k, v, causal=causal, kv_len=kv_valid_len,
-                  q_offset=offset)
+        q, k, v = _local_qkv(cfg, p, x, positions, heads, kv_x)
+        if kv_x is not None:
+            ctx = mha(q, k, v, causal=False, q_offset=offset)
+        else:
+            ctx = mha(q, k, v, causal=causal, kv_len=kv_valid_len,
+                      q_offset=offset)
     elif kv_x is not None:
         q = _project(x, p["wq"], p.get("bq"))
         ctx = mha(q, _project(kv_x, p["wk"]), _project(kv_x, p["wv"]),

@@ -39,8 +39,8 @@ keeps) and recomputes the rest, the kernels included.
 
 ``loss_fn(..., group=)`` runs a model of any family here tensor-parallel
 over a model group of a mesh, its members in lock step
-(:func:`_forward_tp`, ``models/tp.py``): the production-mesh train
-step's path.
+(:func:`_forward_tp`, ``models/tp.py``; an encoder-decoder config goes
+to ``encdec.loss_fn(group=)``): the production-mesh train step's path.
 
 ``prefill`` and ``decode_step`` write the KV caches they are given in
 place (see :func:`~repro_torch.models.layers.multihead_attention`; a
@@ -311,18 +311,41 @@ def _total(terms, start=None):
     return start
 
 
-def _attn_block_tp(cfg, group, ps, xs, *, positions):
-    """:func:`_attn_block` (no cache) on the members of a tensor-parallel
-    model group in lock step (``models/tp.py``): ``ps``, ``xs`` and
-    ``positions`` hold one entry a computed member.  Returns each
-    member's (x, the block's MoE aux loss or None).  The norms and the
-    residual stream run on every member's copy, and each sublayer on its
-    share (``group.share``) between :func:`tp.enter` and
-    :func:`tp.leave`: its block of the heads or of d_ff where the region
-    splits (``group.heads``, ``group.mlp``, ``group.experts``), the whole
-    where it does not.  The replicated kv projections enter the attention
-    too: a member reads only the kv heads its query heads use, so their
-    gradients are the group's sum.
+def _attention_tp(cfg, group, ps, hs, *, positions, name="attn",
+                  causal=True, kv_xs=None):
+    """The attention sublayer ``p[name]`` on the members of a
+    tensor-parallel model group in lock step (``models/tp.py``): ``ps``,
+    the normed inputs ``hs``, ``positions`` and a cross-attention's
+    memory ``kv_xs`` (non-causal, every key valid: ``causal`` is for a
+    self-attention) hold one entry a computed member.  Returns each
+    member's output: the group's sum of the members' heads where
+    ``group.heads``, else each member's whole attention.  The input enters the region (:func:`tp.enter`); so do
+    the replicated kv projections (``wk``, ``wv``, ``bk``, ``bv``): a
+    member reads only the kv heads its query heads use, so their
+    gradients are the group's sum.  A cross-attention's memory does not
+    enter here: its caller enters it once for every layer that reads it
+    (``encdec._decode_stack_tp``)."""
+    split = group.heads
+    hs = TP.enter(group, hs, split)
+    kv = [n for n in ("wk", "wv", "bk", "bv") if n in ps[0][name]]
+    shared = [TP.enter(group, [p[name][n] for p in ps], split) for n in kv]
+    mine = [dict(p[name], **{n: s[j] for n, s in zip(kv, shared)})
+            for j, p in enumerate(ps)]
+    kv_xs = [None] * len(hs) if kv_xs is None else kv_xs
+    return TP.leave(group, [
+        L.multihead_attention(cfg, a, h, positions=pos, kv_x=m,
+                              causal=causal, heads=group.share(split, r))[0]
+        for r, a, h, pos, m in zip(group.ranks, mine, hs, positions,
+                                   kv_xs)], split)
+
+
+def _ffn_tp(cfg, group, ps, xs):
+    """The MLP sublayer (``ln2``, then the MLP or for moe the experts and
+    the dense residual MLP) with its residual on the members of a
+    tensor-parallel model group in lock step: returns each member's (x,
+    the block's MoE aux loss or None).  Each member runs its block of
+    d_ff where ``group.mlp`` and of every expert's d_ff where
+    ``group.experts``, the whole elsewhere.
 
     A MoE block routes each member's replicated normed input outside any
     region (the router, the gates and the aux loss: the router's weight
@@ -332,18 +355,6 @@ def _attn_block_tp(cfg, group, ps, xs, *, positions):
     the sublayer (the experts, the dense residual MLP) leave in one sum;
     a term whose region does not split is added whole after it, and
     ``b_down`` once, to the sum."""
-    split = group.heads
-    hs = TP.enter(group, [L.apply_norm(cfg, p["ln1"], x)
-                          for p, x in zip(ps, xs)], split)
-    kv = [n for n in ("wk", "wv", "bk", "bv") if n in ps[0]["attn"]]
-    shared = [TP.enter(group, [p["attn"][n] for p in ps], split) for n in kv]
-    ps_kv = [dict(p, attn=dict(p["attn"], **{n: s[j]
-                                             for n, s in zip(kv, shared)}))
-             for j, p in enumerate(ps)]
-    outs = TP.leave(group, [
-        _attention(cfg, p, h, positions=pos, heads=group.share(split, r))
-        for r, p, h, pos in zip(group.ranks, ps_kv, hs, positions)], split)
-    xs = [x + o for x, o in zip(xs, outs)]
     hs = [L.apply_norm(cfg, p["ln2"], x) for p, x in zip(ps, xs)]
     regions = {"mlp": group.mlp, "experts": group.experts}
     routings = [None] * len(hs)
@@ -366,6 +377,22 @@ def _attn_block_tp(cfg, group, ps, xs, *, positions):
     if "mlp" in terms[0][0]:
         outs = [L.mlp_bias(p["mlp"], o) for p, o in zip(ps, outs)]
     return [x + o for x, o in zip(xs, outs)], auxs
+
+
+def _attn_block_tp(cfg, group, ps, xs, *, positions):
+    """:func:`_attn_block` (no cache) on the members of a tensor-parallel
+    model group in lock step (``models/tp.py``): ``ps``, ``xs`` and
+    ``positions`` hold one entry a computed member.  Returns each
+    member's (x, the block's MoE aux loss or None).  The norms and the
+    residual stream run on every member's copy, and each sublayer on its
+    share (``group.share``) between :func:`tp.enter` and
+    :func:`tp.leave`: its block of the heads (:func:`_attention_tp`) or
+    of d_ff (:func:`_ffn_tp`) where the region splits (``group.heads``,
+    ``group.mlp``, ``group.experts``), the whole where it does not."""
+    outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["ln1"], x)
+                                          for p, x in zip(ps, xs)],
+                         positions=positions)
+    return _ffn_tp(cfg, group, ps, [x + o for x, o in zip(xs, outs)])
 
 
 def _ssm_block(cfg, p, x, *, cache):
@@ -574,10 +601,20 @@ def _loss_tp(cfg: ModelConfig, group, params, batch):
     if cfg.family not in TP.FAMILIES:
         raise ValueError(f"tensor parallelism runs the families "
                          f"{TP.FAMILIES}, not {cfg.family!r}")
+    if cfg.is_encdec:
+        from . import encdec
+        return encdec.loss_fn(cfg, params, batch, group=group)
     patches = [b.get("patches") for b in batch]
     logits, auxs = _forward_tp(cfg, group, params,
                                [b["tokens"] for b in batch],
                                None if patches[0] is None else patches)
+    return _tp_losses(group, logits, batch, auxs)
+
+
+def _tp_losses(group, logits, batch, auxs):
+    """Each member's (loss + 0.01 * aux, metrics) from its logits (its
+    vocab block where ``group.vocab``), its batch's labels and its aux
+    loss."""
     ces = TP.cross_entropy(group, logits, [b["labels"] for b in batch])
     totals, metrics = [], []
     for (loss, tokens), aux in zip(ces, auxs):

@@ -1,5 +1,6 @@
 """Tensor parallelism over a mesh's ``model`` axis for the decoder-only
-families (``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``).
+families (``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``) and the
+encoder-decoder (``encdec``).
 
 The reference never writes this out: its jitted train step puts ``heads``,
 ``mlp``, ``vocab``, the experts' ``expert_mlp`` and the Mamba2 mixer's
@@ -10,11 +11,13 @@ projection, the MLP, each expert's d_ff, each Mamba2 mixer's heads and
 inner channels, the head and the cross-entropy over the model axis
 (Megatron-style tensor parallelism; per-expert tensor parallelism for the
 experts, whose router stays replicated; the mixer's ``wB`` / ``wC``,
-``ssm_state``, stay whole).  Here one controller drives the T members
-of a model group (:class:`ModelGroup`) in lock step: every value is a
-list with one tensor a computed member, on that member's device, and the
-members meet in ``core.collectives.psum`` / ``pmax`` over the group, in
-position order.
+``ssm_state``, stay whole; so do the kv projections, ``kv_heads``, of
+every self- and cross-attention, the encoder's and the decoder's).
+Here one controller drives the T members of a model group
+(:class:`ModelGroup`) in lock step: every value is a list with one
+tensor a computed member, on that member's device, and the members meet
+in ``core.collectives.psum`` / ``pmax`` over the group, in position
+order.
 
   * :func:`enter`, at a tensor-parallel region's entry: the identity
     forward, the ``psum`` of the replicated input's gradient backward
@@ -61,25 +64,32 @@ from ..core.treepath import tree_flatten_with_path
 
 AXIS = "model"
 # the families whose train step splits over the model axis
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the param subtrees stacked on a leading layer dim
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+# the attention sublayers and the MLPs: (subtree, sublayer), the hybrid's
+# ``shared_attn`` one block, unstacked
+_ATTNS = (("blocks", "attn"), ("enc_blocks", "attn"), ("dec_blocks", "attn"),
+          ("dec_blocks", "xattn"), ("shared_attn", "attn"))
+_MLPS = (("blocks", "mlp"), ("enc_blocks", "mlp"), ("dec_blocks", "mlp"),
+         ("shared_attn", "mlp"))
+
+
+def _leaves(sublayers, dims):
+    """The (path, dim) of each named leaf of each sublayer, the dim one
+    more in a stacked subtree (its dim 0 is the layer)."""
+    return tuple(((tree, sub, name), d + (tree in STACKED))
+                 for tree, sub in sublayers for name, d in dims)
+
 
 # per region, the leaves it splits and the dim of each that ``model``
-# must block (the stacked leaves' dim 0 is the layer; the hybrid's
-# ``shared_attn`` is one block, unstacked).  ``ssm`` holds the Mamba2
-# mixer's head leaves and its channel leaves together, so a member's
-# block of d_inner is exactly its heads' channels
+# must block.  ``ssm`` holds the Mamba2 mixer's head leaves and its
+# channel leaves together, so a member's block of d_inner is exactly its
+# heads' channels
 REGIONS = {
-    "heads": ((("blocks", "attn", "wq"), 2), (("blocks", "attn", "wo"), 1),
-              (("blocks", "attn", "bq"), 1),
-              (("shared_attn", "attn", "wq"), 1),
-              (("shared_attn", "attn", "wo"), 0),
-              (("shared_attn", "attn", "bq"), 0)),
-    "mlp": ((("blocks", "mlp", "w_gate"), 2), (("blocks", "mlp", "w_up"), 2),
-            (("blocks", "mlp", "w_down"), 1), (("blocks", "mlp", "b_up"), 1),
-            (("shared_attn", "mlp", "w_gate"), 1),
-            (("shared_attn", "mlp", "w_up"), 1),
-            (("shared_attn", "mlp", "w_down"), 0),
-            (("shared_attn", "mlp", "b_up"), 0)),
+    "heads": _leaves(_ATTNS, (("wq", 1), ("wo", 0), ("bq", 0))),
+    "mlp": _leaves(_MLPS, (("w_gate", 1), ("w_up", 1), ("w_down", 0),
+                           ("b_up", 0))),
     "vocab": ((("embed", "tok"), 0), (("embed", "lm_head"), 1)),
     "experts": ((("blocks", "moe", "w_gate"), 3),
                 (("blocks", "moe", "w_up"), 3),
@@ -299,5 +309,5 @@ def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
                 experts=split["experts"], ssm=split["ssm"])
 
 
-__all__ = ["AXIS", "FAMILIES", "REGIONS", "ModelGroup", "Plan", "plan",
-           "enter", "leave", "total", "embed", "cross_entropy"]
+__all__ = ["AXIS", "FAMILIES", "STACKED", "REGIONS", "ModelGroup", "Plan",
+           "plan", "enter", "leave", "total", "embed", "cross_entropy"]

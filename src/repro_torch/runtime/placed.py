@@ -13,9 +13,11 @@ Single-controller over the mesh's positions, as the sharded train step
   * each position runs the model on its rows of the inputs;
   * each position keeps its own block of the new cache.
 
-The model axis replicates compute: positions that share a batch index
-compute the same rows at full width (the port has no tensor
-parallelism).  ``prefill(..., slot=r)`` prefills one request into row
+The model axis replicates compute here: positions that share a batch
+index compute the same rows at full width.  (The production-mesh train
+step is tensor-parallel over it, ``models/tp.py``; placed prefill and
+decode are not yet: the decode rules put the cache's ``kv_seq``, not the
+heads, on ``model``.)  ``prefill(..., slot=r)`` prefills one request into row
 ``r`` of the batch cache (as the server fills a slot): only the
 positions that hold row ``r`` compute.  A cache dim that no axis gathers
 is the position's block itself, written in place, as the reference's

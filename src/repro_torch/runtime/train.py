@@ -19,9 +19,10 @@ The port's counterpart of ``repro/runtime/train.py``:
 ``make_sharded_train_step`` — the production-mesh step: the state in 2-D
                           placements on a named mesh (the reference's
                           jitted step under ``tree_shardings``), params
-                          gathered, every decoder-only family
-                          tensor-parallel over the model axis (the MoE's
-                          per-expert d_ff, the Mamba2 mixers' heads),
+                          gathered, every family tensor-parallel over
+                          the model axis (the MoE's per-expert d_ff, the
+                          Mamba2 mixers' heads, the encoder-decoder's
+                          self- and cross-attentions),
                           gradients summed over the
                           batch axes, each position updating its own
                           blocks (:class:`ShardedTrainStep`).
@@ -536,29 +537,32 @@ class ShardedTrainStep:
         after), dropping its old blocks as it goes.
 
     Tensor parallelism (:attr:`tp`, ``models/tp.py``), as GSPMD
-    partitions the reference's step: for the decoder-only families
-    (``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid``), where the
-    placements block ``heads`` (``wq``, ``bq``, ``wo``), ``mlp``
-    (``w_gate``, ``w_up``, ``b_up``, ``w_down``; the hybrid's shared
-    block's too), ``vocab`` (``tok``, ``lm_head``), the experts'
-    ``expert_mlp`` (``moe``'s ``w_gate``, ``w_up``, ``w_down``) or the
-    Mamba2 mixers' ``ssm_heads`` and ``ssm_inner`` (``wz``, ``wx``,
-    ``wdt``, ``conv_*``, ``out_norm``, ``dt_bias``, ``A_log``, ``D``,
-    ``wo``) over ``model``, the positions of each model group run their
-    rows in lock step, each on its block of those leaves: its query
-    heads against the kv heads they read (``wk`` / ``wv`` stay whole,
-    their gradients summed over the group), its share of d_ff (``b_down``
-    added once after the sum) and of every expert's d_ff, its share of
-    each mixer's heads and their channels (``wB`` / ``wC`` whole, their
-    gradients summed; the gated norm over the group's sum of squares),
-    its vocab rows of the embedding and of the head's logits and
-    cross-entropy; the norms, the residual stream, a vlm's patch
-    projection and the MoE router (its gates and aux loss) run on every
-    position's copy.  A region whose leaves do not all split (arctic's
-    56 heads over 16) runs whole on every position of the group, as do
-    the ``encdec`` family, the step on a mesh without a ``model`` axis
-    of 2 or more, and a batch whose rows split over ``model``: there the
-    model axis replicates compute and shards only the state.  A position's
+    partitions the reference's step: for every family (``dense``,
+    ``vlm``, ``moe``, ``ssm``, ``hybrid``, ``encdec``), where the
+    placements block ``heads`` (``wq``, ``bq``, ``wo`` of every self- and
+    cross-attention), ``mlp`` (``w_gate``, ``w_up``, ``b_up``,
+    ``w_down``; the hybrid's shared block's and both encdec stacks'
+    too), ``vocab`` (``tok``, ``lm_head``), the experts' ``expert_mlp``
+    (``moe``'s ``w_gate``, ``w_up``, ``w_down``) or the Mamba2 mixers'
+    ``ssm_heads`` and ``ssm_inner`` (``wz``, ``wx``, ``wdt``,
+    ``conv_*``, ``out_norm``, ``dt_bias``, ``A_log``, ``D``, ``wo``)
+    over ``model``, the positions of each model group run their rows in
+    lock step, each on its block of those leaves: its query heads against
+    the kv heads they read (``wk`` / ``wv`` stay whole, their gradients
+    summed over the group; a cross-attention's projected from the whole
+    encoder memory, whose gradient is summed over the group once for the
+    decoder stack), its share of d_ff (``b_down`` added once after the
+    sum) and of every expert's d_ff, its share of each mixer's heads and
+    their channels (``wB`` / ``wC`` whole, their gradients summed; the
+    gated norm over the group's sum of squares), its vocab rows of the
+    embedding and of the head's logits and cross-entropy; the norms, the
+    residual streams, a vlm's patch projection and the MoE router (its
+    gates and aux loss) run on every position's copy.  A region whose
+    leaves do not all split (arctic's 56 heads over 16) runs whole on
+    every position of the group, as does the step on a mesh without a
+    ``model`` axis of 2 or more, and a batch whose rows split over
+    ``model``: there the model axis replicates compute and shards only
+    the state.  A position's
     blocks of a leaf the spec replicates over ``model`` stay bit-equal
     over its group when the backward is deterministic
     (``torch.use_deterministic_algorithms``: the embedding's index

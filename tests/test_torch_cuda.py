@@ -1583,3 +1583,112 @@ def test_ssm_tensor_parallel_block_at_full_width(cuda, arch, t):
     for xi in xs:
         assert torch.equal(xi.grad, xs[0].grad)
     close(xs[0].grad, xw.grad, "x")
+
+
+# -- tensor parallelism of the encoder-decoder's blocks on card positions ---
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_encdec_tensor_parallel_blocks_at_full_width(cuda, part, t):
+    """seamless-m4t-medium at full width (16 heads of 64, kv 16, d_ff
+    4096, LayerNorm), float32, batch 2 x 128, over a model group of ``t``
+    positions of the card: one encoder block (``encdec._enc_block_tp``,
+    non-causal) against ``encdec._enc_block``, or one decoder block
+    through ``encdec._decode_stack_tp`` (the causal self-attention, the
+    cross-attention over 32 rows of memory, the MLP) against
+    ``encdec._decode_stack`` on one position: each member's output, and
+    the gradients of every leaf, each member's block of a split one, of
+    the input and of the memory, within 1e-4 of the largest element for
+    the encoder block and 1e-3 for the decoder block (float32 sums in
+    other orders: every float32 reading of the decoder block's gradients
+    lies 2.4e-4 to 4.6e-4 of a leaf's largest element from the float64
+    value, ``scripts/torch_encdec_block_spread.py``); the whole leaves',
+    the input's and the memory's gradients bit-equal over the members;
+    each member runs one flash launch an attention and no rmsnorm."""
+    import dataclasses
+
+    from repro_torch.core.treepath import tree_flatten, tree_flatten_with_path
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import encdec, registry
+    from repro_torch.models import tp as TP
+    from repro_torch.models.specs import init_params
+
+    cfg = dataclasses.replace(registry.get("seamless-m4t-medium").cfg,
+                              num_layers=1)
+    stack = "enc_blocks" if part == "encoder" else "dec_blocks"
+    specs = encdec.spec_tree(cfg)[stack]
+    p = init_params(specs, torch.Generator(device=cuda).manual_seed(0),
+                    "float32", cuda)
+    if part == "encoder":
+        p = tree_flatten(p)[1].unflatten([v[0] for v in tree_flatten(p)[0]])
+    leaves, treedef = tree_flatten(p)
+    paths = [path for path, _ in tree_flatten_with_path(p)]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 128, cfg.d_model, device=cuda, generator=g)
+    mem = torch.randn(2, 32, cfg.d_model, device=cuda, generator=g)
+    cot = torch.randn(2, 128, cfg.d_model, device=cuda, generator=g)
+    pos = torch.arange(128, device=cuda)[None, :]
+
+    whole = [v.clone().requires_grad_() for v in leaves]
+    xw, mw = x.clone().requires_grad_(), mem.clone().requires_grad_()
+    if part == "encoder":
+        want = encdec._enc_block(cfg, treedef.unflatten(whole), xw,
+                                 positions=pos)
+    else:
+        want = encdec._decode_stack(cfg, {"dec_blocks": treedef.unflatten(
+            whole)}, xw, mw, positions=pos, cache=None, kv_valid_len=None)
+    (want * cot).sum().backward()
+
+    mesh = make_debug_mesh(1, t, device=(cuda,) * t)
+    group = TP.ModelGroup(mesh, mesh.groups("model")[0], heads=True,
+                          mlp=True, vocab=False)
+    drop = part == "encoder"
+    dims = {path[1:]: d - drop for region in ("heads", "mlp")
+            for path, d in TP.REGIONS[region] if path[0] == stack}
+    members = []
+    for r in range(t):
+        mine = []
+        for path, v in zip(paths, leaves):
+            d = dims.get(path)
+            if d is not None:
+                n = v.shape[d] // t
+                v = v.narrow(d, r * n, n)
+            mine.append(v.clone().requires_grad_())
+        members.append(mine)
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    mems = [mem.clone().requires_grad_() for _ in range(t)]
+    ps = [treedef.unflatten(m) for m in members]
+    before = (RK.rmsnorm.launches, FK.flash_attention.launches)
+    if part == "encoder":
+        outs = encdec._enc_block_tp(cfg, group, ps, xs, positions=[pos] * t)
+    else:
+        outs = encdec._decode_stack_tp(cfg, group, ps, xs, mems,
+                                       positions=[pos] * t)
+    assert (RK.rmsnorm.launches - before[0],
+            FK.flash_attention.launches - before[1]) == \
+        (0, t * (1 if part == "encoder" else 2))
+    torch.autograd.backward([(o * cot).sum() for o in outs])
+    rtol = 1e-4 if part == "encoder" else 1e-3
+
+    def close(got, want, what):
+        top = float(want.detach().abs().max())
+        err = float((got - want).detach().abs().max())
+        assert err <= rtol * top + 1e-6, f"{what}: {err} vs max {top}"
+
+    for o in outs:
+        close(o, want, "out")
+    for i, path in enumerate(paths):
+        grads = [m[i].grad for m in members]
+        d = dims.get(path)
+        got = torch.cat(grads, dim=d) if d is not None else grads[0]
+        if d is None:
+            for gr in grads[1:]:
+                assert torch.equal(gr, grads[0]), path
+        close(got, whole[i].grad, "/".join(path))
+    for xi in xs:
+        assert torch.equal(xi.grad, xs[0].grad)
+    close(xs[0].grad, xw.grad, "x")
+    if part == "decoder":
+        for m in mems:
+            assert torch.equal(m.grad, mems[0].grad)
+        close(mems[0].grad, mw.grad, "memory")

@@ -23,7 +23,8 @@ cell, exactly:
     ``benchmarks.roofline.model_flops``;
   * the collectives: one all-gather a sharded dim of each param leaf, and
     on a train cell whose batch splits, one all-reduce a gradient leaf and
-    the loss's.
+    the loss's, plus, where the step is tensor-parallel (every family,
+    the encoder-decoder since it splits too), its model group's sums.
 
 And the op counter on its own: a matmul's FLOPs are 2MNK and its bytes
 its operands' and output's; the collectives' kinds map onto the
@@ -246,22 +247,64 @@ def _tp_reductions(cfg, plan):
     block's last once more (the recompute stops at the last tensor the
     backward saved); the vocab-parallel embedding's exit, the head's
     entry, the cross-entropy's pmax and its two psums; then the gradient
-    norm's psum."""
+    norm's psum.  An encoder-decoder's encoder block has one attention
+    (its entry sums in the first block too: ``ln1``'s scale and bias read
+    the normed input's gradient), a decoder block two (the
+    cross-attention's kv projections without biases) before the MLP, and
+    the memory enters the decoder's regions once."""
     if plan is None:
         return 0
     redo = cfg.remat != "none"
-    attn = plan.heads * (2 + redo + (4 if cfg.qkv_bias else 2)) + \
-        plan.mlp + 2 * plan.experts + (plan.mlp or plan.experts)
+    kv = 4 if cfg.qkv_bias else 2
+    heads = plan.heads * (2 + redo + kv)
+    attn = heads + plan.mlp + 2 * plan.experts + (plan.mlp or plan.experts)
     ssm = plan.ssm * (6 + redo)
+    head = plan.vocab * 5
+    mb = max(1, cfg.micro_batches)
+    if cfg.is_encdec:
+        cross = plan.heads * (2 + redo + 2)
+        return mb * (cfg.enc_layers * attn + cfg.num_layers * (attn + cross)
+                     + plan.heads + head) + 1
     if cfg.family == "hybrid":
         apps, mixers = -(-cfg.num_layers // cfg.attn_every), cfg.num_layers
     elif cfg.family == "ssm":
         apps, mixers = 0, cfg.num_layers
     else:
         apps, mixers = cfg.num_layers, 0
-    head = plan.vocab * 5
-    return max(1, cfg.micro_batches) * (apps * attn + mixers * ssm + head) \
-        + 1
+    return mb * (apps * attn + mixers * ssm + head) + 1
+
+
+def test_encdec_full_size_cell_gathers_the_plans_blocks():
+    """seamless-m4t-medium at full size, train_4k on the (16, 16) mesh:
+    the step splits the heads of every self- and cross-attention (1 of
+    16 a member) and both stacks' d_ff, not the vocab (256206 % 16 = 14),
+    so position 0 gathers 355,311,616 params (the plan's), not the whole
+    614,926,336; the probe identity is exact, and the all-reduces are the
+    batch's sums plus what tensor parallelism adds under remat
+    ``dots``."""
+    import math
+
+    api = p_registry.get("seamless-m4t-medium")
+    m = p_mesh.make_production_mesh(device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, "train"),
+                                    m, SHAPES["train_4k"].global_batch)
+    step = p_train.make_sharded_train_step(
+        api, make_optimizer(api.cfg.optimizer), None, m, rules)
+    plan = step.tp
+    assert (plan.heads, plan.mlp, plan.vocab) == (True, True, False)
+    res, = dryrun.run_grid(["seamless-m4t-medium"], ["train_4k"], ["single"],
+                           None, smoke=False)
+    assert "error" not in res, res.get("traceback")
+    assert res["probe_check"]["exact"], res["probe_check"]
+    assert [b["kind"] for b in res["bodies"]] == ["enc_block_in",
+                                                  "enc_block", "dec_block"]
+    whole = sum(math.prod(v.shape) for v in _leaves(api.abstract()))
+    assert whole == 614_926_336
+    assert res["gathered_param_bytes"] == step.gathered_param_bytes() \
+        == 2 * 355_311_616
+    n_leaves = len(_leaves(api.abstract()))
+    assert res["collectives"]["per_op"]["all-reduce"]["count"] == \
+        n_leaves + 1 + _tp_reductions(api.cfg, plan)
 
 
 def _leaves(tree):

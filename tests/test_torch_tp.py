@@ -63,16 +63,26 @@ def _cfg(heads, kv, bias):
                                head_dim=8, d_model=32, qkv_bias=bias)
 
 
-@pytest.mark.parametrize("heads,kv,t", [(4, 2, 2), (4, 2, 4), (8, 2, 2),
-                                        (4, 1, 4), (8, 8, 2), (12, 3, 2)])
-def test_attention_members_sum_to_the_whole(heads, kv, t):
+ATTENTION_CASES = [(4, 2, 2), (4, 2, 4), (8, 2, 2), (4, 1, 4), (8, 8, 2),
+                   (12, 3, 2)]
+
+
+@pytest.mark.parametrize("heads,kv,t,cross", [
+    pytest.param(h, kv, t, False, id=f"{h}-{kv}-{t}")
+    for h, kv, t in ATTENTION_CASES] + [
+    pytest.param(h, kv, t, True, id=f"{h}-{kv}-{t}-cross")
+    for h, kv, t in ((4, 2, 2), (4, 2, 4), (12, 3, 2))])
+def test_attention_members_sum_to_the_whole(heads, kv, t, cross):
+    """Self-attention, or a cross-attention (``kv_x``: 3 memory rows, no
+    rope and no bias on its keys and values, every key valid)."""
     cfg = _cfg(heads, kv, True)
     g = torch.Generator().manual_seed(heads * 10 + kv + t)
     p = {k: 0.2 * torch.randn(s.shape, generator=g)
-         for k, s in L.attention_specs(cfg).items()}
+         for k, s in L.attention_specs(cfg, cross=cross).items()}
     x = torch.randn(2, 5, cfg.d_model, generator=g)
+    kv_x = torch.randn(2, 3, cfg.d_model, generator=g) if cross else None
     pos = torch.arange(5)[None, :]
-    want, _ = L.multihead_attention(cfg, p, x, positions=pos)
+    want, _ = L.multihead_attention(cfg, p, x, positions=pos, kv_x=kv_x)
     h = heads // t
     parts = []
     for r in range(t):
@@ -80,11 +90,13 @@ def test_attention_members_sum_to_the_whole(heads, kv, t):
                     bq=p["bq"][r * h:(r + 1) * h],
                     wo=p["wo"][r * h:(r + 1) * h])
         parts.append(L.multihead_attention(cfg, mine, x, positions=pos,
-                                           heads=(r, t))[0])
+                                           kv_x=kv_x, heads=(r, t))[0])
     torch.testing.assert_close(sum(parts), want, rtol=TOL, atol=TOL)
+    cache = {"k": torch.zeros(2, 8, kv, cfg.resolved_head_dim),
+             "v": torch.zeros(2, 8, kv, cfg.resolved_head_dim)}
     with pytest.raises(ValueError, match="cache"):
         L.multihead_attention(cfg, p, x, positions=pos, heads=(0, t),
-                              kv_x=x)
+                              kv_cache=cache)
 
 
 @pytest.mark.parametrize("t", [2, 4])
@@ -166,7 +178,24 @@ def test_plan_follows_the_placements():
                      "blocks/mlp/w_up"]
     assert _plan("llama3.2-1b", 4, 1) is None
     assert _plan("llama3.2-1b", 2, 2, batch_over_model=True) is None
-    assert _plan("seamless-m4t-medium", 2, 2) is None
+    # the encoder-decoder: the heads of every self- and cross-attention
+    # and both stacks' d_ff; vocab 257 does not split by 2, 256 does
+    plan = _plan("seamless-m4t-medium", 2, 2)
+    assert (plan.heads, plan.mlp, plan.vocab, plan.experts, plan.ssm) == \
+        (True, True, False, False, False)
+    api = p_registry.get("seamless-m4t-medium", smoke=True)
+    paths = [path for path, _ in TP.tree_flatten_with_path(api.abstract())]
+    split = sorted("/".join(path) for path, d in zip(paths, plan.dims)
+                   if d is not None)
+    assert split == sorted(
+        [f"{stack}/{sub}/{leaf}"
+         for stack, subs in (("enc_blocks", ("attn",)),
+                             ("dec_blocks", ("attn", "xattn")))
+         for sub in subs for leaf in ("wo", "wq")]
+        + [f"{stack}/mlp/{leaf}" for stack in ("dec_blocks", "enc_blocks")
+           for leaf in ("b_up", "w_down", "w_up")])
+    assert _plan("seamless-m4t-medium", 2, 2, vocab=256).vocab
+    assert not _plan("seamless-m4t-medium", 1, 4, vocab=258).vocab
     plan = _plan("mamba2-1.3b", 2, 2)
     assert (plan.heads, plan.mlp, plan.vocab, plan.ssm) == \
         (False, False, False, True)
@@ -194,7 +223,8 @@ def test_plan_follows_the_placements():
     ("moonshot-v1-16b-a3b", (True, False, True, True, False)),
     ("phi-3-vision-4.2b", (True, True, True, False, False)),
     ("mamba2-1.3b", (False, False, False, False, True)),
-    ("zamba2-2.7b", (True, True, True, False, True))])
+    ("zamba2-2.7b", (True, True, True, False, True)),
+    ("seamless-m4t-medium", (True, True, False, False, False))])
 def test_plan_at_full_size_on_the_production_mesh(arch, regions):
     """At full size on (16, 16): arctic's 56 heads do not split 16 ways
     (the placement keeps them whole, as the reference's ``_demote_spec``),
@@ -202,7 +232,10 @@ def test_plan_at_full_size_on_the_production_mesh(arch, regions):
     dense MLP; phi-3-vision has no experts; mamba2's 64 heads split (4 a
     member), its vocab 50280 does not; zamba2's 80 Mamba2 heads (5 a
     member), its shared block's 32 heads and d_ff and its vocab 32000
-    split.  The router and the mixers' ``wB`` / ``wC`` are whole on every
+    split; seamless-m4t-medium's 16 heads of every self- and
+    cross-attention (1 a member) and both stacks' d_ff split, its vocab
+    256206 does not (256206 % 16 = 14).  The router, the mixers' ``wB`` /
+    ``wC`` and every attention's ``wk`` / ``wv`` are whole on every
     member."""
     api = p_registry.get(arch)
     mesh = p_mesh.make_production_mesh(device="meta")
@@ -218,7 +251,8 @@ def test_plan_at_full_size_on_the_production_mesh(arch, regions):
         for path, _ in TP.REGIONS[region] if "/".join(path) in paths}
     assert split == want
     assert not split & {"blocks/moe/router", "blocks/ssm/wB",
-                        "blocks/ssm/wC"}
+                        "blocks/ssm/wC", "blocks/attn/wk", "blocks/attn/wv",
+                        "enc_blocks/attn/wk", "dec_blocks/xattn/wv"}
 
 
 def _split_block(p, r, t, regions=("heads", "mlp")):
@@ -454,6 +488,97 @@ def test_hybrid_shared_block_members_equal_the_whole(t):
     _members_grads_are_blocks(specs, members, whole, xs, xw, largest=True)
 
 
+def _stack_members(p, stack, t, stacked):
+    """Each of ``t`` members' view of ``p``, one layer (``stacked``
+    False: the layer dim dropped) or the whole stack of ``stack``
+    (``"enc_blocks"`` / ``"dec_blocks"``): its block of each leaf of the
+    heads and mlp regions, the others whole; each leaf a fresh leaf that
+    requires grad, flat in ``p``'s order."""
+    from repro_torch.core.treepath import tree_flatten_with_path
+
+    dims = {path[1:]: d - (not stacked)
+            for region in ("heads", "mlp") for path, d in TP.REGIONS[region]
+            if path[0] == stack}
+    members = []
+    for r in range(t):
+        mine = []
+        for path, v in tree_flatten_with_path(p):
+            d = dims.get(path)
+            if d is not None:
+                n = v.shape[d] // t
+                v = v.narrow(d, r * n, n)
+            mine.append(v.clone().requires_grad_())
+        members.append(mine)
+    return members
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_encdec_block_members_equal_the_whole_block(part, t):
+    """seamless-m4t-medium smoke (4 heads on 2 kv heads, d_ff 96, every
+    bias and norm random) over a group of ``t``: one encoder block
+    (``encdec._enc_block_tp``, non-causal) against ``encdec._enc_block``,
+    or the decoder stack's 2 blocks (``encdec._decode_stack_tp``: the
+    causal self-attention, the cross-attention over 3 rows of memory, the
+    MLP) against ``encdec._decode_stack`` on one position.  Each
+    member's output equals the whole one, its gradients of the split
+    leaves (``wq`` / ``wo`` of every attention, ``w_up`` / ``b_up`` /
+    ``w_down``) are its blocks of the whole gradients, and the gradients
+    of the whole leaves (the norms, every ``wk`` / ``wv``, ``b_down``),
+    of the input and of the memory equal the whole ones, bit-equal over
+    the members.  The memory must enter the heads' region (its gradient
+    is partial on each member otherwise), and so must the
+    cross-attention's ``wk`` / ``wv``."""
+    from repro_torch.core.treepath import tree_flatten
+    from repro_torch.models import encdec
+
+    cfg = p_registry.get("seamless-m4t-medium", smoke=True).cfg
+    g = torch.Generator().manual_seed(13 + t + 10 * (part == "decoder"))
+    stack = "enc_blocks" if part == "encoder" else "dec_blocks"
+    specs = encdec.spec_tree(cfg)[stack]
+    leaves, treedef = tree_flatten(specs)
+    p = treedef.unflatten([0.3 * torch.randn(v.shape, generator=g)
+                           for v in leaves])
+    if part == "encoder":
+        p = treedef.unflatten([v[0] for v in tree_flatten(p)[0]])
+    x = torch.randn(2, 6, cfg.d_model, generator=g)
+    mem = torch.randn(2, 3, cfg.d_model, generator=g)
+    cot = torch.randn(2, 6, cfg.d_model, generator=g)
+    pos = torch.arange(6)[None, :]
+
+    whole = [v.clone().requires_grad_() for v in tree_flatten(p)[0]]
+    xw, mw = x.clone().requires_grad_(), mem.clone().requires_grad_()
+    group = _group(t, vocab=False)
+    members = _stack_members(p, stack, t, part == "decoder")
+    ps = [treedef.unflatten(m) if part == "decoder" else
+          tree_flatten(p)[1].unflatten(m) for m in members]
+    xs = [x.clone().requires_grad_() for _ in range(t)]
+    mems = [mem.clone().requires_grad_() for _ in range(t)]
+    if part == "encoder":
+        want = encdec._enc_block(cfg, tree_flatten(p)[1].unflatten(whole),
+                                 xw, positions=pos)
+        outs = encdec._enc_block_tp(cfg, group, ps, xs, positions=[pos] * t)
+    else:
+        want = encdec._decode_stack(cfg, {"dec_blocks": treedef.unflatten(
+            whole)}, xw, mw, positions=pos, cache=None, kv_valid_len=None)
+        outs = encdec._decode_stack_tp(cfg, group, ps, xs, mems,
+                                       positions=[pos] * t)
+    (want * cot).sum().backward()
+    torch.autograd.backward([(o * cot).sum() for o in outs])
+    for o in outs:
+        torch.testing.assert_close(o, want, rtol=TOL, atol=TOL)
+    # two decoder layers' gradients reach tens: held within TOL of each
+    # leaf's largest element, as a whole model's are
+    deep = part == "decoder"
+    _members_grads_are_blocks(p, members, whole, xs, xw, largest=deep)
+    if deep:
+        top = float(mw.grad.abs().max())
+        for m in mems:
+            err = float((m.grad - mw.grad).abs().max())
+            assert err <= TOL * max(1.0, top), f"memory: {err} of {top}"
+            assert torch.equal(m.grad, mems[0].grad)
+
+
 def _member_params(params, plan, r, t):
     """Member ``r`` of ``t``'s params: its block of each leaf ``plan``
     splits."""
@@ -539,6 +664,12 @@ def _loss_over_a_group(arch):
 
 
 def test_other_families_are_refused():
-    api = p_registry.get("seamless-m4t-medium", smoke=True)
+    """``lm._loss_tp`` refuses a family outside ``tp.FAMILIES`` (every
+    family of the registry is in it)."""
+    api = p_registry.get("llama3.2-1b", smoke=True)
+    cfg = dataclasses.replace(api.cfg, family="retnet")
+    assert cfg.family not in TP.FAMILIES
     with pytest.raises(ValueError, match="tensor parallelism"):
-        lm.loss_fn(api.cfg, [None], [{}], group=_group(2))
+        lm.loss_fn(cfg, [None], [{}], group=_group(2))
+    assert {p_registry.get(a, smoke=True).cfg.family
+            for a in p_registry.ARCH_IDS} <= set(TP.FAMILIES)
