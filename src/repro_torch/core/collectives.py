@@ -25,7 +25,9 @@ orders them.
     ``torch.maximum``, ``torch.cat``), so autograd flows through it;
     ``all_to_all``'s gradient is the inverse ``all_to_all``, exact.
   * ``psum_scatter``, ``all_gather`` and ``all_to_all`` are tiled, as the
-    reference calls them: the split dimension divides by the group size.
+    reference calls them: the split dimension divides by the group size;
+    ``all_to_allv`` takes explicit pieces, which may be uneven (a
+    tensor-parallel decode's kv exchange, ``models/lm.py``).
   * On meta positions (the dry run's: shapes without data) a call's
     result is computed once and every position gets that tensor; the
     call is counted as on a device.
@@ -39,7 +41,7 @@ reads the device time of the collectives' copies and adds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -134,10 +136,13 @@ class CollectiveStats:
         self.calls.clear()
         self.bytes.clear()
 
-    def add(self, kind: str, t: torch.Tensor) -> None:
+    def add(self, kind: str, t: Optional[torch.Tensor] = None,
+            nbytes: Optional[int] = None) -> None:
+        """One call of ``kind`` on operand ``t`` (or of ``nbytes``)."""
+        if nbytes is None:
+            nbytes = t.numel() * t.element_size()
         self.calls[kind] = self.calls.get(kind, 0) + 1
-        self.bytes[kind] = self.bytes.get(kind, 0) + \
-            t.numel() * t.element_size()
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
 
     def snapshot(self) -> Dict[str, int]:
         return dict(self.calls)
@@ -273,6 +278,28 @@ def all_to_all(xs: Sequence[torch.Tensor], mesh: NamedMesh, axes: Axes,
     return out
 
 
+def all_to_allv(pieces: Sequence[Sequence[torch.Tensor]], mesh: NamedMesh,
+                axes: Axes, axis: int) -> List[torch.Tensor]:
+    """All-to-all of explicit pieces over ``axes``: ``pieces[p][i]`` is
+    position p's piece for the i-th member of its group (uneven pieces
+    allowed, as MPI's ``Alltoallv``); member i gets every member's i-th
+    piece concatenated along ``axis`` in group order.  Counted as an
+    ``all_to_all`` whose operand is position 0's pieces."""
+    if len(pieces) != mesh.size:
+        raise ValueError(f"all_to_allv takes one piece list per mesh "
+                         f"position ({mesh.size}), got {len(pieces)}")
+    STATS.add("all_to_all", nbytes=sum(t.numel() * t.element_size()
+                                       for t in pieces[0]))
+    out: List[torch.Tensor] = [None] * mesh.size
+    with torch.profiler.record_function("collective.all_to_all"):
+        for g in mesh.groups(axes):
+            for i, dst in enumerate(g):
+                out[dst] = torch.cat([_send(pieces[src][i], mesh, src, dst)
+                                      for src in g], dim=axis)
+    return out
+
+
 KINDS = ("psum", "pmax", "pmean", "psum_scatter", "all_gather", "all_to_all")
 __all__ = ["NamedMesh", "CollectiveStats", "STATS", "KINDS", "psum", "pmax",
-           "pmean", "psum_scatter", "all_gather", "all_to_all"]
+           "pmean", "psum_scatter", "all_gather", "all_to_all",
+           "all_to_allv"]

@@ -25,20 +25,22 @@ No card is needed: the mesh is ``make_production_mesh(device="meta")``,
     once);
     A train step is tensor-parallel over the model axis where the
     placements split heads, d_ff, the experts' d_ff, the Mamba2 mixers'
-    heads or vocab (``models/tp.py``): position 0 computes its blocks
-    with its model group's other members standing in (its tensors in
-    their slots of the group's ``psum`` / ``pmax``, which count in
-    ``collectives``); the placed prefill / decode replicate compute over
-    the model axis;
+    heads or vocab (``models/tp.py``), and so are the decoder-only
+    families' placed prefill and decode (the encoder-decoder's replicate
+    compute over the model axis): position 0 computes its blocks with its
+    model group's other members standing in (its tensors in their slots
+    of the group's ``psum`` / ``pmax`` and of the decode's kv exchange,
+    which count in ``collectives``);
   * ``bodies`` are ``probe.layer_bodies`` (at the tensor-parallel widths
-    where the step splits); eager PyTorch counts every layer trip, so
+    where the step splits, a serve body with the member's blocks of the
+    cache); eager PyTorch counts every layer trip, so
     ``corrected`` is the raw count, and ``probe_check`` holds the step's
     FLOPs against the sum of trips times each body's plus the FLOPs of
     the same step with the layers removed;
   * ``gathered_param_bytes`` is the params one position gathers for its
-    step: a tensor-parallel step's blocks of the split leaves (whole
-    over the data axes) and the other leaves whole; elsewhere the whole
-    params;
+    step, train or serve: a tensor-parallel step's blocks of the split
+    leaves (whole over the data axes) and the other leaves whole;
+    elsewhere the whole params;
   * ``trace_s`` stands where the reference reports ``lower_s`` and
     ``compile_s``; ``temp_size_in_bytes`` and ``peak_memory_in_bytes`` are
     not given (meta tensors hold no memory).
@@ -51,7 +53,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -110,8 +111,7 @@ def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
         cache_sh = tree_shardings(mesh, api.cache_axes(shape), rules,
                                   cache_abs)
         params_abs = api.abstract()
-        gathered = sum(math.prod(v.shape) * torch.empty(
-            (), dtype=v.dtype).element_size() for v in tree_leaves(params_abs))
+        gathered = serve.gathered_param_bytes()
         arg_bytes = (_placed_bytes(params_abs, serve.param_shardings)
                      + _placed_bytes(cache_abs, cache_sh) + in_bytes)
         params = place_tree(params_abs, serve.param_shardings)
@@ -157,10 +157,9 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
         "bytes_accessed": float(counter.total_bytes),
         "memory": hlo_analysis.memory_dict(traced["argument_bytes"]),
         # what a position holds once its step has gathered the params: a
-        # tensor-parallel train step's blocks of the leaves it splits over
-        # the model axis, whole over the data axes, and the other leaves
-        # whole; the placed prefill / decode, which replicate compute over
-        # the model axis, gather the whole params
+        # tensor-parallel step's (train, prefill or decode) blocks of the
+        # leaves it splits over the model axis, whole over the data axes,
+        # and the other leaves whole; a replicated one's, the whole params
         "gathered_param_bytes": traced["gathered_param_bytes"],
         "collectives": traced["collectives"],
         "census": hlo_analysis.op_census(counter),

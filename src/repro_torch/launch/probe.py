@@ -7,9 +7,10 @@ and corrects the step's terms by ``(trips - 1) * body``.  Eager PyTorch
 dispatches every trip of the layer loop, so the port's step count is
 already whole.  :func:`layer_bodies` still runs each distinct layer body
 once, on meta tensors at one position's shapes (its rows of the batch;
-for a train step that splits over the model axis, its blocks of
-the split leaves with its group's other members standing in, as the
-step's trace runs them, ``models/tp.py``; else at full width), under
+for a step that splits over the model axis, train or serve, its blocks
+of the split leaves, and of the cache, with its group's other members
+standing in, as the step's trace runs them, ``models/tp.py``; else at
+full width), under
 the op counter (``hlo_analysis.OpCounter``): forward and backward with
 the config's remat for a train shape, the forward with the per-layer
 cache traffic for prefill and decode.  The dry run uses the bodies as a
@@ -94,13 +95,15 @@ def _grad_probe(apply_fn: Callable, cfg, n_grad: int) -> Callable:
     return probe
 
 
-def tp_plan(api: ModelApi, mesh, rules: Dict):
-    """The train step's tensor-parallel plan (``models/tp.py``) of
-    ``api`` on ``mesh`` under ``rules``, or None."""
+def tp_plan(api: ModelApi, mesh, rules: Dict, mode: str = "train"):
+    """The tensor-parallel plan (``models/tp.py``) of ``api``'s train
+    step, or for ``mode`` "prefill" / "decode" of its placed serving
+    (``runtime/placed.py``), on ``mesh`` under ``rules``, or None."""
     from .mesh import tree_shardings
 
     return TP.plan(api.cfg, mesh, tree_shardings(
-        mesh, api.axes(), rules, api.abstract()), rules.get("batch"))
+        mesh, api.axes(), rules, api.abstract()), rules.get("batch"),
+        TP.FAMILIES if mode == "train" else TP.SERVE_FAMILIES)
 
 
 def _member_tree(api: ModelApi, plan, mesh, grad: bool = False,
@@ -149,9 +152,15 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
     def positions():
         return _meta((B, S), torch.int64)
 
-    def kv_cache():
-        kv = (B, S_cache, cfg.num_kv_heads, cfg.resolved_head_dim)
+    def kv_cache(rows=S_cache):
+        kv = (B, rows, cfg.num_kv_heads, cfg.resolved_head_dim)
         return {"k": _meta(kv, cdt), "v": _meta(kv, cdt)}
+
+    def ssm_cache(parts=1):
+        return {"state": _meta((B, cfg.ssm_heads // parts, cfg.ssm_head_dim,
+                                cfg.ssm_state), torch.float32),
+                "conv": _meta((B, cfg.ssm_conv_width - 1,
+                               cfg.d_inner // parts), cdt)}
 
     def valid():
         return _meta((B,), torch.int32)
@@ -169,25 +178,47 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
                 p, x, positions=pos, cache=c, kv_valid_len=v),
                 p, x_in(), positions(), kv_cache(), valid())
 
-    plan = tp_plan(api, mesh, rules) if train else None
+    plan = tp_plan(api, mesh, rules, mode)
     if plan is not None and not cfg.is_encdec:
         group = plan.stand_in(mesh)
         attn = functools.partial(lm_mod._attn_block_tp, cfg, group)
-        attn_probe = _grad_probe(lambda p, x, pos: tuple(
-            out[0] for out in attn([p], [x], positions=[pos])), cfg, 2)
+        mixer = functools.partial(lm_mod._ssm_block_tp, cfg, group)
+        if train:
+            attn_probe = _grad_probe(lambda p, x, pos: tuple(
+                out[0] for out in attn([p], [x], positions=[pos])), cfg, 2)
+            mixer_probe = _grad_probe(lambda p, x: mixer([p], [x])[0],
+                                      cfg, 2)
+            attn_args = lambda: (x_in(), positions())
+            mixer_args = lambda: (x_in(),)
+        else:
+            # the member's blocks of the cache: its rows of the k / v
+            # sequence where it splits, its heads' state and their
+            # channels' conv tail where the mixers split
+            from ..runtime.placed import PlacedServe
+
+            split = PlacedServe(api, mesh, rules).kv_split(
+                shape.global_batch, S_cache)
+            t = mesh.shape[TP.AXIS]
+            attn_probe = lambda p, x, pos, c, v: attn(
+                [p], [x], positions=[pos], caches=[c], kv_split=split,
+                kv_valid_len=[v])
+            mixer_probe = lambda p, x, c: mixer([p], [x], [c])
+            attn_args = lambda: (x_in(), positions(),
+                                 kv_cache(S_cache // t if split else S_cache),
+                                 valid())
+            mixer_args = lambda: (x_in(), ssm_cache(t if plan.ssm else 1))
         if cfg.family in lm_mod.ATTN_STACKS:
             record("attn_block", cfg.num_layers, attn_probe,
-                   _member_tree(api, plan, mesh, True, under="blocks"),
-                   x_in(), positions())
+                   _member_tree(api, plan, mesh, train, under="blocks"),
+                   *attn_args())
         else:
-            mixer = functools.partial(lm_mod._ssm_block_tp, cfg, group)
-            record("ssm_block", cfg.num_layers, _grad_probe(
-                lambda p, x: mixer([p], [x])[0], cfg, 2),
-                _member_tree(api, plan, mesh, True, under="blocks"), x_in())
+            record("ssm_block", cfg.num_layers, mixer_probe,
+                   _member_tree(api, plan, mesh, train, under="blocks"),
+                   *mixer_args())
         if cfg.family == "hybrid":
             record("shared_attn", lm_mod._n_shared_apps(cfg), attn_probe,
-                   _member_tree(api, plan, mesh, True, under="shared_attn"),
-                   x_in(), positions())
+                   _member_tree(api, plan, mesh, train, under="shared_attn"),
+                   *attn_args())
     elif cfg.family in lm_mod.ATTN_STACKS:
         attn_body("attn_block", lm_mod._attn_block_specs(cfg),
                   cfg.num_layers)
@@ -199,12 +230,9 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
             record("ssm_block", cfg.num_layers, _grad_probe(
                 lambda p, x: block(p, x, cache=None)[0], cfg, 2), p, x_in())
         else:
-            c = {"state": _meta((B, cfg.ssm_heads, cfg.ssm_head_dim,
-                                 cfg.ssm_state), torch.float32),
-                 "conv": _meta((B, cfg.ssm_conv_width - 1, cfg.d_inner),
-                               cdt)}
             record("ssm_block", cfg.num_layers,
-                   lambda p, x, c: block(p, x, cache=c), p, x_in(), c)
+                   lambda p, x, c: block(p, x, cache=c), p, x_in(),
+                   ssm_cache())
         if cfg.family == "hybrid":
             attn_body("shared_attn", lm_mod._attn_block_specs(cfg),
                       lm_mod._n_shared_apps(cfg))
@@ -266,31 +294,42 @@ def layer_free_flops(api: ModelApi, shape: InputShape, mesh, rules: Dict
     """The FLOPs of one position's step with the layers removed: the
     embedding, the final norm, the unembedding and the loss (and their
     gradients for a train shape; the optimizer's elementwise update counts
-    none), on meta tensors at the position's rows."""
+    none), on meta tensors at the position's rows.  A prefill or decode
+    shape traces the placed step itself as the dry run does
+    (``PlacedServe``, ``traced=True``: tensor-parallel where its plan
+    splits, so at the member's widths)."""
+    from ..core.placement import place_tree
+    from ..runtime.placed import PlacedServe
     from ..runtime.train import loss_and_grads
 
     # no blocks and no encoder blocks, so no shared-block applications
     free = registry.get_model(dataclasses.replace(api.cfg, num_layers=0,
                                                   enc_layers=0))
+    counter = hlo_analysis.OpCounter()
+    if shape.mode != "train":
+        serve = PlacedServe(free, mesh, rules)
+        cache = place_tree(free.abstract_cache(shape), serve.cache_shardings(
+            shape.global_batch, shape.seq_len))
+        inputs = {k: _meta(v.shape, v.dtype)
+                  for k, v in free.input_specs(shape).items()}
+        fn = serve.prefill if shape.mode == "prefill" else serve.decode_step
+        fn(place_tree(free.abstract(), serve.param_shardings),
+           inputs.pop("tokens"), cache, traced=True, count=lambda: counter,
+           **inputs)
+        return counter.total_flops
     local = dataclasses.replace(shape, global_batch=position_rows(
         shape, mesh, rules))
     params = _meta_tree(free.abstract())
     inputs = {k: _meta(v.shape, v.dtype)
               for k, v in free.input_specs(local).items()}
-    plan = tp_plan(free, mesh, rules) if shape.mode == "train" else None
-    counter = hlo_analysis.OpCounter()
+    plan = tp_plan(free, mesh, rules)
     with counter:
         if plan is not None:
             weights = _meta((max(1, free.cfg.micro_batches),), torch.float32)
             loss_and_grads(free, [_member_tree(free, plan, mesh)], [inputs],
                            [weights], 0.0, plan.stand_in(mesh))
-        elif shape.mode == "train":
-            loss_and_grads(free, [params], [inputs])
         else:
-            cache = _meta_tree(free.abstract_cache(local))
-            fn = free.prefill if shape.mode == "prefill" else \
-                free.decode_step
-            fn(params, inputs.pop("tokens"), cache, **inputs)
+            loss_and_grads(free, [params], [inputs])
     return counter.total_flops
 
 

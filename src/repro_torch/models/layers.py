@@ -17,7 +17,8 @@ versions:
     the encoder's self-attention and every cross-attention (a one-token
     decode step's too, at Sq = 1) go through it non-causal.
 
-``multihead_attention(heads=)`` (a self- or cross-attention) and
+``multihead_attention(heads=)`` (a self- or cross-attention; a
+self-attention also with its block of a placed cache) and
 ``apply_mlp(partial=True)`` are a tensor-parallel member's share of the
 attention and of the MLP, which ``lm._attention_tp`` / ``lm._ffn_tp``
 sum over a model group (``models/tp.py``) before :func:`mlp_bias`.
@@ -112,30 +113,34 @@ def _project(x: torch.Tensor, w: torch.Tensor,
 
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor,
-                 pos: torch.Tensor) -> None:
+                 pos: torch.Tensor, start: int = 0) -> None:
     """In place: token s of row b of ``new`` (B, S, KV, hd) goes to
-    cache[b, pos[b] + s] (B, S_max, KV, hd); a token at or past S_max
-    writes nothing, as the reference's blend leaves it.  Nothing here reads
-    ``pos`` on the host."""
+    cache[b, pos[b] + s - start] of the block ``cache`` (B, S_blk, KV,
+    hd), which holds the sequence's rows [start, start + S_blk) (the
+    whole cache at ``start`` 0); a token outside the block writes
+    nothing, as the reference's blend leaves it (past S_max: outside
+    every block).  Nothing here reads ``pos`` on the host."""
     B, S = new.shape[:2]
-    S_max = cache.shape[1]
+    S_blk = cache.shape[1]
     new = new.to(cache.dtype)
     rows = torch.arange(B, device=cache.device)
-    pos = pos.to(torch.long)
+    pos = pos.to(torch.long) - start
     if S == 1:
-        at = pos.clamp(max=S_max - 1)
-        keep = (pos < S_max)[:, None, None]
+        at = pos.clamp(0, S_blk - 1)
+        keep = ((pos >= 0) & (pos < S_blk))[:, None, None]
         cache[rows, at] = torch.where(keep, new[:, 0], cache[rows, at])
         return
     idx = pos[:, None] + torch.arange(S, device=cache.device)       # (B, S)
-    # every token past the end is sent to the last row, carrying the value
-    # that row ends with, so the colliding writes all agree
-    t_last = (S_max - 1 - pos).clamp(0, S - 1)
-    covers = (pos <= S_max - 1) & (idx[:, -1] >= S_max - 1)
-    last = torch.where(covers[:, None, None], new[rows, t_last],
-                       cache[:, S_max - 1])
-    vals = torch.where((idx < S_max)[:, :, None, None], new, last[:, None])
-    cache[rows[:, None], idx.clamp(max=S_max - 1)] = vals
+    inside = (idx >= 0) & (idx < S_blk)
+    # every token outside the block is sent to its last row, carrying the
+    # value that row ends with, so the colliding writes all agree
+    t_last = S_blk - 1 - pos
+    covers = (t_last >= 0) & (t_last < S)
+    last = torch.where(covers[:, None, None],
+                       new[rows, t_last.clamp(0, S - 1)],
+                       cache[:, S_blk - 1])
+    vals = torch.where(inside[:, :, None, None], new, last[:, None])
+    cache[rows[:, None], torch.where(inside, idx, S_blk - 1)] = vals
 
 
 def _self_qkv(cfg, p, x, positions):
@@ -164,8 +169,7 @@ def _local_qkv(cfg, p, x, positions, heads, kv_x=None):
     :func:`multihead_attention` projects a whole one.  k and v come back
     with one head a query head where the local heads do not map onto them
     as ``j // (h / kv)``."""
-    h0, h1, k0, k1 = head_slice(cfg, *heads)
-    g = cfg.num_heads // cfg.num_kv_heads
+    k0, k1 = head_slice(cfg, *heads)[2:]
     kv = {n: p[n][..., k0:k1, :] for n in ("wk", "wv", "bk", "bv") if n in p}
     if kv_x is None:
         q = rope(_project(x, p["wq"], p.get("bq")), positions,
@@ -176,12 +180,23 @@ def _local_qkv(cfg, p, x, positions, heads, kv_x=None):
     else:
         q = _project(x, p["wq"], p.get("bq"))
         k, v = _project(kv_x, kv["wk"]), _project(kv_x, kv["wv"])
+    return (q,) + _for_heads(cfg, heads, k, v)
+
+
+def _for_heads(cfg: ModelConfig, heads: Tuple[int, int], k: torch.Tensor,
+               v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v (B, S, k1 - k0, hd) of the kv heads [k0, k1) that member
+    ``heads``'s query heads read (:func:`head_slice`), as the attention
+    takes them: with one head a query head where the local heads do not
+    map onto them as ``j // (h / kv)``."""
+    h0, h1, k0, k1 = head_slice(cfg, *heads)
+    g = cfg.num_heads // cfg.num_kv_heads
     h, n = h1 - h0, k1 - k0
     idx = [(h0 + j) // g - k0 for j in range(h)]
     if h % n or idx != [j // (h // n) for j in range(h)]:
-        at = torch.tensor(idx, device=x.device)
+        at = torch.tensor(idx, device=k.device)
         k, v = k.index_select(2, at), v.index_select(2, at)
-    return q, k, v
+    return k, v
 
 
 def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
@@ -190,7 +205,10 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
                         causal: bool = True,
                         kv_x: Optional[torch.Tensor] = None,
                         kv_valid_len: Optional[torch.Tensor] = None,
-                        heads: Optional[Tuple[int, int]] = None
+                        heads: Optional[Tuple[int, int]] = None,
+                        kv_start: int = 0,
+                        kv_seq: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """GQA attention.
 
@@ -204,20 +222,52 @@ def multihead_attention(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
 
     ``heads = (rank, count)``: the self- or (with ``kv_x``)
     cross-attention of member ``rank`` of a tensor-parallel group of
-    ``count`` (``models/tp.py``), without a cache: ``p``'s ``wq`` /
-    ``bq`` / ``wo`` are its block of the heads, the kv heads its heads
-    read are cut from the replicated ones (:func:`head_slice`; a
-    cross-attention's projected from the whole ``kv_x``), and the output
-    is its partial sum over its heads, which the group sums.
+    ``count`` (``models/tp.py``): ``p``'s ``wq`` / ``bq`` / ``wo`` are
+    its block of the heads, the kv heads its heads read are cut from the
+    replicated ones (:func:`head_slice`; a cross-attention's projected
+    from the whole ``kv_x``), and the output is its partial sum over its
+    heads, which the group sums.  With a ``kv_cache`` (a self-attention's
+    placed prefill or decode, ``runtime/placed.py``) the cache is the
+    member's block of the sequence, rows [``kv_start``, ``kv_start +
+    S_blk``): the member projects k and v for every kv head and writes
+    the tokens that fall in its block (:func:`_write_cache`), and attends
+    its query heads over the whole sequence of the kv heads they read:
+    the block itself where it is the whole sequence, else ``kv_seq``, the
+    (k, v) of those heads over the whole sequence gathered from the
+    group's blocks before this call, into which the new tokens are
+    written too (every member projects the same k and v, so that equals
+    gathering after the writes).
     """
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     offset = positions.expand(B, S)[:, 0]       # positions run offset + s
 
     new_cache = None
-    if heads is not None:
-        if kv_cache is not None:
-            raise ValueError("a tensor-parallel attention takes no cache")
+    if heads is not None and kv_cache is not None and kv_x is None:
+        h = cfg.num_heads // heads[1]
+        k0, k1 = head_slice(cfg, *heads)[2:]
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        S_max = ck.shape[1] if kv_seq is None else kv_seq[0].shape[1]
+        if S > S_max:
+            raise ValueError(f"{S} tokens do not fit a {S_max}-token cache")
+        q, k, v = _self_qkv(cfg, p, x, positions)
+        _write_cache(ck, k, offset, kv_start)
+        _write_cache(cv, v, offset, kv_start)
+        new_cache = {"k": ck, "v": cv}
+        if kv_seq is None:
+            sk, sv = ck[:, :, k0:k1], cv[:, :, k0:k1]
+        else:
+            sk, sv = kv_seq
+            _write_cache(sk, k[:, :, k0:k1], offset)
+            _write_cache(sv, v[:, :, k0:k1], offset)
+        sk, sv = _for_heads(cfg, heads, sk, sv)
+        valid = kv_valid_len if kv_valid_len is not None else offset + S
+        if S == 1:
+            ctx = decode_mha(q, sk, sv, valid)
+        else:
+            ctx = mha(q, sk, sv, causal=causal, kv_len=valid,
+                      q_offset=offset)
+    elif heads is not None:
         h = cfg.num_heads // heads[1]
         q, k, v = _local_qkv(cfg, p, x, positions, heads, kv_x)
         if kv_x is not None:

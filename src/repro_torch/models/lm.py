@@ -41,6 +41,8 @@ keeps) and recomputes the rest, the kernels included.
 over a model group of a mesh, its members in lock step
 (:func:`_forward_tp`, ``models/tp.py``; an encoder-decoder config goes
 to ``encdec.loss_fn(group=)``): the production-mesh train step's path.
+:func:`serve_tp` is prefill and decode the same way, each member on its
+blocks of the cache: placed serving's path (``runtime/placed.py``).
 
 ``prefill`` and ``decode_step`` write the KV caches they are given in
 place (see :func:`~repro_torch.models.layers.multihead_attention`; a
@@ -312,7 +314,8 @@ def _total(terms, start=None):
 
 
 def _attention_tp(cfg, group, ps, hs, *, positions, name="attn",
-                  causal=True, kv_xs=None):
+                  causal=True, kv_xs=None, caches=None, kv_split=False,
+                  kv_valid_len=None):
     """The attention sublayer ``p[name]`` on the members of a
     tensor-parallel model group in lock step (``models/tp.py``): ``ps``,
     the normed inputs ``hs``, ``positions`` and a cross-attention's
@@ -324,19 +327,50 @@ def _attention_tp(cfg, group, ps, hs, *, positions, name="attn",
     member reads only the kv heads its query heads use, so their
     gradients are the group's sum.  A cross-attention's memory does not
     enter here: its caller enters it once for every layer that reads it
-    (``encdec._decode_stack_tp``)."""
+    (``encdec._decode_stack_tp``).
+
+    ``caches`` (a self-attention's placed prefill or decode) hold each
+    member's {"k", "v"} block of the layer's cache, written in place, and
+    ``kv_valid_len`` its valid lengths.  Where ``kv_split`` the blocks
+    split the sequence over the group (member r holds rows [r * S_blk,
+    (r + 1) * S_blk)): before the attention each member gathers, from
+    every member's block, the kv heads its query heads read
+    (:func:`_kv_seqs`), else its block is the whole sequence."""
     split = group.heads
     hs = TP.enter(group, hs, split)
     kv = [n for n in ("wk", "wv", "bk", "bv") if n in ps[0][name]]
     shared = [TP.enter(group, [p[name][n] for p in ps], split) for n in kv]
     mine = [dict(p[name], **{n: s[j] for n, s in zip(kv, shared)})
             for j, p in enumerate(ps)]
-    kv_xs = [None] * len(hs) if kv_xs is None else kv_xs
+    none = [None] * len(hs)
+    kv_xs = none if kv_xs is None else kv_xs
+    seqs, starts = none, [0] * len(hs)
+    if caches is not None and kv_split:
+        seqs = _kv_seqs(cfg, group, caches)
+        starts = [r * caches[0]["k"].shape[1] for r in group.ranks]
+    caches = none if caches is None else caches
+    kv_valid_len = none if kv_valid_len is None else kv_valid_len
     return TP.leave(group, [
         L.multihead_attention(cfg, a, h, positions=pos, kv_x=m,
-                              causal=causal, heads=group.share(split, r))[0]
-        for r, a, h, pos, m in zip(group.ranks, mine, hs, positions,
-                                   kv_xs)], split)
+                              causal=causal, heads=group.share(split, r),
+                              kv_cache=c, kv_valid_len=v, kv_start=s0,
+                              kv_seq=seq)[0]
+        for r, a, h, pos, m, c, v, s0, seq in zip(
+            group.ranks, mine, hs, positions, kv_xs, caches, kv_valid_len,
+            starts, seqs)], split)
+
+
+def _kv_seqs(cfg, group, caches):
+    """Each computed member's (k, v) of the whole sequence of the kv heads
+    its query heads read (``layers.head_slice``), gathered from the
+    members' blocks of the sequence (their ``caches``' "k" and "v",
+    (B, S_blk, KV, hd)) by one exchange over the group each
+    (``ModelGroup.exchange``): (B, S_blk * size, k1 - k0, hd)."""
+    cuts = [L.head_slice(cfg, *group.share(group.heads, j))[2:]
+            for j in range(group.size)]
+    return list(zip(*(group.exchange([[c[n][:, :, a:b] for a, b in cuts]
+                                      for c in caches], axis=1)
+                      for n in ("k", "v"))))
 
 
 def _ffn_tp(cfg, group, ps, xs):
@@ -379,10 +413,12 @@ def _ffn_tp(cfg, group, ps, xs):
     return [x + o for x, o in zip(xs, outs)], auxs
 
 
-def _attn_block_tp(cfg, group, ps, xs, *, positions):
-    """:func:`_attn_block` (no cache) on the members of a tensor-parallel
+def _attn_block_tp(cfg, group, ps, xs, *, positions, caches=None,
+                   kv_split=False, kv_valid_len=None):
+    """:func:`_attn_block` on the members of a tensor-parallel
     model group in lock step (``models/tp.py``): ``ps``, ``xs`` and
-    ``positions`` hold one entry a computed member.  Returns each
+    ``positions`` hold one entry a computed member (so do ``caches`` and
+    ``kv_valid_len`` for placed serving: :func:`_attention_tp`).  Returns each
     member's (x, the block's MoE aux loss or None).  The norms and the
     residual stream run on every member's copy, and each sublayer on its
     share (``group.share``) between :func:`tp.enter` and
@@ -391,7 +427,8 @@ def _attn_block_tp(cfg, group, ps, xs, *, positions):
     ``group.mlp``, ``group.experts``), the whole where it does not."""
     outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["ln1"], x)
                                           for p, x in zip(ps, xs)],
-                         positions=positions)
+                         positions=positions, caches=caches,
+                         kv_split=kv_split, kv_valid_len=kv_valid_len)
     return _ffn_tp(cfg, group, ps, [x + o for x, o in zip(xs, outs)])
 
 
@@ -401,10 +438,12 @@ def _ssm_block(cfg, p, x, *, cache):
     return x + out, new_cache
 
 
-def _ssm_block_tp(cfg, group, ps, xs):
-    """:func:`_ssm_block` (no cache) on the members of a tensor-parallel
+def _ssm_block_tp(cfg, group, ps, xs, caches=None):
+    """:func:`_ssm_block` on the members of a tensor-parallel
     model group in lock step, as :func:`_attn_block_tp`: ``ps`` and
-    ``xs`` one entry a computed member; returns each member's x.  ``ln1``
+    ``xs`` one entry a computed member; returns each member's x (with
+    ``caches``, each member's {"state", "conv"} of the layer, and each
+    member's new cache: ``(xs, new caches)``).  ``ln1``
     and the residual stream run on every member's copy, the mixer on its
     share of the heads (``group.ssm``) between :func:`tp.enter` and
     :func:`tp.leave`: ``wz`` / ``wx`` / ``wdt`` column-parallel, ``wo``
@@ -413,20 +452,24 @@ def _ssm_block_tp(cfg, group, ps, xs):
     ``Bm`` / ``Cm``, so their gradients are the group's sum.  The gated
     RMSNorm's sum of squares over d_inner is the group's sum
     (:func:`tp.total`: its gradient too) divided by the whole
-    ``d_inner``."""
+    ``d_inner``.  A member's cache is its heads' ``state`` and their
+    channels' ``conv`` tail where the mixer splits, else the whole."""
     split = group.ssm
     hs = TP.enter(group, [L.apply_norm(cfg, p["ln1"], x)
                           for p, x in zip(ps, xs)], split)
     wB = TP.enter(group, [p["ssm"]["wB"] for p in ps], split)
     wC = TP.enter(group, [p["ssm"]["wC"] for p in ps], split)
     mine = [dict(p["ssm"], wB=b, wC=c) for p, b, c in zip(ps, wB, wC)]
-    ys = [SSM.mix(cfg, p, h, heads=group.share(split, r))[0]
-          for r, p, h in zip(group.ranks, mine, hs)]
+    mixed = [SSM.mix(cfg, p, h, cache=c, heads=group.share(split, r))
+             for r, p, h, c in zip(group.ranks, mine, hs,
+                                   caches or [None] * len(hs))]
+    ys = [y for y, _ in mixed]
     sums = TP.total(group, [y.float().square().sum(-1, keepdim=True)
                             for y in ys], split)
     outs = TP.leave(group, [SSM.gated_out(p, y, s / cfg.d_inner)
                             for p, y, s in zip(mine, ys, sums)], split)
-    return [x + o for x, o in zip(xs, outs)]
+    xs = [x + o for x, o in zip(xs, outs)]
+    return xs if caches is None else (xs, [c for _, c in mixed])
 
 
 def _kv_slot(cache, i):
@@ -519,50 +562,127 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     return logits, new_cache, aux
 
 
+def _embed_tp(cfg: ModelConfig, group, params, tokens, patches=None):
+    """Each member's input to the blocks: the vocab-parallel embedding
+    (:func:`tp.embed`), a vlm's patches projected (``vision_proj``, whole
+    on every member) and prepended."""
+    xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
+                  L.dtype_of(cfg))
+    if cfg.frontend == "vision" and patches is not None:
+        xs = [torch.cat([pt.to(x.dtype) @ p["vision_proj"]["w"].to(x.dtype),
+                         x], dim=1)
+              for p, pt, x in zip(params, patches, xs)]
+    return xs
+
+
+def _stack_tp(cfg: ModelConfig, group, params, xs, *, positions,
+              caches=None, kv_split=False, kv_valid_len=None):
+    """The blocks in order on the members of a tensor-parallel model
+    group in lock step (every entry one a computed member); returns
+    (xs, each member's MoE aux loss summed over the layers, each
+    member's new {"state", "conv"} stacked, or None without ``caches``
+    or Mamba2 layers).  The hybrid's shared block runs before layer ``i``
+    when ``i % attn_every == 0``, as in :func:`_run_ssm_stack`, on KV slot
+    ``i // attn_every``, each application entering and leaving its
+    regions on its own (its leaves' gradients add up over the
+    applications).  ``caches``: each member's cache blocks (the
+    attention's k / v written in place, :func:`_attention_tp`)."""
+    auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
+            for x in xs]
+    block = _remat(cfg, functools.partial(_attn_block_tp, cfg, group))
+    mixer = _remat(cfg, functools.partial(_ssm_block_tp, cfg, group))
+
+    def attn(ps, xs, slot):
+        return block(ps, xs, positions=positions, caches=None
+                     if caches is None else [_kv_slot(c, slot)
+                                             for c in caches],
+                     kv_split=kv_split, kv_valid_len=kv_valid_len)
+
+    mixed = [[] for _ in xs]
+    for i in range(cfg.num_layers):
+        ps = [tree_map(lambda t: t[i], p["blocks"]) for p in params]
+        if cfg.family in ATTN_STACKS:
+            xs, block_aux = attn(ps, xs, i)
+            auxs = [a if b is None else a + b
+                    for a, b in zip(auxs, block_aux)]
+            continue
+        if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+            xs, _ = attn([p["shared_attn"] for p in params], xs,
+                         i // cfg.attn_every)
+        if caches is None:
+            xs = mixer(ps, xs)
+            continue
+        xs, new = mixer(ps, xs, [{"state": c["state"][i],
+                                  "conv": c["conv"][i]} for c in caches])
+        for m, c in zip(mixed, new):
+            m.append(c)
+    if not mixed[0]:
+        return xs, auxs, None
+    return xs, auxs, [{"state": torch.stack([c["state"] for c in m]),
+                       "conv": torch.stack([c["conv"] for c in m])}
+                      for m in mixed]
+
+
+def _head_tp(cfg: ModelConfig, group, params, xs, patches=None):
+    """The final norm and the head on each member: its f32 logits over
+    the text positions, its block of the vocab where ``group.vocab``,
+    else whole."""
+    xs = [L.apply_norm(cfg, p["final_norm"], x) for p, x in zip(params, xs)]
+    if cfg.frontend == "vision" and patches is not None:
+        xs = [x[:, pt.shape[1]:] for x, pt in zip(xs, patches)]
+    xs = TP.enter(group, xs, group.vocab)
+    return [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)]
+
+
 def _forward_tp(cfg: ModelConfig, group, params, tokens, patches=None):
     """:func:`forward` (no cache) on the members of a tensor-parallel
     model group in lock step: ``params`` (each member's blocks of the
     split leaves, the others whole), ``tokens`` and a vlm model's
-    ``patches`` one a computed member.  The patches' projection
-    (``vision_proj``, whole on every member) runs on each member's copy
-    and is prepended to the vocab-parallel embedding.  The hybrid's
-    shared block runs before layer ``i`` when ``i % attn_every == 0``,
-    as in :func:`_run_ssm_stack`, each application entering and leaving
-    its regions on its own (its leaves' gradients add up over the
-    applications).  Returns each member's f32 logits over the text
-    positions, its block of the vocab where ``group.vocab`` (the
-    embedding vocab-parallel too), else whole, and its MoE aux loss
-    summed over the layers."""
-    xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
-                  L.dtype_of(cfg))
-    vision = cfg.frontend == "vision" and patches is not None
-    if vision:
-        xs = [torch.cat([pt.to(x.dtype) @ p["vision_proj"]["w"].to(x.dtype),
-                         x], dim=1)
-              for p, pt, x in zip(params, patches, xs)]
+    ``patches`` one a computed member (:func:`_embed_tp`,
+    :func:`_stack_tp`, :func:`_head_tp`).  Returns each member's f32
+    logits over the text positions, its block of the vocab where
+    ``group.vocab`` (the embedding vocab-parallel too), else whole, and
+    its MoE aux loss summed over the layers."""
+    xs = _embed_tp(cfg, group, params, tokens, patches)
     positions = [torch.arange(x.shape[1], device=x.device)[None, :]
                  for x in xs]
-    auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
-            for x in xs]
-    attn = _remat(cfg, functools.partial(_attn_block_tp, cfg, group))
-    mixer = _remat(cfg, functools.partial(_ssm_block_tp, cfg, group))
-    shared = cfg.family == "hybrid"
-    for i in range(cfg.num_layers):
-        ps = [tree_map(lambda t: t[i], p["blocks"]) for p in params]
-        if cfg.family in ATTN_STACKS:
-            xs, block_aux = attn(ps, xs, positions=positions)
-            auxs = [a if b is None else a + b
-                    for a, b in zip(auxs, block_aux)]
-            continue
-        if shared and i % cfg.attn_every == 0:
-            xs, _ = attn([p["shared_attn"] for p in params], xs,
-                         positions=positions)
-        xs = mixer(ps, xs)
-    xs = [L.apply_norm(cfg, p["final_norm"], x) for p, x in zip(params, xs)]
-    if vision:
-        xs = [x[:, pt.shape[1]:] for x, pt in zip(xs, patches)]
-    xs = TP.enter(group, xs, group.vocab)
-    return [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)], auxs
+    xs, auxs, _ = _stack_tp(cfg, group, params, xs, positions=positions)
+    return _head_tp(cfg, group, params, xs, patches), auxs
+
+
+@torch.no_grad()
+def serve_tp(cfg: ModelConfig, group, params, tokens, caches, *,
+             patches=None, kv_split=False):
+    """:func:`prefill` (``tokens`` (B, S), a vlm's ``patches`` first) or
+    :func:`decode_step` (``tokens`` (B, 1)) on the members of a
+    tensor-parallel model group in lock step, forward only: ``params``
+    (each member's blocks of the split leaves, the others whole),
+    ``tokens``, ``patches`` and ``caches`` one a computed member.  A
+    member's cache holds its rows of the batch and, of each leaf the
+    group splits, its block: the k / v sequence's where ``kv_split``
+    (else the whole sequence, every member writing the same values), the
+    Mamba2 ``state``'s heads and ``conv``'s channels where ``group.ssm``
+    (else whole); ``pos`` whole.  The k / v blocks are written in place;
+    returns each member's (B, 1, V) last-token logits (its vocab block
+    where ``group.vocab``) and its new cache (``state`` / ``conv`` out of
+    place, ``pos`` advanced)."""
+    xs = _embed_tp(cfg, group, params, tokens, patches)
+    S = xs[0].shape[1]
+    pos = [c["pos"] for c in caches]
+    positions = [torch.arange(S, device=p.device)[None, :] + p[:, None]
+                 for p in pos]
+    valid = [p + S for p in pos]
+    xs, _, mixed = _stack_tp(cfg, group, params, xs, positions=positions,
+                             caches=caches, kv_split=kv_split,
+                             kv_valid_len=valid)
+    logits = _head_tp(cfg, group, params, xs, patches)
+    new = []
+    for j, c in enumerate(caches):
+        out = dict(c, pos=valid[j])
+        if mixed is not None:
+            out.update(mixed[j])
+        new.append(out)
+    return [x[:, -1:] for x in logits], new
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):

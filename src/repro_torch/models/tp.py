@@ -1,6 +1,9 @@
 """Tensor parallelism over a mesh's ``model`` axis for the decoder-only
 families (``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``) and the
-encoder-decoder (``encdec``).
+encoder-decoder (``encdec``) in the train step, and for the decoder-only
+families in placed prefill and decode (``lm.serve_tp``: the serve rules
+put the same regions on ``model``, and the decode rules the cache's
+``kv_seq`` too).
 
 The reference never writes this out: its jitted train step puts ``heads``,
 ``mlp``, ``vocab``, the experts' ``expert_mlp`` and the Mamba2 mixer's
@@ -53,18 +56,23 @@ there are no values to differ).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core import collectives
 from ..core.collectives import NamedMesh
-from ..core.placement import entry_axes
-from ..core.treepath import tree_flatten_with_path
+from ..core.placement import entry_axes, gather_blocks
+from ..core.treepath import tree_flatten_with_path, tree_leaves
 
 AXIS = "model"
 # the families whose train step splits over the model axis
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the families whose placed prefill and decode split over it
+# (``runtime/placed.py``): the decoder-only ones, whose prefill and decode
+# are ``lm.py``'s
+SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 # the param subtrees stacked on a leading layer dim
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
 # the attention sublayers and the MLPs: (subtree, sublayer), the hybrid's
@@ -139,6 +147,21 @@ class ModelGroup:
 
     def pmax(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return self._reduce(xs, collectives.pmax)
+
+    def exchange(self, pieces: Sequence[Sequence[torch.Tensor]], axis: int
+                 ) -> List[torch.Tensor]:
+        """Each computed member's pieces from every member, concatenated
+        along ``axis`` in member order: ``pieces`` holds one list a
+        computed member, its piece for each member of the group
+        (``collectives.all_to_allv``; with ``stand_in`` member 0's
+        pieces stand in for every member's)."""
+        if len(pieces) != len(self.ranks):
+            raise ValueError(f"{len(pieces)} piece lists for "
+                             f"{len(self.ranks)} computed members")
+        full = list(pieces) if len(pieces) == self.size \
+            else [pieces[0]] * self.size
+        out = collectives.all_to_allv(full, self.mesh, AXIS, axis)
+        return [out[r] for r in self.ranks]
 
 
 class _Enter(torch.autograd.Function):
@@ -280,17 +303,18 @@ class Plan:
         return out
 
 
-def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
-         ) -> Optional[Plan]:
+def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any,
+         families: Sequence[str] = FAMILIES) -> Optional[Plan]:
     """The model's tensor-parallel plan over ``mesh``'s ``model`` axis
     from the params' ``placements``: a region splits where each of its
     leaves' placements blocks its dim (:data:`REGIONS`) over ``model``
     alone (arctic's 56 heads over 16 stay whole, as the reference's
     ``_demote_spec`` leaves them; so does a Mamba2 mixer whose heads do
     not divide, even where its d_inner does).  None where nothing splits,
-    the family is not one of :data:`FAMILIES`, the axis is missing or of
-    size 1, or the batch's rows (``batch_rule``) split over it."""
-    if cfg.family not in FAMILIES or AXIS not in mesh.axis_names \
+    the family is not one of ``families`` (:data:`FAMILIES` for the train
+    step, :data:`SERVE_FAMILIES` for placed serving), the axis is missing
+    or of size 1, or the batch's rows (``batch_rule``) split over it."""
+    if cfg.family not in families or AXIS not in mesh.axis_names \
             or mesh.shape[AXIS] == 1 or AXIS in entry_axes(batch_rule):
         return None
     items = tree_flatten_with_path(placements)
@@ -309,5 +333,29 @@ def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
                 experts=split["experts"], ssm=split["ssm"])
 
 
-__all__ = ["AXIS", "FAMILIES", "STACKED", "REGIONS", "ModelGroup", "Plan",
+def gather_params(leaves: Sequence[Any], plan: Optional[Plan]
+                  ) -> List[List[torch.Tensor]]:
+    """Each position's view of the placed param ``leaves`` (flat order):
+    the leaves ``plan`` splits gathered over every axis but ``model``
+    (each position keeps its block), the others whole; every leaf whole
+    without a plan."""
+    return [gather_blocks(x, plan.keep(i) if plan is not None else ())
+            for i, x in enumerate(leaves)]
+
+
+def gathered_param_bytes(abstract: Any, plan: Optional[Plan],
+                         mesh: NamedMesh) -> int:
+    """The bytes of params one position holds once it has gathered them
+    (:func:`gather_params`) from the params' ``abstract`` tree."""
+    out = 0
+    for i, v in enumerate(tree_leaves(abstract)):
+        n = math.prod(v.shape)
+        if plan is not None and plan.dims[i] is not None:
+            n //= mesh.shape[AXIS]
+        out += n * torch.empty((), dtype=v.dtype).element_size()
+    return out
+
+
+__all__ = ["AXIS", "FAMILIES", "SERVE_FAMILIES", "gather_params",
+           "gathered_param_bytes", "STACKED", "REGIONS", "ModelGroup", "Plan",
            "plan", "enter", "leave", "total", "embed", "cross_entropy"]

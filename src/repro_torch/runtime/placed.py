@@ -4,7 +4,34 @@ named mesh: the port's counterpart of the reference's jitted
 run's serve cells, ``src/repro/launch/dryrun.py``).
 
 Single-controller over the mesh's positions, as the sharded train step
-(:class:`~repro_torch.runtime.train.ShardedTrainStep`):
+(:class:`~repro_torch.runtime.train.ShardedTrainStep`).  Where the
+params' placements split a region over the mesh's ``model`` axis (the
+serve rules put ``heads``, ``mlp``, ``vocab``, ``expert_mlp``,
+``ssm_inner`` and ``ssm_heads`` there: :attr:`PlacedServe.plan`,
+``models/tp.py``), the members of each model group compute tensor-parallel
+in lock step (``lm.serve_tp``), as GSPMD partitions the reference's
+prefill and decode:
+
+  * each position gathers its blocks of the split leaves over the data
+    axes only, the other leaves whole (``tp.gather_params``, as the train
+    step);
+  * each position keeps its block of the cache: its rows of the batch,
+    its block of the k / v sequence (``kv_seq`` on ``model`` under the
+    decode rules; the whole sequence under the prefill rules), and its
+    heads' Mamba2 ``state`` and their channels' ``conv`` tail where the
+    mixers split; it writes the new tokens' k / v that fall in its
+    block in place, and gathers over ``model`` only the kv heads its
+    query heads read (``lm._kv_seqs``);
+  * each sublayer runs on its share between the group's ``enter`` and
+    ``leave`` (a ``psum``); the embedding and the head are
+    vocab-parallel, so the logits come back placed ``(batch axes, None,
+    "model")``, the reference's ``constrain(logits, "batch", None,
+    "vocab")``.
+
+Where nothing splits (a ``model`` axis of size 1 or none, arctic's 56
+heads over 16, which the reference's demotion leaves whole) or the family
+is the encoder-decoder (its prefill and decode are ``encdec.py``'s),
+:attr:`PlacedServe.plan` is None and the model axis replicates compute:
 
   * each position gathers the whole params from their blocks, and each
     cache leaf over every sharded dim but the batch dim
@@ -13,20 +40,15 @@ Single-controller over the mesh's positions, as the sharded train step
   * each position runs the model on its rows of the inputs;
   * each position keeps its own block of the new cache.
 
-The model axis replicates compute here: positions that share a batch
-index compute the same rows at full width.  (The production-mesh train
-step is tensor-parallel over it, ``models/tp.py``; placed prefill and
-decode are not yet: the decode rules put the cache's ``kv_seq``, not the
-heads, on ``model``.)  ``prefill(..., slot=r)`` prefills one request into row
-``r`` of the batch cache (as the server fills a slot): only the
-positions that hold row ``r`` compute.  A cache dim that no axis gathers
-is the position's block itself, written in place, as the reference's
-donated cache is.
+``prefill(..., slot=r)`` prefills one request into row ``r`` of the
+batch cache (as the server fills a slot): only the positions that hold
+row ``r`` compute.  A cache dim that no axis gathers is the position's
+block itself, written in place, as the reference's donated cache is.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,8 +56,33 @@ from ..core.collectives import NamedMesh
 from ..core.placement import (Placement, PlacedTensor, block_of, entry_axes,
                               gather_blocks, place_tree)
 from ..core.treepath import tree_flatten
+from ..models import lm
+from ..models import tp as TP
 from ..models.registry import ModelApi
 from ..configs.base import InputShape
+
+
+def _seq_split(placement: Placement) -> bool:
+    """Whether a k / v cache leaf's placement blocks its sequence dim
+    (``(layers, batch, kv_seq, kv_heads, head_dim)``) over ``model``."""
+    return entry_axes(placement._entries(5)[2]) == (TP.AXIS,)
+
+
+def _new_block(new: torch.Tensor, mine: torch.Tensor, view: torch.Tensor,
+               placement: Placement, p: int, keep: Tuple[str, ...],
+               slot: Optional[int]) -> torch.Tensor:
+    """Position ``p``'s new block of a cache leaf from the value its model
+    returned, ``new``, for the cache it was given, ``mine``: its gathered
+    ``view`` of the leaf (over every axis but ``keep``), or with a
+    ``slot`` the row of it, which ``new`` overwrites (unless written in
+    place) before the block is cut from the whole view.  A cut of a
+    gathered view is copied out, so the view goes."""
+    if slot is not None:
+        if new is not mine:
+            mine.copy_(new)
+        new = view
+    block = block_of(new, placement, p, keep)
+    return block.clone() if block.shape != new.shape else block
 
 
 class PlacedServe:
@@ -50,6 +97,16 @@ class PlacedServe:
         self.batch_axes = entry_axes(self.rules.get("batch"))
         self.param_shardings = tree_shardings(mesh, api.axes(), self.rules,
                                               api.abstract())
+        self.plan = TP.plan(api.cfg, mesh, self.param_shardings,
+                            self.rules.get("batch"), TP.SERVE_FAMILIES)
+
+    def gathered_param_bytes(self) -> int:
+        """The bytes of params one position gathers for a prefill or a
+        decode step: its blocks of the split leaves, whole over the data
+        axes, and the other leaves whole (all of them whole without a
+        :attr:`plan`)."""
+        return TP.gathered_param_bytes(self.api.abstract(), self.plan,
+                                       self.mesh)
 
     def cache_shardings(self, batch: int, max_seq: int) -> Dict[str,
                                                                 Placement]:
@@ -60,6 +117,13 @@ class PlacedServe:
                            mode="decode")
         return tree_shardings(self.mesh, self.api.cache_axes(shape),
                               self.rules, self.api.abstract_cache(shape))
+
+    def kv_split(self, batch: int, max_seq: int) -> bool:
+        """Whether a ``(batch, max_seq)`` cache's k / v sequence splits
+        over the model groups (the decode rules' ``kv_seq``), so that a
+        tensor-parallel member holds its block of it."""
+        pl = self.cache_shardings(batch, max_seq).get("k")
+        return pl is not None and _seq_split(pl)
 
     def place_params(self, params: Any) -> Any:
         return place_tree(params, self.param_shardings)
@@ -87,9 +151,87 @@ class PlacedServe:
             out[k] = v[i * rows:(i + 1) * rows].to(dev)
         return out
 
+    def _cache_keep(self, key: str) -> Tuple[str, ...]:
+        """The axes cache leaf ``key`` keeps its block over when gathered:
+        the batch axes, and under a :attr:`plan` ``model`` for the k / v
+        (the attention gathers what it reads itself) and for the Mamba2
+        ``state`` / ``conv`` where the mixers split."""
+        plan = self.plan
+        if plan is not None and (key in ("k", "v") or plan.ssm and key in (
+                "state", "conv")):
+            return self.batch_axes + (TP.AXIS,)
+        return self.batch_axes
+
+    def _run_tp(self, params: Any, cache: Dict[str, Any],
+                inputs: Dict[str, torch.Tensor], *, slot: Optional[int],
+                traced: bool, count: Callable):
+        """:meth:`_run` tensor-parallel over each model group of the
+        positions that compute (``lm.serve_tp``)."""
+        mesh, plan, axes = self.mesh, self.plan, self.batch_axes
+        p_leaves, p_def = tree_flatten(self.place_params(params))
+        full = TP.gather_params(p_leaves, plan)
+        c_keys = sorted(cache)
+        placements = {k: cache[k].placement for k in c_keys}
+        keeps = {k: self._cache_keep(k) for k in c_keys}
+        local = {k: gather_blocks(cache[k], keeps[k]) for k in c_keys}
+        n = mesh.axis_size(axes)
+        bdims = self._batch_dims()
+        b_local = cache["pos"].shape[0] // n
+        kv_split = "k" in cache and _seq_split(placements["k"])
+        groups = [g for g in mesh.groups(TP.AXIS) if slot is None
+                  or mesh.index(g[0], axes) == slot // b_local]
+        groups = groups[:1] if traced else groups
+        logits: List[Optional[torch.Tensor]] = [None] * mesh.size
+        new_blocks = {k: list(cache[k].blocks) for k in c_keys}
+        for g in groups:
+            group = plan.group(mesh, g, stand_in=traced)
+            mine = [group.members[r] for r in group.ranks]
+            devs = [mesh.positions[p] for p in mine]
+            params_g = [p_def.unflatten([f[p] for f in full]) for p in mine]
+            if slot is None:
+                caches = [{k: local[k][p] for k in c_keys} for p in mine]
+                inp = [self._rows(inputs, p, n, d) for p, d in zip(mine,
+                                                                   devs)]
+            else:
+                r = slot % b_local
+                caches = [{k: local[k][p].narrow(bdims[k], r, 1)
+                           for k in c_keys} for p in mine]
+                inp = [{k: v.to(d) for k, v in inputs.items()} for d in devs]
+            patches = [i["patches"] for i in inp] if "patches" in inputs \
+                else None
+            with count():
+                outs, new_caches = lm.serve_tp(
+                    self.api.cfg, group, params_g, [i["tokens"] for i in inp],
+                    caches, patches=patches, kv_split=kv_split)
+            for p, out, c, new_c in zip(mine, outs, caches, new_caches):
+                logits[p] = out
+                if traced:
+                    continue
+                for k in c_keys:
+                    new_blocks[k][p] = _new_block(
+                        new_c[k], c[k], local[k][p], placements[k], p,
+                        keeps[k], slot)
+                for f in full:
+                    f[p] = None
+        if traced:
+            return logits[groups[0][0]], None
+        new_cache = {k: PlacedTensor(cache[k].shape, cache[k].dtype,
+                                     placements[k], new_blocks[k])
+                     for k in c_keys}
+        if slot is not None:
+            parts = [logits[p] for p in groups[0]]
+            if plan.vocab:
+                return torch.cat([t.to(parts[0].device) for t in parts],
+                                 dim=-1), new_cache
+            return parts[0], new_cache
+        return self._placed_logits(logits, plan.vocab), new_cache
+
     def _run(self, fn: Callable, params: Any, cache: Dict[str, Any],
              inputs: Dict[str, torch.Tensor], *, slot: Optional[int],
              traced: bool, count: Callable):
+        if self.plan is not None:
+            return self._run_tp(params, cache, inputs, slot=slot,
+                                traced=traced, count=count)
         mesh, keep = self.mesh, self.batch_axes
         params = self.place_params(params)
         p_leaves, p_def = tree_flatten(params)
@@ -126,15 +268,9 @@ class PlacedServe:
             if traced:
                 continue
             for k in c_keys:
-                new = new_cache[k]
-                if slot is not None:
-                    if new is not cache_p[k]:
-                        cache_p[k].copy_(new)
-                    new = local[k][p]
-                block = block_of(new, placements[k], p, keep)
-                # a cut of a gathered view is copied out, so the view goes
-                new_blocks[k][p] = block.clone() if block.shape != new.shape \
-                    else block
+                new_blocks[k][p] = _new_block(
+                    new_cache[k], cache_p[k], local[k][p], placements[k], p,
+                    keep, slot)
             for f in full:
                 f[p] = None
         if traced:
@@ -146,14 +282,21 @@ class PlacedServe:
             return logits[computed[0]], new_cache
         return self._placed_logits(logits), new_cache
 
-    def _placed_logits(self, logits: List[torch.Tensor]) -> PlacedTensor:
+    def _placed_logits(self, logits: List[torch.Tensor],
+                       vocab: bool = False) -> PlacedTensor:
         """The positions' logits as one value placed over the batch
-        axes (positions that share a batch index hold equal rows)."""
+        axes (positions that share a batch index hold equal rows), and
+        with ``vocab`` its last dim over ``model`` (each position's block
+        of the vocab)."""
         t = logits[0]
-        n = self.mesh.axis_size(self.batch_axes)
+        shape = [t.shape[0] * self.mesh.axis_size(self.batch_axes)] \
+            + list(t.shape[1:])
         spec = (self.batch_axes or None,)
-        return PlacedTensor((t.shape[0] * n,) + tuple(t.shape[1:]), t.dtype,
-                            Placement(self.mesh, spec), logits)
+        if vocab:
+            shape[-1] *= self.mesh.shape[TP.AXIS]
+            spec += (None, TP.AXIS)
+        return PlacedTensor(shape, t.dtype, Placement(self.mesh, spec),
+                            logits)
 
     # ------------------------------------------------------------------
     def prefill(self, params: Any, tokens: torch.Tensor,
@@ -163,10 +306,13 @@ class PlacedServe:
         """``(logits, new_cache)`` of a placed prefill: ``tokens`` (B, S)
         for the whole batch cache, or (1, S) into row ``slot``; ``extra``
         the vlm's ``patches`` / the encdec's ``frames``.  The logits are
-        a :class:`PlacedTensor` over the batch axes (a slot's: the (1, 1,
-        V) tensor of its first holder).  ``traced``: position 0 alone
-        (or the slot's first holder) computes, under ``count()``, and
-        only its logits come back (the dry run)."""
+        a :class:`PlacedTensor` over the batch axes, its last dim over
+        ``model`` where the :attr:`plan` splits the vocab (a slot's: the
+        whole (1, 1, V) tensor on its first holder).  ``traced``:
+        position 0 alone (or the slot's first holder; under a
+        :attr:`plan` its model group with member 0 computed, the others
+        standing in) computes, under ``count()``, and only its logits
+        come back (the dry run, on meta positions)."""
         inputs = {"tokens": tokens, **extra}
         return self._run(self.api.prefill, params, cache, inputs, slot=slot,
                          traced=traced, count=count)

@@ -39,7 +39,6 @@ each.
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -644,13 +643,8 @@ class ShardedTrainStep:
         """The bytes of params one position gathers for its step: its
         blocks of the split leaves, whole over the data axes, and the
         other leaves whole."""
-        out = 0
-        for i, v in enumerate(tree_leaves(self.api.abstract())):
-            n = math.prod(v.shape)
-            if self.tp is not None and self.tp.dims[i] is not None:
-                n //= self.mesh.shape[TP.AXIS]
-            out += n * torch.empty((), dtype=v.dtype).element_size()
-        return out
+        return TP.gathered_param_bytes(self.api.abstract(), self.tp,
+                                       self.mesh)
 
     def _step(self, state, batch, *, traced: bool, count: Callable):
         mesh, opt = self.mesh, self.optimizer
@@ -667,7 +661,7 @@ class ShardedTrainStep:
         elementwise = opt.name in _ELEMENTWISE
         tp = self.tp
         keep = [tp.keep(i) if tp else () for i in range(len(p_leaves))]
-        full = [gather_blocks(x, kp) for x, kp in zip(p_leaves, keep)]
+        full = TP.gather_params(p_leaves, tp)
         full_opt = None if elementwise else [gather_blocks(x)
                                              for x in o_leaves]
         rows = next(iter(batch.values())).shape[0]

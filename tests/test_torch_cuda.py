@@ -1692,3 +1692,63 @@ def test_encdec_tensor_parallel_blocks_at_full_width(cuda, part, t):
         for m in mems:
             assert torch.equal(m.grad, mems[0].grad)
         close(mems[0].grad, mw.grad, "memory")
+
+
+@pytest.mark.parametrize("arch,shape", [("llama3.2-1b", (2, 2)),
+                                        ("zamba2-2.7b", (1, 4))])
+def test_placed_tensor_parallel_serve_on_the_card(cuda, arch, shape):
+    """Tensor-parallel placed serving (``runtime.placed.PlacedServe`` over
+    each model group, ``lm.serve_tp``) of the smoke model (float32, vocab
+    256, so heads, d_ff, vocab and the Mamba2 heads split) on four
+    positions of the card against the same on four CPU positions (the
+    plain versions): four slot prefills (one prompt straddles a
+    ``kv_seq`` block boundary) and three decode steps under the decode
+    rules, every logit and cache leaf within 2e-4 of its largest element,
+    and the launches exactly ``kernel_launches`` of the row's holders'
+    prefills and every position's steps."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import (adapt_batch_rule, make_debug_mesh,
+                                         rules_for)
+    from repro_torch.models import registry
+    from repro_torch.runtime.placed import PlacedServe
+
+    api = registry.get_model(dataclasses.replace(
+        registry.get(arch, smoke=True).cfg, vocab_size=256))
+    cfg = api.cfg
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [torch.as_tensor(rng.integers(0, 256, (1, n)).astype(np.int32))
+               for n in (3, 11, 7, 5)]
+    steps = [torch.as_tensor(rng.integers(0, 256, (4, 1)).astype(np.int32))
+             for _ in range(3)]
+    kernels = (RK.rmsnorm, FK.flash_attention, DK.decode_attention,
+               SK.ssd_chunks)
+    out = {}
+    for where in ("cpu", cuda):
+        mesh = make_debug_mesh(*shape, device=(torch.device(where),) * 4)
+        serve = PlacedServe(api, mesh, adapt_batch_rule(
+            rules_for(cfg, mesh, "decode"), mesh, 4))
+        assert serve.plan is not None and serve.plan.vocab
+        placed = serve.place_params(params)
+        cache = serve.place_cache(api.init_cache(4, 16, device="cpu"))
+        for k in kernels:
+            k.launches = 0
+        logits = []
+        for r, tok in enumerate(prompts):
+            lg, cache = serve.prefill(placed, tok.to(where), cache, slot=r)
+            logits.append(lg.cpu())
+        for tok in steps:
+            lg, cache = serve.decode_step(placed, tok.to(where), cache)
+            logits.append(lg.gather())
+        out[str(where)] = (logits, {k: v.gather() for k, v in cache.items()},
+                           [k.launches for k in kernels])
+    (want, want_c, _), (got, got_c, launched) = out["cpu"], out[str(cuda)]
+    for a, b in list(zip(got, want)) + [(got_c[k], want_c[k])
+                                        for k in want_c]:
+        top = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-4 * top
+    holders = 4 // shape[0]
+    n = registry.kernel_launches(cfg, prefills=holders * 4, steps=4 * 3)
+    assert launched == [n["rmsnorm"], n["flash_attention"],
+                        n["decode_attention"], n["ssd_chunks"]]

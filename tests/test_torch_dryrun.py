@@ -54,6 +54,7 @@ from repro_torch.launch import mesh as p_mesh
 from repro_torch.models import registry as p_registry
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import train as p_train
+from repro_torch.runtime.placed import PlacedServe
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = p_registry.ARCH_IDS
@@ -204,8 +205,105 @@ def test_every_cell_against_the_reference(ref, arch, shape, mesh):
             ((n_leaves + 1) if blocks > 1 else 0) + \
             _tp_reductions(cfg, plan)
     else:
-        assert coll["all-gather"]["count"] >= gathers
+        serve = PlacedServe(api, m, rules)
+        plan = serve.plan
+        split = 0 if plan is None else \
+            sum(d is not None for d in plan.dims)
+        # a split leaf keeps its model block: gathered over the data axes
+        # only; a cache leaf is gathered over every axis of its spec but
+        # the batch's, and under the plan but model for k / v (the
+        # attention exchanges what it reads) and for state / conv where
+        # the mixers split
+        gathers -= split
+        sc = full.smoke()
+        cache = serve.cache_shardings(sc.global_batch, sc.seq_len)
+        keep = set(entry_axes(rules["batch"]))
+        for k, pl in cache.items():
+            mine = keep | ({"model"} if plan is not None and (
+                k in ("k", "v") or plan.ssm and k in ("state", "conv"))
+                else set())
+            gathers += sum(1 for e in pl.spec
+                           if set(entry_axes(e)) - mine)
+        assert coll["all-gather"]["count"] == gathers
+        assert coll["all-reduce"]["count"] == _tp_serve_reductions(cfg,
+                                                                   plan)
+        kv_split = plan is not None and serve.kv_split(sc.global_batch,
+                                                       sc.seq_len)
+        assert coll["all-to-all"]["count"] == \
+            2 * _attention_applications(cfg) * kv_split
+        assert res["gathered_param_bytes"] == serve.gathered_param_bytes()
+        r_cfg = r_registry.get(arch, smoke=True).cfg
+        mf = model_flops(_member_config(r_cfg, plan, m), R_SHAPES[shape]
+                         .smoke())
+        assert 0.5 * mf < res["flops"] * blocks < 3 * mf
     assert res["corrected"]["flops"] == res["flops"]
+
+
+def _attention_applications(cfg):
+    """The self-attention blocks a forward runs: every layer of an
+    attention stack, each application of the hybrid's shared block."""
+    if cfg.family == "hybrid":
+        return -(-cfg.num_layers // cfg.attn_every)
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def _tp_serve_reductions(cfg, plan):
+    """The all-reduces a tensor-parallel placed prefill or decode adds
+    (position 0's group, forward only): per attention block the
+    attention's exit psum where the heads split and the MLP sublayer's
+    one exit psum where the MLP or the experts split; per Mamba2 layer
+    where its mixer splits, the gated norm's sum and the exit psum; the
+    vocab-parallel embedding's exit.  None without a plan (the
+    encoder-decoder, a config whose regions do not divide)."""
+    if plan is None:
+        return 0
+    mixers = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return (_attention_applications(cfg) * (plan.heads + (plan.mlp
+                                                          or plan.experts))
+            + mixers * 2 * plan.ssm + plan.vocab)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_llama_serve_cells_gather_the_train_cells_blocks(shape):
+    """llama3.2-1b at full size on the (16, 16) mesh: its placed prefill
+    and decode split the heads, d_ff and vocab over ``model``, so
+    position 0 gathers 217,518,080 B of params, the train cell's blocks,
+    not the whole 2,471,628,800 B; the probe identity is exact, and the
+    collectives are the group's sums and, at decode, the kv exchange."""
+    import math
+
+    res, = dryrun.run_grid(["llama3.2-1b"], [shape], ["single"], None,
+                           smoke=False)
+    assert "error" not in res, res.get("traceback")
+    assert res["probe_check"]["exact"], res["probe_check"]
+    assert res["gathered_param_bytes"] == 217_518_080 == _grid_full_train()
+    api = p_registry.get("llama3.2-1b")
+    assert sum(math.prod(v.shape) * v.dtype.itemsize
+               for v in _leaves(api.abstract())) == 2_471_628_800
+    m = p_mesh.make_production_mesh(device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(
+        api.cfg, m, SHAPES[shape].mode), m, SHAPES[shape].global_batch)
+    plan = PlacedServe(api, m, rules).plan
+    assert (plan.heads, plan.mlp, plan.vocab) == (True, True, True)
+    coll = res["collectives"]["per_op"]
+    # 16 attention exits, 16 MLP exits, the embedding's
+    assert coll["all-reduce"]["count"] == \
+        _tp_serve_reductions(api.cfg, plan) == 33
+    assert coll["all-gather"]["count"] == 0
+    # the decode rules split the cache's sequence: k and v a layer
+    assert coll["all-to-all"]["count"] == (32 if shape == "decode_32k"
+                                           else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_full_train():
+    api = p_registry.get("llama3.2-1b")
+    m = p_mesh.make_production_mesh(device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, "train"),
+                                    m, SHAPES["train_4k"].global_batch)
+    return p_train.make_sharded_train_step(
+        api, make_optimizer(api.cfg.optimizer), None, m,
+        rules).gathered_param_bytes()
 
 
 def _member_config(cfg, plan, mesh):

@@ -760,8 +760,11 @@ def test_placed_prefill_and_decode_equal_one_position(arch):
 def test_slot_prefill_fills_its_row_as_a_batch_one_prefill():
     """Prompts of different lengths, each prefilled into its row of a
     placed 4-slot cache (only the row's holders compute), equal batch-1
-    prefills stacked into the slots; a decode step over the slots equals
-    one position's."""
+    prefills stacked into the slots: bit for bit the same mesh's placed
+    batch-1 prefills (the heads and d_ff split over ``model``, so the
+    members' partial sums add in the group's order), within float32 noise
+    those of one position; a decode step over the slots equals one
+    position's."""
     from repro_torch.runtime.placed import PlacedServe
 
     api = _api()
@@ -770,19 +773,31 @@ def test_slot_prefill_fills_its_row_as_a_batch_one_prefill():
     mesh = _mesh()
     serve = PlacedServe(api, mesh, p_mesh.adapt_batch_rule(
         p_mesh.rules_for(cfg, mesh, "decode"), mesh, 4))
+    one = PlacedServe(api, mesh, p_mesh.adapt_batch_rule(
+        p_mesh.rules_for(cfg, mesh, "decode"), mesh, 1))
+    assert serve.plan is not None and serve.plan.heads
     placed = serve.place_cache(api.init_cache(4, 32, device=CPU))
     g = torch.Generator().manual_seed(2)
-    caches = []
+    caches, placed_rows = [], []
     for r, n in enumerate((3, 7, 5, 9)):
         tok = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
         want, c = api.prefill(params, tok, api.init_cache(1, 32, device=CPU))
         got, placed = serve.prefill(params, tok, placed, slot=r)
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
         caches.append(c)
-    ref = {k: torch.cat([c[k] for c in caches], dim=0 if k == "pos" else 1)
-           for k in caches[0]}
-    for k, v in ref.items():
-        torch.testing.assert_close(placed[k].gather(), v, rtol=0, atol=0)
+        got1, c1 = one.prefill(params, tok, one.place_cache(
+            api.init_cache(1, 32, device=CPU)))
+        torch.testing.assert_close(got, got1.gather(), rtol=0, atol=0)
+        placed_rows.append({k: v.gather() for k, v in c1.items()})
+    def stacked(rows):
+        return {k: torch.cat([c[k] for c in rows], dim=0 if k == "pos"
+                             else 1) for k in rows[0]}
+
+    ref = stacked(caches)
+    for rows, atol in ((stacked(placed_rows), 0), (ref, 2e-5)):
+        for k, v in rows.items():
+            torch.testing.assert_close(placed[k].gather(), v, rtol=0,
+                                       atol=atol)
     nxt = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
     want, _ = api.decode_step(params, nxt, ref)
     got, _ = serve.decode_step(params, nxt, placed)

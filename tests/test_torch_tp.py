@@ -92,11 +92,46 @@ def test_attention_members_sum_to_the_whole(heads, kv, t, cross):
         parts.append(L.multihead_attention(cfg, mine, x, positions=pos,
                                            kv_x=kv_x, heads=(r, t))[0])
     torch.testing.assert_close(sum(parts), want, rtol=TOL, atol=TOL)
-    cache = {"k": torch.zeros(2, 8, kv, cfg.resolved_head_dim),
-             "v": torch.zeros(2, 8, kv, cfg.resolved_head_dim)}
-    with pytest.raises(ValueError, match="cache"):
-        L.multihead_attention(cfg, p, x, positions=pos, heads=(0, t),
-                              kv_cache=cache)
+    if cross:
+        return
+    # with a cache (placed prefill): each member writes every kv head of
+    # the new tokens into its block of the sequence (rows [4r, 4r + 4) of
+    # 8, or the whole), attends its heads over the whole sequence (the
+    # blocks gathered before the call, ``kv_seq``), and the members sum
+    # to the whole attention; the blocks are the whole cache's
+    hd = cfg.resolved_head_dim
+
+    def cache(rows=8):
+        return {"k": torch.zeros(2, rows, kv, hd),
+                "v": torch.zeros(2, rows, kv, hd)}
+
+    whole = cache()
+    want, _ = L.multihead_attention(cfg, p, x, positions=pos,
+                                    kv_cache=whole)
+    for blocks in (1, 2):
+        parts = []
+        for r in range(t):
+            mine = dict(p, wq=p["wq"][:, r * h:(r + 1) * h],
+                        bq=p["bq"][r * h:(r + 1) * h],
+                        wo=p["wo"][r * h:(r + 1) * h])
+            k0, k1 = L.head_slice(cfg, r, t)[2:]
+            parts.append([])
+            for b in range(blocks):
+                c = cache(8 // blocks)
+                seq = None if blocks == 1 else (
+                    torch.zeros(2, 8, k1 - k0, hd),
+                    torch.zeros(2, 8, k1 - k0, hd))
+                out = L.multihead_attention(
+                    cfg, mine, x, positions=pos, heads=(r, t), kv_cache=c,
+                    kv_start=b * 8 // blocks, kv_seq=seq)[0]
+                parts[-1].append(out)
+                for n in ("k", "v"):
+                    assert torch.equal(c[n], whole[n][:, b * 8 // blocks:
+                                                      (b + 1) * 8 // blocks])
+        # every block of a member computes the same output
+        assert all(torch.equal(o, ps[0]) for ps in parts for o in ps)
+        torch.testing.assert_close(sum(ps[0] for ps in parts), want,
+                                   rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("t", [2, 4])
