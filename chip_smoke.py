@@ -287,7 +287,13 @@ Phases, each of which raises on failure:
      launches exact; then the same in f32 cut to 2 layers, within 2e-4 of
      the largest, and zamba2-2.7b at full width cut to 2 layers on (1,
      4) (its cache's sequence 4 ways, its state and conv tail by the
-     mixers' heads); (d) the four
+     mixers' heads), and seamless-m4t-medium at full width
+     (``encdec.serve_tp``; 512 seeded frames a prompt, encoded at each
+     prefill) on (2, 2) in f32 (8 of the 16 heads of every self- and
+     cross-attention, half of both stacks' d_ff and of the vocab 256206)
+     cut to 2 + 2 layers (finite) and to 1 + 1 (within 2e-4 of the
+     largest), and on (1, 4) in bf16 (4 of 16 heads, a quarter of d_ff,
+     the vocab whole) cut to 1 + 1 (finite); (d) the four
      ``examples/torch_*.py`` through ``main(argv)`` at small sizes:
      quickstart's transfers and bytes equal to its tree's closed forms,
      the demo's DMAs and MB equal to its CPU run's, serve completes 8
@@ -620,6 +626,21 @@ LAUNCH_SERVE_BF16_LAYERS = 1
 LAUNCH_SERVE_F32_LAYERS = 2
 LAUNCH_SERVE_F32_TOL = 2e-4
 LAUNCH_SERVE_ZAMBA_LAYERS = 2
+# seamless-m4t-medium, each prompt with SERVE_MAX_SEQ / src_ratio seeded
+# frames: in f32 on LAUNCH_MESH (heads, d_ff and the vocab split) at
+# LAUNCH_SERVE_SEAMLESS_LAYERS encoder + decoder layers, held finite, and
+# at LAUNCH_SERVE_SEAMLESS_HELD_LAYERS within LAUNCH_SERVE_F32_TOL of the
+# largest; in bf16 on (1, 4) (heads and d_ff; 256206 does not divide by
+# 4, as by 16 at full size) at LAUNCH_SERVE_SEAMLESS_HELD_LAYERS, held
+# finite.  Its seeded model amplifies rounding faster than llama's
+# (scripts/torch_placed_tp_spread.py, the first prompt on (2, 2)): at 2 +
+# 2 layers one f32 ulp of the params moves the logits by 0.011-0.023 of a
+# largest 2.98, and f32 placed and one-position logits part by 0.0056
+# (0.054 over (c)'s prompts and steps); at 1 + 1 by 6e-5 to 9.6e-5 and
+# 5.6e-5.  In bf16 at 1 + 1 placed and one position part by 0.039 where
+# bf16 lies 0.67 from f32: past BF16_TOL at a small logit
+LAUNCH_SERVE_SEAMLESS_LAYERS = 2
+LAUNCH_SERVE_SEAMLESS_HELD_LAYERS = 1
 # (a) also the vlm, the MoE, the ssm and the hybrid family tensor-parallel
 # over the model axis, each at full width cut to LAUNCH_FAMILY_LAYERS
 # layers, bf16, AdamW at LAUNCH_LR, LAUNCH_BATCH x LAUNCH_SEQ text tokens,
@@ -4634,21 +4655,22 @@ def launch_restore(state, api, opt, root: Path, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def _one_position_serve(api, params, prompts, dev):
-    """``api`` on one position: each prompt prefilled at batch 1, the
-    caches stacked into the slots, LAUNCH_NEW greedy decode steps.
-    Returns (the prefill logits, the decode steps' logits, the tokens fed
-    to each step, the final cache)."""
+def _one_position_serve(api, params, prompts, extras, dev):
+    """``api`` on one position: each prompt prefilled at batch 1 (with
+    its ``extras``, an encoder-decoder's frames), the caches stacked into
+    the slots, LAUNCH_NEW greedy decode steps.  Returns (the prefill
+    logits, the decode steps' logits, the tokens fed to each step, the
+    final cache)."""
     import torch
 
     pre, caches = [], []
-    for tok in prompts:
+    for tok, extra in zip(prompts, extras):
         logits, c = api.prefill(params, tok, api.init_cache(
-            1, SERVE_MAX_SEQ, device=dev))
+            1, SERVE_MAX_SEQ, device=dev), **extra)
         pre.append(logits)
         caches.append(c)
-    cache = {k: torch.cat([c[k] for c in caches], dim=0 if k == "pos"
-                          else 1) for k in caches[0]}
+    cache = {k: torch.cat([c[k] for c in caches], dim=0 if k in (
+        "pos", "enc_out") else 1) for k in caches[0]}
     del caches
     feed = [torch.cat([lg[:, -1].argmax(-1, keepdim=True) for lg in pre])
             .to(torch.int32)]
@@ -4677,12 +4699,15 @@ def launch_placed_run(kernels: dict, api, shape, regions, hold, smi: str
     amplifies any rounding past BF16_TOL: LAUNCH_SERVE_F32_TOL's
     comment); ``pos`` exactly; every block equal to its block of the
     gathered leaf; the launches exactly kernel_launches(prefills=the
-    row's holders x prompts, steps=mesh size x steps).  Returns the
-    counts."""
+    row's holders x prompts, steps=mesh size x steps).  An
+    encoder-decoder's prompts each come with SERVE_MAX_SEQ / src_ratio
+    frames (seeded, in its compute dtype), encoded at every prefill
+    (encodes=prefills).  Returns the counts."""
     import torch
     from repro_torch._device import synchronize
     from repro_torch.launch.mesh import adapt_batch_rule, rules_for
     from repro_torch.models import registry
+    from repro_torch.models.specs import torch_dtype
     from repro_torch.runtime.placed import PlacedServe
 
     cfg = api.cfg
@@ -4693,8 +4718,15 @@ def launch_placed_run(kernels: dict, api, shape, regions, hold, smi: str
     prompts = [torch.as_tensor(p[None], device=dev)
                for p in serve_prompts(cfg.vocab_size)[:LAUNCH_PROMPTS]]
     n = len(prompts)
+    extras = [{}] * n
+    if cfg.is_encdec:
+        gen = torch.Generator(device=dev).manual_seed(19)
+        extras = [{"frames": torch.randn(
+            1, max(1, SERVE_MAX_SEQ // cfg.src_ratio), cfg.d_model,
+            generator=gen, device=dev).to(torch_dtype(cfg.compute_dtype))}
+            for _ in prompts]
     pre, dec, feed, want_cache = _one_position_serve(api, params, prompts,
-                                                     dev)
+                                                     extras, dev)
     rules = adapt_batch_rule(rules_for(cfg, mesh, "decode"), mesh, n)
     serve = PlacedServe(api, mesh, rules)
     plan = serve.plan
@@ -4727,9 +4759,9 @@ def launch_placed_run(kernels: dict, api, shape, regions, hold, smi: str
     for k in kernels.values():
         k.launches = 0
     err, t_pre, t_dec = 0.0, [], []
-    for r, tok in enumerate(prompts):
+    for r, (tok, extra) in enumerate(zip(prompts, extras)):
         t = time.perf_counter()
-        logits, pcache = serve.prefill(placed, tok, pcache, slot=r)
+        logits, pcache = serve.prefill(placed, tok, pcache, slot=r, **extra)
         synchronize(dev)
         t_pre.append(time.perf_counter() - t)
         err = max(err, close(logits, pre[r], f"[launch] (c) {cfg.name} "
@@ -4743,8 +4775,10 @@ def launch_placed_run(kernels: dict, api, shape, regions, hold, smi: str
                              f"[launch] (c) {cfg.name} decode step {i}"))
     counts = {name: k.launches for name, k in kernels.items()}
     holders = mesh.size // mesh.shape["data"]
+    encodes = {"encodes": holders * n} if cfg.is_encdec else {}
     want = {"gather_tiles": 0, **registry.kernel_launches(
-        cfg, prefills=holders * n, steps=mesh.size * LAUNCH_NEW)}
+        cfg, prefills=holders * n, steps=mesh.size * LAUNCH_NEW,
+        **encodes)}
     if counts != want:
         fail(f"[launch] (c) {cfg.name} launched {counts}, expected {want}")
     _blocks_equal_whole(pcache, f"[launch] (c) {cfg.name} cache")
@@ -4770,8 +4804,11 @@ def launch_placed_run(kernels: dict, api, shape, regions, hold, smi: str
         held = "finite, not held (rounding amplified past any tolerance)"
     largest = "" if hold == "bf16" else (
         f" of a largest {tops['logits']:.6g} / {tops['cache']:.6g}")
+    layers = (f"{cfg.enc_layers} + {cfg.num_layers} layers, "
+              f"{tuple(extras[0]['frames'].shape[1:])} frames a prompt"
+              if cfg.is_encdec else f"{cfg.num_layers} layers")
     say(f"[launch] (c) placed prefill + decode tensor-parallel, {cfg.name} "
-        f"({cfg.num_layers} layers, {cfg.compute_dtype}) on "
+        f"({layers}, {cfg.compute_dtype}) on "
         f"{dict(mesh.shape)} (split {', '.join(split)}; cache placed {pl}): "
         f"{n} prompts of {[int(p.shape[1]) for p in prompts]} tokens into "
         f"the slots of an {n} x {SERVE_MAX_SEQ} cache, {LAUNCH_NEW} decode "
@@ -4791,14 +4828,20 @@ def launch_placed_serve(kernels: dict, smi: str) -> dict:
     BF16_TOL) and to LAUNCH_SERVE_F32_LAYERS in f32 (within
     LAUNCH_SERVE_F32_TOL of the largest); zamba2-2.7b at full width cut
     to LAUNCH_SERVE_ZAMBA_LAYERS on (1, 4) in bf16 (finite) and in f32
-    (within LAUNCH_SERVE_F32_TOL of the largest).  Returns the launch
-    counts summed."""
+    (within LAUNCH_SERVE_F32_TOL of the largest); seamless-m4t-medium at
+    full width (``encdec.serve_tp``, its prompts with frames), both
+    stacks cut, in f32 on LAUNCH_MESH to LAUNCH_SERVE_SEAMLESS_LAYERS
+    (finite) and to LAUNCH_SERVE_SEAMLESS_HELD_LAYERS (within
+    LAUNCH_SERVE_F32_TOL of the largest), and in bf16 on (1, 4), where
+    its vocab stays whole, to LAUNCH_SERVE_SEAMLESS_HELD_LAYERS (finite).
+    Returns the launch counts summed."""
     import dataclasses
     from repro_torch.models import registry
 
     llama = registry.get("llama3.2-1b").cfg
     zamba = dataclasses.replace(registry.get("zamba2-2.7b").cfg,
                                 num_layers=LAUNCH_SERVE_ZAMBA_LAYERS)
+    seamless = registry.get("seamless-m4t-medium").cfg
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     dense, hybrid = ("heads", "mlp", "vocab"), ("heads", "mlp", "vocab",
                                                  "ssm")
@@ -4810,7 +4853,19 @@ def launch_placed_serve(kernels: dict, smi: str) -> dict:
              LAUNCH_SERVE_F32_TOL),
             (zamba, (1, 4), hybrid, None),
             (dataclasses.replace(zamba, **f32), (1, 4), hybrid,
-             LAUNCH_SERVE_F32_TOL))
+             LAUNCH_SERVE_F32_TOL),
+            (dataclasses.replace(
+                seamless, num_layers=LAUNCH_SERVE_SEAMLESS_LAYERS,
+                enc_layers=LAUNCH_SERVE_SEAMLESS_LAYERS, **f32),
+             LAUNCH_MESH, dense, None),
+            (dataclasses.replace(
+                seamless, num_layers=LAUNCH_SERVE_SEAMLESS_HELD_LAYERS,
+                enc_layers=LAUNCH_SERVE_SEAMLESS_HELD_LAYERS, **f32),
+             LAUNCH_MESH, dense, LAUNCH_SERVE_F32_TOL),
+            (dataclasses.replace(
+                seamless, num_layers=LAUNCH_SERVE_SEAMLESS_HELD_LAYERS,
+                enc_layers=LAUNCH_SERVE_SEAMLESS_HELD_LAYERS), (1, 4),
+             ("heads", "mlp"), None))
     total = {}
     for cfg, shape, regions, hold in runs:
         counts = launch_placed_run(kernels, registry.get_model(cfg), shape,

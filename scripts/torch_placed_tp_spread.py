@@ -4,7 +4,9 @@
 weights, phase 8's first prompt prefilled into slot 0 of an 8 x 2048
 cache placed under the decode rules on one card's positions), by depth:
 llama3.2-1b on (2, 2) at 1, 2, 4, 8 and 16 layers, zamba2-2.7b on (1, 4)
-at 1 and 2.
+at 1 and 2, seamless-m4t-medium on (2, 2) at 1 + 1 and 2 + 2 (encoder +
+decoder layers; the prompt with SERVE_MAX_SEQ / src_ratio frames drawn
+from seed 19, in each run's compute dtype).
 
 Each line holds, for the same params and prompt, the largest |difference|
 between the last-token logits (and each cache leaf of the slot's row) of:
@@ -23,7 +25,8 @@ position's, and whether the greedy tokens agree.
 
 Usage (from the repository root, on the card):
 
-    python3 scripts/torch_placed_tp_spread.py [--arch llama3.2-1b|zamba2-2.7b]
+    python3 scripts/torch_placed_tp_spread.py \
+        [--arch llama3.2-1b|zamba2-2.7b|seamless-m4t-medium]
 
 Prints the card's name and power limit, then one JSON line a depth.
 """
@@ -41,7 +44,8 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 CASES = {"llama3.2-1b": ((2, 2), (1, 2, 4, 8, 16)),
-         "zamba2-2.7b": ((1, 4), (1, 2))}
+         "zamba2-2.7b": ((1, 4), (1, 2)),
+         "seamless-m4t-medium": ((2, 2), (1, 2))}
 TOL = 2e-2
 
 
@@ -66,13 +70,17 @@ def main(argv=None) -> int:
                          text=True).stdout.strip(), flush=True)
     slots = C.LAUNCH_PROMPTS
 
-    def one(api, params, tok, dev):
+    def extra(cfg, frames):
+        return {"frames": frames.to(getattr(torch, cfg.compute_dtype))} \
+            if frames is not None else {}
+
+    def one(api, params, tok, dev, frames=None):
         logits, cache = api.prefill(params, tok, api.init_cache(
-            1, C.SERVE_MAX_SEQ, device=dev))
+            1, C.SERVE_MAX_SEQ, device=dev), **extra(api.cfg, frames))
         return dict({k: v.float() for k, v in cache.items() if k != "pos"},
                     logits=logits.float())
 
-    def placed(api, params, tok, mesh, dev):
+    def placed(api, params, tok, mesh, dev, frames=None):
         serve = PlacedServe(api, mesh, adapt_batch_rule(
             rules_for(api.cfg, mesh, "decode"), mesh, slots))
         if serve.plan is None or not serve.plan.heads:
@@ -80,8 +88,10 @@ def main(argv=None) -> int:
         cache = serve.place_cache(api.init_cache(slots, C.SERVE_MAX_SEQ,
                                                  device=dev))
         logits, cache = serve.prefill(serve.place_params(params), tok,
-                                      cache, slot=0)
-        return dict({k: v.gather(dev)[:, :1].float()
+                                      cache, slot=0,
+                                      **extra(api.cfg, frames))
+        return dict({k: v.gather(dev).narrow(0 if k == "enc_out" else 1,
+                                             0, 1).float()
                      for k, v in cache.items() if k != "pos"},
                     logits=logits.float())
 
@@ -100,8 +110,13 @@ def main(argv=None) -> int:
         base = registry.get(arch).cfg
         tok = torch.as_tensor(C.serve_prompts(base.vocab_size)[0][None],
                               device=dev)
+        frames = torch.randn(
+            1, max(1, C.SERVE_MAX_SEQ // base.src_ratio), base.d_model,
+            generator=torch.Generator(device=dev).manual_seed(19),
+            device=dev) if base.is_encdec else None
         for layers in depths:
-            cfg = dataclasses.replace(base, num_layers=layers)
+            cfg = dataclasses.replace(base, num_layers=layers, **(
+                {"enc_layers": layers} if base.is_encdec else {}))
             api = registry.get_model(cfg)
             api32 = registry.get_model(dataclasses.replace(
                 cfg, param_dtype="float32", compute_dtype="float32"))
@@ -109,13 +124,13 @@ def main(argv=None) -> int:
                            device=dev)
             p32 = tree_map(lambda x: x.float(), p16)
             with torch.no_grad():
-                one16, one32 = one(api, p16, tok, dev), one(api32, p32, tok,
-                                                             dev)
+                one16 = one(api, p16, tok, dev, frames)
+                one32 = one(api32, p32, tok, dev, frames)
                 moved = [one(api32, tree_map(lambda x: one_ulp(x, s, dev),
-                                             p32), tok, dev)
+                                             p32), tok, dev, frames)
                          for s in (1, 2, 3)]
-            tp16 = placed(api, p16, tok, mesh, dev)
-            tp32 = placed(api32, p32, tok, mesh, dev)
+            tp16 = placed(api, p16, tok, mesh, dev, frames)
+            tp32 = placed(api32, p32, tok, mesh, dev, frames)
             line = {"arch": arch, "mesh": shape, "layers": layers}
             for k in one32:
                 line[k] = {

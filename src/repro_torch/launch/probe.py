@@ -95,15 +95,14 @@ def _grad_probe(apply_fn: Callable, cfg, n_grad: int) -> Callable:
     return probe
 
 
-def tp_plan(api: ModelApi, mesh, rules: Dict, mode: str = "train"):
+def tp_plan(api: ModelApi, mesh, rules: Dict):
     """The tensor-parallel plan (``models/tp.py``) of ``api``'s train
-    step, or for ``mode`` "prefill" / "decode" of its placed serving
-    (``runtime/placed.py``), on ``mesh`` under ``rules``, or None."""
+    step, or of its placed serving (``runtime/placed.py``) under the
+    prefill or decode rules, on ``mesh`` under ``rules``, or None."""
     from .mesh import tree_shardings
 
     return TP.plan(api.cfg, mesh, tree_shardings(
-        mesh, api.axes(), rules, api.abstract()), rules.get("batch"),
-        TP.FAMILIES if mode == "train" else TP.SERVE_FAMILIES)
+        mesh, api.axes(), rules, api.abstract()), rules.get("batch"))
 
 
 def _member_tree(api: ModelApi, plan, mesh, grad: bool = False,
@@ -178,8 +177,65 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
                 p, x, positions=pos, cache=c, kv_valid_len=v),
                 p, x_in(), positions(), kv_cache(), valid())
 
-    plan = tp_plan(api, mesh, rules, mode)
-    if plan is not None and not cfg.is_encdec:
+    plan = tp_plan(api, mesh, rules)
+    kv_split, kv_rows = False, S_cache
+    if plan is not None and not train:
+        # the member's block of the cache: its rows of the k / v sequence
+        # where it splits
+        from ..runtime.placed import PlacedServe
+
+        kv_split = PlacedServe(api, mesh, rules).kv_split(
+            shape.global_batch, S_cache)
+        kv_rows = S_cache // mesh.shape[TP.AXIS] if kv_split else S_cache
+    if cfg.is_encdec:
+        tree = encdec_mod.spec_tree(cfg)
+        unstack = lambda t: tree_map(
+            lambda s: dataclasses.replace(s, shape=s.shape[1:],
+                                          axes=s.axes[1:]), t)
+        src = max(1, S_cache // cfg.src_ratio)
+        xe = lambda grad: _meta((B, src, cfg.d_model), cdt, grad)
+        spos = lambda: _meta((1, src), torch.int64)
+        if plan is not None:
+            # member 0's blocks, its group's other members standing in;
+            # the memory enters the decoder's regions once, outside the
+            # blocks (``encdec._decode_stack_tp``)
+            group = plan.stand_in(mesh)
+            enc_tp = functools.partial(encdec_mod._enc_block_tp, cfg, group)
+            dec_tp = functools.partial(encdec_mod._dec_block_tp, cfg, group)
+            enc_fn = lambda p, x, pos: enc_tp([p], [x], positions=[pos])[0]
+            dec_fn = lambda p, x, e, pos, c=None, v=None: dec_tp(
+                [p], [x], [e], positions=[pos],
+                caches=None if c is None else [c], kv_split=kv_split,
+                kv_valid_len=None if v is None else [v])[0]
+            enc_p = lambda: _member_tree(api, plan, mesh, train,
+                                         under="enc_blocks")
+            dec_p = lambda: _member_tree(api, plan, mesh, train,
+                                         under="dec_blocks")
+        else:
+            enc = functools.partial(encdec_mod._enc_block, cfg)
+            dec = functools.partial(encdec_mod._dec_block, cfg)
+            enc_fn = lambda p, x, pos: enc(p, x, positions=pos)
+            dec_fn = lambda p, x, e, pos, c=None, v=None: dec(
+                p, x, e, positions=pos, cache=c, kv_valid_len=v)
+            enc_p = lambda: _meta_tree(abstract_params(
+                unstack(tree["enc_blocks"]), pdt), train)
+            dec_p = lambda: _meta_tree(abstract_params(
+                unstack(tree["dec_blocks"]), pdt), train)
+        if train:
+            record("enc_block_in", 1, _grad_probe(enc_fn, cfg, 1),
+                   enc_p(), xe(False), spos())
+            record("enc_block", cfg.enc_layers - 1,
+                   _grad_probe(enc_fn, cfg, 2), enc_p(), xe(True), spos())
+            record("dec_block", cfg.num_layers, _grad_probe(dec_fn, cfg, 3),
+                   dec_p(), x_in(), xe(True), positions())
+        else:
+            if mode == "prefill":
+                # the encoder runs once at prefill; decode never re-runs it
+                record("enc_block", cfg.enc_layers, enc_fn, enc_p(),
+                       xe(False), spos())
+            record("dec_block", cfg.num_layers, dec_fn, dec_p(), x_in(),
+                   xe(False), positions(), kv_cache(kv_rows), valid())
+    elif plan is not None:
         group = plan.stand_in(mesh)
         attn = functools.partial(lm_mod._attn_block_tp, cfg, group)
         mixer = functools.partial(lm_mod._ssm_block_tp, cfg, group)
@@ -191,20 +247,14 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
             attn_args = lambda: (x_in(), positions())
             mixer_args = lambda: (x_in(),)
         else:
-            # the member's blocks of the cache: its rows of the k / v
-            # sequence where it splits, its heads' state and their
-            # channels' conv tail where the mixers split
-            from ..runtime.placed import PlacedServe
-
-            split = PlacedServe(api, mesh, rules).kv_split(
-                shape.global_batch, S_cache)
+            # the member's heads' state and their channels' conv tail
+            # where the mixers split
             t = mesh.shape[TP.AXIS]
             attn_probe = lambda p, x, pos, c, v: attn(
-                [p], [x], positions=[pos], caches=[c], kv_split=split,
+                [p], [x], positions=[pos], caches=[c], kv_split=kv_split,
                 kv_valid_len=[v])
             mixer_probe = lambda p, x, c: mixer([p], [x], [c])
-            attn_args = lambda: (x_in(), positions(),
-                                 kv_cache(S_cache // t if split else S_cache),
+            attn_args = lambda: (x_in(), positions(), kv_cache(kv_rows),
                                  valid())
             mixer_args = lambda: (x_in(), ssm_cache(t if plan.ssm else 1))
         if cfg.family in lm_mod.ATTN_STACKS:
@@ -236,56 +286,6 @@ def layer_bodies(api: ModelApi, shape: InputShape, mesh, rules: Dict
         if cfg.family == "hybrid":
             attn_body("shared_attn", lm_mod._attn_block_specs(cfg),
                       lm_mod._n_shared_apps(cfg))
-    elif cfg.is_encdec:
-        tree = encdec_mod.spec_tree(cfg)
-        unstack = lambda t: tree_map(
-            lambda s: dataclasses.replace(s, shape=s.shape[1:],
-                                          axes=s.axes[1:]), t)
-        src = max(1, S_cache // cfg.src_ratio)
-        xe = lambda grad: _meta((B, src, cfg.d_model), cdt, grad)
-        spos = lambda: _meta((1, src), torch.int64)
-        enc_abs = abstract_params(unstack(tree["enc_blocks"]), pdt)
-        dec_abs = abstract_params(unstack(tree["dec_blocks"]), pdt)
-        if plan is not None:
-            # member 0's blocks, its group's other members standing in;
-            # the memory enters the decoder's regions once, outside the
-            # blocks (``encdec._decode_stack_tp``)
-            group = plan.stand_in(mesh)
-            enc_tp = functools.partial(encdec_mod._enc_block_tp, cfg, group)
-            dec_tp = functools.partial(encdec_mod._dec_block_tp, cfg, group)
-            enc_fn = lambda p, x, pos: enc_tp([p], [x], positions=[pos])[0]
-            dec_fn = lambda p, x, e, pos: dec_tp([p], [x], [e],
-                                                 positions=[pos])[0]
-            enc_p = lambda: _member_tree(api, plan, mesh, True,
-                                         under="enc_blocks")
-            dec_p = lambda: _member_tree(api, plan, mesh, True,
-                                         under="dec_blocks")
-        else:
-            enc = functools.partial(encdec_mod._enc_block, cfg)
-            dec = functools.partial(encdec_mod._dec_block, cfg)
-            enc_fn = lambda p, x, pos: enc(p, x, positions=pos)
-            dec_fn = lambda p, x, e, pos: dec(p, x, e, positions=pos,
-                                              cache=None, kv_valid_len=None)
-            enc_p = lambda: _meta_tree(enc_abs, True)
-            dec_p = lambda: _meta_tree(dec_abs, True)
-        if train:
-            record("enc_block_in", 1, _grad_probe(enc_fn, cfg, 1),
-                   enc_p(), xe(False), spos())
-            record("enc_block", cfg.enc_layers - 1,
-                   _grad_probe(enc_fn, cfg, 2), enc_p(), xe(True), spos())
-        elif mode == "prefill":
-            # the encoder runs once at prefill; decode never re-runs it
-            record("enc_block", cfg.enc_layers, enc_fn,
-                   _meta_tree(enc_abs), xe(False), spos())
-        if train:
-            record("dec_block", cfg.num_layers, _grad_probe(dec_fn, cfg, 3),
-                   dec_p(), x_in(), xe(True), positions())
-        else:
-            record("dec_block", cfg.num_layers,
-                   lambda p, x, e, pos, c, v: dec(
-                       p, x, e, positions=pos, cache=c, kv_valid_len=v),
-                   _meta_tree(dec_abs), x_in(), xe(False), positions(),
-                   kv_cache(), valid())
     return out
 
 

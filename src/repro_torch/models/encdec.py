@@ -24,12 +24,13 @@ output it used.
 
 ``loss_fn(..., group=)`` runs the model tensor-parallel over a model
 group of a mesh, its members in lock step (:func:`_forward_tp`,
-``models/tp.py``): the production-mesh train step's path.  Each member
-computes its query heads of every self- and cross-attention, its block
-of both stacks' d_ff and, where the vocab splits, its rows of the tied
-embedding and its block of the logits; the LayerNorms, the residual
-streams, ``wk`` / ``wv`` and the encoder memory are whole on every
-member.
+``models/tp.py``): the production-mesh train step's path; :func:`serve_tp`
+does so for a placed prefill or decode step (``runtime/placed.py``).
+Each member computes its query heads of every self- and
+cross-attention, its block of both stacks' d_ff and, where the vocab
+splits, its rows of the tied embedding and its block of the logits; the
+LayerNorms, the residual streams, ``wk`` / ``wv`` and the encoder memory
+are whole on every member.
 """
 from __future__ import annotations
 
@@ -233,17 +234,23 @@ def _encode_tp(cfg, group, params, frames):
     return [L.apply_norm(cfg, p["enc_norm"], x) for p, x in zip(params, xs)]
 
 
-def _dec_block_tp(cfg, group, ps, xs, enc_outs, *, positions):
-    """:func:`_dec_block` (no cache) on the members of a tensor-parallel
-    model group in lock step: the causal self-attention and the
-    cross-attention on the member's query heads, the MLP on its block of
-    d_ff (``lm._attention_tp``, ``lm._ffn_tp``).  The cross-attention's
-    keys and values are projected from the member's whole copy of the
-    memory ``enc_outs``, which has already entered the region
-    (:func:`_decode_stack_tp`)."""
+def _dec_block_tp(cfg, group, ps, xs, enc_outs, *, positions, caches=None,
+                  kv_split=False, kv_valid_len=None):
+    """:func:`_dec_block` on the members of a tensor-parallel model group
+    in lock step: the causal self-attention and the cross-attention on
+    the member's query heads, the MLP on its block of d_ff
+    (``lm._attention_tp``, ``lm._ffn_tp``).  The cross-attention's keys
+    and values are projected from the member's whole copy of the memory
+    ``enc_outs``, which has already entered the region
+    (:func:`_decode_stack_tp`).  ``caches``, ``kv_split`` and
+    ``kv_valid_len`` (placed prefill and decode: each member's {"k", "v"}
+    block of the layer's cache and its valid lengths) go to the
+    self-attention alone: the cross-attention is uncached, non-causal,
+    and every frame is valid."""
     outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["ln1"], x)
                                           for p, x in zip(ps, xs)],
-                         positions=positions)
+                         positions=positions, caches=caches,
+                         kv_split=kv_split, kv_valid_len=kv_valid_len)
     xs = [x + o for x, o in zip(xs, outs)]
     outs = _attention_tp(cfg, group, ps, [L.apply_norm(cfg, p["lnx"], x)
                                           for p, x in zip(ps, xs)],
@@ -252,11 +259,14 @@ def _dec_block_tp(cfg, group, ps, xs, enc_outs, *, positions):
     return _ffn_tp(cfg, group, ps, xs)[0]
 
 
-def _decode_stack_tp(cfg, group, blocks, xs, enc_outs, *, positions):
-    """:func:`_decode_stack` (no cache) on the members of a
-    tensor-parallel model group: ``blocks`` each member's stacked
-    ``dec_blocks``.  Each member's cross-attentions read only its kv
-    heads' slice of the memory, so its gradient of the memory is partial.
+def _decode_stack_tp(cfg, group, blocks, xs, enc_outs, *, positions,
+                     caches=None, kv_split=False, kv_valid_len=None):
+    """:func:`_decode_stack` on the members of a tensor-parallel model
+    group: ``blocks`` each member's stacked ``dec_blocks``, ``caches``
+    (placed serving) each member's cache blocks, layer ``i`` reading its
+    slot of them (:func:`_dec_block_tp`).  Each member's cross-attentions
+    read only its kv heads' slice of the memory, so its gradient of the
+    memory is partial.
     The memory enters the heads' region once here, for every layer: the
     backward sums the members' gradients, each already summed over the
     layers, in one ``psum`` where one a layer would take ``num_layers``.
@@ -267,7 +277,9 @@ def _decode_stack_tp(cfg, group, blocks, xs, enc_outs, *, positions):
     block = _remat(cfg, functools.partial(_dec_block_tp, cfg, group))
     for i in range(cfg.num_layers):
         ps = [tree_map(lambda t: t[i], b) for b in blocks]
-        xs = block(ps, xs, enc_outs, positions=positions)
+        xs = block(ps, xs, enc_outs, positions=positions, caches=None
+                   if caches is None else [_kv_slot(c, i) for c in caches],
+                   kv_split=kv_split, kv_valid_len=kv_valid_len)
     return xs
 
 
@@ -309,6 +321,51 @@ def loss_fn(cfg: ModelConfig, params, batch, rng=None, group=None):
                              frames=batch["frames"])
     loss, tokens = cross_entropy(logits, batch["labels"])
     return loss, {"loss": loss, "aux_loss": aux, "tokens": tokens}
+
+
+@torch.no_grad()
+def serve_tp(cfg: ModelConfig, group, params, tokens, caches, *,
+             frames=None, kv_split=False):
+    """:func:`prefill` (``tokens`` (B, S), with or without ``frames``) or
+    :func:`decode_step` (``tokens`` (B, 1)) on the members of a
+    tensor-parallel model group in lock step, forward only, as
+    ``lm.serve_tp``: ``params`` (each member's blocks of the split
+    leaves, the others whole), ``tokens``, ``frames`` and ``caches`` one
+    a computed member.  The encoder runs where ``frames`` are given
+    (:func:`_encode_tp`: each member ends with the whole memory of its
+    rows), else each member reads its cache's ``enc_out``, which is
+    whole on every member.  A member's cache holds its rows of the batch
+    and its block of the k / v sequence where ``kv_split`` (else the
+    whole sequence), written in place; returns each member's (B, 1, V)
+    last-token logits (its vocab block where ``group.vocab``) and its
+    new cache (``pos`` advanced, ``enc_out`` the memory used, in the
+    cache's dtype)."""
+    _check_family(cfg)
+    if frames is None:
+        enc_outs = [c["enc_out"] for c in caches]
+    else:
+        enc_outs = _encode_tp(cfg, group, params, frames)
+        for e, c in zip(enc_outs, caches):
+            if e.shape != c["enc_out"].shape:
+                raise ValueError(f"frames encode to a {tuple(e.shape)} "
+                                 f"memory, the cache holds "
+                                 f"{tuple(c['enc_out'].shape)}")
+    xs = TP.embed(group, [p["embed"]["tok"] for p in params], tokens,
+                  L.dtype_of(cfg))
+    S = xs[0].shape[1]
+    pos = [c["pos"] for c in caches]
+    positions = [torch.arange(S, device=p.device)[None, :] + p[:, None]
+                 for p in pos]
+    valid = [p + S for p in pos]
+    xs = _decode_stack_tp(cfg, group, [p["dec_blocks"] for p in params],
+                          xs, enc_outs, positions=positions, caches=caches,
+                          kv_split=kv_split, kv_valid_len=valid)
+    xs = [L.apply_norm(cfg, p["final_norm"], x[:, -1:])
+          for p, x in zip(params, xs)]
+    xs = TP.enter(group, xs, group.vocab)
+    logits = [L.unembed(cfg, p["embed"], x) for p, x in zip(params, xs)]
+    return logits, [dict(c, pos=v, enc_out=e.to(c["enc_out"].dtype))
+                    for c, v, e in zip(caches, valid, enc_outs)]
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,

@@ -1,9 +1,9 @@
 """Tensor parallelism over a mesh's ``model`` axis for the decoder-only
 families (``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``) and the
-encoder-decoder (``encdec``) in the train step, and for the decoder-only
-families in placed prefill and decode (``lm.serve_tp``: the serve rules
-put the same regions on ``model``, and the decode rules the cache's
-``kv_seq`` too).
+encoder-decoder (``encdec``), in the train step and in placed prefill and
+decode (``lm.serve_tp``, ``encdec.serve_tp``: the serve rules put the
+same regions on ``model``, and the decode rules the cache's ``kv_seq``
+too).
 
 The reference never writes this out: its jitted train step puts ``heads``,
 ``mlp``, ``vocab``, the experts' ``expert_mlp`` and the Mamba2 mixer's
@@ -67,12 +67,9 @@ from ..core.placement import entry_axes, gather_blocks
 from ..core.treepath import tree_flatten_with_path, tree_leaves
 
 AXIS = "model"
-# the families whose train step splits over the model axis
+# the families whose train step and placed prefill and decode split over
+# the model axis: every family
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the families whose placed prefill and decode split over it
-# (``runtime/placed.py``): the decoder-only ones, whose prefill and decode
-# are ``lm.py``'s
-SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 # the param subtrees stacked on a leading layer dim
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
 # the attention sublayers and the MLPs: (subtree, sublayer), the hybrid's
@@ -303,18 +300,17 @@ class Plan:
         return out
 
 
-def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any,
-         families: Sequence[str] = FAMILIES) -> Optional[Plan]:
+def plan(cfg, mesh: NamedMesh, placements: Any, batch_rule: Any
+         ) -> Optional[Plan]:
     """The model's tensor-parallel plan over ``mesh``'s ``model`` axis
     from the params' ``placements``: a region splits where each of its
     leaves' placements blocks its dim (:data:`REGIONS`) over ``model``
     alone (arctic's 56 heads over 16 stay whole, as the reference's
     ``_demote_spec`` leaves them; so does a Mamba2 mixer whose heads do
     not divide, even where its d_inner does).  None where nothing splits,
-    the family is not one of ``families`` (:data:`FAMILIES` for the train
-    step, :data:`SERVE_FAMILIES` for placed serving), the axis is missing
-    or of size 1, or the batch's rows (``batch_rule``) split over it."""
-    if cfg.family not in families or AXIS not in mesh.axis_names \
+    the family is not one of :data:`FAMILIES`, the axis is missing or of
+    size 1, or the batch's rows (``batch_rule``) split over it."""
+    if cfg.family not in FAMILIES or AXIS not in mesh.axis_names \
             or mesh.shape[AXIS] == 1 or AXIS in entry_axes(batch_rule):
         return None
     items = tree_flatten_with_path(placements)
@@ -356,6 +352,6 @@ def gathered_param_bytes(abstract: Any, plan: Optional[Plan],
     return out
 
 
-__all__ = ["AXIS", "FAMILIES", "SERVE_FAMILIES", "gather_params",
+__all__ = ["AXIS", "FAMILIES", "gather_params",
            "gathered_param_bytes", "STACKED", "REGIONS", "ModelGroup", "Plan",
            "plan", "enter", "leave", "total", "embed", "cross_entropy"]

@@ -9,8 +9,8 @@ params' placements split a region over the mesh's ``model`` axis (the
 serve rules put ``heads``, ``mlp``, ``vocab``, ``expert_mlp``,
 ``ssm_inner`` and ``ssm_heads`` there: :attr:`PlacedServe.plan`,
 ``models/tp.py``), the members of each model group compute tensor-parallel
-in lock step (``lm.serve_tp``), as GSPMD partitions the reference's
-prefill and decode:
+in lock step (``lm.serve_tp``; the encoder-decoder's ``encdec.serve_tp``),
+as GSPMD partitions the reference's prefill and decode:
 
   * each position gathers its blocks of the split leaves over the data
     axes only, the other leaves whole (``tp.gather_params``, as the train
@@ -21,7 +21,10 @@ prefill and decode:
     heads' Mamba2 ``state`` and their channels' ``conv`` tail where the
     mixers split; it writes the new tokens' k / v that fall in its
     block in place, and gathers over ``model`` only the kv heads its
-    query heads read (``lm._kv_seqs``);
+    query heads read (``lm._kv_seqs``); the encoder-decoder's memory,
+    ``enc_out``, is whole on every member of a group (its rows), and a
+    prefill given ``frames`` runs the encoder once, each member on its
+    query heads and its block of d_ff, before the decoder;
   * each sublayer runs on its share between the group's ``enter`` and
     ``leave`` (a ``psum``); the embedding and the head are
     vocab-parallel, so the logits come back placed ``(batch axes, None,
@@ -29,8 +32,7 @@ prefill and decode:
     "vocab")``.
 
 Where nothing splits (a ``model`` axis of size 1 or none, arctic's 56
-heads over 16, which the reference's demotion leaves whole) or the family
-is the encoder-decoder (its prefill and decode are ``encdec.py``'s),
+heads over 16, which the reference's demotion leaves whole),
 :attr:`PlacedServe.plan` is None and the model axis replicates compute:
 
   * each position gathers the whole params from their blocks, and each
@@ -56,7 +58,7 @@ from ..core.collectives import NamedMesh
 from ..core.placement import (Placement, PlacedTensor, block_of, entry_axes,
                               gather_blocks, place_tree)
 from ..core.treepath import tree_flatten
-from ..models import lm
+from ..models import encdec, lm
 from ..models import tp as TP
 from ..models.registry import ModelApi
 from ..configs.base import InputShape
@@ -98,7 +100,7 @@ class PlacedServe:
         self.param_shardings = tree_shardings(mesh, api.axes(), self.rules,
                                               api.abstract())
         self.plan = TP.plan(api.cfg, mesh, self.param_shardings,
-                            self.rules.get("batch"), TP.SERVE_FAMILIES)
+                            self.rules.get("batch"))
 
     def gathered_param_bytes(self) -> int:
         """The bytes of params one position gathers for a prefill or a
@@ -155,7 +157,9 @@ class PlacedServe:
         """The axes cache leaf ``key`` keeps its block over when gathered:
         the batch axes, and under a :attr:`plan` ``model`` for the k / v
         (the attention gathers what it reads itself) and for the Mamba2
-        ``state`` / ``conv`` where the mixers split."""
+        ``state`` / ``conv`` where the mixers split.  The encoder-decoder's
+        ``enc_out`` keeps the batch axes alone: it is whole on every
+        member."""
         plan = self.plan
         if plan is not None and (key in ("k", "v") or plan.ssm and key in (
                 "state", "conv")):
@@ -166,8 +170,11 @@ class PlacedServe:
                 inputs: Dict[str, torch.Tensor], *, slot: Optional[int],
                 traced: bool, count: Callable):
         """:meth:`_run` tensor-parallel over each model group of the
-        positions that compute (``lm.serve_tp``)."""
-        mesh, plan, axes = self.mesh, self.plan, self.batch_axes
+        positions that compute (``lm.serve_tp``, or ``encdec.serve_tp``
+        for the encoder-decoder, given its ``frames``)."""
+        mesh, plan, axes, cfg = self.mesh, self.plan, self.batch_axes, \
+            self.api.cfg
+        serve_tp = encdec.serve_tp if cfg.is_encdec else lm.serve_tp
         p_leaves, p_def = tree_flatten(self.place_params(params))
         full = TP.gather_params(p_leaves, plan)
         c_keys = sorted(cache)
@@ -197,12 +204,11 @@ class PlacedServe:
                 caches = [{k: local[k][p].narrow(bdims[k], r, 1)
                            for k in c_keys} for p in mine]
                 inp = [{k: v.to(d) for k, v in inputs.items()} for d in devs]
-            patches = [i["patches"] for i in inp] if "patches" in inputs \
-                else None
+            extra = {k: [i[k] for i in inp] for k in inputs if k != "tokens"}
             with count():
-                outs, new_caches = lm.serve_tp(
-                    self.api.cfg, group, params_g, [i["tokens"] for i in inp],
-                    caches, patches=patches, kv_split=kv_split)
+                outs, new_caches = serve_tp(
+                    cfg, group, params_g, [i["tokens"] for i in inp], caches,
+                    kv_split=kv_split, **extra)
             for p, out, c, new_c in zip(mine, outs, caches, new_caches):
                 logits[p] = out
                 if traced:

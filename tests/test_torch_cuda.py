@@ -1695,17 +1695,20 @@ def test_encdec_tensor_parallel_blocks_at_full_width(cuda, part, t):
 
 
 @pytest.mark.parametrize("arch,shape", [("llama3.2-1b", (2, 2)),
-                                        ("zamba2-2.7b", (1, 4))])
+                                        ("zamba2-2.7b", (1, 4)),
+                                        ("seamless-m4t-medium", (2, 2))])
 def test_placed_tensor_parallel_serve_on_the_card(cuda, arch, shape):
     """Tensor-parallel placed serving (``runtime.placed.PlacedServe`` over
-    each model group, ``lm.serve_tp``) of the smoke model (float32, vocab
-    256, so heads, d_ff, vocab and the Mamba2 heads split) on four
-    positions of the card against the same on four CPU positions (the
-    plain versions): four slot prefills (one prompt straddles a
-    ``kv_seq`` block boundary) and three decode steps under the decode
-    rules, every logit and cache leaf within 2e-4 of its largest element,
-    and the launches exactly ``kernel_launches`` of the row's holders'
-    prefills and every position's steps."""
+    each model group, ``lm.serve_tp``, the encoder-decoder's
+    ``encdec.serve_tp``) of the smoke model (float32, vocab 256, so
+    heads, d_ff, vocab and the Mamba2 heads split) on four positions of
+    the card against the same on four CPU positions (the plain versions):
+    four slot prefills (one prompt straddles a ``kv_seq`` block boundary;
+    the encoder-decoder's each with seeded frames, encoded) and three
+    decode steps under the decode rules, every logit and cache leaf
+    within 2e-4 of its largest element, and the launches exactly
+    ``kernel_launches`` of the row's holders' prefills (and encodes) and
+    every position's steps."""
     import dataclasses
 
     from repro_torch.launch.mesh import (adapt_batch_rule, make_debug_mesh,
@@ -1722,6 +1725,9 @@ def test_placed_tensor_parallel_serve_on_the_card(cuda, arch, shape):
                for n in (3, 11, 7, 5)]
     steps = [torch.as_tensor(rng.integers(0, 256, (4, 1)).astype(np.int32))
              for _ in range(3)]
+    extras = [{"frames": torch.as_tensor(rng.standard_normal(
+        (1, 16 // cfg.src_ratio, cfg.d_model)).astype(np.float32))}
+        if cfg.is_encdec else {} for _ in prompts]
     kernels = (RK.rmsnorm, FK.flash_attention, DK.decode_attention,
                SK.ssd_chunks)
     out = {}
@@ -1735,8 +1741,10 @@ def test_placed_tensor_parallel_serve_on_the_card(cuda, arch, shape):
         for k in kernels:
             k.launches = 0
         logits = []
-        for r, tok in enumerate(prompts):
-            lg, cache = serve.prefill(placed, tok.to(where), cache, slot=r)
+        for r, (tok, extra) in enumerate(zip(prompts, extras)):
+            lg, cache = serve.prefill(placed, tok.to(where), cache, slot=r,
+                                      **{k: v.to(where)
+                                         for k, v in extra.items()})
             logits.append(lg.cpu())
         for tok in steps:
             lg, cache = serve.decode_step(placed, tok.to(where), cache)
@@ -1749,6 +1757,8 @@ def test_placed_tensor_parallel_serve_on_the_card(cuda, arch, shape):
         top = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= 2e-4 * top
     holders = 4 // shape[0]
-    n = registry.kernel_launches(cfg, prefills=holders * 4, steps=4 * 3)
+    encodes = {"encodes": holders * 4} if cfg.is_encdec else {}
+    n = registry.kernel_launches(cfg, prefills=holders * 4, steps=4 * 3,
+                                 **encodes)
     assert launched == [n["rmsnorm"], n["flash_attention"],
                         n["decode_attention"], n["ssd_chunks"]]

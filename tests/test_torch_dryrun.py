@@ -225,8 +225,8 @@ def test_every_cell_against_the_reference(ref, arch, shape, mesh):
             gathers += sum(1 for e in pl.spec
                            if set(entry_axes(e)) - mine)
         assert coll["all-gather"]["count"] == gathers
-        assert coll["all-reduce"]["count"] == _tp_serve_reductions(cfg,
-                                                                   plan)
+        assert coll["all-reduce"]["count"] == _tp_serve_reductions(
+            cfg, plan, full.mode)
         kv_split = plan is not None and serve.kv_split(sc.global_batch,
                                                        sc.seq_len)
         assert coll["all-to-all"]["count"] == \
@@ -247,16 +247,23 @@ def _attention_applications(cfg):
     return 0 if cfg.family == "ssm" else cfg.num_layers
 
 
-def _tp_serve_reductions(cfg, plan):
+def _tp_serve_reductions(cfg, plan, mode):
     """The all-reduces a tensor-parallel placed prefill or decode adds
     (position 0's group, forward only): per attention block the
     attention's exit psum where the heads split and the MLP sublayer's
     one exit psum where the MLP or the experts split; per Mamba2 layer
     where its mixer splits, the gated norm's sum and the exit psum; the
-    vocab-parallel embedding's exit.  None without a plan (the
-    encoder-decoder, a config whose regions do not divide)."""
+    vocab-parallel embedding's exit.  The encoder-decoder's prefill (its
+    frames given) adds per encoder block the attention's and the MLP's
+    exits; each of its decoder blocks has the self-attention's, the
+    cross-attention's and the MLP's.  None without a plan (a config
+    whose regions do not divide)."""
     if plan is None:
         return 0
+    if cfg.is_encdec:
+        enc = cfg.enc_layers if mode == "prefill" else 0
+        return (enc * (plan.heads + plan.mlp)
+                + cfg.num_layers * (2 * plan.heads + plan.mlp) + plan.vocab)
     mixers = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     return (_attention_applications(cfg) * (plan.heads + (plan.mlp
                                                           or plan.experts))
@@ -288,11 +295,50 @@ def test_llama_serve_cells_gather_the_train_cells_blocks(shape):
     coll = res["collectives"]["per_op"]
     # 16 attention exits, 16 MLP exits, the embedding's
     assert coll["all-reduce"]["count"] == \
-        _tp_serve_reductions(api.cfg, plan) == 33
+        _tp_serve_reductions(api.cfg, plan, SHAPES[shape].mode) == 33
     assert coll["all-gather"]["count"] == 0
     # the decode rules split the cache's sequence: k and v a layer
     assert coll["all-to-all"]["count"] == (32 if shape == "decode_32k"
                                            else 0)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_encdec_serve_cells_gather_the_train_cells_blocks(shape):
+    """seamless-m4t-medium at full size on the (16, 16) mesh: its placed
+    prefill and decode split the heads of every self- and
+    cross-attention and both stacks' d_ff over ``model``, not the vocab
+    (256206 % 16 = 14), so position 0 gathers 710,623,232 B of params,
+    the train_4k cell's blocks, not the whole 1,229,852,672 B; the probe
+    identity is exact, and the collectives are the group's sums (at
+    prefill the encoder's too) and, at decode, the kv exchange."""
+    res, = dryrun.run_grid(["seamless-m4t-medium"], [shape], ["single"],
+                           None, smoke=False)
+    assert "error" not in res, res.get("traceback")
+    assert res["probe_check"]["exact"], res["probe_check"]
+    decode = shape == "decode_32k"
+    assert [b["kind"] for b in res["bodies"]] == (
+        ["dec_block"] if decode else ["enc_block", "dec_block"])
+    api = p_registry.get("seamless-m4t-medium")
+    m = p_mesh.make_production_mesh(device="meta")
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(
+        api.cfg, m, SHAPES[shape].mode), m, SHAPES[shape].global_batch)
+    plan = PlacedServe(api, m, rules).plan
+    assert (plan.heads, plan.mlp, plan.vocab) == (True, True, False)
+    step = p_train.make_sharded_train_step(
+        api, make_optimizer(api.cfg.optimizer), None, m,
+        p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, "train"), m,
+                                SHAPES["train_4k"].global_batch))
+    assert res["gathered_param_bytes"] == 710_623_232 \
+        == step.gathered_param_bytes()
+    coll = res["collectives"]["per_op"]
+    # 12 decoder blocks' three exits each, at prefill 12 encoder blocks'
+    # two
+    assert coll["all-reduce"]["count"] == \
+        _tp_serve_reductions(api.cfg, plan, SHAPES[shape].mode) == \
+        (36 if decode else 60)
+    assert coll["all-gather"]["count"] == 0
+    # the decode rules split the cache's sequence: k and v a layer
+    assert coll["all-to-all"]["count"] == (24 if decode else 0)
 
 
 @functools.lru_cache(maxsize=None)
