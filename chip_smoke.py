@@ -299,7 +299,13 @@ Phases, each of which raises on failure:
      the demo's DMAs and MB equal to its CPU run's, serve completes 8
      requests, train restarts once; (e) the dry run's llama3.2-1b train_4k
      cell on both production meshes (meta positions, host counts): 2/2
-     ok, the probe identity exact.
+     ok, the probe identity exact, the memory keys reported; then (a)'s
+     llama3.2-1b config (4 layers, bf16, AdamW, 8 x 128) on a (1, 1)
+     mesh of cuda:0, one train step, one placed prefill and one decode
+     step, each after a warm-up: the growth of the card allocator's peak
+     over the call within 5 % (or 16 MiB) of the dry run's prediction on
+     a (1, 1) meta mesh, each storage rounded up to the allocator's 512
+     bytes; launches exact.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after: Algorithm 2 (phases 4-6) must launch no kernel, as the
@@ -600,7 +606,10 @@ ELASTIC_EPISODES = ((4, 2), (2, 4))
 # restores onto LAUNCH_RESTORE_MESHES.  (c) LAUNCH_PROMPTS of phase 8's
 # prompts prefilled into the slots of a placed cache, LAUNCH_NEW decode
 # steps.  (d) the four examples at small sizes.  (e) the dry run's
-# llama3.2-1b train_4k cell on both production meshes.
+# llama3.2-1b train_4k cell on both production meshes, then its memory
+# analysis against the card's allocator: (a)'s llama config on a (1, 1)
+# mesh, the allocator's peak over one call within LAUNCH_MEMORY_TOL of
+# the prediction (or LAUNCH_MEMORY_SLACK where that is larger).
 LAUNCH_MESH = (2, 2)
 LAUNCH_LAYERS = 4                        # of 16: the script's wall (PERF.md)
 LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS = 8, 128, 3
@@ -660,6 +669,7 @@ LAUNCH_FAMILIES = (("phi-3-vision-4.2b", (2, 2), ("heads", "mlp", "vocab")),
                    ("seamless-m4t-medium", (2, 2), ("heads", "mlp", "vocab")))
 LAUNCH_FAMILY_LAYERS, LAUNCH_FAMILY_STEPS = 2, 2
 CUDA_ALLOC_GRANULE = 512                 # the caching allocator's rounding
+LAUNCH_MEMORY_TOL, LAUNCH_MEMORY_SLACK = 0.05, 16 << 20
 
 
 def say(*parts) -> None:
@@ -4932,7 +4942,8 @@ def launch_examples(root: Path) -> None:
 def launch_dryrun() -> None:
     """Part (e): ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
     --shape train_4k --mesh both`` on meta positions (host counts, not
-    card measurements): 2/2 cells ok, the probe identity exact."""
+    card measurements): 2/2 cells ok, the probe identity exact, the five
+    memory keys reported."""
     import io
     from repro_torch.launch import dryrun
 
@@ -4948,9 +4959,16 @@ def launch_dryrun() -> None:
         if not r["probe_check"]["exact"]:
             fail(f"[launch] (e) {r['mesh_name']}: the probe identity fails "
                  f"{r['probe_check']}")
+        mem = r["memory"]
+        if len(mem) != 5 or mem["temp_size_in_bytes"] < 0:
+            fail(f"[launch] (e) {r['mesh_name']}: memory {mem}")
         say(f"[launch] (e) dry run llama3.2-1b|train_4k|{r['mesh_name']} "
             f"({r['mesh']} meta positions, counted on this host): arguments "
-            f"{r['memory']['argument_size_in_bytes']} B a position, "
+            f"{mem['argument_size_in_bytes']} B a position, outputs "
+            f"{mem['output_size_in_bytes']} B, aliases "
+            f"{mem['alias_size_in_bytes']} B, temps "
+            f"{mem['temp_size_in_bytes']} B, peak "
+            f"{mem['peak_memory_in_bytes']} B, "
             f"{r['flops']:.6g} FLOPs and {r['bytes_accessed']:.6g} B a "
             f"position's step, collectives "
             f"{r['collectives']['total_count']} calls / "
@@ -4962,10 +4980,116 @@ def launch_dryrun() -> None:
         f"{time.perf_counter() - t0:.2f} s")
 
 
+def launch_memory(kernels: dict, smi: str) -> dict:
+    """Part (e), second: the dry run's memory analysis held against the
+    card.  (a)'s llama3.2-1b config (LAUNCH_LAYERS layers, bf16, AdamW)
+    at LAUNCH_BATCH x LAUNCH_SEQ: ``dryrun.trace_step`` on a (1, 1) meta
+    mesh, each storage rounded up to CUDA_ALLOC_GRANULE, predicts the
+    peak of the storages a call allocates; the same call runs on a (1, 1)
+    mesh of cuda:0 (a train step, a placed prefill into a LAUNCH_SEQ
+    cache, a placed decode step on a 2 x LAUNCH_SEQ cache), once to warm
+    up and once measured: the growth of ``max_memory_allocated`` over it
+    (after ``reset_peak_memory_stats``) must lie within LAUNCH_MEMORY_TOL
+    of the prediction or LAUNCH_MEMORY_SLACK, whichever is larger.  The
+    warm-up's and the measured call's launches must each be the model's.
+    Returns the launch counts of both calls summed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (adapt_batch_rule, make_debug_mesh,
+                                         rules_for)
+    from repro_torch.models import registry
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime.placed import PlacedServe
+    from repro_torch.runtime.train import ShardedTrainStep, train_state
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").cfg,
+                              num_layers=LAUNCH_LAYERS)
+    api = registry.get_model(cfg)
+    card = make_debug_mesh(1, 1, device=dev)
+    meta = make_debug_mesh(1, 1, device="meta")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    total = {name: 0 for name in kernels}
+    calls = (("train", LAUNCH_SEQ), ("prefill", LAUNCH_SEQ),
+             ("decode", 2 * LAUNCH_SEQ))
+    for mode, seq in calls:
+        shape = InputShape(f"card_{mode}", seq_len=seq,
+                           global_batch=LAUNCH_BATCH, mode=mode)
+        rules = adapt_batch_rule(rules_for(cfg, meta, mode), meta,
+                                 LAUNCH_BATCH)
+        traced = dryrun.trace_step(api, shape, meta, rules,
+                                   granule=CUDA_ALLOC_GRANULE)
+        predicted = traced["memory"].peak
+        inputs = {k: torch.randint(0, cfg.vocab_size, sh, dtype=dt,
+                                   device=dev, generator=gen)
+                  for k, (sh, dt) in api.inputs(shape).items()}
+        if mode == "train":
+            opt = make_optimizer(cfg.optimizer)
+            step = ShardedTrainStep(api, opt,
+                                    warmup_cosine(3e-4, 100, 10_000), card,
+                                    rules)
+            state = step.place(train_state(api, opt, gen, device=dev))
+            call = lambda: step(state, inputs)
+            want = registry.kernel_launches(cfg, train_steps=1)
+        else:
+            serve = PlacedServe(api, card, rules)
+            params = serve.place_params(api.init(gen, device=dev))
+            cache = serve.place_cache(api.init_cache(LAUNCH_BATCH, seq,
+                                                     device=dev))
+            tokens = inputs.pop("tokens")
+            if mode == "prefill":
+                call = lambda: serve.prefill(params, tokens, cache)
+                want = registry.kernel_launches(cfg, prefills=1)
+            else:
+                call = lambda: serve.decode_step(params, tokens, cache)
+                want = registry.kernel_launches(cfg, steps=1)
+        want = {"gather_tiles": 0, **want}
+        for what in ("warm-up", "measured"):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for k in kernels.values():
+                k.launches = 0
+            start = torch.cuda.memory_allocated(dev)
+            out = call()
+            torch.cuda.synchronize(dev)
+            measured = torch.cuda.max_memory_allocated(dev) - start
+            counts = {name: k.launches for name, k in kernels.items()}
+            del out
+            if counts != want:
+                fail(f"[launch] (e) memory, {mode} ({what}): launched "
+                     f"{counts}, expected {want}")
+            for name in total:
+                total[name] += counts[name]
+        del call
+        gap = measured - predicted
+        bound = max(LAUNCH_MEMORY_TOL * predicted, LAUNCH_MEMORY_SLACK)
+        say(f"[launch] (e) memory, llama3.2-1b {cfg.num_layers} layers "
+            f"bf16, {mode} at {LAUNCH_BATCH} x {seq} on (1, 1) of {dev}: "
+            f"the allocator's peak grew {measured} B over the call (card), "
+            f"the dry run predicts {predicted} B (host count, (1, 1) meta "
+            f"mesh, storages rounded up to {CUDA_ALLOC_GRANULE} B; "
+            f"arguments {traced['argument_bytes']} B, outputs "
+            f"{traced['memory'].output} B, aliases "
+            f"{traced['memory'].alias} B): gap {gap:+d} B "
+            f"({100 * gap / predicted:+.2f} %, bound {bound:.0f} B); "
+            f"launches {counts}; {smi}")
+        if abs(gap) > bound:
+            fail(f"[launch] (e) memory, {mode}: the card's {measured} B vs "
+                 f"the dry run's {predicted} B")
+        torch.cuda.empty_cache()
+    say(f"[launch] (e) memory: {len(calls)} calls within "
+        f"{100 * LAUNCH_MEMORY_TOL:.0f} % (or {LAUNCH_MEMORY_SLACK >> 20} "
+        f"MiB) of the dry run")
+    return total
+
+
 def launch_phase(kernels: dict, smi: str) -> dict:
     """Phase 20: (a) the sharded step, (b) save and restore onto other
     meshes, (c) placed prefill and decode, (d) the four examples, (e) the
-    dry run.  Returns the launch counts of (a) and (c) summed."""
+    dry run and its memory analysis against the card.  Returns the launch
+    counts of (a), (c) and (e) summed."""
     import shutil
     import torch
 
@@ -4986,13 +5110,14 @@ def launch_phase(kernels: dict, smi: str) -> dict:
         launch_examples(root)
         marks.append(time.perf_counter())
         launch_dryrun()
+        memory = launch_memory(kernels, smi)
         marks.append(time.perf_counter())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     parts = ", ".join(f"({c}) {b - a:.2f} s" for c, a, b in
                       zip("abcde", marks, marks[1:]))
     say(f"[launch] phase 20 ok in {marks[-1] - t0:.2f} s ({parts})")
-    return {k: trained[k] + served[k] for k in trained}
+    return {k: trained[k] + served[k] + memory[k] for k in trained}
 
 
 def main() -> int:

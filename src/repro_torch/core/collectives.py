@@ -28,9 +28,12 @@ orders them.
     reference calls them: the split dimension divides by the group size;
     ``all_to_allv`` takes explicit pieces, which may be uneven (a
     tensor-parallel decode's kv exchange, ``models/lm.py``).
-  * On meta positions (the dry run's: shapes without data) a call's
-    result is computed once and every position gets that tensor; the
-    call is counted as on a device.
+  * On meta positions (the dry run's: shapes without data) a reduction's
+    or an all-gather's result is computed once and every position gets
+    that tensor; a reduce-scatter's or an all-to-all's is computed for
+    every position, and only position 0's is booked by the dry run's
+    memory counter (``repro_torch._counting.unbooked``).  The call is
+    counted as on a device.
 
 :data:`STATS` counts calls and bytes per kind, the port's counterpart of
 the reference's emitted collectives (``jax.make_jaxpr``'s ``psum``
@@ -40,11 +43,14 @@ reads the device time of the collectives' copies and adds.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from .. import _counting
 
 Axes = Union[str, Sequence[str]]
 
@@ -174,6 +180,13 @@ def _on_meta(xs: Sequence[torch.Tensor]) -> bool:
     return all(x.device.type == "meta" for x in xs)
 
 
+def _booked(meta: bool, first: bool):
+    """On meta, position 0's result (``first``) is booked and the others'
+    are not: one position's memory, as the dry run counts it."""
+    return _counting.unbooked() if meta and not first \
+        else contextlib.nullcontext()
+
+
 def _reduce(xs, mesh, axes, kind, op) -> List[torch.Tensor]:
     _check(xs, mesh, kind)
     out: List[torch.Tensor] = list(xs)
@@ -229,13 +242,15 @@ def psum_scatter(xs: Sequence[torch.Tensor], mesh: NamedMesh, axes: Axes
     i."""
     _check(xs, mesh, "psum_scatter")
     out: List[torch.Tensor] = list(xs)
+    meta = _on_meta(xs)
     with torch.profiler.record_function("collective.psum_scatter"):
         for g in mesh.groups(axes):
             tiles = [_chunks(xs[p], len(g), 0, "psum_scatter") for p in g]
             for i, dst in enumerate(g):
-                acc = _send(tiles[0][i], mesh, g[0], dst)
-                for j, src in enumerate(g[1:], 1):
-                    acc = acc + _send(tiles[j][i], mesh, src, dst)
+                with _booked(meta, dst == 0):
+                    acc = _send(tiles[0][i], mesh, g[0], dst)
+                    for j, src in enumerate(g[1:], 1):
+                        acc = acc + _send(tiles[j][i], mesh, src, dst)
                 out[dst] = acc
     return out
 
@@ -267,14 +282,16 @@ def all_to_all(xs: Sequence[torch.Tensor], mesh: NamedMesh, axes: Axes,
     swapped it is its own inverse."""
     _check(xs, mesh, "all_to_all")
     out: List[torch.Tensor] = list(xs)
+    meta = _on_meta(xs)
     with torch.profiler.record_function("collective.all_to_all"):
         for g in mesh.groups(axes):
             tiles = [_chunks(xs[p], len(g), split_axis, "all_to_all")
                      for p in g]
             for i, dst in enumerate(g):
-                out[dst] = torch.cat(
-                    [_send(tiles[j][i], mesh, src, dst)
-                     for j, src in enumerate(g)], dim=concat_axis)
+                with _booked(meta, dst == 0):
+                    out[dst] = torch.cat(
+                        [_send(tiles[j][i], mesh, src, dst)
+                         for j, src in enumerate(g)], dim=concat_axis)
     return out
 
 
@@ -291,11 +308,14 @@ def all_to_allv(pieces: Sequence[Sequence[torch.Tensor]], mesh: NamedMesh,
     STATS.add("all_to_all", nbytes=sum(t.numel() * t.element_size()
                                        for t in pieces[0]))
     out: List[torch.Tensor] = [None] * mesh.size
+    meta = _on_meta([t for ps in pieces for t in ps])
     with torch.profiler.record_function("collective.all_to_all"):
         for g in mesh.groups(axes):
             for i, dst in enumerate(g):
-                out[dst] = torch.cat([_send(pieces[src][i], mesh, src, dst)
-                                      for src in g], dim=axis)
+                with _booked(meta, dst == 0):
+                    out[dst] = torch.cat(
+                        [_send(pieces[src][i], mesh, src, dst)
+                         for src in g], dim=axis)
     return out
 
 

@@ -18,9 +18,12 @@ blocks past ``valid_len[b]`` return at once.  See the source for the
 design.
 
 :func:`decode_attention` launches the kernels for CUDA tensors (or raises)
-and runs the plain version (:func:`~.ref.decode_ref`) only for CPU
-or meta tensors (meta: the dry run's counting).  ``decode_attention.launches`` counts the wrapper's launches (one
-per call, for the two kernels).
+and runs the plain version (:func:`~.ref.decode_ref`) only for CPU or meta
+tensors.  ``decode_attention.launches`` counts the wrapper's launches (one
+per call, for the two kernels).  On meta (the dry run's counting,
+``repro_torch._counting``) the plain version is recorded and counted as it
+always was, and what is booked as memory is the card's: the int32 copy of
+``valid_len`` (none when it is one), the output and the splits' scratch.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ... import _counting
 from .. import _build
 from . import ref
 
@@ -53,6 +57,16 @@ def split_keys(S: int) -> int:
         if 16 * s <= S:
             split = s
     return split
+
+
+def scratch_like(q: torch.Tensor, S: int) -> torch.Tensor:
+    """The first pass's f32 partials for q (B, H, hd) over a cache of
+    capacity S: (max, sum, accumulator) a (b, h, split of
+    :func:`split_keys` keys)."""
+    B, H, hd = q.shape
+    nsplit = -(-S // split_keys(S))
+    return torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 _FN = None
@@ -92,9 +106,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if not (q.device == k.device == v.device == valid_len.device):
         raise ValueError("q, k, v and valid_len must be on one device")
-    if q.device.type in ("cpu", "meta"):
+    if q.device.type == "cpu":
         return ref.decode_ref(q, k, v, valid_len, scale=scale,
                               block_k=block_k)
+    if q.device.type == "meta":
+        with _counting.unbooked():
+            out = ref.decode_ref(q, k, v, valid_len, scale=scale,
+                                 block_k=block_k)
+        with _counting.memory_only():     # what the launch holds beside it
+            held = valid_len.to(torch.int32).contiguous(), \
+                scratch_like(q, S)
+        _counting.book(out)
+        del held
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA (or the CPU), got "
                          f"{q.device}")
@@ -112,9 +136,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0:
         return out          # a grid of 0 blocks is a launch error
     split = split_keys(S)
-    nsplit = -(-S // split)
-    scratch = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
-                          device=q.device)
+    scratch = scratch_like(q, S)
     item = k.element_size()
     vec = int(all(                        # every hd above is 16-byte rows
         t.data_ptr() % 16 == 0 and all(s * item % 16 == 0

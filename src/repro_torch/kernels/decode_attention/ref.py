@@ -1,9 +1,10 @@
 """Plain PyTorch version of the single-token attention against a cache.
 
 The semantics of ``repro/kernels/decode_attention/kernel.py`` (not of its
-``ref.py``, which masks with -inf): f32 scores, keys at or past
-``min(valid_len[b], S)`` masked with the finite ``NEG_INF = -1e30``, output
-``sum(p v) / max(sum(p), 1e-30)``.  With ``valid_len[b] == 0`` every score
+``ref.py``, which masks with -inf): f32 scores (float64 for float64
+inputs: the arithmetic is in ``promote_types(dtype, float32)``), keys at
+or past ``min(valid_len[b], S)`` masked with the finite ``NEG_INF =
+-1e30``, output ``sum(p v) / max(sum(p), 1e-30)``.  With ``valid_len[b] == 0`` every score
 is -1e30 and every probability 1, and the Pallas kernel divides
 ``sum(V[:S])`` by the keys of its padded blocks, ``ceil(S / bk) * bk`` with
 ``bk = min(block_k, S)``; this version does the same.
@@ -14,6 +15,8 @@ import math
 from typing import Optional
 
 import torch
+
+from .. import compute_dtype
 
 NEG_INF = -1e30
 
@@ -32,8 +35,9 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV, S = k.shape[1], k.shape[2]
     g = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, KV, g, hd),
-                     k.float()) * scale
+    ct = compute_dtype(q.dtype)
+    s = torch.einsum("bkgd,bksd->bkgs", q.to(ct).reshape(B, KV, g, hd),
+                     k.to(ct)) * scale
     # lint: allow=DC201 -- the plain version puts the (B,) lengths beside q (a no-op when there)
     valid = valid_len.to(device=q.device, dtype=torch.long)
     mask = torch.arange(S, device=q.device)[None, :] < valid[:, None]
@@ -42,7 +46,7 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     den = torch.where((valid <= 0)[:, None, None, None],
                       float(empty_denominator(S, block_k)), den)
-    out = torch.einsum("bkgs,bksd->bkgd", p, v.float()) / den
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.to(ct)) / den
     return out.reshape(B, H, hd).to(q.dtype)
 
 
@@ -64,9 +68,10 @@ def decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     nsplit = -(-S // split)
     pad = nsplit * split - S
-    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
-    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
-    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, KV, g, hd),
+    ct = compute_dtype(q.dtype)
+    kf = torch.nn.functional.pad(k.to(ct), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.to(ct), (0, 0, 0, pad))
+    s = torch.einsum("bkgd,bksd->bkgs", q.to(ct).reshape(B, KV, g, hd),
                      kf) * scale
     # lint: allow=DC201 -- the plain version puts the (B,) lengths beside q (a no-op when there)
     valid = valid_len.to(device=q.device, dtype=torch.long)

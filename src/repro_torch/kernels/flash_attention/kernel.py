@@ -22,8 +22,12 @@ models' logits checks run, keeps the f32 FMA kernel: tensor cores in f32
 are TF32.  See the source for both designs.
 
 :func:`flash_attention` launches the kernel for CUDA tensors (or raises)
-and runs the plain version (:func:`~.ref.attention_ref`) only for CPU
-or meta tensors (meta: the dry run's counting).  ``flash_attention.launches`` counts the kernel's launches.
+and runs the plain version (:func:`~.ref.attention_ref`) only for CPU or
+meta tensors.  ``flash_attention.launches`` counts the kernel's launches.
+On meta (the dry run's counting, ``repro_torch._counting``) the plain
+version is recorded and counted as it always was, and what is booked as
+memory is the card's: the output the kernel writes and, when autograd
+records the call, the Function's backward (below).
 
 On the card the call is a ``torch.autograd.Function``: the forward is the
 kernel, the backward is plain PyTorch — the gradient of
@@ -41,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from ... import _counting
 from .. import _build
 from . import ref
 
@@ -94,16 +99,44 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, kv_len, q_offset = ctx.saved_tensors
-        with torch.enable_grad():
-            qf, kf, vf = (t.detach().float().requires_grad_()
-                          for t in (q, k, v))
-            out = ref.attention_ref(qf, kf, vf, causal=ctx.causal,
-                                    scale=ctx.scale, kv_len=kv_len,
-                                    q_offset=q_offset)
-            dq, dk, dv = torch.autograd.grad(
-                out, (qf, kf, vf), grad.transpose(1, 2).float())
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None)
+        return _backward(q, k, v, kv_len, q_offset, ctx.causal, ctx.scale,
+                         grad.transpose(1, 2)) + (None,) * 4
+
+
+def _backward(q, k, v, kv_len, q_offset, causal, scale, grad):
+    """The gradients of q, k and v from the saved inputs and ``grad``,
+    the output's gradient in (B, H, Sq, hd): the plain version recomputed
+    in f32 and differentiated."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_()
+                      for t in (q, k, v))
+        out = ref.attention_ref(qf, kf, vf, causal=causal, scale=scale,
+                                kv_len=kv_len, q_offset=q_offset)
+        dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf), grad.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _on_meta(q, k, v, causal, scale, kv_len, q_offset) -> torch.Tensor:
+    """The dry run's call: the plain version, counted, unbooked; its
+    output booked (the kernel's (B, Sq, H, hd) output, as many bytes);
+    the Function's backward booked when the backward reaches it."""
+    with _counting.unbooked():
+        out = ref.attention_ref(q, k, v, causal=causal, scale=scale,
+                                kv_len=kv_len, q_offset=q_offset)
+    _counting.book(out)
+    B, H, Sq, hd = q.shape
+    ins = [_counting.meta_of(t) for t in (q, k, v)]
+    lens = [None if t is None else _counting.meta_of(t)
+            for t in (kv_len, q_offset)]
+    grad = (B, Sq, H, hd), None, q.dtype
+
+    def card_backward():
+        s = _counting.standin
+        return _backward(*(s(m) for m in ins),
+                         *(None if m is None else s(m) for m in lens),
+                         causal, scale, s(grad).transpose(1, 2))
+    _counting.on_backward([out], card_backward)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -134,9 +167,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = _per_batch(kv_len, B, q.device, "kv_len")
     q_offset = _per_batch(q_offset, B, q.device, "q_offset")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    if q.device.type in ("cpu", "meta"):
+    if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale,
                                  kv_len=kv_len, q_offset=q_offset)
+    if q.device.type == "meta":
+        return _on_meta(q, k, v, causal, scale, kv_len, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA (or the CPU), got "
                          f"{q.device}")

@@ -1,7 +1,9 @@
 """Plain PyTorch version of the blocked GQA attention.
 
 The semantics of ``repro/kernels/flash_attention/kernel.py`` (not of its
-``ref.py``, which masks with -inf and knows no ``kv_len``): f32 scores,
+``ref.py``, which masks with -inf and knows no ``kv_len``): f32 scores
+(float64 for float64 inputs: the arithmetic is in
+``promote_types(dtype, float32)``),
 keys at or past ``kv_len[b]`` masked, ``k_pos <= q_offset[b] + i`` for
 query row ``i`` when causal, masked scores the finite ``NEG_INF = -1e30``,
 and the output ``sum(p v) / max(sum(p), 1e-30)``.  Per-batch lengths are
@@ -16,6 +18,8 @@ import math
 from typing import Optional
 
 import torch
+
+from .. import compute_dtype
 
 NEG_INF = -1e30
 
@@ -35,8 +39,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         else kv_len.to(dev, torch.long).clamp(1, Sk)
     off = torch.zeros(B, dtype=torch.long, device=dev) if q_offset is None \
         else q_offset.to(dev, torch.long).clamp_min(0)
-    qf = q.float().reshape(B, KV, g, Sq, hd)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
+    ct = compute_dtype(q.dtype)
+    qf = q.to(ct).reshape(B, KV, g, Sq, hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.to(ct)) * scale
     k_pos = torch.arange(Sk, device=dev)
     valid = (k_pos[None, None, :] < kv_len[:, None, None])          # (B,1,Sk)
     if causal:
@@ -44,7 +49,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
     s = torch.where(valid[:, None, None], s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
-    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(ct))
     out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(B, H, Sq, hd).to(q.dtype)
 
@@ -72,14 +77,15 @@ def attention_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off = torch.zeros(B, dtype=torch.long, device=dev) if q_offset is None \
         else q_offset.to(dev, torch.long).clamp_min(0)
     round_p = q.dtype == torch.bfloat16
-    qf = q.float().reshape(B, KV, g, Sq, hd)
+    ct = compute_dtype(q.dtype)
+    qf = q.to(ct).reshape(B, KV, g, Sq, hd)
     q_pos = off[:, None] + torch.arange(Sq, device=dev)              # (B,Sq)
-    m = torch.full((B, KV, g, Sq, 1), NEG_INF, device=dev)
-    l = torch.zeros((B, KV, g, Sq, 1), device=dev)
-    acc = torch.zeros((B, KV, g, Sq, hd), device=dev)
+    m = torch.full((B, KV, g, Sq, 1), NEG_INF, dtype=ct, device=dev)
+    l = torch.zeros((B, KV, g, Sq, 1), dtype=ct, device=dev)
+    acc = torch.zeros((B, KV, g, Sq, hd), dtype=ct, device=dev)
     for k0 in range(0, Sk, block_k):
-        kt = k[:, :, k0:k0 + block_k].float()
-        vt = v[:, :, k0:k0 + block_k].float()
+        kt = k[:, :, k0:k0 + block_k].to(ct)
+        vt = v[:, :, k0:k0 + block_k].to(ct)
         s = torch.einsum("bkgqd,bksd->bkgqs", qf, kt) * scale
         k_pos = torch.arange(k0, k0 + kt.shape[2], device=dev)
         valid = k_pos[None, None, :] < kv_len[:, None, None]         # (B,1,n)

@@ -15,9 +15,11 @@ flight; see the source for the design.  It is built with ``nvcc`` at first
 use and bound with ``ctypes`` (:mod:`repro_torch.kernels._build`).
 
 :func:`gather_tiles` launches the kernel for a CUDA tensor (or raises) and
-runs the plain version (:func:`~.ref.pack_ref`) only for a CPU or a
-meta tensor (meta: the dry run's counting).
-``gather_tiles.launches`` counts the kernel's launches.
+runs the plain version (:func:`~.ref.pack_ref`) only for a CPU or a meta
+tensor.  ``gather_tiles.launches`` counts the kernel's launches.  On meta
+(the dry run's counting, ``repro_torch._counting``) the plain version is
+recorded and counted as it always was, and what is booked as memory is the
+card's: the output the kernel writes.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from pathlib import Path
 
 import torch
 
+from ... import _counting
 from .. import _build
 from . import ref
 
@@ -85,8 +88,14 @@ def gather_tiles(src: torch.Tensor, tile_map: torch.Tensor) -> torch.Tensor:
         raise ValueError("src and tile_map must be contiguous")
     n_src = src.shape[0] // SUBLANE
     n_dst = tile_map.shape[0]
-    if src.device.type in ("cpu", "meta"):
+    if src.device.type == "cpu":
         return ref.pack_ref(src.reshape(-1), tile_map, TILE).reshape(-1, LANE)
+    if src.device.type == "meta":
+        with _counting.unbooked():
+            out = ref.pack_ref(src.reshape(-1), tile_map,
+                               TILE).reshape(-1, LANE)
+        _counting.book(out)
+        return out
     if src.device.type != "cuda":
         raise ValueError(f"gather_tiles runs on CUDA (or the CPU), "
                          f"got {src.device}")

@@ -12,9 +12,12 @@ for bit; :func:`_plan` picks the path and the launch shape (see the
 source for the design).
 
 :func:`rmsnorm` launches the kernel for a CUDA tensor (or raises) and runs
-the plain version (:func:`~.ref.rmsnorm_ref`) only for a CPU or a
-meta tensor (meta: the dry run's counting).
-``rmsnorm.launches`` counts the kernel's launches.
+the plain version (:func:`~.ref.rmsnorm_ref`) only for a CPU or a meta
+tensor.  ``rmsnorm.launches`` counts the kernel's launches.  On meta (the
+dry run's counting, ``repro_torch._counting``) the plain version is
+recorded and counted as it always was, and what is booked as memory is the
+card's: the contiguous copies the kernel reads (none when its inputs are),
+its output and, when autograd records the call, the Function's backward.
 
 On the card the call is a ``torch.autograd.Function``: the forward is the
 kernel, the backward is plain PyTorch — the gradient of the plain version,
@@ -31,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import _counting
 from .. import _build
 from . import ref
 
@@ -154,12 +158,38 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, scale = ctx.saved_tensors
-        with torch.enable_grad():
-            xf = x.detach().float().requires_grad_()
-            sf = scale.detach().float().requires_grad_()
-            y = ref.rmsnorm_ref(xf, sf, ctx.eps)
-            dx, ds = torch.autograd.grad(y, (xf, sf), grad.float())
-        return dx.to(x.dtype), ds.to(scale.dtype), None
+        return _backward(x, scale, ctx.eps, grad) + (None,)
+
+
+def _backward(x, scale, eps, grad):
+    with torch.enable_grad():
+        xf = x.detach().float().requires_grad_()
+        sf = scale.detach().float().requires_grad_()
+        y = ref.rmsnorm_ref(xf, sf, eps)
+        dx, ds = torch.autograd.grad(y, (xf, sf), grad.float())
+    return dx.to(x.dtype), ds.to(scale.dtype)
+
+
+def _on_meta(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """The dry run's call: the plain version, counted, unbooked; booked,
+    what :func:`_launch` allocates (the contiguous copies it reads beside
+    its output, then the output) and, when the backward reaches the
+    output, the Function's backward."""
+    with _counting.unbooked():
+        out = ref.rmsnorm_ref(x, scale, eps)
+    with _counting.memory_only():
+        read = x.contiguous(), scale.contiguous()
+    _counting.book(out)
+    del read
+    ins = [_counting.meta_of(t) for t in (x, scale)]
+    grad = out.shape, None, out.dtype
+
+    def card_backward():
+        s = _counting.standin
+        return _backward(s(ins[0]), s(ins[1]), eps, s(grad))
+    _counting.on_backward([out], card_backward)
+    return out
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
@@ -171,8 +201,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"scale must be ({D},), got {tuple(scale.shape)}")
     if scale.device != x.device:
         raise ValueError(f"scale on {scale.device}, x on {x.device}")
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
+    if x.device.type == "meta":
+        return _on_meta(x, scale, float(eps))
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on CUDA (or the CPU), got {x.device}")
     if x.dtype not in _DTYPES or scale.dtype != x.dtype:

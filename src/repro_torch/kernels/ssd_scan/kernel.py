@@ -16,10 +16,13 @@ forms the chunk states from x·w split the same way; float32 keeps f32 FMA
 kernels on the CUDA cores.  See the source for the design.
 
 :func:`ssd_chunks` launches the kernel for CUDA tensors (or raises) and
-runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU or
-meta tensors (meta: the dry run's counting).
-``ssd_chunks.launches`` counts the wrapper's launches (one per call,
-whichever of the source's kernels it runs).
+runs the plain version (:func:`~.ref.ssd_chunks_ref`) only for CPU or meta
+tensors.  ``ssd_chunks.launches`` counts the wrapper's launches (one per
+call, whichever of the source's kernels it runs).  On meta (the dry run's
+counting, ``repro_torch._counting``) the plain version is recorded and
+counted as it always was, and what is booked as memory is the card's: the
+three outputs the kernel writes and, when autograd records the call, the
+Function's backward.
 
 On the card, when autograd records the call, it is a
 ``torch.autograd.Function``: the forward is the kernel, the backward is
@@ -37,6 +40,7 @@ from typing import Tuple
 
 import torch
 
+from ... import _counting
 from .. import _build
 from . import ref
 
@@ -81,8 +85,10 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
                          f"form one chunked scan")
     if not all(t.device == x.device for t in (dt, dtA, Bm, Cm)):
         raise ValueError("x, dt, dtA, Bm and Cm must be on one device")
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "cpu":
         return ref.ssd_chunks_ref(x, dt, dtA, Bm, Cm)
+    if x.device.type == "meta":
+        return _on_meta(x, dt, dtA, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunks runs on CUDA (or the CPU), got "
                          f"{x.device}")
@@ -121,21 +127,47 @@ class _SSDChunks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstates, gcum):
-        ins = ctx.saved_tensors
-        outs, grads = [], []
-        with torch.enable_grad():
-            leaves = [t.detach().float().requires_grad_() for t in ins]
-            y, states, cum = ref.ssd_chunks_ref(*leaves)
-            for out, g in ((y, None if gy is None else gy.transpose(2, 3)),
-                           (states, gstates), (cum, gcum)):
-                if g is not None:
-                    outs.append(out)
-                    grads.append(g.float())
-            if not outs:
-                return (None,) * 5
-            got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
-        return tuple(None if g is None else g.to(t.dtype)
-                     for g, t in zip(got, ins))
+        return _backward(ctx.saved_tensors, gy, gstates, gcum)
+
+
+def _backward(ins, gy, gstates, gcum):
+    """The gradients of the five saved inputs ``ins`` from the outputs'
+    (None where none arrived; ``gy`` of the (B, nc, Q, nh, hd) base): the
+    plain version recomputed in f32 and differentiated."""
+    outs, grads = [], []
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in ins]
+        y, states, cum = ref.ssd_chunks_ref(*leaves)
+        for out, g in ((y, None if gy is None else gy.transpose(2, 3)),
+                       (states, gstates), (cum, gcum)):
+            if g is not None:
+                outs.append(out)
+                grads.append(g.float())
+        if not outs:
+            return (None,) * 5
+        got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+    return tuple(None if g is None else g.to(t.dtype)
+                 for g, t in zip(got, ins))
+
+
+def _on_meta(x, dt, dtA, Bm, Cm):
+    """The dry run's call: the plain version, counted, unbooked; its
+    three outputs booked (the kernel's, as many bytes); the Function's
+    backward booked when the backward reaches them (a gradient for each
+    output)."""
+    with _counting.unbooked():
+        outs = ref.ssd_chunks_ref(x, dt, dtA, Bm, Cm)
+    _counting.book(*outs)
+    ins = [_counting.meta_of(t) for t in (x, dt, dtA, Bm, Cm)]
+    B, nc, nh, Q, hd = x.shape
+    grads = [((B, nc, Q, nh, hd), None, x.dtype)] + \
+        [(t.shape, None, t.dtype) for t in outs[1:]]
+
+    def card_backward():
+        s = _counting.standin
+        return _backward([s(m) for m in ins], *(s(m) for m in grads))
+    _counting.on_backward(outs, card_backward)
+    return outs
 
 
 def _launch(x, dt, dtA, Bm, Cm):

@@ -3,7 +3,8 @@
 The math of ``repro/kernels/ssd_scan/ref.py::ssd_chunk_ref`` (and of the
 Pallas kernel's ``_ssd_kernel``) over the whole (B, nc, nh) grid at once:
 
-  * ``cum = cumsum(dtA)`` per (b, chunk, head), in f32;
+  * ``cum = cumsum(dtA)`` per (b, chunk, head), in f32 (every step here
+    is in ``promote_types(x.dtype, float32)``: float64 stays float64);
   * ``y_diag = ((C Bᵀ) ∘ L) (dt·x)`` with ``L = tril(exp(cum_i - cum_j))``;
   * ``state = (dt·x)ᵀ (B ∘ exp(cum_last - cum))``.
 
@@ -31,22 +32,25 @@ from typing import Tuple
 
 import torch
 
+from .. import compute_dtype
+
 
 def ssd_chunks_ref(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, nc, nh, Q, hd), dt/dtA: (B, nc, nh, 1, Q), Bm/Cm: (B, nc, Q,
     N).  Returns y_diag (B, nc, nh, Q, hd) in x's dtype, states (B, nc, nh,
-    hd, N) f32 and cum (B, nc, nh, 1, Q) f32."""
+    hd, N) f32 and cum (B, nc, nh, 1, Q) f32 (float64 for a float64 x)."""
     Q = x.shape[3]
-    cum = torch.cumsum(dtA[:, :, :, 0].float(), dim=-1)            # B,nc,nh,Q
+    ct = compute_dtype(x.dtype)
+    cum = torch.cumsum(dtA[:, :, :, 0].to(ct), dim=-1)             # B,nc,nh,Q
     upper = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
     L = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper,
                                                              float("-inf"))
-    Bf, Cf = Bm.float(), Cm.float()
+    Bf, Cf = Bm.to(ct), Cm.to(ct)
     # out of place: autograd keeps exp's output for its backward
     L = torch.exp(L) * (Cf @ Bf.transpose(-1, -2))[:, :, None]    # (C Bᵀ) ∘ L
-    dtx = x.float() * dt[:, :, :, 0, :, None].float()              # B,nc,nh,Q,hd
+    dtx = x.to(ct) * dt[:, :, :, 0, :, None].to(ct)             # B,nc,nh,Q,hd
     y = L @ dtx
     del L
     decay = torch.exp(cum[..., -1:] - cum)                         # B,nc,nh,Q
@@ -55,10 +59,10 @@ def ssd_chunks_ref(x: torch.Tensor, dt: torch.Tensor, dtA: torch.Tensor,
 
 
 def _split_bf16(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 v -> (hi, lo), both bf16 values held in f32, hi + lo ~ v to
-    ~16 significant bits."""
-    hi = v.to(torch.bfloat16).float()
-    return hi, (v - hi).to(torch.bfloat16).float()
+    """f32 v -> (hi, lo), both bf16 values held in v's dtype, hi + lo ~
+    v to ~16 significant bits."""
+    hi = v.to(torch.bfloat16).to(v.dtype)
+    return hi, (v - hi).to(torch.bfloat16).to(v.dtype)
 
 
 def ssd_chunks_split_ref(x: torch.Tensor, dt: torch.Tensor,
@@ -74,26 +78,27 @@ def ssd_chunks_split_ref(x: torch.Tensor, dt: torch.Tensor,
     instead, the design the kernel does not use (the tests show it fails
     the checks)."""
     Q = x.shape[3]
-    cum = torch.cumsum(dtA[:, :, :, 0].float(), dim=-1)            # B,nc,nh,Q
+    ct = compute_dtype(x.dtype)
+    cum = torch.cumsum(dtA[:, :, :, 0].to(ct), dim=-1)             # B,nc,nh,Q
     upper = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
     P = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper,
                                                              float("-inf"))
-    Bf, Cf = Bm.float(), Cm.float()
+    Bf, Cf = Bm.to(ct), Cm.to(ct)
     P.exp_().mul_((Cf @ Bf.transpose(-1, -2))[:, :, None])
-    P.mul_(dt[:, :, :, 0, None, :].float())                       # · dt_j
-    xf = x.float()
+    P.mul_(dt[:, :, :, 0, None, :].to(ct))                        # · dt_j
+    xf = x.to(ct)
     if split_p:
         hi, lo = _split_bf16(P)
         y = hi @ xf + lo @ xf
     else:
-        y = P.to(torch.bfloat16).float() @ xf
+        y = P.to(torch.bfloat16).to(ct) @ xf
     del P
-    w = dt[:, :, :, 0].float() * torch.exp(cum[..., -1:] - cum)   # B,nc,nh,Q
+    w = dt[:, :, :, 0].to(ct) * torch.exp(cum[..., -1:] - cum)    # B,nc,nh,Q
     xw = xf * w[..., None]
     Bh = Bf[:, :, None]
     if split_xw:
         hi, lo = _split_bf16(xw)
         states = hi.transpose(-1, -2) @ Bh + lo.transpose(-1, -2) @ Bh
     else:
-        states = xw.to(torch.bfloat16).float().transpose(-1, -2) @ Bh
+        states = xw.to(torch.bfloat16).to(ct).transpose(-1, -2) @ Bh
     return y.to(x.dtype), states, cum[:, :, :, None, :]

@@ -22,15 +22,32 @@ No card is needed: the mesh is ``make_production_mesh(device="meta")``,
     ``core.collectives``, whose deltas give ``collectives``.  ``flops``
     and ``bytes_accessed`` are that position's dispatched aten ops
     (``torch.utils.flop_counter``'s formulas; each op's inputs and outputs
-    once);
-    A train step is tensor-parallel over the model axis where the
+    once).  A train step is tensor-parallel over the model axis where the
     placements split heads, d_ff, the experts' d_ff, the Mamba2 mixers'
-    heads or vocab (``models/tp.py``), and so are the decoder-only
-    families' placed prefill and decode (the encoder-decoder's replicate
-    compute over the model axis): position 0 computes its blocks with its
-    model group's other members standing in (its tensors in their slots
-    of the group's ``psum`` / ``pmax`` and of the decode's kv exchange,
-    which count in ``collectives``);
+    heads or vocab (``models/tp.py``), and so are every family's placed
+    prefill and decode, the encoder-decoder's included: position 0
+    computes its blocks with its model group's other members standing in
+    (its tensors in their slots of the group's ``psum`` / ``pmax`` and of
+    the decode's kv exchange, which count in ``collectives``);
+  * the whole step (the gathers and sums too) runs under the memory
+    counter (``hlo_analysis.MemoryCounter``), which books each storage
+    an op creates while it lives; a kernel is booked at what it
+    allocates on the card, not at its plain version's temporaries
+    (``repro_torch._counting``), and a collective's result once, for
+    position 0.  ``memory`` gives the reference's ``memory_analysis``
+    keys but ``generated_code_size_in_bytes`` (no program is compiled):
+    ``argument_size_in_bytes``; ``output_size_in_bytes``, the distinct
+    storages of position 0's outputs (a train step's blocks of the new
+    state and its metrics; a serve step's logits and cache blocks);
+    ``alias_size_in_bytes``, those that are arguments' storages (the k /
+    v cache, written in place, and a decode's encoder memory; the
+    functional train step aliases nothing, where the reference donates
+    its state, ``donate_argnums=(0,)``); ``peak_memory_in_bytes``, the
+    arguments plus the largest live sum of the storages the step
+    allocates; ``temp_size_in_bytes``, peak less arguments less outputs
+    plus aliases.  These are the eager schedule's bytes as a caching
+    allocator would hold them (``chip_smoke.py`` phase 20 (e) holds them
+    against the card's), not what a compiler would plan;
   * ``bodies`` are ``probe.layer_bodies`` (at the tensor-parallel widths
     where the step splits, a serve body with the member's blocks of the
     cache); eager PyTorch counts every layer trip, so
@@ -42,12 +59,12 @@ No card is needed: the mesh is ``make_production_mesh(device="meta")``,
     leaves (whole over the data axes) and the other leaves whole;
     elsewhere the whole params;
   * ``trace_s`` stands where the reference reports ``lower_s`` and
-    ``compile_s``; ``temp_size_in_bytes`` and ``peak_memory_in_bytes`` are
-    not given (meta tensors hold no memory).
+    ``compile_s``.
 
 These are counts on the host that runs the dry run, not measurements of
-any device.  Each cell prints ``[dryrun] arch|shape|mesh: status``, the run
-``[dryrun] N/M cells ok``, and it exits 1 if a cell failed.
+any device.  Each cell prints ``[dryrun] arch|shape|mesh: status`` (an ok
+cell's trace time and memory keys), the run ``[dryrun] N/M cells ok``, and
+it exits 1 if a cell failed.
 """
 from __future__ import annotations
 
@@ -85,12 +102,22 @@ def _placed_bytes(tree: Any, shardings: Any) -> int:
                            zip(tree_leaves(tree), tree_leaves(shardings))])
 
 
-def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
+def _blocks(tree: Any) -> list:
+    """Every tensor of a tree of placed leaves: each position's blocks."""
+    return [b for leaf in tree_leaves(tree) for b in leaf.blocks]
+
+
+def trace_step(api, shape, mesh, rules, granule: int = 1
+               ) -> Dict[str, Any]:
     """One position's step of ``api`` at ``shape`` on ``mesh``: its op
-    counter, the collectives' stats and the arguments' bytes a
-    position."""
+    counter, the collectives' stats, the arguments' bytes a position and
+    the step's :class:`~repro_torch.launch.hlo_analysis.StepMemory`,
+    each storage rounded up to ``granule`` bytes (the placed arguments
+    are made before the memory counter is entered, so they are not
+    booked)."""
     mode = shape.mode
     counter = hlo_analysis.OpCounter()
+    memory = hlo_analysis.MemoryCounter(granule)
     count = lambda: counter
     specs = api.input_specs(shape)
     in_bytes = _placed_bytes(specs, tree_shardings(
@@ -104,7 +131,10 @@ def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
         state_abs = abstract_train_state(api, opt)
         arg_bytes = _placed_bytes(state_abs, step.shardings) + in_bytes
         gathered = step.gathered_param_bytes()
-        step.trace(place_tree(state_abs, step.shardings), inputs, count)
+        state = place_tree(state_abs, step.shardings)
+        arguments = (_blocks(state), inputs)
+        with memory:
+            outputs = step.trace(state, inputs, count)
     else:
         serve = PlacedServe(api, mesh, rules)
         cache_abs = api.abstract_cache(shape)
@@ -116,16 +146,19 @@ def trace_step(api, shape, mesh, rules) -> Dict[str, Any]:
                      + _placed_bytes(cache_abs, cache_sh) + in_bytes)
         params = place_tree(params_abs, serve.param_shardings)
         cache = place_tree(cache_abs, cache_sh)
+        arguments = (_blocks(params), _blocks(cache), inputs)
         tokens = inputs.pop("tokens")
-        if mode == "prefill":
-            serve.prefill(params, tokens, cache, traced=True, count=count,
-                          **inputs)
-        else:
-            serve.decode_step(params, tokens, cache, traced=True,
-                              count=count)
+        with memory:
+            if mode == "prefill":
+                outputs = serve.prefill(params, tokens, cache, traced=True,
+                                        count=count, **inputs)
+            else:
+                outputs = serve.decode_step(params, tokens, cache,
+                                            traced=True, count=count)
     return {"counter": counter,
             "collectives": hlo_analysis.collective_stats(before),
-            "argument_bytes": arg_bytes, "gathered_param_bytes": gathered}
+            "argument_bytes": arg_bytes, "gathered_param_bytes": gathered,
+            "memory": hlo_analysis.step_memory(memory, outputs, arguments)}
 
 
 def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
@@ -155,7 +188,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
         "trace_s": round(t_trace, 2),
         "flops": float(counter.total_flops),
         "bytes_accessed": float(counter.total_bytes),
-        "memory": hlo_analysis.memory_dict(traced["argument_bytes"]),
+        "memory": hlo_analysis.memory_dict(traced["argument_bytes"],
+                                           traced["memory"]),
         # what a position holds once its step has gathered the params: a
         # tensor-parallel step's (train, prefill or decode) blocks of the
         # leaves it splits over the model axis, whole over the data axes,
@@ -179,6 +213,13 @@ def lower_cell(arch: str, shape_name: str, mesh, *, smoke: bool = False,
     return result
 
 
+def _memory_line(memory: Dict[str, int]) -> str:
+    """A cell's memory keys, short: ``argument 10, ..., peak 30 B a
+    position``."""
+    return ", ".join(f"{k.split('_')[0]} {v}" for k, v in memory.items()) \
+        + " B a position"
+
+
 def run_grid(archs, shapes, meshes, out_dir: Optional[str], smoke: bool):
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -193,7 +234,8 @@ def run_grid(archs, shapes, meshes, out_dir: Optional[str], smoke: bool):
                     res = lower_cell(arch, shape_name, mesh, smoke=smoke)
                     res["mesh_name"] = mesh_name
                     status = ("SKIP: " + res["skipped"]) if "skipped" in res \
-                        else f"ok ({res['trace_s']:.1f}s trace)"
+                        else f"ok ({res['trace_s']:.1f}s trace; " \
+                        f"{_memory_line(res['memory'])})"
                 except Exception as e:  # noqa: BLE001 - report and continue
                     res = {"arch": arch, "shape": shape_name,
                            "mesh_name": mesh_name, "error": str(e),

@@ -61,6 +61,7 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
 from ..core.deepcopy import ShapeDtype
 from ..core.treepath import tree_leaves, tree_map
+from ..kernels import compute_dtype
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
@@ -464,8 +465,8 @@ def _ssm_block_tp(cfg, group, ps, xs, caches=None):
              for r, p, h, c in zip(group.ranks, mine, hs,
                                    caches or [None] * len(hs))]
     ys = [y for y, _ in mixed]
-    sums = TP.total(group, [y.float().square().sum(-1, keepdim=True)
-                            for y in ys], split)
+    sums = TP.total(group, [y.to(compute_dtype(y.dtype)).square().sum(
+        -1, keepdim=True) for y in ys], split)
     outs = TP.leave(group, [SSM.gated_out(p, y, s / cfg.d_inner)
                             for p, y, s in zip(mine, ys, sums)], split)
     xs = [x + o for x, o in zip(xs, outs)]

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
+from ..kernels import compute_dtype
 from ..kernels.ssd_scan.ops import ssd_chunked_kernel
 from .specs import ParamSpec, torch_dtype
 
@@ -92,7 +93,7 @@ def apply_ssm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor, *,
     :func:`mix`, then :func:`gated_out` on the mean square of the whole
     d_inner."""
     y, new_cache = mix(cfg, p, x, cache=cache)
-    yf = y.float()
+    yf = y.to(compute_dtype(y.dtype))
     return gated_out(p, y, yf.square().mean(-1, keepdim=True)), new_cache
 
 
@@ -158,8 +159,9 @@ def gated_out(p: Dict[str, Any], y: torch.Tensor, ms: torch.Tensor
     :func:`mix`'s ``y`` given the mean square ``ms`` (B, S, 1) f32 of the
     whole d_inner, then the out projection; a tensor-parallel member's
     ``y`` and ``p`` are its channels, and its output a partial sum."""
-    yf = y.float()
-    y = (yf * torch.rsqrt(ms + 1e-6) * p["out_norm"].float()).to(y.dtype)
+    yf = y.to(compute_dtype(y.dtype))
+    y = (yf * torch.rsqrt(ms + 1e-6)
+         * p["out_norm"].to(yf.dtype)).to(y.dtype)
     return y @ p["wo"].to(y.dtype)
 
 

@@ -211,8 +211,6 @@ class PlacedServe:
                     kv_split=kv_split, **extra)
             for p, out, c, new_c in zip(mine, outs, caches, new_caches):
                 logits[p] = out
-                if traced:
-                    continue
                 for k in c_keys:
                     new_blocks[k][p] = _new_block(
                         new_c[k], c[k], local[k][p], placements[k], p,
@@ -220,7 +218,8 @@ class PlacedServe:
                 for f in full:
                     f[p] = None
         if traced:
-            return logits[groups[0][0]], None
+            p = groups[0][0]
+            return logits[p], {k: new_blocks[k][p] for k in c_keys}
         new_cache = {k: PlacedTensor(cache[k].shape, cache[k].dtype,
                                      placements[k], new_blocks[k])
                      for k in c_keys}
@@ -271,8 +270,6 @@ class PlacedServe:
                 out, new_cache = fn(params_p, inp.pop("tokens"), cache_p,
                                     **inp)
             logits[p] = out
-            if traced:
-                continue
             for k in c_keys:
                 new_blocks[k][p] = _new_block(
                     new_cache[k], cache_p[k], local[k][p], placements[k], p,
@@ -280,7 +277,8 @@ class PlacedServe:
             for f in full:
                 f[p] = None
         if traced:
-            return logits[computed[0]], None
+            p = computed[0]
+            return logits[p], {k: new_blocks[k][p] for k in c_keys}
         new_cache = {k: PlacedTensor(cache[k].shape, cache[k].dtype,
                                      placements[k], new_blocks[k])
                      for k in c_keys}
@@ -317,8 +315,9 @@ class PlacedServe:
         whole (1, 1, V) tensor on its first holder).  ``traced``:
         position 0 alone (or the slot's first holder; under a
         :attr:`plan` its model group with member 0 computed, the others
-        standing in) computes, under ``count()``, and only its logits
-        come back (the dry run, on meta positions)."""
+        standing in) computes, under ``count()``, and its logits and its
+        new blocks of the cache come back as tensors (the dry run, on
+        meta positions)."""
         inputs = {"tokens": tokens, **extra}
         return self._run(self.api.prefill, params, cache, inputs, slot=slot,
                          traced=traced, count=count)

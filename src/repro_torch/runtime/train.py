@@ -620,8 +620,9 @@ class ShardedTrainStep:
         values to differ).  Under tensor parallelism position 0's model
         group runs with position 0 alone computed, its tensor standing in
         for the other members' in the group's sums (``stand_in``), which
-        count as collectives.  Returns position 0's metrics."""
-        return self._step(state, batch, traced=True, count=count)[1]
+        count as collectives.  Returns position 0's blocks of the new
+        state (a tree of tensors shaped as the state) and its metrics."""
+        return self._step(state, batch, traced=True, count=count)
 
     def _units(self, traced: bool) -> List[Tuple[List[int], Any]]:
         """What the step computes at once, as (positions, model group):
@@ -753,7 +754,9 @@ class ShardedTrainStep:
                 metrics["lr"] = lr
             del g, params, ostate, new_params, new_opt
         if traced:
-            return None, metrics
+            return ({"params": p_def.unflatten([b[0] for b in new_p]),
+                     "opt": o_def.unflatten([b[0] for b in new_o]),
+                     "step": new_step[0]}, metrics)
 
         def placed(blocks, meta):
             shape, dtype, pl = meta

@@ -24,7 +24,12 @@ cell, exactly:
   * the collectives: one all-gather a sharded dim of each param leaf, and
     on a train cell whose batch splits, one all-reduce a gradient leaf and
     the loss's, plus, where the step is tensor-parallel (every family,
-    the encoder-decoder since it splits too), its model group's sums.
+    the encoder-decoder since it splits too), its model group's sums;
+  * the memory keys: the peak holds the arguments and the outputs that
+    are not aliases, a serve cell's aliases are its k / v blocks (and a
+    decode's encoder memory), a train cell's outputs its blocks of the
+    new state and the metrics; the op counts are the same with the
+    memory counter as without it.
 
 And the op counter on its own: a matmul's FLOPs are 2MNK and its bytes
 its operands' and output's; the collectives' kinds map onto the
@@ -52,7 +57,7 @@ from repro_torch.core.placement import entry_axes
 from repro_torch.launch import dryrun, hlo_analysis
 from repro_torch.launch import mesh as p_mesh
 from repro_torch.models import registry as p_registry
-from repro_torch.optim import make_optimizer
+from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.runtime import train as p_train
 from repro_torch.runtime.placed import PlacedServe
 
@@ -237,6 +242,91 @@ def test_every_cell_against_the_reference(ref, arch, shape, mesh):
                          .smoke())
         assert 0.5 * mf < res["flops"] * blocks < 3 * mf
     assert res["corrected"]["flops"] == res["flops"]
+
+
+MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
+               "alias_size_in_bytes", "temp_size_in_bytes",
+               "peak_memory_in_bytes"}
+# a serve step writes the k / v cache in place and a decode step passes
+# the encoder memory on (a prefill given frames writes a new one); pos,
+# the Mamba2 state and conv tail are new tensors
+IN_PLACE_CACHE = {"prefill": ("k", "v"), "decode": ("k", "v", "enc_out")}
+METRICS_BYTES = 3 * 4                  # loss, lr and grad_norm, f32 scalars
+
+
+@pytest.mark.parametrize("arch,shape,mesh", CELLS)
+def test_every_cell_reports_its_steps_memory(arch, shape, mesh):
+    """Every cell reports the reference's memory keys but the generated
+    code's; the peak holds the arguments and the outputs that are not
+    aliases; a serve cell's aliases are its k / v (and encoder memory)
+    blocks, a train cell's outputs its blocks of the new state and the
+    metrics (the functional step aliases nothing)."""
+    res = _grid()[f"{arch}|{shape}|{mesh}"]
+    assert "error" not in res, res.get("traceback")
+    if "skipped" in res:
+        return
+    mem = res["memory"]
+    assert set(mem) == MEMORY_KEYS
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"] \
+        + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"]
+    assert mem["temp_size_in_bytes"] >= 0
+    api = p_registry.get(arch, smoke=True)
+    m = p_mesh.make_production_mesh(multi_pod=mesh == "multi",
+                                    device="meta")
+    sc = SHAPES[shape].smoke()
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, sc.mode),
+                                    m, sc.global_batch)
+    if sc.mode == "train":
+        opt = make_optimizer(api.cfg.optimizer)
+        step = p_train.make_sharded_train_step(api, opt, None, m, rules)
+        state = dryrun._placed_bytes(p_train.abstract_train_state(api, opt),
+                                     step.shardings)
+        assert mem["output_size_in_bytes"] == state + METRICS_BYTES
+        assert mem["alias_size_in_bytes"] == 0
+    else:
+        cache = PlacedServe(api, m, rules).cache_shardings(sc.global_batch,
+                                                           sc.seq_len)
+        abstract = api.abstract_cache(sc)
+        assert mem["alias_size_in_bytes"] == sum(
+            dryrun._placed_bytes(abstract[k], cache[k])
+            for k in IN_PLACE_CACHE[sc.mode] if k in cache)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_the_memory_counter_changes_no_count(shape):
+    """A cell's op counts, FLOPs, bytes and collectives are the same
+    traced with the memory counter (``dryrun.trace_step``) and without it
+    (the step traced under the op counter alone)."""
+    from repro_torch.core.placement import place_tree
+
+    api = p_registry.get("llama3.2-1b", smoke=True)
+    m = p_mesh.make_production_mesh(device="meta")
+    sc = SHAPES[shape].smoke()
+    rules = p_mesh.adapt_batch_rule(p_mesh.rules_for(api.cfg, m, sc.mode),
+                                    m, sc.global_batch)
+    both = dryrun.trace_step(api, sc, m, rules)
+    alone = hlo_analysis.OpCounter()
+    inputs = dryrun._meta_inputs(api.input_specs(sc))
+    before = hlo_analysis.stats_snapshot()
+    if sc.mode == "train":
+        opt = make_optimizer(api.cfg.optimizer)
+        step = p_train.ShardedTrainStep(
+            api, opt, warmup_cosine(3e-4, 100, 10_000), m, rules)
+        step.trace(place_tree(p_train.abstract_train_state(api, opt),
+                              step.shardings), inputs, lambda: alone)
+    else:
+        serve = PlacedServe(api, m, rules)
+        cache = place_tree(api.abstract_cache(sc), p_mesh.tree_shardings(
+            m, api.cache_axes(sc), rules, api.abstract_cache(sc)))
+        serve.decode_step(place_tree(api.abstract(), serve.param_shardings),
+                          inputs["tokens"], cache, traced=True,
+                          count=lambda: alone)
+    coll = hlo_analysis.collective_stats(before)
+    got = both["counter"]
+    assert (got.calls, got.flops, got.bytes) == (alone.calls, alone.flops,
+                                                 alone.bytes)
+    assert both["collectives"] == coll
+    assert both["memory"].peak > 0
 
 
 def _attention_applications(cfg):

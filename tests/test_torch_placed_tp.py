@@ -370,8 +370,10 @@ def test_traced_computes_member_zero_alone():
         return counter, len(entered), logits, new, coll
 
     one, n_one, logits, new, coll_one = flops(True)
-    whole, n_whole, _, _, coll = flops(False)
-    assert new is None and isinstance(logits, torch.Tensor)
+    whole, n_whole, _, placed, coll = flops(False)
+    # traced: position 0's logits and its new blocks of the cache, tensors
+    assert isinstance(logits, torch.Tensor) and set(new) == set(placed)
+    assert all(t.shape == placed[k].blocks[0].shape for k, t in new.items())
     assert logits.shape == (B // 2, 1, VOCAB // 2)
     assert (n_one, n_whole) == (1, 2)
     assert one.total_flops > 0

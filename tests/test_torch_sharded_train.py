@@ -626,7 +626,19 @@ def test_moe_tensor_parallel_step_matches_replicated_compute(tag):
 
 
 def test_adafactor_updates_gathered_leaves_as_one_position():
-    api = _api()
+    """Two Adafactor steps on the (2, 2) mesh, each side from its own
+    state, against one position, in float64 (the model's param and
+    compute dtypes; the optimizer computes in float32 whatever they are):
+    in float32 the two trajectories part by rounding past the bound
+    (3.8e-4 of the embedding's row moment's largest element after the
+    second step) while each sharded step from the one-position state
+    adds at most 5.5e-6: the params' gap after the first step (1.2e-6)
+    grows about 200x in the next gradient of the seeded model
+    (``scripts/torch_adafactor_spread.py``; 3.6e-5 in float64)."""
+    import dataclasses
+
+    api = p_registry.get_model(dataclasses.replace(
+        _api().cfg, param_dtype="float64", compute_dtype="float64"))
     opt = make_optimizer("adafactor")
     mesh = _mesh()
     sharded = p_train.make_sharded_train_step(api, opt, constant(LR), mesh)
